@@ -9,16 +9,26 @@ Phases, each of which exits non-zero on any failure:
 1. environment: card name and power limit, torch version, nvcc build of
    every kernel under owl_audio_exps_tpu_torch/csrc/ (build time printed);
 2. each kernel against its plain PyTorch version on the card, at the
-   geometries the serve paths give it, with its time, the plain
-   version's time, its bound and the time of one library call that
-   computes the same function (a yardstick the port never calls);
+   geometries the serve and training paths give it, with its time, the
+   plain version's time, its bound and the time of one library call that
+   computes the same function (a yardstick the port never calls): the
+   frame-mask forward (K1), its dq and dkv backward kernels, and the
+   band forward and backward (K2/K3), gradients held against autograd of
+   the plain version;
 3. ``CausvidPipeline`` (window recompute, 60 frames x 65 tokens) at the
    full width of configs/av_v4_8x8.yml made causal (24 layers x 1536,
    24 heads x 64), 2 sampling steps, seeded random bf16 weights: timed
    ticks, one traced tick (device time by kernel class), and one forward
    through the kernel held against the dense attention route;
 4. ``AVWindowSampler`` on configs/av_v4_8x8.yml as written, with the
-   step and frame counts cut for time (printed).
+   step and frame counts cut for time (printed);
+5. ``RFTTrainer`` on configs/dit_v4_tpu_e2e.yml at full width (16 layers
+   x 1536, L = 16,384, Muon with bf16 momentum, group remat), through the
+   port's trainer, with the cuts printed: exact kernel launches per step,
+   s/step, tokens/s, MFU, peak memory, device time by class of one traced
+   step, and an exact resume from the step-6 checkpoint;
+6. one training step at full width and 4 layers (L = 4,096) through the
+   kernels and through dense attention, loss and gradients compared.
 
 The last lines are the kernels' JSON record, the card line, and
 {"ok": true, "device": {...}}.
@@ -27,6 +37,7 @@ The last lines are the kernels' JSON record, the card line, and
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -44,6 +55,18 @@ KERNEL_MAX_ABS, KERNEL_MEAN_ABS = 2e-2, 2e-3
 # full-width core forward, kernel vs dense attention, relative L2 error
 FORWARD_REL_L2 = 5e-2
 SERVE_TICKS = 6   # timed ticks after one warm tick
+# gradients: kernel (bf16 in and out, bf16 P and dS) against autograd of
+# the plain version in float32 on the same bf16 inputs, relative L2 per
+# tensor
+GRAD_REL_L2 = 2e-2
+# the plain version's f32 scores take ~1 GB per head at L = 16,384: it is
+# checked at this many heads and timed over head chunks of this size
+LONG_L, CHECK_HEADS = 8192, 2
+TRAIN_STEPS = 6   # the config's save_interval: step 6 is saved and resumed
+# one full-width 4-layer training step, kernels vs dense attention: loss
+# relative difference, gradient relative L2 over all parameters and the
+# worst single parameter (24 bf16 layers' worth of rounding in 4)
+ROUTE_LOSS_REL, ROUTE_GRAD_REL_L2, ROUTE_PARAM_REL_L2 = 1e-2, 3e-2, 1e-1
 
 
 def fail(msg: str):
@@ -79,13 +102,58 @@ KERNEL_CASES = [
     ("L1040_bidir_w16", 1040, 65, False, 16, False),
     ("L3900_causal_w16_2docs", 3900, 65, True, 16, True),
     ("L4096_tpf64_causal_w16", 4096, 64, True, 16, False),
+    ("L16384_tpf64_causal_global", 16384, 64, True, None, False),
 ]
+
+
+def by_heads(fn, *ts, chunk: int = CHECK_HEADS):
+    """fn over head chunks of [B, H, L, Dh] tensors: the plain version's
+    f32 scores at long L do not fit all 24 heads at once."""
+    return [fn(*(t[:, h:h + chunk] for t in ts))
+            for h in range(0, ts[0].shape[1], chunk)]
+
+
+def two_doc_ids(dev, L, tpf):
+    nf = -(-L // tpf)
+    return (torch.arange(nf, device=dev) >= nf // 3).int()[None]
+
+
+def pairs_of(L, tpf, window, causal, doc, B=1):
+    from owl_audio_exps_tpu_torch.ops import splash
+    return sum(splash.visible_pairs(
+        L, tpf, window, causal, None if doc is None else doc[b].tolist())
+        for b in range(B))
+
+
+def bound_row(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                gflop=flops / 1e9)
+
+
+def library_ms(fn, iters: int):
+    """Time one PyTorch library call (the yardstick); None if the library
+    cannot run it here (printed)."""
+    try:
+        return cuda_ms(fn, iters, 1)
+    except (RuntimeError, torch.OutOfMemoryError) as e:
+        print(f"[kernel]   library call unavailable: {str(e)[:120]}",
+              flush=True)
+        torch.cuda.empty_cache()
+        return None
+
+
+def sdpa_mask(dev, L, tpf, window, causal, doc):
+    from owl_audio_exps_tpu_torch.ops.masks import dense_mask
+    mask = dense_mask(L, tpf, window, None if doc is None else doc.long(),
+                      0, causal, device=dev)
+    return mask[None, None] if mask.ndim == 2 else mask[:, None]
 
 
 def kernel_phase(dev):
     import torch.nn.functional as F
     from owl_audio_exps_tpu_torch.ops import splash
-    from owl_audio_exps_tpu_torch.ops.masks import dense_mask
 
     B, H, Dh = 1, 24, 64
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -93,54 +161,218 @@ def kernel_phase(dev):
     for name, L, tpf, causal, window, two_docs in KERNEL_CASES:
         q, k, v = (torch.randn(B, H, L, Dh, generator=gen, device=dev)
                    .to(torch.bfloat16) for _ in range(3))
-        nf = -(-L // tpf)
-        doc = None
-        if two_docs:
-            doc = (torch.arange(nf, device=dev) >= nf // 3).int()[None]
+        doc = two_doc_ids(dev, L, tpf) if two_docs else None
         args = (tpf, window, causal, doc)
+        long = L >= LONG_L
+        hc = CHECK_HEADS if long else H
         out = splash.splash_attention(q, k, v, *args)
         torch.cuda.synchronize()
-        ref = splash.splash_attention_plain(q.float(), k.float(), v.float(),
-                                            *args)
-        err = (out.float() - ref).abs()
+        ref = splash.splash_attention_plain(
+            q[:, :hc].float(), k[:, :hc].float(), v[:, :hc].float(), *args)
+        err = (out[:, :hc].float() - ref).abs()
         max_abs, mean_abs = err.max().item(), err.mean().item()
         if not torch.isfinite(out).all():
             fail(f"{name}: kernel output not finite")
+        del ref, err
 
-        ms = cuda_ms(lambda: splash.splash_attention(q, k, v, *args), 20)
-        plain_ms = cuda_ms(
-            lambda: splash.splash_attention_plain(q, k, v, *args), 3, 1)
-        mask = dense_mask(L, tpf, window, None if doc is None else doc.long(),
-                          0, causal, device=dev)
-        mask = mask[None, None] if mask.ndim == 2 else mask[:, None]
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, scale=Dh ** -0.5), 10)
+        iters = 5 if long else 20
+        ms = cuda_ms(lambda: splash.splash_attention(q, k, v, *args), iters)
+        # the training path's forward also writes the logsumexp
+        ms_lse = cuda_ms(lambda: splash.frame_attention_cuda(
+            q, k, v, *args, return_lse=True), iters)
+        plain = (lambda: by_heads(lambda *t: splash.splash_attention_plain(
+            *t, *args), q, k, v)) if long else \
+            (lambda: splash.splash_attention_plain(q, k, v, *args))
+        plain_ms = cuda_ms(plain, 1 if long else 3, 1)
+        mask = sdpa_mask(dev, L, tpf, window, causal, doc)
+        lib_ms = library_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=Dh ** -0.5), iters)
 
-        pairs = sum(splash.visible_pairs(
-            L, tpf, window, causal, None if doc is None else doc[b].tolist())
-            for b in range(B))
-        flops = 4.0 * Dh * pairs * H
-        nbytes = 4.0 * B * H * L * Dh * 2
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        pairs = pairs_of(L, tpf, window, causal, doc, B)
         row = dict(max_abs_err=max_abs, mean_abs_err=mean_abs, ms=ms,
-                   plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=1e3 * max(t_ops, t_bytes),
-                   bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   gflop=flops / 1e9, tflops=flops / (ms * 1e-3) / 1e12)
+                   ms_with_lse=ms_lse, plain_ms=plain_ms, library_ms=lib_ms,
+                   checked_heads=hc,
+                   **bound_row(4.0 * Dh * pairs * H, 4.0 * B * H * L * Dh * 2))
+        row["tflops"] = row["gflop"] / ms
         rows[name] = row
-        print(f"[kernel] {name}: B={B} H={H} L={L} Dh={Dh} tpf={tpf} "
-              f"causal={causal} window={window} docs={2 if two_docs else 1} "
-              f"| max|d|={max_abs:.3e} mean|d|={mean_abs:.3e} | kernel "
-              f"{ms:.4f} ms ({row['tflops']:.1f} TFLOP/s), plain "
-              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-              f"{1e3 * row['bound_ms']:.2f} us ({row['bound_by']}, "
+        lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"[kernel] frame_attention_fwd {name}: B={B} H={H} L={L} "
+              f"Dh={Dh} tpf={tpf} causal={causal} window={window} "
+              f"docs={2 if two_docs else 1} | checked at H={hc}: "
+              f"max|d|={max_abs:.3e} mean|d|={mean_abs:.3e} | kernel "
+              f"{ms:.4f} ms ({row['tflops']:.1f} TFLOP/s), with lse "
+              f"{ms_lse:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib}, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
               f"{row['gflop']:.2f} GFLOP)", flush=True)
         if max_abs > KERNEL_MAX_ABS or mean_abs > KERNEL_MEAN_ABS:
             fail(f"{name}: kernel disagrees with its plain version "
                  f"(max {max_abs:.3e} > {KERNEL_MAX_ABS} or mean "
                  f"{mean_abs:.3e} > {KERNEL_MEAN_ABS})")
-        del q, k, v, out, ref, err, mask
-    torch.cuda.empty_cache()
+        del q, k, v, out, mask
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ------------------------------------------------------- phase 2, gradients
+GRAD_CASES = [
+    # name, kernel, L, tpf, causal, window, two documents, logit bound
+    ("L16384_tpf64_causal_global", "frame", 16384, 64, True, None, False,
+     None),
+    ("L3900_tpf65_causal_w16_2docs", "frame", 3900, 65, True, 16, True,
+     None),
+    ("L1040_tpf65_bidir_w16", "frame", 1040, 65, False, 16, False, None),
+    ("L16384_tpf64_w16_bound8", "band", 16384, 64, True, 16, False, 8.0),
+    ("L16384_tpf64_w16_rowmax", "band", 16384, 64, True, 16, False, None),
+    ("L4160_tpf65_w16_bound8", "band", 4160, 65, True, 16, False, 8.0),
+]
+
+
+def rms_normed(t):
+    return (t * torch.rsqrt(t.float().pow(2).mean(-1, keepdim=True))
+            ).to(torch.bfloat16)
+
+
+def grad_errors(fn, plain, q, k, v, dout):
+    """Kernel gradients through autograd against f32 autograd of the plain
+    version on the same bf16 inputs: {name: (rel L2, max|d|, mean|d|)}."""
+    def run(f, ts, g):
+        ts = [t.detach().requires_grad_() for t in ts]
+        out = f(*ts)
+        out.backward(g)
+        return out.detach(), [t.grad for t in ts]
+    out, got = run(fn, (q, k, v), dout)
+    ref, want = run(plain, (q.float(), k.float(), v.float()), dout.float())
+    errs = {"out": (rel_l2(out, ref),
+                    (out.float() - ref).abs().max().item(),
+                    (out.float() - ref).abs().mean().item())}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        if not torch.isfinite(a).all():
+            fail(f"kernel {name} not finite")
+        d = (a.float() - b).abs()
+        errs[name] = (rel_l2(a, b), d.max().item(), d.mean().item())
+    return errs
+
+
+def fwd_bwd_ms(fwd, q, k, v, dout, iters):
+    """(forward ms, forward + backward ms) of autograd over ``fwd``."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+    def both():
+        torch.autograd.grad(fwd(*leaves), leaves, dout)
+
+    with torch.no_grad():
+        f_ms = cuda_ms(lambda: fwd(*leaves), iters, 1)
+    return f_ms, cuda_ms(both, iters, 1)
+
+
+def grad_kernel_phase(dev):
+    import torch.nn.functional as F
+    from owl_audio_exps_tpu_torch.ops import band, splash
+
+    B, H, Dh = 1, 24, 64
+    gen = torch.Generator(device=dev).manual_seed(10)
+    rows = {}
+    for name, kind, L, tpf, causal, window, two_docs, bound in GRAD_CASES:
+        q, k, v, dout = (torch.randn(B, H, L, Dh, generator=gen, device=dev)
+                         .to(torch.bfloat16) for _ in range(4))
+        if kind == "band":   # unit-RMS q, k as QK rms-norm gives them
+            q, k = rms_normed(q), rms_normed(k)
+        doc = two_doc_ids(dev, L, tpf) if two_docs else None
+        long = L >= LONG_L
+        hc = CHECK_HEADS if long else H
+        iters = 5 if long else 20
+        if kind == "frame":
+            margs = (tpf, window, causal, doc)
+            kern = lambda *t: splash.splash_attention(*t, *margs)
+            plain = lambda *t: splash.splash_attention_plain(*t, *margs)
+        else:
+            margs = (tpf, window, bound)
+            kern = lambda *t: band.band_attention(*t, tpf, window,
+                                                  logit_bound=bound)
+            plain = lambda *t: band.band_attention_plain(*t, *margs)
+        errs = grad_errors(kern, plain, *(t[:, :hc] for t in (q, k, v, dout)))
+        torch.cuda.empty_cache()
+
+        pairs = pairs_of(L, tpf, window, causal, doc, B)
+        elems, stats = B * H * L * Dh, B * H * L
+        if kind == "frame":
+            out, lse = splash.frame_attention_cuda(q, k, v, *margs,
+                                                   return_lse=True)
+            dq_ms = cuda_ms(lambda: splash.frame_attention_bwd_dq_cuda(
+                q, k, v, out, lse, dout, *margs), iters)
+            _, delta = splash.frame_attention_bwd_dq_cuda(q, k, v, out, lse,
+                                                          dout, *margs)
+            dkv_ms = cuda_ms(lambda: splash.frame_attention_bwd_dkv_cuda(
+                q, k, v, out, lse, delta, dout, *margs), iters)
+            timed = {"dq": (dq_ms, bound_row(6.0 * Dh * pairs * H,
+                                             12.0 * elems + 8.0 * stats)),
+                     "dkv": (dkv_ms, bound_row(8.0 * Dh * pairs * H,
+                                               12.0 * elems + 8.0 * stats))}
+        else:
+            fwd_ms = cuda_ms(lambda: band.band_attention_cuda(
+                q, k, v, *margs), iters)
+            out, lse = band.band_attention_cuda(q, k, v, *margs)
+            bwd_ms = cuda_ms(lambda: band.band_attention_bwd_cuda(
+                q, k, v, out, lse, dout, *margs), iters)
+            timed = {"fwd": (fwd_ms, bound_row(4.0 * Dh * pairs * H,
+                                               8.0 * elems + 4.0 * stats)),
+                     "bwd": (bwd_ms, bound_row(10.0 * Dh * pairs * H,
+                                               16.0 * elems + 4.0 * stats))}
+        del out, lse
+        # the plain version (bf16 inputs, f32 scores) over head chunks
+        pf, pt = zip(*by_heads(lambda *t: fwd_bwd_ms(plain, *t, 1), q, k, v,
+                               dout))
+        plain_fwd, plain_bwd = sum(pf), sum(pt) - sum(pf)
+        mask = sdpa_mask(dev, L, tpf, window, causal, doc)
+        sdpa = lambda *t: F.scaled_dot_product_attention(
+            *t, attn_mask=mask, scale=Dh ** -0.5)
+        try:
+            lf, lt = fwd_bwd_ms(sdpa, q, k, v, dout, iters)
+            lib_fwd, lib_bwd = lf, lt - lf
+        except (RuntimeError, torch.OutOfMemoryError) as e:
+            print(f"[kernel]   library call unavailable: {str(e)[:120]}",
+                  flush=True)
+            lib_fwd = lib_bwd = None
+        del mask
+        torch.cuda.empty_cache()
+
+        pair_bound = bound_row(10.0 * Dh * pairs * H,
+                               16.0 * elems + 4.0 * stats)
+        for part, (ms, bnd) in timed.items():
+            is_fwd = part == "fwd"
+            kname = (f"band_attention_{part}" if kind == "band"
+                     else f"frame_attention_bwd_{part}")
+            keys = ("out",) if is_fwd else                 (("dq",) if part == "dq" else ("dk", "dv"))                 if kind == "frame" else ("dq", "dk", "dv")
+            rows[(kname, name)] = dict(
+                ms=ms, plain_ms=plain_fwd if is_fwd else plain_bwd,
+                library_ms=lib_fwd if is_fwd else lib_bwd,
+                max_abs_err=max(errs[n][1] for n in keys),
+                mean_abs_err=max(errs[n][2] for n in keys),
+                rel_l2=max(errs[n][0] for n in keys), checked_heads=hc,
+                tflops=bnd["gflop"] / ms, **bnd)
+        lib = ("n/a" if lib_bwd is None else
+               f"fwd {lib_fwd:.4f} ms bwd {lib_bwd:.4f} ms")
+        print(f"[kernel] {kind} {name}: B={B} H={H} L={L} Dh={Dh} tpf={tpf} "
+              f"causal={causal} window={window} docs={2 if two_docs else 1} "
+              f"bound={bound} | checked at H={hc}: " + " ".join(
+                  f"{n} rel={e[0]:.2e} max|d|={e[1]:.2e} mean|d|={e[2]:.2e}"
+                  for n, e in errs.items()), flush=True)
+        print(f"[kernel]   " + " ".join(
+            f"{part} {ms:.4f} ms ({bnd['gflop'] / ms:.1f} TFLOP/s, bound "
+            f"{bnd['bound_ms']:.4f} ms {bnd['bound_by']})"
+            for part, (ms, bnd) in timed.items())
+            + f" | plain fwd {plain_fwd:.3f} ms bwd {plain_bwd:.3f} ms | "
+            f"sdpa {lib} | backward bound (10 Dh flops/pair) "
+            f"{pair_bound['bound_ms']:.4f} ms ({pair_bound['bound_by']})",
+            flush=True)
+        worst = max(e[0] for e in errs.values())
+        if worst > GRAD_REL_L2:
+            fail(f"{kind} {name}: kernel disagrees with its plain version "
+                 f"(relative L2 {worst:.3e} > {GRAD_REL_L2})")
+        if errs["out"][1] > KERNEL_MAX_ABS or errs["out"][2] > KERNEL_MEAN_ABS:
+            fail(f"{kind} {name}: forward disagrees with its plain version")
+        del q, k, v, dout
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -340,6 +572,306 @@ def sampler_phase(dev):
     return launches
 
 
+# ---------------------------------------------------------------- phase 5
+def kernel_counts():
+    from owl_audio_exps_tpu_torch.ops import band, splash
+    return {"frame_attention_fwd": splash.launches,
+            "frame_attention_bwd_dq": splash.dq_launches,
+            "frame_attention_bwd_dkv": splash.dkv_launches,
+            "band_attention_fwd": band.fwd_launches,
+            "band_attention_bwd": band.bwd_launches}
+
+
+def reset_counts():
+    from owl_audio_exps_tpu_torch.ops import band, splash
+    splash.launches = splash.dq_launches = splash.dkv_launches = 0
+    band.fwd_launches = band.bwd_launches = 0
+
+
+def expected_counts(cfg):
+    """Launches of each kernel in one training step, from the remat
+    structure (nn/attn.py attention_forwards_per_step) and the routing:
+    global layers take the frame-mask kernels, local layers the band."""
+    from owl_audio_exps_tpu_torch.nn.attn import (attention_forwards_per_step,
+                                                  local_layer_flags)
+    fwd = attention_forwards_per_step(cfg)
+    flags = local_layer_flags(cfg)
+    n_local = sum(flags)
+    return {"frame_attention_fwd": sum(f for f, l in zip(fwd, flags)
+                                       if not l),
+            "frame_attention_bwd_dq": len(flags) - n_local,
+            "frame_attention_bwd_dkv": len(flags) - n_local,
+            "band_attention_fwd": sum(f for f, l in zip(fwd, flags) if l),
+            "band_attention_bwd": n_local}
+
+
+def state_tensors(state):
+    out = {f"params.{k}": v for k, v in state.model.state_dict().items()}
+    out.update({f"ema.{k}": v for k, v in state.ema.items()})
+    for part, sd in state.optimizer.state_dict().items():
+        for idx, st in sd["state"].items():
+            for k, v in st.items():
+                if torch.is_tensor(v):
+                    out[f"opt.{part}.{idx}.{k}"] = v
+    return out
+
+
+def profile_step(trainer, state, micro, gen, step_s):
+    """Device time by kernel class of one traced training step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprof
+    from owl_audio_exps_tpu_torch.trainers.rft_trainer import RFTTrainer
+
+    with tprof(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        RFTTrainer.train_step(trainer, state, micro, gen)
+        torch.cuda.synchronize()
+    classes = {"K1 fwd (frame_attention_fwd)": 0.0,
+               "K1 bwd (dq + dkv)": 0.0,
+               "band fwd": 0.0, "band bwd": 0.0,
+               "matmul (cuBLAS)": 0.0,
+               "other (elementwise, norms, optimizer, copies)": 0.0}
+    per_name = {}
+    for e in prof.events():
+        # user annotations (e.g. "Optimizer.step#Muon.step") are device
+        # ranges over kernels already counted
+        if e.device_type != DeviceType.CUDA or \
+                getattr(e, "is_user_annotation", False):
+            continue
+        us = e.time_range.elapsed_us()
+        n = e.name
+        us0, c0 = per_name.get(n, (0.0, 0))
+        per_name[n] = (us0 + us, c0 + 1)
+        if "frame_attn_fwd" in n:
+            classes["K1 fwd (frame_attention_fwd)"] += us
+        elif "frame_attn_bwd" in n:
+            classes["K1 bwd (dq + dkv)"] += us
+        elif "band_attn_fwd" in n:
+            classes["band fwd"] += us
+        elif "band_attn_bwd" in n:
+            classes["band bwd"] += us
+        elif any(t in n.lower() for t in ("gemm", "nvjet", "cutlass",
+                                          "sm90_xmma")):
+            classes["matmul (cuBLAS)"] += us
+        else:
+            classes["other (elementwise, norms, optimizer, copies)"] += us
+    busy = sum(classes.values())
+    if busy == 0:
+        fail("the profiler recorded no device time")
+    print(f"[train] one traced step: device busy {busy / 1e3:.1f} ms = "
+          f"{100 * busy / 1e3 / (1e3 * step_s):.1f}% of the untraced median "
+          f"step; {sum(c for _, c in per_name.values())} kernels", flush=True)
+    for cls, us in classes.items():
+        print(f"[train]   {cls}: {us / 1e3:.2f} ms "
+              f"({100 * us / busy:.1f}% of busy)", flush=True)
+    for name, (us, c) in sorted(per_name.items(),
+                                key=lambda kv: -kv[1][0])[:10]:
+        print(f"[train]   {us / 1e3:9.2f} ms {c:5d}x {name[:100]}",
+              flush=True)
+    return {k: us / 1e3 for k, us in classes.items()}
+
+
+def train_phase(dev):
+    import shutil
+    from owl_audio_exps_tpu_torch.configs import Config
+    from owl_audio_exps_tpu_torch.data import get_loader
+    from owl_audio_exps_tpu_torch.trainers.rft_trainer import RFTTrainer
+    from owl_audio_exps_tpu_torch.utils.mfu import (H100_PEAK_TFLOPS,
+                                                    training_flops_per_token)
+
+    path = os.path.join(ROOT, "configs", "dit_v4_tpu_e2e.yml")
+    conf = Config.from_yaml(path)
+    cfg, tc = conf.model, conf.train
+    work = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(work, ignore_errors=True)
+    cuts = dict(sampler_id=None, max_steps=TRAIN_STEPS,
+                checkpoint_dir=os.path.join(work, "ckpt"),
+                output_path=os.path.join(work, "export"), log_interval=1)
+    for key, value in cuts.items():
+        print(f"[train] cut from configs/dit_v4_tpu_e2e.yml: {key} "
+              f"{tc.get(key)!r} -> {value!r}", flush=True)
+        tc[key] = value
+    print("[train]   (sampler av_caching: the KV-cached samplers come with "
+          "port slice 5; log_interval 1 drains metrics every step)",
+          flush=True)
+    expect = expected_counts(cfg)
+    L = tc.data_kwargs.window_length * cfg.tokens_per_frame
+
+    class CountedTrainer(RFTTrainer):
+        """Sets every kernel count to 0 before each step and reads the
+        counts, the step's wall time and loss after it."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.steps = []
+
+        def train_step(self, state, micro, gen, **kw):
+            reset_counts()
+            t0 = time.perf_counter()
+            metrics = super().train_step(state, micro, gen, **kw)
+            loss = float(metrics["diffusion_loss"])   # waits for the step
+            self.steps.append(dict(s=time.perf_counter() - t0, loss=loss,
+                                   counts=kernel_counts()))
+            return metrics
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer = CountedTrainer(conf, device=dev)
+    t0 = time.perf_counter()
+    state = trainer.train(max_steps=TRAIN_STEPS)
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_params = sum(p.numel() for p in state.model.parameters())
+    print(f"[train] RFTTrainer {cfg.n_layers} layers x d {cfg.d_model}, "
+          f"{cfg.n_heads} heads x {cfg.d_model // cfg.n_heads}, "
+          f"{n_params / 1e6:.1f} M params fp32, L = {L} (tpf "
+          f"{cfg.tokens_per_frame}, local window {cfg.local_window}), batch "
+          f"{tc.batch_size}, opt {tc.opt} momentum "
+          f"{tc.opt_kwargs.momentum_dtype}, remat "
+          f"{cfg.remat_granularity}: {TRAIN_STEPS} steps in {wall:.1f} s",
+          flush=True)
+    for i, st in enumerate(trainer.steps):
+        print(f"[train]   step {i + 1}: {st['s']:.3f} s loss "
+              f"{st['loss']:.5f} launches {st['counts']}", flush=True)
+        if not math.isfinite(st["loss"]):
+            fail(f"step {i + 1}: loss not finite")
+        if st["counts"] != expect:
+            fail(f"step {i + 1}: kernel launches {st['counts']}, expected "
+                 f"{expect}")
+    timed = [st["s"] for st in trainer.steps[1:]]
+    step_s = statistics.median(timed)
+    tokens = L * tc.batch_size * trainer.accum_steps()
+    mfu = training_flops_per_token(cfg, L) * tokens / step_s / \
+        (H100_PEAK_TFLOPS * 1e12)
+    print(f"[train] s/step median {step_s:.4f} (steps 2-{TRAIN_STEPS}, min "
+          f"{min(timed):.4f} max {max(timed):.4f}), {tokens / step_s:.0f} "
+          f"tokens/s, MFU {100 * mfu:.2f}% of {H100_PEAK_TFLOPS:.0f} "
+          f"TFLOP/s, peak memory {peak_gb:.2f} GiB "
+          f"(max_memory_allocated); launches per step {expect}", flush=True)
+
+    # resume from the step-6 checkpoint: everything restored exactly
+    ckpt = trainer.ckpt_path(TRAIN_STEPS)
+    conf.train.resume_ckpt = ckpt
+    other = CountedTrainer(conf, device=dev)
+    restored = other.load(ckpt, other.init_state(seed=1))
+    want, got = state_tensors(state), state_tensors(restored)
+    if restored.step != state.step or set(want) != set(got):
+        fail("resume: step or state keys differ")
+    for key in want:
+        if got[key].dtype != want[key].dtype or \
+                not torch.equal(got[key], want[key]):
+            fail(f"resume: {key} differs after restoring {ckpt}")
+    print(f"[train] resume from {os.path.relpath(ckpt, ROOT)}: step "
+          f"{restored.step}, {len(want)} tensors (params, EMA, optimizer "
+          f"state) restored exactly", flush=True)
+    del other, restored, want, got
+    torch.cuda.empty_cache()
+
+    loader = iter(get_loader(tc.data_id, tc.batch_size,
+                             **dict(tc.data_kwargs.items())))
+    micro = [trainer.to_device(next(loader))]
+    gen = torch.Generator(device=dev).manual_seed(99)
+    breakdown = profile_step(trainer, state, micro, gen, step_s)
+    totals = {k: sum(st["counts"][k] for st in trainer.steps)
+              for k in expect}
+    losses = [st["loss"] for st in trainer.steps]
+    del trainer, state
+    torch.cuda.empty_cache()
+    return dict(totals=totals, per_step=expect, step_s=step_s,
+                tokens_per_s=tokens / step_s, mfu=mfu, peak_gib=peak_gb,
+                losses=losses, device_ms=breakdown)
+
+
+# ---------------------------------------------------------------- phase 6
+def route_phase(dev):
+    from owl_audio_exps_tpu_torch.configs import Config
+    from owl_audio_exps_tpu_torch.data import get_loader
+    from owl_audio_exps_tpu_torch.models.gamerft import GameRFT
+
+    conf = Config.from_yaml(os.path.join(ROOT, "configs",
+                                         "dit_v4_tpu_e2e.yml"))
+    cfg = conf.model
+    cfg.n_layers = 4
+    n_frames = 64
+    dk = dict(conf.train.data_kwargs.items(), window_length=n_frames)
+    vid, mouse, btn = [torch.from_numpy(a).to(dev) for a in next(iter(
+        get_loader(conf.train.data_id, 1, **dk)))]
+
+    def one_step(attn_impl):
+        c = cfg.copy()
+        c.attn_impl = attn_impl
+        model = GameRFT(c, dtype=torch.bfloat16, device=dev, seed=0)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        loss = model(vid.to(torch.bfloat16), mouse, btn, generator=gen)
+        loss.backward()
+        return loss.item(), {n: p.grad.float() for n, p in
+                             model.named_parameters()}
+
+    reset_counts()
+    lk, gk = one_step("auto")
+    counts = kernel_counts()
+    if not all(counts.values()):
+        fail(f"route check: the kernel route launched {counts}")
+    ld, gd = one_step("dense")
+    loss_rel = abs(lk - ld) / abs(ld)
+    num = sum((gk[n] - gd[n]).pow(2).sum() for n in gd)
+    den = sum(gd[n].pow(2).sum() for n in gd)
+    total = (num / den).sqrt().item()
+    per = {n: rel_l2(gk[n], gd[n]) for n in gd if gd[n].norm() > 0}
+    worst = max(per, key=per.get)
+    print(f"[route] 4 layers x d {cfg.d_model}, L = "
+          f"{n_frames * cfg.tokens_per_frame}, one step, kernels {counts} vs "
+          f"dense attention: loss {lk:.6f} vs {ld:.6f} (rel {loss_rel:.2e}, "
+          f"tolerance {ROUTE_LOSS_REL}); gradient rel L2 over all params "
+          f"{total:.3e} (tolerance {ROUTE_GRAD_REL_L2}), median param "
+          f"{statistics.median(per.values()):.3e}, worst {per[worst]:.3e} "
+          f"({worst}; tolerance {ROUTE_PARAM_REL_L2})", flush=True)
+    if loss_rel > ROUTE_LOSS_REL or total > ROUTE_GRAD_REL_L2 or \
+            per[worst] > ROUTE_PARAM_REL_L2:
+        fail("the training step through the kernels disagrees with dense")
+    reset_counts()
+    torch.cuda.empty_cache()
+    return dict(loss_rel=loss_rel, grad_rel_l2=total, worst_param=per[worst])
+
+
+KERNELS = {
+    "frame_attention_fwd": ("frame_attention.cu", "ops/splash.py:237"),
+    "frame_attention_bwd_dq": ("frame_attention.cu", "ops/splash.py:220"),
+    "frame_attention_bwd_dkv": ("frame_attention.cu", "ops/splash.py:220"),
+    "band_attention_fwd": ("band_attention.cu", "ops/band.py:422"),
+    "band_attention_bwd": ("band_attention.cu", "ops/band.py:599"),
+}
+MAIN_CASE = {  # the training path's geometry of each kernel
+    "frame_attention_fwd": "L16384_tpf64_causal_global",
+    "frame_attention_bwd_dq": "L16384_tpf64_causal_global",
+    "frame_attention_bwd_dkv": "L16384_tpf64_causal_global",
+    "band_attention_fwd": "L16384_tpf64_w16_bound8",
+    "band_attention_bwd": "L16384_tpf64_w16_bound8",
+}
+
+
+def kernel_record(fwd_rows, grad_rows, launches, extra):
+    out = []
+    for name, (src, replaces) in KERNELS.items():
+        if name == "frame_attention_fwd":
+            cases = fwd_rows
+        else:
+            cases = {case: row for (k, case), row in grad_rows.items()
+                     if k == name}
+        main = cases[MAIN_CASE[name]]
+        out.append(dict(
+            name=name, route="cuda",
+            source=f"owl_audio_exps_tpu_torch/csrc/{src}",
+            replaces=f"owl_audio_exps_tpu/{replaces}",
+            launches=launches[name],
+            max_abs_err=max(r["max_abs_err"] for r in cases.values()),
+            ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=main["library_ms"],
+            case=f"B=1 H=24 Dh=64 {MAIN_CASE[name]}", cases=cases,
+            **extra.get(name, {})))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("FAILED: no CUDA device; this smoke run needs one GPU",
@@ -353,6 +885,9 @@ def main():
               flush=True)
         sys.exit(3)
 
+    # references in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"[env] {card}", flush=True)
@@ -365,26 +900,28 @@ def main():
     print(f"[env] built {sorted(libs)} in {time.perf_counter() - t0:.1f} s "
           f"into {_build.build_dir()}", flush=True)
 
-    rows = kernel_phase(dev)
+    fwd_rows = kernel_phase(dev)
+    grad_rows = grad_kernel_phase(dev)
+    reset_counts()
     serve_launches, tick_ms, breakdown = pipeline_phase(dev, SERVE_TICKS)
+    reset_counts()
     sampler_launches = sampler_phase(dev)
+    train = train_phase(dev)
+    route = route_phase(dev)
 
-    main = rows["L3900_causal_w16"]
-    record = {"kernels": [{
-        "name": "frame_attention_fwd",
-        "route": "cuda",
-        "source": "owl_audio_exps_tpu_torch/csrc/frame_attention.cu",
-        "replaces": "owl_audio_exps_tpu/ops/splash.py:237",
-        "launches": serve_launches + sampler_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
-        "ms": main["ms"], "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"],
-        "case": "B=1 H=24 L=3900 Dh=64 tpf=65 causal window=16",
-        "cases": rows,
-        "serve_tick_ms": tick_ms,
-        "serve_tick_device_ms": breakdown,
-    }]}
+    launches = dict(train["totals"])
+    launches["frame_attention_fwd"] += serve_launches + sampler_launches
+    extra = {"frame_attention_fwd": dict(
+        launches_by_path=dict(serve=serve_launches, sampler=sampler_launches,
+                              train=train["totals"]["frame_attention_fwd"]),
+        serve_tick_ms=tick_ms, serve_tick_device_ms=breakdown)}
+    for name in train["per_step"]:
+        extra.setdefault(name, {})["launches_per_train_step"] = \
+            train["per_step"][name]
+    record = {"kernels": kernel_record(fwd_rows, grad_rows, launches, extra),
+              "train": {k: v for k, v in train.items()
+                        if k not in ("totals", "per_step")},
+              "route": route}
     print(json.dumps(record), flush=True)
     print(f"[env] {card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

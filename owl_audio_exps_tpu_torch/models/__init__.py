@@ -1,10 +1,32 @@
-"""Model registry (counterpart of owl_audio_exps_tpu/models/__init__.py)."""
+"""Model registry (counterpart of owl_audio_exps_tpu/models/__init__.py).
 
-_NOT_PORTED = ("game_rft", "game_mft_audio", "audio_rft")
+Each model is a Core/Wrapper pair: the Core is the pure denoiser used by
+samplers; the wrapper owns training-time noising + loss."""
+
+_NOT_PORTED = ("game_mft_audio", "audio_rft")
+
+
+def get_model_cls(model_id: str):
+    """Training wrapper class for a model id."""
+    if model_id == "game_rft":
+        from .gamerft import GameRFT
+        return GameRFT
+    if model_id == "game_rft_audio":
+        raise NotImplementedError(
+            "model 'game_rft_audio' training wrapper (GameRFTAudio) is not "
+            "ported yet: it comes next in the training slice (ROADMAP.md "
+            "Queue 1)")
+    if model_id in _NOT_PORTED:
+        raise NotImplementedError(
+            f"model {model_id!r} is not ported yet (ROADMAP.md Queue 1)")
+    raise ValueError(f"Invalid model id: {model_id}")
 
 
 def get_core_cls(model_id: str):
     """Pure denoiser class for a model id."""
+    if model_id == "game_rft":
+        from .gamerft import GameRFTCore
+        return GameRFTCore
     if model_id == "game_rft_audio":
         from .gamerft_audio import GameRFTAudioCore
         return GameRFTAudioCore

@@ -4,17 +4,33 @@ Fused-QKV attention with QK rms-norm and RoPE; pre-AdaLN blocks with
 gates; layers alternate [global, local, local, local, ...]
 (``layer_idx % local_idx != 0`` is local).
 
-Routing, with the JAX package's knobs:
+Routing, with the JAX package's knobs (``train_attention`` follows the
+precedence of owl_audio_exps_tpu/nn/attn.py:155-218):
 
-* ``attn_impl``: ``auto`` takes the frame-mask flash kernel
-  (ops/splash.py) for sequences of at least 1024 tokens on a CUDA device,
-  ``splash`` always, ``dense`` never; otherwise the dense mask +
-  ``dot_attention`` path runs.
-* ``local_attn_impl``: where the JAX router picks its band kernel (a
-  causal local window without document packing), ``auto`` and ``splash``
-  take the frame-mask kernel here, which computes the same function; a
-  pinned ``band``, ``band2`` or ``chunked`` raises, since those kernels
-  come with the training slice.
+* ``attn_impl``: ``auto`` takes the kernels (ops/splash.py, ops/band.py)
+  for sequences of at least 1024 tokens on a CUDA device, ``splash``
+  always, ``dense`` never; otherwise the dense mask + ``dot_attention``
+  path runs.
+* ``local_attn_impl``: a causal local window without document packing
+  whose span divides the sequence (``band_available``) takes the band
+  kernel (K2/K3's port), with the fixed-shift softmax at bound sqrt(Dh)
+  unless ``band_fixed_shift: false``; ``auto`` and a pinned ``band`` do
+  so, and a pinned ``band`` raises where the band does not apply. Where
+  the JAX package's ``auto`` would take its band2 kernel (a ragged span
+  with a frame-aligned plan, owl_audio_exps_tpu/ops/band2.py:120-146),
+  the port takes its band kernel, which computes the same function,
+  until band2 is ported (port slice 4). A pinned ``band2`` or
+  ``chunked`` raises; ``splash`` pins the frame-mask kernel. Global
+  layers, document-packed batches, bidirectional and indivisible windows
+  take the frame-mask kernel (K1).
+
+Training: ``gradient_checkpointing`` recomputes each block in the
+backward (``torch.utils.checkpoint``, non-reentrant); with
+``remat_granularity: group`` each local/global period of ``local_idx``
+blocks is checkpointed and each block inside it again, as the JAX
+package nests its remat (nn/attn.py:633-658). The XLA memory layouts
+``scan_layers``, ``remat_sequenced``, ``fused_head_chunks`` and
+``mlp_chunks`` > 1 raise.
 
 KV-cached forwards (``kv_cache`` not None) come with the cached serve
 slice and raise here.
@@ -26,6 +42,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dot_attention
 from ..ops.masks import dense_mask
@@ -61,20 +78,40 @@ def build_masks(config, q_len: int, doc_id: Optional[torch.Tensor],
 
 
 def train_attention(cfg, local: bool, q, k, v, doc_id=None):
-    """Uncached attention dispatch to the frame-mask kernel (see the
-    module docstring for the ``local_attn_impl`` routing)."""
+    """Uncached attention dispatch to the band or the frame-mask kernel
+    (see the module docstring for the precedence)."""
+    from ..ops.band import band_attention, band_available
+    from ..ops.splash import splash_attention
+    tpf = cfg.tokens_per_frame
     window = cfg.get("local_window") if local else cfg.get("global_window")
     impl = cfg.get("local_attn_impl", "auto")
-    if (local and window is not None and bool(cfg.causal) and doc_id is None
-            and impl in ("band", "band2", "chunked")):
-        raise NotImplementedError(
-            f"local_attn_impl={impl!r}: the band and chunked local kernels "
-            "are not ported yet (training slice, ROADMAP.md Queue 2); use "
-            "'auto' or 'splash'")
-    from ..ops.splash import splash_attention
-    return splash_attention(q, k, v, cfg.tokens_per_frame, window,
-                            bool(cfg.causal), doc_id,
-                            head_chunks=cfg.get("splash_head_chunks", 1))
+    head_chunks = cfg.get("splash_head_chunks", 1)
+    if (local and window is not None and impl != "splash"
+            and bool(cfg.causal) and doc_id is None):
+        if impl == "band2":
+            raise NotImplementedError(
+                "local_attn_impl='band2': the band2 kernel (K5) is not "
+                "ported yet; it comes with port slice 4 (ROADMAP.md "
+                "Queue 2). 'auto' and 'band' take the band kernel, which "
+                "computes the same function")
+        if impl == "chunked":
+            raise NotImplementedError(
+                "local_attn_impl='chunked': ops/local.py is not ported "
+                "(ROADMAP.md Queue 1); 'auto' and 'band' take the band "
+                "kernel, which computes the same function")
+        L = q.shape[2]
+        if band_available(L, tpf, window, True):
+            bound = (float(q.shape[-1]) ** 0.5
+                     if cfg.get("band_fixed_shift", True) else None)
+            return band_attention(q, k, v, tpf, window,
+                                  head_chunks=head_chunks, logit_bound=bound)
+        if impl == "band":
+            raise ValueError(
+                f"local_attn_impl=band requires a causal local window whose "
+                f"span divides the sequence (L={L}, tpf={tpf}, "
+                f"window={window})")
+    return splash_attention(q, k, v, tpf, window, bool(cfg.causal), doc_id,
+                            head_chunks=head_chunks)
 
 
 class Attn(nn.Module):
@@ -143,15 +180,47 @@ def local_layer_flags(config):
     return [(i % local_idx != 0) for i in range(config.n_layers)]
 
 
+def attention_forwards_per_step(config):
+    """Attention forwards of each layer in one training step (forward and
+    backward) under the config's remat: 1 without
+    ``gradient_checkpointing``; 2 with per-block remat (the backward
+    recomputes each block once); with ``remat_granularity: group``, 3
+    (the forward, the group's recompute, the block's own recompute),
+    except for the last block of each group: the group's recompute does
+    not need that block's output, and non-reentrant checkpointing stops a
+    recompute once it has what the backward asked for, so that block runs
+    twice. Each layer's attention backward runs once."""
+    n = config.n_layers
+    if not config.get("gradient_checkpointing", False):
+        return [1] * n
+    if config.get("remat_granularity") != "group":
+        return [2] * n
+    K = config.get("local_idx", 4) or 4
+    return [2 if (i % K == K - 1 or i == n - 1) else 3 for i in range(n)]
+
+
+_XLA_LAYOUTS = {
+    "scan_layers": "group-stacked params",
+    "remat_sequenced": "a sequenced custom-vjp remat",
+    "fused_head_chunks": "per-head-chunk fused attention",
+}
+
+
 class DiT(nn.Module):
     """Stack of DiTBlocks with alternating local/global windows."""
 
     def __init__(self, config, dtype=torch.bfloat16, device=None):
         super().__init__()
-        if config.get("scan_layers", False):
+        for key, what in _XLA_LAYOUTS.items():
+            if config.get(key, False):
+                raise NotImplementedError(
+                    f"{key} ({what}) is an XLA memory layout of the JAX "
+                    "package; the port keeps unrolled blocks with "
+                    "torch.utils.checkpoint (ROADMAP.md Queue 1)")
+        if (config.get("mlp_chunks", 1) or 1) > 1:
             raise NotImplementedError(
-                "scan_layers (group-stacked params) is a training-memory "
-                "layout; the port keeps unrolled blocks")
+                "mlp_chunks > 1 is an XLA memory layout of the JAX package; "
+                "the port runs the MLP whole (ROADMAP.md Queue 1)")
         if config.get("sequence_parallel", False):
             raise NotImplementedError(
                 "sequence_parallel comes with the context-parallel slice")
@@ -160,19 +229,40 @@ class DiT(nn.Module):
             DiTBlock(config, i, local, dtype=dtype, device=device)
             for i, local in enumerate(local_layer_flags(config)))
 
+    def _run_blocks(self, start, stop, x, cond, local_mask, global_mask,
+                    splash, doc_id, remat):
+        flags = local_layer_flags(self.config)
+        for idx in range(start, stop):
+            mask = local_mask if flags[idx] else global_mask
+            if remat:
+                x = checkpoint(self.blocks[idx], x, cond, mask, splash,
+                               doc_id, use_reentrant=False)
+            else:
+                x = self.blocks[idx](x, cond, mask, splash, doc_id)
+        return x
+
     def forward(self, x, cond, doc_id=None, kv_cache=None):
         if kv_cache is not None:
             raise NotImplementedError(
                 "KV-cached forwards are not ported yet: they come with the "
                 "cached serve slice (ROADMAP.md, port slice 5)")
         cfg = self.config
-        L = x.shape[1]
+        L, n = x.shape[1], cfg.n_layers
         splash = use_splash_path(cfg, L, x.device)
         local_mask = global_mask = None
         if not splash:
             local_mask, global_mask = build_masks(cfg, L, doc_id,
                                                   device=x.device)
-        for blk, local in zip(self.blocks, local_layer_flags(cfg)):
-            x = blk(x, cond, local_mask if local else global_mask, splash,
-                    doc_id)
-        return x
+        args = (cond, local_mask, global_mask, splash, doc_id)
+        remat = (cfg.get("gradient_checkpointing", False)
+                 and torch.is_grad_enabled())
+        if remat and cfg.get("remat_granularity") == "group":
+            # one checkpoint per local/global period, and one per block
+            # inside it (the group's backward then holds one block's
+            # activations at a time)
+            K = cfg.get("local_idx", 4) or 4
+            for start in range(0, n, K):
+                x = checkpoint(self._run_blocks, start, min(start + K, n),
+                               x, *args, True, use_reentrant=False)
+            return x
+        return self._run_blocks(0, n, x, *args, remat)

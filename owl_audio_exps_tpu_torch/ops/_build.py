@@ -1,7 +1,7 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Each ``csrc/*.cu`` source compiles into its own shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds). All
+Each ``csrc/*.cu`` source (with the ``csrc/*.cuh`` headers it includes)
+compiles into its own shared library with a plain C interface (no PyTorch headers, so a build takes seconds). All
 sources are compiled together, one nvcc process each, the first time any
 kernel is needed; a library is rebuilt only when its source changes (the
 file name carries a hash of the source). The build directory is
@@ -42,7 +42,11 @@ def nvcc_path() -> str:
 
 
 def _lib_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    # the shared headers are part of every source's content
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return build_dir() / f"lib{src.stem}_{digest}.so"
 
 

@@ -1,45 +1,43 @@
-"""Frame-mask flash attention, forward (counterpart of
-owl_audio_exps_tpu/ops/splash.py ``splash_attention``).
+"""Frame-mask flash attention, forward and backward (counterpart of
+owl_audio_exps_tpu/ops/splash.py ``splash_attention`` and its custom vjp).
 
 On a CUDA tensor ``splash_attention`` launches the hand-written Hopper
-kernel ``csrc/frame_attention.cu`` (built with nvcc at first use, bound
-with ctypes) and counts the launch in ``launches``. On a CPU tensor it
+kernels of ``csrc/frame_attention.cu`` (built with nvcc at first use,
+bound with ctypes): the forward, counted in ``launches``, and, when
+autograd needs gradients, the dq and dkv kernels, counted in
+``dq_launches`` and ``dkv_launches``. ``FrameAttentionFunction`` is the
+``torch.autograd.Function`` that joins them; its forward also saves the
+f32 logsumexp the backward reads (the serve path, which needs no
+gradient, does not ask for it). On a CPU tensor ``splash_attention``
 runs ``splash_attention_plain``, the dense mask + ``dot_attention``
-version of the same function. There is no other route: a CUDA call
-either launches the kernel or raises.
+version of the same function, and autograd over it is the plain
+backward. There is no other route: a CUDA call either launches the
+kernels or raises.
 
 Visibility is the TPU package's ``FrameMask`` algebra, ANDed with
 same-document equality when ``doc_id`` is given. q is pre-scaled by
-``scale`` (default Dh^-0.5) in q's dtype, as on the TPU. The kernel masks
-ragged lengths itself, so nothing is padded (the TPU's sentinel-segment
-padding only existed for its block legality).
-
-The kernel has no backward yet: a CUDA input that requires grad raises.
+``scale`` (default Dh^-0.5) in q's dtype, as on the TPU, so
+dq = scale * d(scaled q). The kernels mask ragged lengths themselves, so
+nothing is padded (the TPU's sentinel-segment padding only existed for
+its block legality).
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Optional
 
 import torch
 
+from . import _attn_launch as kl
 from .attention import dot_attention
 from .masks import dense_mask
 
-launches = 0   # kernel launches since the last reset (set to 0 to reset)
+# kernel launches since the last reset (set to 0 to reset)
+launches = 0       # forward
+dq_launches = 0    # backward, dq kernel
+dkv_launches = 0   # backward, dkv kernel
 
-
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    """The C entry point of csrc/frame_attention.cu (built at first use)."""
-    from . import _build
-    fn = _build.load("frame_attention").owl_frame_attn_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 12
-                   + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+_SOURCE = "frame_attention"
 
 
 def splash_attention_plain(q, k, v, tokens_per_frame: int,
@@ -57,67 +55,130 @@ def splash_attention_plain(q, k, v, tokens_per_frame: int,
     return dot_attention(qs, k, v, mask, scale=1.0)
 
 
-def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
-    """The kernel reads [B, H, L, Dh] through its strides with 16-byte
-    loads: the last dim must be contiguous and every stride and the base
-    16-byte aligned. The layouts Attn produces (a transposed view of the
-    [B, L, H, Dh] projection) qualify; anything else is copied."""
-    ok = (t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:3])
-          and t.data_ptr() % 16 == 0)
-    return t if ok else t.contiguous()
+def _ints(q, tokens_per_frame, window, causal):
+    B, H, L, Dh = q.shape
+    return (B, H, L, Dh, tokens_per_frame, window or 0, int(bool(causal)))
+
+
+def _doc(doc_id, q, tokens_per_frame):
+    if doc_id is None:
+        return None
+    B, L = q.shape[0], q.shape[2]
+    n_frames = -(-L // tokens_per_frame)
+    if tuple(doc_id.shape) != (B, n_frames):
+        raise ValueError(f"doc_id shape {tuple(doc_id.shape)} != "
+                         f"{(B, n_frames)}")
+    return doc_id.to(device=q.device, dtype=torch.int32).contiguous()
 
 
 def frame_attention_cuda(q, k, v, tokens_per_frame: int,
                          window: Optional[int], causal: bool,
-                         doc_id=None, scale: Optional[float] = None):
-    """Launch the CUDA kernel. q, k, v: [B, H, L, Dh] bf16 on one card,
-    Dh 64 or 128; doc_id: per-frame [B, n_frames] or None."""
+                         doc_id=None, scale: Optional[float] = None,
+                         return_lse: bool = False):
+    """Launch the forward kernel. q, k, v: [B, H, L, Dh] bf16 on one card,
+    Dh 64 or 128; doc_id: per-frame [B, n_frames] or None. With
+    ``return_lse`` also returns the f32 logsumexp [B, H, L] of the scaled
+    logits."""
     global launches
-    B, H, L, Dh = q.shape
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"{name} must lie on q's CUDA device")
-        if t.dtype != torch.bfloat16:
-            raise NotImplementedError(
-                f"frame attention kernel takes bf16, got {name} {t.dtype}")
-        if t.shape != q.shape:
-            raise ValueError(f"{name} shape {tuple(t.shape)} != q shape "
-                             f"{tuple(q.shape)} (self-attention only)")
-        if t.requires_grad:
-            raise NotImplementedError(
-                "frame attention kernel has no backward yet (the training "
-                "slice brings it)")
-    if Dh not in (64, 128):
-        raise NotImplementedError(f"head dim {Dh}: the kernel takes 64 or 128")
+    kl.check_operands(q, q=q, k=k, v=v)
+    kl.refuse_autograd(q, k, v)
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive or None, got {window}")
-    n_frames = -(-L // tokens_per_frame)
-    doc = None
-    if doc_id is not None:
-        if tuple(doc_id.shape) != (B, n_frames):
-            raise ValueError(f"doc_id shape {tuple(doc_id.shape)} != "
-                             f"{(B, n_frames)}")
-        doc = doc_id.to(device=q.device, dtype=torch.int32).contiguous()
+    doc = _doc(doc_id, q, tokens_per_frame)
     if scale is None:
-        scale = Dh ** -0.5
-
-    q, k, v = (_kernel_operand(t) for t in (q, k, v))
-    # [B, L, H, Dh] storage seen as [B, H, L, Dh]: the caller's transpose
-    # back to tokens-major is then free
-    out = torch.empty(B, L, H, Dh, dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
-
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    err = _kernel()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if doc is None else doc.data_ptr(), *strides,
-        B, H, L, Dh, tokens_per_frame, window or 0, int(bool(causal)),
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"frame attention kernel launch failed: CUDA "
-                           f"error {err}")
+        scale = q.shape[-1] ** -0.5
+    q, k, v = (kl.operand(t) for t in (q, k, v))
+    out = kl.empty_heads(q)
+    B, H, L, _ = q.shape
+    lse = (torch.empty(B, H, L, dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    kl.launch(kl.entry(_SOURCE, "owl_frame_attn_fwd", 1),
+              dict(q=q, k=k, v=v, o=out),
+              _ints(q, tokens_per_frame, window, causal), (float(scale),),
+              lse=lse, doc=doc, what="frame attention")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def _bwd_args(q, k, v, out, dout, tokens_per_frame, doc_id, scale):
+    kl.check_operands(q, q=q, k=k, v=v, out=out, dout=dout)
+    doc = _doc(doc_id, q, tokens_per_frame)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    q, k, v, out, dout = (kl.operand(t) for t in (q, k, v, out, dout))
+    return dict(q=q, k=k, v=v, o=out, dout=dout), doc, float(scale)
+
+
+def frame_attention_bwd_dq_cuda(q, k, v, out, lse, dout,
+                                tokens_per_frame: int, window: Optional[int],
+                                causal: bool, doc_id=None,
+                                scale: Optional[float] = None):
+    """Launch the dq kernel. Returns (dq, delta): bf16 [B, H, L, Dh] and
+    the f32 [B, H, L] rowsum(dO * O) the dkv kernel reads."""
+    global dq_launches
+    args, doc, scale = _bwd_args(q, k, v, out, dout, tokens_per_frame,
+                                 doc_id, scale)
+    lse = lse.to(torch.float32).contiguous()
+    delta = torch.empty_like(lse)
+    args["dq"] = kl.empty_heads(args["q"])
+    kl.launch(kl.entry(_SOURCE, "owl_frame_attn_bwd_dq", 1), args,
+              _ints(q, tokens_per_frame, window, causal), (scale,), lse=lse,
+              delta=delta, doc=doc, what="frame attention dq")
+    dq_launches += 1
+    return args["dq"], delta
+
+
+def frame_attention_bwd_dkv_cuda(q, k, v, out, lse, delta, dout,
+                                 tokens_per_frame: int,
+                                 window: Optional[int], causal: bool,
+                                 doc_id=None, scale: Optional[float] = None):
+    """Launch the dkv kernel (after the dq kernel, whose delta it reads).
+    Returns (dk, dv), bf16 [B, H, L, Dh]."""
+    global dkv_launches
+    args, doc, scale = _bwd_args(q, k, v, out, dout, tokens_per_frame,
+                                 doc_id, scale)
+    args["dk"], args["dv"] = (kl.empty_heads(args["q"]) for _ in range(2))
+    kl.launch(kl.entry(_SOURCE, "owl_frame_attn_bwd_dkv", 1), args,
+              _ints(q, tokens_per_frame, window, causal), (scale,),
+              lse=lse.to(torch.float32).contiguous(), delta=delta, doc=doc,
+              what="frame attention dkv")
+    dkv_launches += 1
+    return args["dk"], args["dv"]
+
+
+def frame_attention_bwd_cuda(q, k, v, out, lse, dout, tokens_per_frame: int,
+                             window: Optional[int], causal: bool,
+                             doc_id=None, scale: Optional[float] = None):
+    """The dq kernel (which also stores delta = rowsum(dO * O)), then the
+    dkv kernel. Returns (dq, dk, dv), bf16 [B, H, L, Dh]."""
+    mask = (tokens_per_frame, window, causal, doc_id, scale)
+    dq, delta = frame_attention_bwd_dq_cuda(q, k, v, out, lse, dout, *mask)
+    dk, dv = frame_attention_bwd_dkv_cuda(q, k, v, out, lse, delta, dout,
+                                          *mask)
+    return dq, dk, dv
+
+
+class FrameAttentionFunction(torch.autograd.Function):
+    """Forward kernel (saving the logsumexp) with the dq + dkv kernels as
+    its backward. Under ``torch.utils.checkpoint`` the recomputed forward
+    is a forward launch like any other and is counted in ``launches``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, tokens_per_frame, window, causal, doc_id,
+                scale):
+        out, lse = frame_attention_cuda(q, k, v, tokens_per_frame, window,
+                                        causal, doc_id, scale,
+                                        return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (tokens_per_frame, window, causal, doc_id, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = frame_attention_bwd_cuda(
+            q, k, v, out, lse, dout.to(torch.bfloat16), *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def splash_attention(q, k, v, tokens_per_frame: int, window: Optional[int],
@@ -141,6 +202,10 @@ def splash_attention(q, k, v, tokens_per_frame: int, window: Optional[int],
         return splash_attention_plain(q, k, v, tokens_per_frame, window,
                                       causal, doc_id, scale)
     if q.device.type == "cuda":
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)):
+            return FrameAttentionFunction.apply(
+                q, k, v, tokens_per_frame, window, causal, doc_id, scale)
         return frame_attention_cuda(q, k, v, tokens_per_frame, window,
                                     causal, doc_id, scale)
     raise NotImplementedError(f"no frame attention for device {q.device}")

@@ -11,5 +11,5 @@ def get_sampler_cls(sampler_id: str):
     if sampler_id in _NOT_PORTED:
         raise NotImplementedError(
             f"sampler {sampler_id!r} is not ported yet: the KV-cached "
-            "samplers come with the cached serve slice")
+            "samplers come with the cached serve slice (port slice 5)")
     raise ValueError(f"Invalid sampler id: {sampler_id}")

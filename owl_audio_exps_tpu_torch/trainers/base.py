@@ -1,0 +1,209 @@
+"""Trainer foundation (counterpart of owl_audio_exps_tpu/trainers/base.py):
+train state, optimizer factory, the grad-accumulating train step,
+checkpoint save/resume and the preemption handler.
+
+The state is the model (float32 master parameters, bf16 compute), an EMA
+copy (float32 unless ``ema_dtype``), the optimizer and the step count. A
+step accumulates gradients over ``target_batch_size // batch_size``
+micro-batches, clips the global norm to 10 for every optimizer but Muon,
+updates, and moves the EMA towards the parameters with beta 0.999, as the
+JAX package's one jitted step does. Parameters and optimizer state are
+updated in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import signal
+from typing import Dict, List, Optional
+
+import torch
+
+from ..muon import AdamW, init_muon
+from ..schedulers import get_scheduler_cls
+from ..utils.checkpoints import (load_checkpoint, save_checkpoint,
+                                 save_clean_export)
+from ..utils.device import resolve_device
+from ..utils.logging import ExperimentLogger, LogHelper, Timer
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: torch.nn.Module
+    ema: Dict[str, torch.Tensor]
+    optimizer: object
+    step: int = 0
+
+
+def build_optimizer(train_cfg, named_params):
+    """opt: 'AdamW' | 'Muon' with the reference's kwargs."""
+    named = list(named_params)
+    opt_name = (train_cfg.opt or "AdamW").lower()
+    kwargs = dict(train_cfg.opt_kwargs.items()) if train_cfg.opt_kwargs \
+        else {}
+    make_schedule = get_scheduler_cls(train_cfg.scheduler)
+    if opt_name == "muon":
+        if make_schedule is not None:
+            raise NotImplementedError("LR schedules with Muon: set "
+                                      "scheduler null (reference parity)")
+        return init_muon(named, **kwargs)
+    lr = kwargs.pop("lr", 1e-4)
+    if make_schedule is not None:
+        lr = make_schedule(base_lr=lr, **dict(
+            (train_cfg.scheduler_kwargs or {}).items()))
+    betas = kwargs.pop("betas", (0.9, 0.999))
+    return AdamW([p for _, p in named], lr, betas=tuple(betas),
+                 eps=kwargs.pop("eps", 1e-8),
+                 weight_decay=kwargs.pop("weight_decay", 0.01))
+
+
+def global_norm(tensors) -> torch.Tensor:
+    return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
+
+
+@torch.no_grad()
+def clip_grad_norm(params, max_norm: float) -> torch.Tensor:
+    """Scale the gradients by min(1, max_norm / (norm + 1e-6)), as the
+    JAX package's step does; returns the norm before clipping."""
+    grads = [p.grad for p in params if p.grad is not None]
+    gnorm = global_norm(grads)
+    scale = torch.clamp(max_norm / (gnorm + 1e-6), max=1.0)
+    for g in grads:
+        g.mul_(scale)
+    return gnorm
+
+
+class BaseTrainer:
+    """Holds configs, device, logging and checkpoint plumbing."""
+
+    EMA_BETA = 0.999
+
+    def __init__(self, cfg, device=None):
+        self.cfg = cfg
+        self.model_cfg = cfg.model
+        self.train_cfg = cfg.train
+        self.wandb_cfg = cfg.wandb
+        # the card unless the caller or the config asks for the CPU
+        self.device = resolve_device(
+            device or self.train_cfg.get("device") or "cuda")
+        self.logger = ExperimentLogger()
+        self.metrics = LogHelper()
+        self.timer = Timer()
+        self.total_step_counter = 0
+
+    # ------------------------------------------------------------- state
+    def make_state(self, model: torch.nn.Module) -> TrainState:
+        ema_dtype = self.train_cfg.get("ema_dtype")
+        dt = getattr(torch, ema_dtype) if ema_dtype else None
+        ema = {n: p.detach().clone().to(dt or p.dtype)
+               for n, p in model.named_parameters()}
+        return TrainState(model=model, ema=ema,
+                          optimizer=build_optimizer(
+                              self.train_cfg, model.named_parameters()))
+
+    # -------------------------------------------------------- train step
+    def loss_fn(self, model, batch, generator):
+        """-> (loss, {name: detached scalar})"""
+        raise NotImplementedError
+
+    def train_step(self, state: TrainState, micro_batches: List,
+                   generator: torch.Generator,
+                   clip_norm: Optional[float] = None) -> Dict:
+        """One optimizer step over the micro-batches; returns the step's
+        metrics as device scalars (no host sync)."""
+        model, opt = state.model, state.optimizer
+        beta = self.EMA_BETA
+        accum = len(micro_batches)
+        opt.zero_grad(set_to_none=True)
+        sums: Dict[str, torch.Tensor] = {}
+        for mb in micro_batches:
+            loss, metrics = self.loss_fn(model, mb, generator)
+            (loss / accum).backward()
+            for k, v in metrics.items():
+                sums[k] = sums.get(k, 0.0) + v
+        metrics = {k: v / accum for k, v in sums.items()}
+        params = [p for p in model.parameters()]
+        with torch.no_grad():
+            if clip_norm is not None:
+                metrics["grad_norm"] = clip_grad_norm(params, clip_norm)
+            opt.step()
+            metrics["param_norm"] = global_norm(params)
+            for name, p in model.named_parameters():
+                e = state.ema[name]
+                e.mul_(beta).add_(p.to(e.dtype) * (1.0 - beta))
+        opt.zero_grad(set_to_none=True)
+        state.step += 1
+        return metrics
+
+    # ------------------------------------------------------ checkpoints
+    def ckpt_path(self, step: int) -> str:
+        return os.path.join(self.train_cfg.checkpoint_dir, f"step_{step}.pt")
+
+    def save(self, state: TrainState):
+        """Write step_N.pt, plus the EMA export when output_path is set."""
+        payload = {
+            "params": state.model.state_dict(),
+            "ema_params": state.ema,
+            "opt_state": state.optimizer.state_dict(),
+            "step": state.step,
+        }
+        save_checkpoint(self.ckpt_path(state.step), payload)
+        out = self.train_cfg.get("output_path")
+        if out:
+            save_clean_export(out, state.ema)
+
+    def load(self, path: str, state: TrainState) -> TrainState:
+        restored = load_checkpoint(path, map_location=self.device)
+        state.model.load_state_dict(restored["params"], strict=True)
+        with torch.no_grad():
+            for name, e in state.ema.items():
+                e.copy_(restored["ema_params"][name])
+        state.optimizer.load_state_dict(restored["opt_state"])
+        state.step = int(restored["step"])
+        return state
+
+    # ------------------------------------------------- failure handling
+    def install_preemption_handler(self):
+        """SIGTERM/SIGINT set a flag; the loop checkpoints and exits at
+        the next step boundary."""
+        self._preempted = False
+
+        def _handler(signum, frame):
+            self._preempted = True
+
+        try:
+            self._prev_handlers = {
+                signal.SIGTERM: signal.signal(signal.SIGTERM, _handler),
+                signal.SIGINT: signal.signal(signal.SIGINT, _handler),
+            }
+        except ValueError:
+            pass  # not on the main thread (e.g. under test runners)
+
+    def restore_preemption_handler(self):
+        """Reinstate whatever handled SIGTERM/SIGINT before train()."""
+        for sig, prev in getattr(self, "_prev_handlers", {}).items():
+            try:
+                signal.signal(sig, prev)
+            except ValueError:
+                pass
+        self._prev_handlers = {}
+
+    def should_stop(self) -> bool:
+        return getattr(self, "_preempted", False)
+
+    # ----------------------------------------------------------- helpers
+    def log_interval(self) -> int:
+        """Steps between host-blocking metric drains."""
+        return int(self.train_cfg.get("log_interval") or 10)
+
+    def accum_steps(self) -> int:
+        """target_batch_size // batch_size (one process)."""
+        return max(1, self.train_cfg.target_batch_size
+                   // self.train_cfg.batch_size)
+
+    def grad_clip_norm(self) -> Optional[float]:
+        """clip 10.0 for non-Muon."""
+        if (self.train_cfg.opt or "AdamW").lower() == "muon":
+            return None
+        return 10.0

@@ -1,0 +1,159 @@
+"""Rectified-flow trainers (counterpart of
+owl_audio_exps_tpu/trainers/rft_trainer.py ``RFTFamilyTrainer`` and
+``RFTTrainer``).
+
+The shared loop: epoch-free iteration over the loader, gradient
+accumulation, the optimizer step and EMA of trainers/base.py, metrics
+drained at the logging cadence (the only host sync of the loop), saves
+every ``save_interval`` steps, eval sampling every ``sample_interval``
+steps when an eval loader is configured. The noise comes from one
+``torch.Generator`` on the device, seeded 1234.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..data import get_loader
+from ..models import get_model_cls
+from ..utils.logging import DeferredMetrics
+from ..utils.mfu import MFUProfiler
+from .base import BaseTrainer, TrainState
+
+
+class RFTFamilyTrainer(BaseTrainer):
+    """Common loop for the flow-matching trainers."""
+
+    model_id: str = None
+
+    def __init__(self, cfg, device=None):
+        super().__init__(cfg, device)
+        self.model_id = self.model_cfg.model_id or self.model_id
+
+    # ---- subclass hooks -------------------------------------------------
+    def eval_step(self, state: TrainState, sample_loader, sampler):
+        return {}
+
+    # ---- shared loop ----------------------------------------------------
+    def init_state(self, seed: int = 0) -> TrainState:
+        model = get_model_cls(self.model_id)(
+            self.model_cfg, dtype=torch.bfloat16, device=self.device,
+            seed=seed)
+        return self.make_state(model.train())
+
+    def to_device(self, batch):
+        return [torch.from_numpy(np.asarray(x)).to(self.device) for x in batch]
+
+    def train(self, max_steps: Optional[int] = None) -> TrainState:
+        accum = self.accum_steps()
+        state = self.init_state()
+        if self.train_cfg.resume_ckpt:
+            state = self.load(self.train_cfg.resume_ckpt, state)
+            self.total_step_counter = state.step
+
+        loader = get_loader(self.train_cfg.data_id, self.train_cfg.batch_size,
+                            **dict((self.train_cfg.data_kwargs or {}).items()))
+        sampler = sample_loader = None
+        if self.train_cfg.sampler_id and self.train_cfg.get("sample_data_id"):
+            # without an eval loader the sampler is never called (eval_step
+            # returns {}), so it is only built when one is configured
+            from ..sampling import get_sampler_cls
+            skw = dict((self.train_cfg.sampler_kwargs or {}).items())
+            sampler = get_sampler_cls(self.train_cfg.sampler_id)(**skw)
+            sample_loader = iter(get_loader(
+                self.train_cfg.sample_data_id, self.train_cfg.n_samples,
+                **dict((self.train_cfg.get("sample_data_kwargs")
+                        or {}).items())))
+
+        seq_tokens = self._seq_tokens()
+        profiler = MFUProfiler(
+            self.model_cfg,
+            batch_tokens=accum * self.train_cfg.batch_size * seq_tokens,
+            seq_len=seq_tokens)
+        generator = torch.Generator(device=self.device).manual_seed(1234)
+        self.timer.reset()
+        self.install_preemption_handler()
+        try:
+            return self._train_loop(state, max_steps, accum, loader, sampler,
+                                    sample_loader, profiler, generator)
+        finally:
+            self.restore_preemption_handler()
+
+    def _train_loop(self, state, max_steps, accum, loader, sampler,
+                    sample_loader, profiler, generator):
+        total = max_steps if max_steps is not None else \
+            self.train_cfg.get("max_steps") or int(1e12)
+        data_iter = iter(loader)
+        pending = DeferredMetrics()
+        log_interval = self.log_interval()
+        clip = self.grad_clip_norm()
+        profiler.start()
+
+        while self.total_step_counter < total:
+            if self.should_stop():
+                for _, m in pending.drain():
+                    self.metrics.log_dict(m)
+                self.save(state)
+                break
+            micro = [self.to_device(next(data_iter)) for _ in range(accum)]
+            metrics = self.train_step(state, micro, generator, clip_norm=clip)
+            pending.append(self.total_step_counter + 1, metrics)
+            self.total_step_counter += 1
+
+            do_sample = sampler is not None and \
+                self.total_step_counter % self.train_cfg.sample_interval == 0
+            do_save = \
+                self.total_step_counter % self.train_cfg.save_interval == 0
+            boundary = (self.total_step_counter % log_interval == 0
+                        or do_sample or do_save
+                        or self.total_step_counter >= total)
+            if not boundary:
+                continue
+
+            # ---- the only host sync in the loop
+            drained = pending.drain()
+            for _, m in drained:
+                self.metrics.log_dict(m)
+            profiler.stop(n_steps=len(drained))
+            log = self.metrics.pop()
+            log["time"] = self.timer.hit() / max(1, len(drained))
+            log.update(profiler.report())
+            if do_sample:
+                log.update(self.eval_step(state, sample_loader, sampler))
+            self.logger.log(log, step=self.total_step_counter)
+            if do_save:
+                self.save(state)
+            # eval/save time is excluded from the next window's step timing
+            self.timer.reset()
+            profiler.start()
+        return state
+
+    def _seq_tokens(self) -> int:
+        """Tokens per sample for FLOP accounting."""
+        n = (self.train_cfg.data_kwargs or {}).get(
+            "window_length", self.model_cfg.n_frames)
+        return n * self.model_cfg.tokens_per_frame
+
+
+class RFTTrainer(RFTFamilyTrainer):
+    """Video RFT from latents. Batch: [vid, mouse, btn] or
+    [vid, mouse, btn, doc_id]."""
+
+    model_id = "game_rft"
+
+    def loss_fn(self, model, batch, generator):
+        vid, mouse, btn = batch[0], batch[1], batch[2]
+        doc_id = batch[3] if len(batch) > 3 else None
+        vid = (vid / self.train_cfg.vae_scale).to(torch.bfloat16)
+        loss = model(vid, mouse, btn, doc_id, generator=generator)
+        return loss, {"diffusion_loss": loss.detach()}
+
+    def eval_step(self, state, sample_loader, sampler):
+        if sample_loader is None:
+            return {}
+        raise NotImplementedError(
+            "eval sampling for game_rft needs the KV-cached samplers, which "
+            "come with port slice 5 (ROADMAP.md Queue 1)")

@@ -7,7 +7,10 @@ names (``blocks_3`` -> ``blocks.3``), a flax ``kernel`` [in, out] becomes
 the torch ``weight`` [out, in], norm ``scale``s become ``weight``s, and
 the heads-major [H, 3, Dh] rows of every QKV projection are permuted back
 to the torch reference's [3, H, Dh]. The port's modules load the result
-with ``load_state_dict`` directly.
+with ``load_state_dict`` directly: ``GameRFTAudioCore`` and ``GameRFTCore``
+from their own trees, the ``GameRFT`` training wrapper from its tree,
+whose ``core`` subtree becomes the ``core.`` prefix. The mapping is
+linear, so a tree of gradients maps the same way.
 """
 
 from __future__ import annotations

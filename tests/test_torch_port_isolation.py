@@ -39,9 +39,14 @@ def test_port_file_imports_no_jax(path):
 
 
 def test_port_package_has_its_kernel_source():
-    assert os.path.exists(os.path.join(
-        REPO, "owl_audio_exps_tpu_torch", "csrc", "frame_attention.cu"))
-    assert len(PORT_FILES) > 15
+    for src in ("frame_attention.cu", "band_attention.cu",
+                "attention_tiles.cuh"):
+        assert os.path.exists(os.path.join(
+            REPO, "owl_audio_exps_tpu_torch", "csrc", src)), src
+    for module in ("ops/band.py", "models/gamerft.py", "muon.py",
+                   "trainers/rft_trainer.py", "train.py"):
+        assert os.path.join("owl_audio_exps_tpu_torch", module) in PORT_FILES
+    assert len(PORT_FILES) > 30
 
 
 def _run(code, cwd=REPO):
@@ -73,6 +78,31 @@ print("FORBIDDEN", bad)
     assert "FORBIDDEN []" in res.stdout
 
 
+def test_port_trainer_runs_without_importing_jax(tmp_path):
+    code = f"""
+import sys, torch
+from owl_audio_exps_tpu_torch.configs import Config
+from owl_audio_exps_tpu_torch.trainers import get_trainer_cls
+cfg = Config.from_dict({{"model": dict(model_id="game_rft", n_layers=2,
+    n_heads=2, d_model=32, channels=4, sample_size=2, tokens_per_frame=4,
+    n_buttons=3, causal=True, local_window=2, gradient_checkpointing=True,
+    remat_granularity="group"),
+    "train": dict(trainer_id="rft", data_id="synthetic_latent",
+    data_kwargs=dict(window_length=4, channels=4, sample_size=2,
+    n_buttons=3), target_batch_size=1, batch_size=1, opt="Muon",
+    opt_kwargs=dict(momentum_dtype="bfloat16"), save_interval=2,
+    checkpoint_dir={str(tmp_path)!r}, log_interval=1)}})
+state = get_trainer_cls("rft")(cfg, device="cpu").train(max_steps=2)
+assert state.step == 2
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "flax", "owl_audio_exps_tpu")]
+print("FORBIDDEN", bad)
+"""
+    res = _run(code)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "FORBIDDEN []" in res.stdout
+
+
 def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
@@ -89,6 +119,10 @@ def test_entry_points_default_to_the_card():
     core = GameRFTAudioCore(cfg, dtype=torch.float32, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         CausvidPipeline(core, cfg)
+    from owl_audio_exps_tpu_torch.configs import Config
+    from owl_audio_exps_tpu_torch.trainers.rft_trainer import RFTTrainer
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RFTTrainer(Config.from_dict({"model": {"model_id": "game_rft"}}))
 
 
 @pytest.mark.parametrize("alone", [False, True],

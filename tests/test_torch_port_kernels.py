@@ -7,13 +7,46 @@ JAX, so there run them without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_kernels.py
 
-chip_smoke.py holds the same kernel at the full serve geometries.
+chip_smoke.py holds the same kernels at the full serve and training
+geometries.
 """
 
 import pytest
 import torch
 
-from owl_audio_exps_tpu_torch.ops import splash
+from owl_audio_exps_tpu_torch.ops import band, splash
+
+# gradients: kernel (bf16 in and out, bf16 P and dS) against autograd of
+# the plain version in float32 on the same bf16 inputs, as relative L2
+# error per tensor (the tolerance chip_smoke.py states)
+GRAD_REL_L2 = 2e-2
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+
+
+def _qkv(L, H=4, seed=0, normed=False):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ts = [torch.randn(1, H, L, 64, generator=gen, device="cuda")
+          for _ in range(3)]
+    if normed:  # unit-RMS q and k, as QK rms-norm produces
+        for i in (0, 1):
+            ts[i] = ts[i] * torch.rsqrt(ts[i].pow(2).mean(-1, keepdim=True))
+    return [t.to(torch.bfloat16) for t in ts]
+
+
+def _grads(fn, q, k, v, dout):
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = fn(q, k, v)
+    out.backward(dout)
+    return out, (q.grad, k.grad, v.grad)
+
+
+def _rel_l2(a, b):
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
 
 
 @pytest.mark.cuda
@@ -21,11 +54,8 @@ from owl_audio_exps_tpu_torch.ops import splash
     (130, 65, 2, True, False), (1040, 65, 16, False, False),
     (1024, 64, None, True, False), (650, 65, None, True, True)])
 def test_kernel_matches_plain_on_card(L, tpf, window, causal, docs):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn(1, 4, L, 64, generator=gen, device="cuda")
-               .to(torch.bfloat16) for _ in range(3))
+    _need_card()
+    q, k, v = _qkv(L)
     nf = -(-L // tpf)
     doc = ((torch.arange(nf, device="cuda") >= nf // 2).int()[None]
            if docs else None)
@@ -42,9 +72,59 @@ def test_kernel_matches_plain_on_card(L, tpf, window, causal, docs):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("L,tpf,window,causal,docs", [
+    (130, 65, 2, True, False), (1040, 65, 16, False, False),
+    (1024, 64, None, True, False), (650, 65, None, True, True),
+    (1000, 64, 3, True, True), (455, 65, 2, False, True)])
+def test_kernel_backward_matches_plain_on_card(L, tpf, window, causal, docs):
+    _need_card()
+    q, k, v = _qkv(L, seed=1)
+    dout = _qkv(L, seed=2)[0]
+    nf = -(-L // tpf)
+    doc = ((torch.arange(nf, device="cuda") >= nf // 3).int()[None]
+           if docs else None)
+    counts = (splash.launches, splash.dq_launches, splash.dkv_launches)
+    out, got = _grads(lambda *a: splash.splash_attention(
+        *a, tpf, window, causal, doc), q, k, v, dout)
+    torch.cuda.synchronize()
+    assert (splash.launches, splash.dq_launches, splash.dkv_launches) == \
+        tuple(c + 1 for c in counts)
+    _, want = _grads(lambda *a: splash.splash_attention_plain(
+        *a, tpf, window, causal, doc), q.float(), k.float(), v.float(),
+        dout.float())
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a).all(), name
+        assert _rel_l2(a, b) < GRAD_REL_L2, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tpf,window,n_chunks,bound", [
+    (64, 2, 3, None), (64, 2, 3, 8.0), (65, 8, 2, 8.0), (65, 16, 2, None),
+    (128, 1, 4, 8.0)])
+def test_band_kernel_matches_plain_on_card(tpf, window, n_chunks, bound):
+    _need_card()
+    L = window * tpf * n_chunks
+    q, k, v = _qkv(L, seed=3, normed=True)
+    dout = _qkv(L, seed=4)[0]
+    counts = (band.fwd_launches, band.bwd_launches)
+    out, got = _grads(lambda *a: band.band_attention(
+        *a, tpf, window, logit_bound=bound), q, k, v, dout)
+    torch.cuda.synchronize()
+    assert (band.fwd_launches, band.bwd_launches) == \
+        (counts[0] + 1, counts[1] + 1)
+    ref, want = _grads(lambda *a: band.band_attention_plain(
+        *a, tpf, window, bound), q.float(), k.float(), v.float(),
+        dout.float())
+    err = (out.float() - ref).abs()
+    assert err.max().item() < 2e-2 and err.mean().item() < 2e-3
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a).all(), name
+        assert _rel_l2(a, b) < GRAD_REL_L2, name
+
+
+@pytest.mark.cuda
 def test_kernel_reads_strided_views_and_rejects_what_it_cannot_run():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    _need_card()
     gen = torch.Generator(device="cuda").manual_seed(1)
     B, L, H, Dh = 2, 260, 4, 64
     # the layout Attn hands over: [B, H, L, Dh] views of [B, L, 3, H, Dh]
@@ -59,6 +139,20 @@ def test_kernel_reads_strided_views_and_rejects_what_it_cannot_run():
     torch.testing.assert_close(out, ref, atol=0, rtol=0)
     with pytest.raises(NotImplementedError, match="bf16"):
         splash.splash_attention(q.float(), k.float(), v.float(), 65, 2, True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        splash.splash_attention(q.detach().requires_grad_(), k, v, 65, 2,
-                                True)
+    # a strided view that requires grad goes through the backward kernels,
+    # which give the same gradients as on contiguous copies
+    leaf = qkv.detach().requires_grad_()
+    views = [leaf[:, :, i].transpose(1, 2) for i in range(3)]
+    before = splash.dkv_launches
+    splash.splash_attention(*views, 65, 2, True).sum().backward()
+    flat = [t.detach().contiguous().requires_grad_() for t in (q, k, v)]
+    splash.splash_attention(*flat, 65, 2, True).sum().backward()
+    torch.cuda.synchronize()
+    assert splash.dkv_launches == before + 2
+    for i, t in enumerate(flat):
+        torch.testing.assert_close(leaf.grad[:, :, i].transpose(1, 2),
+                                   t.grad, atol=0, rtol=0)
+    # a raw launch has no backward
+    with pytest.raises(RuntimeError, match="require grad"):
+        splash.frame_attention_cuda(views[0], views[1], views[2], 65, 2,
+                                    True)

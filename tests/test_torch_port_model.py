@@ -131,14 +131,29 @@ def test_routing_and_unported_paths_raise():
     pcfg.attn_impl = "dense"
     assert not use_splash_path(pcfg, 4096, cuda)
 
+    # a pinned band runs where its span divides the sequence (32 frames x
+    # 5 tokens, 2 chunks) and gives the frame-mask route's output; band2
+    # and chunked still raise
+    _, bcfg = configs(causal=True, local_window=32, attn_impl="splash",
+                      local_attn_impl="band")
+    binputs = [t(a) for a in av_inputs(np.random.RandomState(5), 1, 64,
+                                       bcfg)]
+    bcore = GameRFTAudioCore(bcfg, dtype=torch.float32, device="cpu")
+    with torch.no_grad():
+        vb, ab = bcore(*binputs)
+        bcfg.local_attn_impl = "splash"
+        vs, as_ = bcore(*binputs)
+    torch.testing.assert_close(vb, vs, atol=ATOL, rtol=0)
+    torch.testing.assert_close(ab, as_, atol=ATOL, rtol=0)
+    for impl, match in (("band2", "slice 4"), ("chunked", "chunked")):
+        bcfg.local_attn_impl = impl
+        with pytest.raises(NotImplementedError, match=match):
+            bcore(*binputs)
+
     inputs = [t(a) for a in av_inputs(np.random.RandomState(4), 1, 2,
                                       pcfg)]
-    for impl in ("band", "band2", "chunked"):
-        pcfg.attn_impl, pcfg.local_attn_impl = "splash", impl
-        core = GameRFTAudioCore(pcfg, dtype=torch.float32, device="cpu")
-        with pytest.raises(NotImplementedError, match="band and chunked"):
-            core(*inputs)
-    pcfg.local_attn_impl = "auto"
+    pcfg.attn_impl, pcfg.local_attn_impl = "splash", "auto"
+    core = GameRFTAudioCore(pcfg, dtype=torch.float32, device="cpu")
     with pytest.raises(NotImplementedError, match="cached serve slice"):
         core(*inputs, kv_cache=object())
     _, mm = configs(backbone="mmdit")
@@ -146,6 +161,6 @@ def test_routing_and_unported_paths_raise():
         GameRFTAudioCore(mm, device="cpu")
     assert get_core_cls("game_rft_audio") is GameRFTAudioCore
     with pytest.raises(NotImplementedError):
-        get_core_cls("game_rft")
+        get_core_cls("game_mft_audio")
     with pytest.raises(ValueError):
         get_core_cls("no_such_model")
