@@ -28,7 +28,17 @@ Phases, each of which exits non-zero on any failure:
    s/step, tokens/s, MFU, peak memory, device time by class of one traced
    step, and an exact resume from the step-6 checkpoint;
 6. one training step at full width and 4 layers (L = 4,096) through the
-   kernels and through dense attention, loss and gradients compared.
+   kernels and through dense attention, loss and gradients compared;
+7. context parallelism (configs/dit_v4_98k_sp.yml: 98,304 tokens split
+   over 4 seq ranks, 24,576 a rank), as far as one card holds it: the
+   ring partial K4 (forward causal and full, backward with an lse
+   cotangent) against its plain version at the per-rank geometry, with
+   its time, the plain version's, its bound and SDPA's; then the ring
+   and the halo of all 4 slices of the 98,304-token sequence run in one
+   process through parallel/context.py's per-step functions (K/V passed
+   on by indexing instead of NCCL), with exact K4 launch counts, held
+   against K1 and the band kernel over the whole sequence, forward and
+   gradients.
 
 The last lines are the kernels' JSON record, the card line, and
 {"ok": true, "device": {...}}.
@@ -67,6 +77,10 @@ TRAIN_STEPS = 6   # the config's save_interval: step 6 is saved and resumed
 # relative difference, gradient relative L2 over all parameters and the
 # worst single parameter (24 bf16 layers' worth of rounding in 4)
 ROUTE_LOSS_REL, ROUTE_GRAD_REL_L2, ROUTE_PARAM_REL_L2 = 1e-2, 3e-2, 1e-1
+# context parallelism: configs/dit_v4_98k_sp.yml's sequence over 4 seq
+# ranks; the ring and halo against the full-sequence kernels are held to
+# GRAD_REL_L2 per tensor (both sides bf16 kernels)
+SP_TOKENS, SP_SHARDS, SP_TPF, SP_WINDOW = 98_304, 4, 64, 16
 
 
 def fail(msg: str):
@@ -235,13 +249,9 @@ def rms_normed(t):
 def grad_errors(fn, plain, q, k, v, dout):
     """Kernel gradients through autograd against f32 autograd of the plain
     version on the same bf16 inputs: {name: (rel L2, max|d|, mean|d|)}."""
-    def run(f, ts, g):
-        ts = [t.detach().requires_grad_() for t in ts]
-        out = f(*ts)
-        out.backward(g)
-        return out.detach(), [t.grad for t in ts]
-    out, got = run(fn, (q, k, v), dout)
-    ref, want = run(plain, (q.float(), k.float(), v.float()), dout.float())
+    out, *got = grads_of(fn, q, k, v, dout)
+    ref, *want = grads_of(plain, q.float(), k.float(), v.float(),
+                          dout.float())
     errs = {"out": (rel_l2(out, ref),
                     (out.float() - ref).abs().max().item(),
                     (out.float() - ref).abs().mean().item())}
@@ -254,7 +264,8 @@ def grad_errors(fn, plain, q, k, v, dout):
 
 
 def fwd_bwd_ms(fwd, q, k, v, dout, iters):
-    """(forward ms, forward + backward ms) of autograd over ``fwd``."""
+    """(forward ms, forward + backward ms) of autograd over ``fwd``
+    (``dout`` a tuple of cotangents where ``fwd`` returns a tuple)."""
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
 
     def both():
@@ -579,12 +590,17 @@ def kernel_counts():
             "frame_attention_bwd_dq": splash.dq_launches,
             "frame_attention_bwd_dkv": splash.dkv_launches,
             "band_attention_fwd": band.fwd_launches,
-            "band_attention_bwd": band.bwd_launches}
+            "band_attention_bwd": band.bwd_launches,
+            "ring_partial_fwd": splash.lse_launches,
+            "ring_partial_bwd_dq": splash.lse_dq_launches,
+            "ring_partial_bwd_dkv": splash.lse_dkv_launches}
 
 
 def reset_counts():
     from owl_audio_exps_tpu_torch.ops import band, splash
     splash.launches = splash.dq_launches = splash.dkv_launches = 0
+    splash.lse_launches = splash.lse_dq_launches = 0
+    splash.lse_dkv_launches = 0
     band.fwd_launches = band.bwd_launches = 0
 
 
@@ -602,7 +618,31 @@ def expected_counts(cfg):
             "frame_attention_bwd_dq": len(flags) - n_local,
             "frame_attention_bwd_dkv": len(flags) - n_local,
             "band_attention_fwd": sum(f for f, l in zip(fwd, flags) if l),
-            "band_attention_bwd": n_local}
+            "band_attention_bwd": n_local,
+            "ring_partial_fwd": 0, "ring_partial_bwd_dq": 0,
+            "ring_partial_bwd_dkv": 0}
+
+
+def counted_trainer(base):
+    """A subclass of the trainer class ``base`` that sets every kernel
+    count to 0 before each step and appends the counts, the step's wall
+    time and its loss to ``steps`` after it."""
+
+    class CountedTrainer(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.steps = []
+
+        def train_step(self, state, micro, gen, **kw):
+            reset_counts()
+            t0 = time.perf_counter()
+            metrics = super().train_step(state, micro, gen, **kw)
+            loss = float(metrics["diffusion_loss"])   # waits for the step
+            self.steps.append(dict(s=time.perf_counter() - t0, loss=loss,
+                                   counts=kernel_counts()))
+            return metrics
+
+    return CountedTrainer
 
 
 def state_tensors(state):
@@ -697,23 +737,7 @@ def train_phase(dev):
     expect = expected_counts(cfg)
     L = tc.data_kwargs.window_length * cfg.tokens_per_frame
 
-    class CountedTrainer(RFTTrainer):
-        """Sets every kernel count to 0 before each step and reads the
-        counts, the step's wall time and loss after it."""
-
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            self.steps = []
-
-        def train_step(self, state, micro, gen, **kw):
-            reset_counts()
-            t0 = time.perf_counter()
-            metrics = super().train_step(state, micro, gen, **kw)
-            loss = float(metrics["diffusion_loss"])   # waits for the step
-            self.steps.append(dict(s=time.perf_counter() - t0, loss=loss,
-                                   counts=kernel_counts()))
-            return metrics
-
+    CountedTrainer = counted_trainer(RFTTrainer)
     torch.cuda.reset_peak_memory_stats()
     trainer = CountedTrainer(conf, device=dev)
     t0 = time.perf_counter()
@@ -808,7 +832,8 @@ def route_phase(dev):
 
     reset_counts()
     lk, gk = one_step("auto")
-    counts = kernel_counts()
+    counts = {k: n for k, n in kernel_counts().items()
+              if not k.startswith("ring_partial")}
     if not all(counts.values()):
         fail(f"route check: the kernel route launched {counts}")
     ld, gd = one_step("dense")
@@ -833,12 +858,253 @@ def route_phase(dev):
     return dict(loss_rel=loss_rel, grad_rel_l2=total, worst_param=per[worst])
 
 
+# ---------------------------------------------------------------- phase 7
+K4_CASES = [("L24576_causal", True), ("L24576_full", False)]
+
+
+def k4_phase(dev):
+    """K4 at the per-rank geometry of configs/dit_v4_98k_sp.yml on 4 seq
+    ranks: q rms-normed and pre-scaled as the ring hands it, k
+    rms-normed; random cotangents on out (f32) and lse."""
+    import torch.nn.functional as F
+    from owl_audio_exps_tpu_torch.ops import splash
+
+    B, H, Dh, tpf = 1, 24, 64, SP_TPF
+    L = SP_TOKENS // SP_SHARDS
+    gen = torch.Generator(device=dev).manual_seed(20)
+    rows = {}
+    for name, causal in K4_CASES:
+        q, k, v = (torch.randn(B, H, L, Dh, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        q = (rms_normed(q) * Dh ** -0.5).to(torch.bfloat16)
+        k = rms_normed(k)
+        g_out = torch.randn(B, H, L, Dh, generator=gen, device=dev)
+        g_lse = torch.randn(B, H, L, generator=gen, device=dev)
+        hc = CHECK_HEADS
+
+        # the kernel through its autograd Function, against f32 autograd
+        # of the plain version, on the first hc heads
+        sub = [t[:, :hc] for t in (q, k, v)]
+        leaves = [t.detach().requires_grad_() for t in sub]
+        out, lse = splash.splash_attention_lse(*leaves, tpf, causal)
+        torch.autograd.backward((out, lse), (g_out[:, :hc], g_lse[:, :hc]))
+        ref = [t.detach().float().requires_grad_() for t in sub]
+        rout, rlse = splash.splash_attention_lse_plain(*ref, tpf, causal)
+        torch.autograd.backward((rout, rlse), (g_out[:, :hc],
+                                               g_lse[:, :hc]))
+        if not (torch.isfinite(out).all() and torch.isfinite(lse).all()):
+            fail(f"K4 {name}: output not finite")
+        d = (out - rout).abs()
+        errs = {"out": (rel_l2(out, rout), d.max().item(), d.mean().item()),
+                "lse": (rel_l2(lse, rlse),
+                        (lse - rlse).abs().max().item(),
+                        (lse - rlse).abs().mean().item())}
+        for gname, a, b in zip(("dq", "dk", "dv"), leaves, ref):
+            if not torch.isfinite(a.grad).all():
+                fail(f"K4 {name}: {gname} not finite")
+            dd = (a.grad.float() - b.grad).abs()
+            errs[gname] = (rel_l2(a.grad, b.grad), dd.max().item(),
+                           dd.mean().item())
+        del leaves, ref, out, lse, rout, rlse, d
+        torch.cuda.empty_cache()
+
+        iters = 5
+        g_bf = g_out.to(torch.bfloat16)   # the cast is not the kernel's
+        fwd_ms = cuda_ms(lambda: splash.splash_attention_lse_cuda(
+            q, k, v, tpf, causal), iters)
+        out, lse = splash.splash_attention_lse_cuda(q, k, v, tpf, causal)
+        # delta' (f32, plain PyTorch as in the JAX package) is not a kernel
+        delta_ms = cuda_ms(lambda: splash.ring_delta(out, g_out, g_lse),
+                           iters)
+        delta = splash.ring_delta(out, g_out, g_lse)
+        dq_ms = cuda_ms(lambda: splash.splash_attention_lse_bwd_dq_cuda(
+            q, k, v, lse, delta, g_bf, tpf, causal), iters)
+        dkv_ms = cuda_ms(lambda: splash.splash_attention_lse_bwd_dkv_cuda(
+            q, k, v, lse, delta, g_bf, tpf, causal), iters)
+        del out, lse, delta
+        pf, pt = zip(*by_heads(lambda q_, k_, v_, go, gl: fwd_bwd_ms(
+            lambda *a: splash.splash_attention_lse_plain(*a, tpf, causal),
+            q_, k_, v_, (go, gl), 1), q, k, v, g_out, g_lse))
+        plain_fwd, plain_bwd = sum(pf), sum(pt) - sum(pf)
+        torch.cuda.empty_cache()
+        mask = sdpa_mask(dev, L, tpf, None, True, None) if causal else None
+        sdpa = lambda *t: F.scaled_dot_product_attention(
+            *t, attn_mask=mask, scale=1.0)
+        try:
+            lf, lt = fwd_bwd_ms(sdpa, q, k, v, g_bf, iters)
+            lib_fwd, lib_bwd = lf, lt - lf
+        except (RuntimeError, torch.OutOfMemoryError) as e:
+            print(f"[k4]   library call unavailable: {str(e)[:120]}",
+                  flush=True)
+            lib_fwd = lib_bwd = None
+        del mask, g_bf
+        torch.cuda.empty_cache()
+
+        pairs = pairs_of(L, tpf, None, causal, None, B)
+        elems, stats = B * H * L * Dh, B * H * L
+        timed = {
+            "fwd": (fwd_ms, bound_row(4.0 * Dh * pairs * H,
+                                      6.0 * elems + 4.0 * elems
+                                      + 4.0 * stats), ("out", "lse")),
+            "bwd_dq": (dq_ms, bound_row(6.0 * Dh * pairs * H,
+                                        10.0 * elems + 8.0 * stats),
+                       ("dq",)),
+            "bwd_dkv": (dkv_ms, bound_row(8.0 * Dh * pairs * H,
+                                          12.0 * elems + 8.0 * stats),
+                        ("dk", "dv"))}
+        for part, (ms, bnd, keys) in timed.items():
+            is_fwd = part == "fwd"
+            rows[(f"ring_partial_{part}", name)] = dict(
+                ms=ms, plain_ms=plain_fwd if is_fwd else plain_bwd,
+                library_ms=lib_fwd if is_fwd else lib_bwd,
+                max_abs_err=max(errs[n][1] for n in keys),
+                mean_abs_err=max(errs[n][2] for n in keys),
+                rel_l2=max(errs[n][0] for n in keys), checked_heads=hc,
+                tflops=bnd["gflop"] / ms, **bnd)
+            if part != "fwd":
+                rows[(f"ring_partial_{part}", name)]["delta_ms"] = delta_ms
+        lib = ("n/a" if lib_bwd is None else
+               f"fwd {lib_fwd:.4f} ms bwd {lib_bwd:.4f} ms")
+        print(f"[k4] ring partial {name}: B={B} H={H} L={L} Dh={Dh} "
+              f"tpf={tpf} causal={causal} | checked at H={hc}: " + " ".join(
+                  f"{n} rel={e[0]:.2e} max|d|={e[1]:.2e} mean|d|={e[2]:.2e}"
+                  for n, e in errs.items()), flush=True)
+        print("[k4]   " + " ".join(
+            f"{part} {ms:.4f} ms ({bnd['gflop'] / ms:.1f} TFLOP/s, bound "
+            f"{bnd['bound_ms']:.4f} ms {bnd['bound_by']})"
+            for part, (ms, bnd, _) in timed.items())
+            + f" | delta' {delta_ms:.4f} ms"
+            + f" | plain fwd {plain_fwd:.3f} ms bwd {plain_bwd:.3f} ms | "
+            f"sdpa {lib}", flush=True)
+        worst = max(e[0] for n, e in errs.items() if n != "lse")
+        if worst > GRAD_REL_L2:
+            fail(f"K4 {name}: kernel disagrees with its plain version "
+                 f"(relative L2 {worst:.3e} > {GRAD_REL_L2})")
+        if errs["out"][1] > KERNEL_MAX_ABS or errs["out"][2] > \
+                KERNEL_MEAN_ABS or errs["lse"][1] > KERNEL_MAX_ABS:
+            fail(f"K4 {name}: forward disagrees with its plain version")
+        del q, k, v, g_out, g_lse
+        torch.cuda.empty_cache()
+    return rows
+
+
+def ring_one_process(q, k, v, tpf: int, n: int):
+    """Ring attention of all n slices of [B, H, L, Dh] q, k, v in one
+    process, through parallel/context.py's per-step functions: slice i's
+    step r takes the K/V of slice (i - r) mod n, which the ring would
+    have rotated to it. Returns the [B, H, L, Dh] output."""
+    from owl_audio_exps_tpu_torch.parallel.context import (ring_partial,
+                                                           ring_step)
+    per = q.shape[2] // n
+    qs = (q * q.shape[-1] ** -0.5).to(q.dtype)
+    cut = lambda t, i: t[:, :, i * per:(i + 1) * per]
+    outs = []
+    for i in range(n):
+        out, lse = ring_partial(cut(qs, i), cut(k, i), cut(v, i), tpf, True)
+        for r in range(1, n):
+            src = (i - r) % n
+            out, lse = ring_step(cut(qs, i), cut(k, src), cut(v, src), out,
+                                 lse, tpf, src < i)
+        outs.append(out.to(q.dtype))
+    return torch.cat(outs, 2)
+
+
+def halo_one_process(q, k, v, tpf: int, window: int, n: int, bound):
+    """The local layer of all n slices in one process: slice i > 0 takes
+    the last C = window * tpf tokens of slice i - 1 as its halo."""
+    from owl_audio_exps_tpu_torch.parallel.context import (
+        local_attention_with_halo)
+    per, C = q.shape[2] // n, window * tpf
+    outs = []
+    for i in range(n):
+        sl = slice(i * per, (i + 1) * per)
+        hs = slice(i * per - C, i * per) if i else slice(0, C)
+        outs.append(local_attention_with_halo(
+            q[:, :, sl], k[:, :, sl], v[:, :, sl], k[:, :, hs], v[:, :, hs],
+            tpf, window, i > 0, bound))
+    return torch.cat(outs, 2)
+
+
+def context_phase(dev):
+    """Ring and halo of the 98,304-token sequence over 4 slices in one
+    process (the main path's per-step functions, counted) against K1 and
+    the band kernel over the whole sequence (not counted)."""
+    from owl_audio_exps_tpu_torch.ops import band, splash
+
+    B, H, Dh, L, n = 1, 24, 64, SP_TOKENS, SP_SHARDS
+    tpf, window, bound = SP_TPF, SP_WINDOW, float(Dh) ** 0.5
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q, k, v, g = (torch.randn(B, H, L, Dh, generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(4))
+    q, k = rms_normed(q), rms_normed(k)   # as QK rms-norm gives them
+    paths = {
+        "ring": (lambda *t: ring_one_process(*t, tpf, n),
+                 lambda *t: splash.splash_attention(*t, tpf, None, True)),
+        "halo": (lambda *t: halo_one_process(*t, tpf, window, n, bound),
+                 lambda *t: band.band_attention(*t, tpf, window,
+                                                logit_bound=bound)),
+    }
+    got, secs = {}, {}
+    reset_counts()
+    for name, (fn, _) in paths.items():
+        t0 = time.perf_counter()
+        got[name] = grads_of(fn, q, k, v, g)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    counts = kernel_counts()
+    reset_counts()
+    expect = dict.fromkeys(counts, 0)
+    expect.update(ring_partial_fwd=n * n + n * (n - 1),
+                  ring_partial_bwd_dq=n * n, ring_partial_bwd_dkv=n * n,
+                  band_attention_fwd=n, band_attention_bwd=n)
+    print(f"[context] {n} slices x {L // n} tokens of L = {L} (tpf {tpf}, "
+          f"local window {window}) in one process: ring {secs['ring']:.2f} "
+          f"s, halo {secs['halo']:.2f} s (forward + backward); launches "
+          f"{ {k: c for k, c in counts.items() if c} }", flush=True)
+    print(f"[context]   K4 forward launches = {n} slices x {n} steps in the "
+          f"forward + {n} x {n - 1} recomputed by the per-step checkpoint "
+          f"(steps 1..{n - 1}) = {n * n + n * (n - 1)}", flush=True)
+    if counts != expect:
+        fail(f"context: launches {counts}, expected {expect}")
+
+    worst = {}
+    for name, (_, full) in paths.items():
+        want = grads_of(full, q, k, v, g)
+        errs = {t: rel_l2(a, b) for t, a, b in
+                zip(("out", "dq", "dk", "dv"), got[name], want)}
+        worst[name] = max(errs.values())
+        print(f"[context] {name} vs the full-sequence "
+              f"{'K1' if name == 'ring' else 'band kernel'}: relative L2 "
+              + " ".join(f"{t} {e:.3e}" for t, e in errs.items())
+              + f" (tolerance {GRAD_REL_L2})", flush=True)
+        del want
+        torch.cuda.empty_cache()
+    reset_counts()
+    if max(worst.values()) > GRAD_REL_L2:
+        fail(f"context: ring/halo disagree with the full sequence {worst}")
+    del got, q, k, v, g
+    torch.cuda.empty_cache()
+    return dict(counts={k: c for k, c in counts.items() if c},
+                rel_l2=worst, seconds=secs)
+
+
+def grads_of(fn, q, k, v, g):
+    """(out, dq, dk, dv) of fn under the cotangent g."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fn(*leaves)
+    out.backward(g)
+    return [out.detach()] + [t.grad for t in leaves]
+
+
 KERNELS = {
     "frame_attention_fwd": ("frame_attention.cu", "ops/splash.py:237"),
     "frame_attention_bwd_dq": ("frame_attention.cu", "ops/splash.py:220"),
     "frame_attention_bwd_dkv": ("frame_attention.cu", "ops/splash.py:220"),
     "band_attention_fwd": ("band_attention.cu", "ops/band.py:422"),
     "band_attention_bwd": ("band_attention.cu", "ops/band.py:599"),
+    "ring_partial_fwd": ("frame_attention.cu", "ops/splash.py:312"),
+    "ring_partial_bwd_dq": ("frame_attention.cu", "ops/splash.py:358"),
+    "ring_partial_bwd_dkv": ("frame_attention.cu", "ops/splash.py:358"),
 }
 MAIN_CASE = {  # the training path's geometry of each kernel
     "frame_attention_fwd": "L16384_tpf64_causal_global",
@@ -846,6 +1112,10 @@ MAIN_CASE = {  # the training path's geometry of each kernel
     "frame_attention_bwd_dkv": "L16384_tpf64_causal_global",
     "band_attention_fwd": "L16384_tpf64_w16_bound8",
     "band_attention_bwd": "L16384_tpf64_w16_bound8",
+    # 3 of the 4 partials of a rank's ring are unmasked
+    "ring_partial_fwd": "L24576_full",
+    "ring_partial_bwd_dq": "L24576_full",
+    "ring_partial_bwd_dkv": "L24576_full",
 }
 
 
@@ -908,9 +1178,13 @@ def main():
     sampler_launches = sampler_phase(dev)
     train = train_phase(dev)
     route = route_phase(dev)
+    grad_rows.update(k4_phase(dev))
+    context = context_phase(dev)
 
     launches = dict(train["totals"])
     launches["frame_attention_fwd"] += serve_launches + sampler_launches
+    for name, count in context["counts"].items():
+        launches[name] += count
     extra = {"frame_attention_fwd": dict(
         launches_by_path=dict(serve=serve_launches, sampler=sampler_launches,
                               train=train["totals"]["frame_attention_fwd"]),
@@ -918,10 +1192,13 @@ def main():
     for name in train["per_step"]:
         extra.setdefault(name, {})["launches_per_train_step"] = \
             train["per_step"][name]
+    for name in ("band_attention_fwd", "band_attention_bwd"):
+        extra[name]["launches_by_path"] = dict(
+            train=train["totals"][name], context=context["counts"][name])
     record = {"kernels": kernel_record(fwd_rows, grad_rows, launches, extra),
               "train": {k: v for k, v in train.items()
                         if k not in ("totals", "per_step")},
-              "route": route}
+              "route": route, "context": context}
     print(json.dumps(record), flush=True)
     print(f"[env] {card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,13 @@
 // P = exp(min(s, cap) - lse), with dS = P * (dP - delta), delta =
 // rowsum(dO * O). The clamp passes its gradient straight through, as the
 // TPU band kernel's backward does (ops/band.py:489-508).
+//
+// A cotangent on the logsumexp as well (the ring partials of
+// ops/splash.py splash_attention_lse) folds into delta: d lse_i / d s_ij
+// = P_ij, so the backward is the usual one with delta' = rowsum(dO * O)
+// - g_lse (and d lse / d V = 0). The caller computes delta' in f32 from
+// the f32 output cotangent, as the TPU package does, and both passes read
+// it (dq_tile with kReadDelta).
 
 #pragma once
 
@@ -535,8 +542,9 @@ __device__ __forceinline__ float tile_delta(const bf16* sdO, const bf16* sO,
 
 // dq of the 64-row query tile at q0: the block walks the same key tiles
 // as the forward. delta comes from this tile's dO and O; with
-// `write_delta` it is also stored for the dkv pass.
-template <int D>
+// `write_delta` it is also stored for the dkv pass. With `kReadDelta` it
+// is read from p.delta instead (a delta' the caller computed).
+template <int D, bool kReadDelta = false>
 __device__ __forceinline__ void dq_tile(const Params& p, int b, int h, int q0,
                                         bool write_delta) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -560,22 +568,31 @@ __device__ __forceinline__ void dq_tile(const Params& p, int b, int h, int q0,
                     p.scale);
   load_tile<D, LDS>(sdO, base(p.dout, p, OP_DO, b, h), p.s[OP_DO][2], q0, L,
                     0.f);
-  load_tile<D, LDS>(sK, base(static_cast<const bf16*>(p.o), p, OP_O, b, h),
-                    p.s[OP_O][2], q0, L, 0.f);  // O, for delta
-  if (threadIdx.x < 64) {
-    const int row = q0 + threadIdx.x;
-    sLse[threadIdx.x] = row < L ? p.lse[stat_index(p, b, h, row)] : INFINITY;
-  }
-  __syncthreads();
-  {
-    int r;
-    const float d = tile_delta<D, LDS>(sdO, sK, r);
-    if ((threadIdx.x & 1) == 0) {
-      sDelta[r] = d;
-      if (write_delta && q0 + r < L) p.delta[stat_index(p, b, h, q0 + r)] = d;
+  if constexpr (kReadDelta) {
+    if (threadIdx.x < 64) {
+      const int row = q0 + threadIdx.x;
+      sLse[threadIdx.x] = row < L ? p.lse[stat_index(p, b, h, row)] : INFINITY;
+      sDelta[threadIdx.x] = row < L ? p.delta[stat_index(p, b, h, row)] : 0.f;
     }
+    __syncthreads();
+  } else {
+    load_tile<D, LDS>(sK, base(static_cast<const bf16*>(p.o), p, OP_O, b, h),
+                      p.s[OP_O][2], q0, L, 0.f);  // O, for delta
+    if (threadIdx.x < 64) {
+      const int row = q0 + threadIdx.x;
+      sLse[threadIdx.x] = row < L ? p.lse[stat_index(p, b, h, row)] : INFINITY;
+    }
+    __syncthreads();
+    {
+      int r;
+      const float d = tile_delta<D, LDS>(sdO, sK, r);
+      if ((threadIdx.x & 1) == 0) {
+        sDelta[r] = d;
+        if (write_delta && q0 + r < L) p.delta[stat_index(p, b, h, q0 + r)] = d;
+      }
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   uint32_t qa[D / 16][4], da[D / 16][4];
   load_a<D, LDS>(qa, sQ, wr, g, t4);

@@ -8,6 +8,17 @@ comes from a ``torch.Generator``, which gives other numbers than the JAX
 package's keys from the same seed: ``GameRFT.forward`` therefore also
 takes the draws (``ts``, ``z``, ``has_controls``) from the caller, as the
 tests do with the JAX model's own draw.
+
+Context parallelism (``sequence_parallel`` on a mesh whose seq axis holds
+n > 1 ranks, parallel/mesh.py): ``GameRFT`` takes the whole batch on
+every seq rank, draws the CFG dropout, the timesteps and the noise at
+full size from the generator (which every seq rank seeds alike, so all
+draw the same), then keeps this rank's frames [s * F / n, (s + 1) * F / n)
+of the latents, draws and controls. ``GameRFTCore`` embeds them with
+RoPE at their global positions (``frame_offset``), and the loss is this
+rank's share of the global mean: its squared-error sum over the element
+count of the whole batch. Summing the ranks' losses (and gradients) over
+the seq axis gives the non-parallel step's.
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 from ..nn.attn import DiT
 from ..nn.embeddings import ControlEmbedding, TimestepEmbedding
 from ..nn.layers import FinalLayer, Linear, reset_parameters
+from ..parallel.mesh import get_mesh, seq_parallel_active
 from ..utils.device import resolve_device
 
 
@@ -79,7 +91,10 @@ class GameRFTCore(nn.Module):
             reset_parameters(self, gen)
 
     def forward(self, x, t, mouse=None, btn=None, doc_id=None,
-                has_controls=None, kv_cache=None):
+                has_controls=None, kv_cache=None, frame_offset: int = 0):
+        """x [b, n, c, h, w], t [b, n] -> velocity of x's shape. Under
+        context parallelism x holds this rank's frames, the first of them
+        frame ``frame_offset`` of the sequence."""
         cfg = self.config
         b, n, c, h, w = x.shape
         cond = self.t_embed(t)
@@ -98,7 +113,8 @@ class GameRFTCore(nn.Module):
         tokens = tokens.to(self.dtype)
         tokens = (checkpoint(self.proj_in, tokens, use_reentrant=False)
                   if remat else self.proj_in(tokens))
-        tokens = self.transformer(tokens, cond, doc_id, kv_cache)
+        tokens = self.transformer(tokens, cond, doc_id, kv_cache,
+                                  pos_offset=frame_offset * h * w)
         tokens = (checkpoint(self.proj_out, tokens, cond, use_reentrant=False)
                   if remat else self.proj_out(tokens, cond))
         return tokens.reshape(b, n, h, w, c).permute(0, 1, 4, 2, 3)
@@ -116,7 +132,9 @@ class GameRFT(nn.Module):
     def forward(self, x, mouse=None, btn=None, doc_id=None,
                 has_controls=None, generator: Optional[torch.Generator] = None,
                 ts=None, z=None):
-        """x: [b, n, c, h, w] latents -> the f32 MSE loss. The draws come
+        """x: [b, n, c, h, w] latents -> the f32 MSE loss (under context
+        parallelism, this rank's share of it; see the module docstring).
+        The draws come
         from ``generator`` in the JAX package's order (cfg dropout,
         timesteps, noise) unless ``ts`` [b, n] and ``z`` (x's shape) are
         given; a caller that hands them in also hands in the post-dropout
@@ -137,6 +155,12 @@ class GameRFT(nn.Module):
             ts = torch.sigmoid(torch.randn(b, n, generator=generator,
                                            device=dev))
             z = torch.randn(x.shape, generator=generator, device=dev)
+        count = x.numel()
+        f0 = 0
+        if seq_parallel_active(self.config):
+            f0, f1 = get_mesh().seq_frames(n)
+            x, ts, z, mouse, btn = (a[:, f0:f1] for a in
+                                    (x, ts, z, mouse, btn))
         ts, z = ts.float(), z.float()
         xf = x.float()
         te = ts[:, :, None, None, None]
@@ -144,5 +168,5 @@ class GameRFT(nn.Module):
         target = z - xf
 
         pred = self.core(lerpd.to(x.dtype), ts.to(x.dtype), mouse, btn,
-                         doc_id, has_controls)
-        return torch.mean(torch.square(pred.float() - target))
+                         doc_id, has_controls, frame_offset=f0)
+        return torch.sum(torch.square(pred.float() - target)) / count

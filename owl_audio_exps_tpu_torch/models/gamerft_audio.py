@@ -17,6 +17,7 @@ from ..nn.attn import DiT
 from ..nn.embeddings import ControlEmbedding, TimestepEmbedding
 from ..nn.layers import FinalLayer, Linear, reset_parameters
 from ..ops.norms import layer_norm
+from ..parallel.mesh import seq_parallel_active
 from ..utils.device import resolve_device
 
 
@@ -57,6 +58,10 @@ class GameRFTAudioCore(nn.Module):
     def forward(self, x, audio, t, mouse=None, btn=None, has_controls=None,
                 kv_cache=None):
         cfg = self.config
+        if seq_parallel_active(cfg):
+            raise NotImplementedError(
+                "sequence_parallel for the AV model: the port splits the "
+                "frames of game_rft (models/gamerft.py) only")
         b, n, c, h, w = x.shape
         cond = self.t_embed(t)
         if not cfg.uncond:

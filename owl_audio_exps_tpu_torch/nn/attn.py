@@ -19,18 +19,29 @@ precedence of owl_audio_exps_tpu/nn/attn.py:155-218):
   the JAX package's ``auto`` would take its band2 kernel (a ragged span
   with a frame-aligned plan, owl_audio_exps_tpu/ops/band2.py:120-146),
   the port takes its band kernel, which computes the same function,
-  until band2 is ported (port slice 4). A pinned ``band2`` or
-  ``chunked`` raises; ``splash`` pins the frame-mask kernel. Global
-  layers, document-packed batches, bidirectional and indivisible windows
-  take the frame-mask kernel (K1).
+  until band2 is ported (port slice 4). A pinned ``band2`` raises; a
+  pinned ``chunked`` runs ops/local.py (plain PyTorch, as the JAX package
+  runs it in XLA) where its chunk divides the sequence, and raises
+  elsewhere; ``splash`` pins the frame-mask kernel. Global layers,
+  document-packed batches, bidirectional and indivisible windows take
+  the frame-mask kernel (K1).
+* ``sequence_parallel``: when the mesh's seq axis holds more than one
+  rank (parallel/mesh.py), every uncached forward runs on this rank's
+  slice of the frames, at their global RoPE positions, and attention
+  goes through parallel/context.py (halo exchange on local layers, ring
+  attention with K4 on global ones), ahead of the routing above, as at
+  owl_audio_exps_tpu/nn/attn.py:311-330. It needs a causal model and no
+  document packing.
 
 Training: ``gradient_checkpointing`` recomputes each block in the
 backward (``torch.utils.checkpoint``, non-reentrant); with
 ``remat_granularity: group`` each local/global period of ``local_idx``
 blocks is checkpointed and each block inside it again, as the JAX
-package nests its remat (nn/attn.py:633-658). The XLA memory layouts
-``scan_layers``, ``remat_sequenced``, ``fused_head_chunks`` and
-``mlp_chunks`` > 1 raise.
+package nests its remat (nn/attn.py:633-658). ``scan_layers`` (the JAX
+package's stacking of each period's parameters for ``nn.scan``, an XLA
+layout with no counterpart here) runs the same layer loop and remat:
+the function is unchanged. The XLA memory layouts ``remat_sequenced``,
+``fused_head_chunks`` and ``mlp_chunks`` > 1 raise.
 
 KV-cached forwards (``kv_cache`` not None) come with the cached serve
 slice and raise here.
@@ -48,6 +59,7 @@ from ..ops.attention import dot_attention
 from ..ops.masks import dense_mask
 from ..ops.norms import rms_norm
 from ..ops.rope import rope_table_for
+from ..parallel.mesh import seq_parallel_active
 from .layers import MLP, AdaLN, Gate, Linear
 
 
@@ -77,10 +89,33 @@ def build_masks(config, q_len: int, doc_id: Optional[torch.Tensor],
     return local, glob
 
 
+def band_logit_bound(cfg, q) -> Optional[float]:
+    """The band kernel's fixed-shift bound: sqrt(Dh), which QK rms-norm
+    makes exact, unless ``band_fixed_shift: false``."""
+    return (float(q.shape[-1]) ** 0.5 if cfg.get("band_fixed_shift", True)
+            else None)
+
+
+def sp_train_attention(cfg, local: bool, q, k, v, doc_id=None):
+    """Context-parallel attention of this rank's slice (parallel/
+    context.py), with the JAX package's preconditions."""
+    from ..parallel.context import sp_attention
+    if doc_id is not None:
+        raise ValueError("sequence_parallel with document packing is not "
+                         "supported")
+    if not bool(cfg.causal):
+        raise ValueError("sequence_parallel requires a causal model (the "
+                         "halo and ring hard-code frame-causal visibility)")
+    window = cfg.get("local_window") if local else cfg.get("global_window")
+    return sp_attention(q, k, v, cfg.tokens_per_frame, window,
+                        logit_bound=band_logit_bound(cfg, q))
+
+
 def train_attention(cfg, local: bool, q, k, v, doc_id=None):
     """Uncached attention dispatch to the band or the frame-mask kernel
     (see the module docstring for the precedence)."""
     from ..ops.band import band_attention, band_available
+    from ..ops.local import chunked_local_attention, chunked_local_available
     from ..ops.splash import splash_attention
     tpf = cfg.tokens_per_frame
     window = cfg.get("local_window") if local else cfg.get("global_window")
@@ -94,17 +129,18 @@ def train_attention(cfg, local: bool, q, k, v, doc_id=None):
                 "ported yet; it comes with port slice 4 (ROADMAP.md "
                 "Queue 2). 'auto' and 'band' take the band kernel, which "
                 "computes the same function")
-        if impl == "chunked":
-            raise NotImplementedError(
-                "local_attn_impl='chunked': ops/local.py is not ported "
-                "(ROADMAP.md Queue 1); 'auto' and 'band' take the band "
-                "kernel, which computes the same function")
         L = q.shape[2]
+        if impl == "chunked":
+            if not chunked_local_available(L, tpf, window, True):
+                raise ValueError(
+                    f"local_attn_impl=chunked requires a causal local "
+                    f"window whose span divides the sequence into >= 2 "
+                    f"chunks (L={L}, tpf={tpf}, window={window})")
+            return chunked_local_attention(q, k, v, tpf, window)
         if band_available(L, tpf, window, True):
-            bound = (float(q.shape[-1]) ** 0.5
-                     if cfg.get("band_fixed_shift", True) else None)
             return band_attention(q, k, v, tpf, window,
-                                  head_chunks=head_chunks, logit_bound=bound)
+                                  head_chunks=head_chunks,
+                                  logit_bound=band_logit_bound(cfg, q))
         if impl == "band":
             raise ValueError(
                 f"local_attn_impl=band requires a causal local window whose "
@@ -133,7 +169,8 @@ class Attn(nn.Module):
         self.qkv = Linear(d, 3 * d, dtype=dtype, device=device)
         self.out = Linear(d, d, dtype=dtype, device=device)
 
-    def forward(self, x, mask, splash: bool = False, doc_id=None):
+    def forward(self, x, mask, splash: bool = False, doc_id=None,
+                pos_offset: int = 0):
         cfg = self.config
         B, L, _ = x.shape
         H = cfg.n_heads
@@ -142,10 +179,12 @@ class Attn(nn.Module):
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         q, k = rms_norm(q), rms_norm(k)
         rope = rope_table_for(cfg)
-        positions = torch.arange(L, device=x.device)
+        positions = torch.arange(pos_offset, pos_offset + L, device=x.device)
         q, k = rope(q, positions), rope(k, positions)
         q, k, v = (t.to(self.dtype) for t in (q, k, v))
-        if splash:
+        if seq_parallel_active(cfg):
+            out = sp_train_attention(cfg, self.local, q, k, v, doc_id)
+        elif splash:
             out = train_attention(cfg, self.local, q, k, v, doc_id)
         else:
             out = dot_attention(q, k, v, mask)
@@ -168,9 +207,10 @@ class DiTBlock(nn.Module):
         self.adaln2 = AdaLN(d, **kw)
         self.gate2 = Gate(d, **kw)
 
-    def forward(self, x, cond, mask, splash: bool = False, doc_id=None):
+    def forward(self, x, cond, mask, splash: bool = False, doc_id=None,
+                pos_offset: int = 0):
         x = x + self.gate1(self.attn(self.adaln1(x, cond), mask, splash,
-                                     doc_id), cond)
+                                     doc_id, pos_offset), cond)
         return x + self.gate2(self.mlp(self.adaln2(x, cond)), cond)
 
 
@@ -200,7 +240,6 @@ def attention_forwards_per_step(config):
 
 
 _XLA_LAYOUTS = {
-    "scan_layers": "group-stacked params",
     "remat_sequenced": "a sequenced custom-vjp remat",
     "fused_head_chunks": "per-head-chunk fused attention",
 }
@@ -221,27 +260,29 @@ class DiT(nn.Module):
             raise NotImplementedError(
                 "mlp_chunks > 1 is an XLA memory layout of the JAX package; "
                 "the port runs the MLP whole (ROADMAP.md Queue 1)")
-        if config.get("sequence_parallel", False):
-            raise NotImplementedError(
-                "sequence_parallel comes with the context-parallel slice")
         self.config = config
         self.blocks = nn.ModuleList(
             DiTBlock(config, i, local, dtype=dtype, device=device)
             for i, local in enumerate(local_layer_flags(config)))
 
     def _run_blocks(self, start, stop, x, cond, local_mask, global_mask,
-                    splash, doc_id, remat):
+                    splash, doc_id, pos_offset, remat):
         flags = local_layer_flags(self.config)
         for idx in range(start, stop):
             mask = local_mask if flags[idx] else global_mask
             if remat:
                 x = checkpoint(self.blocks[idx], x, cond, mask, splash,
-                               doc_id, use_reentrant=False)
+                               doc_id, pos_offset, use_reentrant=False)
             else:
-                x = self.blocks[idx](x, cond, mask, splash, doc_id)
+                x = self.blocks[idx](x, cond, mask, splash, doc_id,
+                                     pos_offset)
         return x
 
-    def forward(self, x, cond, doc_id=None, kv_cache=None):
+    def forward(self, x, cond, doc_id=None, kv_cache=None,
+                pos_offset: int = 0):
+        """x: [B, L, d] tokens. Under context parallelism (see the module
+        docstring) x is this rank's slice and ``pos_offset`` the global
+        position of its first token."""
         if kv_cache is not None:
             raise NotImplementedError(
                 "KV-cached forwards are not ported yet: they come with the "
@@ -250,10 +291,10 @@ class DiT(nn.Module):
         L, n = x.shape[1], cfg.n_layers
         splash = use_splash_path(cfg, L, x.device)
         local_mask = global_mask = None
-        if not splash:
+        if not splash and not seq_parallel_active(cfg):
             local_mask, global_mask = build_masks(cfg, L, doc_id,
                                                   device=x.device)
-        args = (cond, local_mask, global_mask, splash, doc_id)
+        args = (cond, local_mask, global_mask, splash, doc_id, pos_offset)
         remat = (cfg.get("gradient_checkpointing", False)
                  and torch.is_grad_enabled())
         if remat and cfg.get("remat_granularity") == "group":

@@ -21,7 +21,8 @@ OPERANDS = ("q", "k", "v", "o", "dout", "dq", "dk", "dv")
 
 @functools.lru_cache(maxsize=None)
 def entry(stem: str, name: str, n_floats: int):
-    """The C function ``name`` of csrc/<stem>.cu (built at first use)."""
+    """The C function ``name`` of csrc/<stem>.cu (built at first use),
+    taking ``n_floats`` floats after the three arrays."""
     from . import _build
     fn = getattr(_build.load(stem), name)
     fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p),

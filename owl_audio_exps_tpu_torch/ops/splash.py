@@ -1,5 +1,7 @@
 """Frame-mask flash attention, forward and backward (counterpart of
-owl_audio_exps_tpu/ops/splash.py ``splash_attention`` and its custom vjp).
+owl_audio_exps_tpu/ops/splash.py ``splash_attention`` and its custom vjp),
+and the ring partial of context parallelism (``splash_attention_lse`` and
+``splash_attention_lse_vjp``, K4).
 
 On a CUDA tensor ``splash_attention`` launches the hand-written Hopper
 kernels of ``csrc/frame_attention.cu`` (built with nvcc at first use,
@@ -20,6 +22,18 @@ same-document equality when ``doc_id`` is given. q is pre-scaled by
 dq = scale * d(scaled q). The kernels mask ragged lengths themselves, so
 nothing is padded (the TPU's sentinel-segment padding only existed for
 its block legality).
+
+K4. ``splash_attention_lse`` returns ``(out, lse)``, both float32, of
+already-scaled q (no internal scaling) under the frame-causal mask or no
+mask, and takes cotangents on both outputs. On a CUDA tensor it launches
+the ring entry points of the same source (counted in ``lse_launches``,
+``lse_dq_launches``, ``lse_dkv_launches``, apart from K1's counts):
+the forward writes bf16 out and the f32 logsumexp (out is then cast to
+f32, as the TPU kernel's output is), and ``SplashLseFunction``'s
+backward (``splash_attention_lse_vjp``) is one dq + dkv pass: the lse
+cotangent folds into delta' = rowsum(out * g_out) - g_lse, computed in
+f32 from the f32 cotangent as the JAX package computes di', which both
+kernels read. On a CPU tensor it runs ``splash_attention_lse_plain``.
 """
 
 from __future__ import annotations
@@ -36,6 +50,9 @@ from .masks import dense_mask
 launches = 0       # forward
 dq_launches = 0    # backward, dq kernel
 dkv_launches = 0   # backward, dkv kernel
+lse_launches = 0       # K4 forward (ring partial)
+lse_dq_launches = 0    # K4 backward, dq kernel
+lse_dkv_launches = 0   # K4 backward, dkv kernel
 
 _SOURCE = "frame_attention"
 
@@ -209,6 +226,180 @@ def splash_attention(q, k, v, tokens_per_frame: int, window: Optional[int],
         return frame_attention_cuda(q, k, v, tokens_per_frame, window,
                                     causal, doc_id, scale)
     raise NotImplementedError(f"no frame attention for device {q.device}")
+
+
+# ------------------------------------------------------------------ K4
+
+def splash_attention_lse_plain(q, k, v, tokens_per_frame: int, causal: bool):
+    """Dense reference of K4: (out, lse) of pre-scaled q over k, v with
+    the frame-causal mask (``causal``) or none. Logits and logsumexp in
+    float32, probabilities rounded to v's dtype before PV (as the JAX
+    package's dense ring partial does); both results float32."""
+    L = q.shape[2]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if causal:
+        mask = dense_mask(L, tokens_per_frame, None, None, 0, True,
+                          device=q.device)
+        s = s.masked_fill(~mask, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    probs = torch.exp(s - lse[..., None]).to(v.dtype)
+    out = torch.matmul(probs.float(), v.float())
+    return out, lse
+
+
+def splash_attention_lse_vjp_plain(q, k, v, out, lse, g_out, g_lse,
+                                   tokens_per_frame: int, causal: bool):
+    """(dq, dk, dv) of the plain K4 for cotangents on both outputs, by
+    autograd (``out`` and ``lse`` are recomputed; they are taken for the
+    signature of the kernel's vjp)."""
+    del out, lse
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o, l = splash_attention_lse_plain(*leaves, tokens_per_frame, causal)
+        g_lse = torch.zeros_like(l) if g_lse is None else g_lse.to(l.dtype)
+        grads = torch.autograd.grad((o, l), leaves, (g_out.to(o.dtype), g_lse))
+    return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v)))
+
+
+def _ring_ints(q, tokens_per_frame, causal):
+    B, H, L, Dh = q.shape
+    return (B, H, L, Dh, tokens_per_frame, 0, int(bool(causal)))
+
+
+def splash_attention_lse_cuda(q, k, v, tokens_per_frame: int, causal: bool):
+    """Launch the K4 forward on bf16 [B, H, L, Dh] CUDA tensors (q
+    pre-scaled). Returns (out bf16, lse f32 [B, H, L])."""
+    global lse_launches
+    kl.check_operands(q, q=q, k=k, v=v)
+    kl.refuse_autograd(q, k, v)
+    q, k, v = (kl.operand(t) for t in (q, k, v))
+    out = kl.empty_heads(q)
+    B, H, L, _ = q.shape
+    lse = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
+    kl.launch(kl.entry(_SOURCE, "owl_ring_attn_fwd", 0),
+              dict(q=q, k=k, v=v, o=out),
+              _ring_ints(q, tokens_per_frame, causal), (), lse=lse,
+              what="ring partial")
+    lse_launches += 1
+    return out, lse
+
+
+def ring_delta(out, g_out, g_lse):
+    """delta' = rowsum(out * g_out) - g_lse, float32 [B, H, L]: the K4
+    backward's shifted delta, computed from the float32 cotangent as the
+    JAX package computes di' outside its kernels. ``g_lse`` may be None."""
+    delta = (out.float() * g_out.float()).sum(-1)
+    return delta if g_lse is None else delta - g_lse.float()
+
+
+def _lse_bwd_args(q, k, v, lse, delta, g_out, tokens_per_frame, causal):
+    g_out = g_out.to(torch.bfloat16)
+    kl.check_operands(q, q=q, k=k, v=v, dout=g_out)
+    q, k, v, g_out = (kl.operand(t) for t in (q, k, v, g_out))
+    lse, delta = (t.to(torch.float32).contiguous() for t in (lse, delta))
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != tuple(q.shape[:3]):
+            raise ValueError(f"{name} shape {tuple(t.shape)} != "
+                             f"{tuple(q.shape[:3])}")
+    return (dict(q=q, k=k, v=v, dout=g_out), lse, delta,
+            _ring_ints(q, tokens_per_frame, causal))
+
+
+def splash_attention_lse_bwd_dq_cuda(q, k, v, lse, delta, g_out,
+                                     tokens_per_frame: int, causal: bool):
+    """Launch the K4 dq kernel on delta' (``ring_delta``); ``g_out`` is
+    rounded to bf16 for the products. Returns dq, bf16."""
+    global lse_dq_launches
+    args, lse, delta, ints = _lse_bwd_args(q, k, v, lse, delta, g_out,
+                                           tokens_per_frame, causal)
+    args["dq"] = kl.empty_heads(args["q"])
+    kl.launch(kl.entry(_SOURCE, "owl_ring_attn_bwd_dq", 0), args, ints, (),
+              lse=lse, delta=delta, what="ring partial dq")
+    lse_dq_launches += 1
+    return args["dq"]
+
+
+def splash_attention_lse_bwd_dkv_cuda(q, k, v, lse, delta, g_out,
+                                      tokens_per_frame: int, causal: bool):
+    """Launch the K4 dkv kernel on delta' (``ring_delta``). Returns
+    (dk, dv), bf16."""
+    global lse_dkv_launches
+    args, lse, delta, ints = _lse_bwd_args(q, k, v, lse, delta, g_out,
+                                           tokens_per_frame, causal)
+    args["dk"], args["dv"] = (kl.empty_heads(args["q"]) for _ in range(2))
+    kl.launch(kl.entry(_SOURCE, "owl_ring_attn_bwd_dkv", 0), args, ints, (),
+              lse=lse, delta=delta, what="ring partial dkv")
+    lse_dkv_launches += 1
+    return args["dk"], args["dv"]
+
+
+def splash_attention_lse_vjp_cuda(q, k, v, out, lse, g_out, g_lse,
+                                  tokens_per_frame: int, causal: bool):
+    """The K4 backward: delta' in float32, then the dq kernel and the dkv
+    kernel. Returns (dq, dk, dv), bf16."""
+    delta = ring_delta(out, g_out, g_lse)
+    mask = (tokens_per_frame, causal)
+    dq = splash_attention_lse_bwd_dq_cuda(q, k, v, lse, delta, g_out, *mask)
+    dk, dv = splash_attention_lse_bwd_dkv_cuda(q, k, v, lse, delta, g_out,
+                                               *mask)
+    return dq, dk, dv
+
+
+class SplashLseFunction(torch.autograd.Function):
+    """K4 forward with the one-pass K4 backward, taking cotangents on out
+    and lse. Under ``torch.utils.checkpoint`` the recomputed forward is
+    counted in ``lse_launches`` like any other."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, tokens_per_frame, causal):
+        out, lse = splash_attention_lse_cuda(q, k, v, tokens_per_frame,
+                                             causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (tokens_per_frame, causal)
+        return out.float(), lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if g_out is None:
+            g_out = torch.zeros_like(out)
+        dq, dk, dv = splash_attention_lse_vjp(q, k, v, out, lse, g_out,
+                                              g_lse, *ctx.args)
+        return dq, dk, dv, None, None
+
+
+def splash_attention_lse(q, k, v, tokens_per_frame: int, causal: bool):
+    """Ring partial (K4): q (pre-scaled), k, v [B, H, L, Dh] -> (out, lse),
+    float32 [B, H, L, Dh] and [B, H, L]: the normalized softmax output of
+    q's rows over these keys and their natural-log logsumexp, under the
+    frame-causal mask (``causal``) or none. Differentiable in both
+    outputs."""
+    if q.device.type == "cpu":
+        return splash_attention_lse_plain(q, k, v, tokens_per_frame, causal)
+    if q.device.type == "cuda":
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)):
+            return SplashLseFunction.apply(q, k, v, tokens_per_frame, causal)
+        out, lse = splash_attention_lse_cuda(q, k, v, tokens_per_frame,
+                                             causal)
+        return out.float(), lse
+    raise NotImplementedError(f"no ring partial for device {q.device}")
+
+
+def splash_attention_lse_vjp(q, k, v, out, lse, g_out, g_lse,
+                             tokens_per_frame: int, causal: bool):
+    """(dq, dk, dv) of ``splash_attention_lse`` for cotangents ``g_out``
+    [B, H, L, Dh] and ``g_lse`` [B, H, L] (or None): one standard flash
+    backward with delta' = rowsum(out * g_out) - g_lse. ``out`` and
+    ``lse`` are the forward's; q is pre-scaled as at the forward. The
+    backward of ``SplashLseFunction`` on CUDA tensors."""
+    if q.device.type == "cpu":
+        return splash_attention_lse_vjp_plain(q, k, v, out, lse, g_out,
+                                              g_lse, tokens_per_frame, causal)
+    if q.device.type == "cuda":
+        return splash_attention_lse_vjp_cuda(q, k, v, out, lse, g_out, g_lse,
+                                             tokens_per_frame, causal)
+    raise NotImplementedError(f"no ring partial for device {q.device}")
 
 
 def visible_pairs(L: int, tokens_per_frame: int, window: Optional[int],

@@ -3,12 +3,55 @@
     python -m owl_audio_exps_tpu_torch.train --config_path configs/dit_v4_tpu_e2e.yml --max_steps N
 
 Runs on the card (``cuda``) unless ``--device cpu`` (or ``train.device``
-in the config) asks for the CPU. One process, one device.
+in the config) asks for the CPU. Under ``torchrun`` each process takes
+one device (its LOCAL_RANK) and the processes form the mesh of
+``train.mesh``, with NCCL on the card and gloo on the CPU; for example
+context-parallel dit_v4 at 98,304 tokens on four cards:
+
+    torchrun --nproc_per_node 4 -m owl_audio_exps_tpu_torch.train --config_path configs/dit_v4_98k_sp.yml
+
+What the port does not have yet is cut, and each cut is printed
+(``port_cuts``): a data loader that is not ported becomes
+``synthetic_latent`` at the config's shapes, a mesh axis wider than the
+processes that were started shrinks to them, and the eval sampler
+(``sampler_id``) is dropped.
 """
 
 from __future__ import annotations
 
 import argparse
+from typing import List
+
+_PORTED_DATA = ("synthetic",)
+
+
+def port_cuts(cfg, world_size: int) -> List[str]:
+    """Apply the cuts this config needs to run on the port with
+    ``world_size`` processes; returns one line per cut."""
+    tc, mc = cfg.train, cfg.model
+    cuts = []
+    if tc.data_id and not tc.data_id.startswith(_PORTED_DATA):
+        kw = dict((tc.data_kwargs or {}).items())
+        shapes = dict(window_length=kw.get("window_length", mc.n_frames),
+                      channels=mc.channels, sample_size=mc.sample_size,
+                      n_buttons=mc.n_buttons,
+                      n_mouse_axes=mc.get("n_mouse_axes", 2))
+        cuts.append(f"data_id {tc.data_id!r} -> 'synthetic_latent' "
+                    f"{shapes} (the file and S3 loaders are not ported)")
+        tc.data_id, tc.data_kwargs = "synthetic_latent", shapes
+    mesh = dict((tc.get("mesh") or {}).items())
+    if mesh.get("seq", 1) > 1 and mesh.get("seq", 1) * max(
+            mesh.get("data", 1), 1) != world_size:
+        new = max(world_size // max(mesh.get("data", 1), 1), 1)
+        cuts.append(f"mesh seq {mesh['seq']} -> {new} (the processes "
+                    f"started: {world_size})")
+        mesh["seq"] = new
+        tc.mesh = mesh
+    if tc.get("sampler_id"):
+        cuts.append(f"sampler_id {tc.sampler_id!r} -> None (the KV-cached "
+                    "samplers are not ported)")
+        tc.sampler_id = None
+    return cuts
 
 
 def main(argv=None):
@@ -20,11 +63,23 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     from .configs import Config
+    from .parallel import dist as pdist
     from .trainers import get_trainer_cls
 
     cfg = Config.from_yaml(args.config_path)
-    trainer = get_trainer_cls(cfg.train.trainer_id)(cfg, device=args.device)
-    trainer.train(max_steps=args.max_steps)
+    device = args.device or cfg.train.get("device") or "cuda"
+    local_rank = pdist.init_distributed(device)
+    try:
+        world = pdist.process_count()
+        if device == "cuda" and world > 1:
+            device = f"cuda:{local_rank}"
+        for line in port_cuts(cfg, world):
+            if pdist.is_main():
+                print(f"[train] cut: {line}", flush=True)
+        trainer = get_trainer_cls(cfg.train.trainer_id)(cfg, device=device)
+        trainer.train(max_steps=args.max_steps)
+    finally:
+        pdist.cleanup()
 
 
 if __name__ == "__main__":

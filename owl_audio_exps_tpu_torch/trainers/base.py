@@ -9,6 +9,15 @@ micro-batches, clips the global norm to 10 for every optimizer but Muon,
 updates, and moves the EMA towards the parameters with beta 0.999, as the
 JAX package's one jitted step does. Parameters and optimizer state are
 updated in place.
+
+Several processes (one per device, under ``torchrun``; parallel/dist.py)
+form the mesh of ``train.mesh`` (parallel/mesh.py): data ranks draw
+distinct batches, the seq ranks of one data rank the same batch, of
+which each computes its slice of the frames (context parallelism). The
+gradients and metrics are summed over every rank and divided by the
+number of data ranks before the clip and the optimizer, so every rank
+takes the same step: seq ranks hold shares of one loss, data ranks
+average theirs. Rank 0 alone logs and saves; every rank resumes.
 """
 
 from __future__ import annotations
@@ -19,8 +28,11 @@ import signal
 from typing import Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..muon import AdamW, init_muon
+from ..parallel.dist import is_main, process_count
+from ..parallel.mesh import MeshConfig, get_mesh, make_mesh
 from ..schedulers import get_scheduler_cls
 from ..utils.checkpoints import (load_checkpoint, save_checkpoint,
                                  save_clean_export)
@@ -87,6 +99,11 @@ class BaseTrainer:
         # the card unless the caller or the config asks for the CPU
         self.device = resolve_device(
             device or self.train_cfg.get("device") or "cuda")
+        if process_count() > 1:
+            make_mesh(MeshConfig.from_dict(self.train_cfg.get("mesh")),
+                      device_type=self.device.type)
+        self.mesh = get_mesh()
+        self.is_main = is_main()
         self.logger = ExperimentLogger()
         self.metrics = LogHelper()
         self.timer = Timer()
@@ -124,6 +141,7 @@ class BaseTrainer:
                 sums[k] = sums.get(k, 0.0) + v
         metrics = {k: v / accum for k, v in sums.items()}
         params = [p for p in model.parameters()]
+        self.reduce_across_ranks(params, metrics)
         with torch.no_grad():
             if clip_norm is not None:
                 metrics["grad_norm"] = clip_grad_norm(params, clip_norm)
@@ -135,6 +153,24 @@ class BaseTrainer:
         opt.zero_grad(set_to_none=True)
         state.step += 1
         return metrics
+
+    @torch.no_grad()
+    def reduce_across_ranks(self, params, metrics: Dict):
+        """Sum the gradients and the metrics over every rank and divide
+        by the number of data ranks (a no-op for one process)."""
+        if process_count() <= 1:
+            return
+        n_data = self.mesh.data
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            dist.all_reduce(p.grad)
+            p.grad.div_(n_data)
+        for k, v in metrics.items():
+            v = torch.as_tensor(v, dtype=torch.float32,
+                                device=self.device).clone()
+            dist.all_reduce(v)
+            metrics[k] = v / n_data
 
     # ------------------------------------------------------ checkpoints
     def ckpt_path(self, step: int) -> str:
@@ -198,9 +234,10 @@ class BaseTrainer:
         return int(self.train_cfg.get("log_interval") or 10)
 
     def accum_steps(self) -> int:
-        """target_batch_size // batch_size (one process)."""
+        """target_batch_size // batch_size // data ranks (the seq ranks
+        of one data rank share its batch)."""
         return max(1, self.train_cfg.target_batch_size
-                   // self.train_cfg.batch_size)
+                   // self.train_cfg.batch_size // self.mesh.data)
 
     def grad_clip_norm(self) -> Optional[float]:
         """clip 10.0 for non-Muon."""

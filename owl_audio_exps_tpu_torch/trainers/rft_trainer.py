@@ -7,7 +7,10 @@ accumulation, the optimizer step and EMA of trainers/base.py, metrics
 drained at the logging cadence (the only host sync of the loop), saves
 every ``save_interval`` steps, eval sampling every ``sample_interval``
 steps when an eval loader is configured. The noise comes from one
-``torch.Generator`` on the device, seeded 1234.
+``torch.Generator`` on the device, seeded 1234 plus the data rank, so the
+seq ranks of one data rank draw alike. Under several processes every
+rank starts from rank 0's initial parameters, loads the batches of its
+data rank, and only rank 0 logs and saves (trainers/base.py).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 
 from ..data import get_loader
 from ..models import get_model_cls
+from ..parallel.dist import broadcast_from_main
 from ..utils.logging import DeferredMetrics
 from ..utils.mfu import MFUProfiler
 from .base import BaseTrainer, TrainState
@@ -42,6 +46,7 @@ class RFTFamilyTrainer(BaseTrainer):
         model = get_model_cls(self.model_id)(
             self.model_cfg, dtype=torch.bfloat16, device=self.device,
             seed=seed)
+        broadcast_from_main(model)
         return self.make_state(model.train())
 
     def to_device(self, batch):
@@ -55,7 +60,8 @@ class RFTFamilyTrainer(BaseTrainer):
             self.total_step_counter = state.step
 
         loader = get_loader(self.train_cfg.data_id, self.train_cfg.batch_size,
-                            **dict((self.train_cfg.data_kwargs or {}).items()))
+                            **dict((self.train_cfg.data_kwargs or {}).items(),
+                                   process_index=self.mesh.data_index))
         sampler = sample_loader = None
         if self.train_cfg.sampler_id and self.train_cfg.get("sample_data_id"):
             # without an eval loader the sampler is never called (eval_step
@@ -73,7 +79,8 @@ class RFTFamilyTrainer(BaseTrainer):
             self.model_cfg,
             batch_tokens=accum * self.train_cfg.batch_size * seq_tokens,
             seq_len=seq_tokens)
-        generator = torch.Generator(device=self.device).manual_seed(1234)
+        generator = torch.Generator(device=self.device).manual_seed(
+            1234 + self.mesh.data_index)
         self.timer.reset()
         self.install_preemption_handler()
         try:
@@ -96,7 +103,8 @@ class RFTFamilyTrainer(BaseTrainer):
             if self.should_stop():
                 for _, m in pending.drain():
                     self.metrics.log_dict(m)
-                self.save(state)
+                if self.is_main:
+                    self.save(state)
                 break
             micro = [self.to_device(next(data_iter)) for _ in range(accum)]
             metrics = self.train_step(state, micro, generator, clip_norm=clip)
@@ -123,9 +131,10 @@ class RFTFamilyTrainer(BaseTrainer):
             log.update(profiler.report())
             if do_sample:
                 log.update(self.eval_step(state, sample_loader, sampler))
-            self.logger.log(log, step=self.total_step_counter)
-            if do_save:
-                self.save(state)
+            if self.is_main:
+                self.logger.log(log, step=self.total_step_counter)
+                if do_save:
+                    self.save(state)
             # eval/save time is excluded from the next window's step timing
             self.timer.reset()
             profiler.start()

@@ -11,6 +11,13 @@ with ``load_state_dict`` directly: ``GameRFTAudioCore`` and ``GameRFTCore``
 from their own trees, the ``GameRFT`` training wrapper from its tree,
 whose ``core`` subtree becomes the ``core.`` prefix. The mapping is
 linear, so a tree of gradients maps the same way.
+
+A tree of a ``scan_layers`` model, whose transformer keeps
+``groups/blocks_j`` with every leaf stacked over [n_groups] (the layout
+of owl_audio_exps_tpu/utils/layer_stacking.py), is unstacked first:
+a group holds one period of the local/global alternation, so the period
+is the number of ``blocks_j`` keys and group g's ``blocks_j`` is block
+g * period + j.
 """
 
 from __future__ import annotations
@@ -33,11 +40,45 @@ def inverse_permute_qkv_rows(w: np.ndarray, n_heads: int) -> np.ndarray:
     return np.swapaxes(w, 0, 1).reshape(three_d, *w.shape[3:])
 
 
+def _index(node, g: int):
+    if isinstance(node, dict):
+        return {k: _index(v, g) for k, v in node.items()}
+    return np.asarray(node)[g]
+
+
+def unstack_groups(node):
+    """Every ``transformer/groups/blocks_j`` (leaves stacked over
+    [n_groups]) -> ``transformer/blocks_{g * period + j}``, the period
+    being the number of ``blocks_j`` in the group."""
+    if not isinstance(node, dict):
+        return node
+    out = {}
+    for key, value in node.items():
+        if key == "transformer" and isinstance(value, dict) \
+                and "groups" in value:
+            unrolled = {k: v for k, v in value.items() if k != "groups"}
+            period = len(value["groups"])
+            for name, stacked in value["groups"].items():
+                j = int(name.rsplit("_", 1)[1])
+                leaf = stacked
+                while isinstance(leaf, dict):
+                    leaf = next(iter(leaf.values()))
+                for g in range(np.asarray(leaf).shape[0]):
+                    unrolled[f"blocks_{g * period + j}"] = \
+                        _index(stacked, g)
+            out[key] = unrolled
+        else:
+            out[key] = unstack_groups(value)
+    return out
+
+
 def params_from_jax(params: dict, n_heads: int) -> Dict[str, torch.Tensor]:
     """Nested {name: numpy array} flax params (optionally under a
-    top-level "params" key) -> flat torch state_dict of float tensors."""
+    top-level "params" key), unrolled or ``scan_layers``-stacked -> flat
+    torch state_dict of float tensors."""
     if set(params) == {"params"}:
         params = params["params"]
+    params = unstack_groups(params)
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node, path):

@@ -212,10 +212,20 @@ def test_train_attention_routes_local_windows_to_the_band():
         with pytest.raises(ValueError, match="local_attn_impl=band"):
             train_attention(_route_cfg(local_window=3, local_attn_impl="band"),
                             True, q, k, v)
-        for impl, match in (("band2", "slice 4"), ("chunked", "chunked")):
-            with pytest.raises(NotImplementedError, match=match):
-                train_attention(_route_cfg(local_attn_impl=impl), True,
-                                q, k, v)
+        with pytest.raises(NotImplementedError, match="slice 4"):
+            train_attention(_route_cfg(local_attn_impl="band2"), True,
+                            q, k, v)
+        # a pinned chunked runs ops/local.py (plain PyTorch): the same
+        # function as the band's usual softmax; it raises where its chunk
+        # does not divide the sequence
+        got = train_attention(_route_cfg(local_attn_impl="chunked"), True,
+                              q, k, v)
+        want = band.band_attention_plain(q, k, v, 64, 2)
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+        with pytest.raises(ValueError, match="local_attn_impl=chunked"):
+            train_attention(_route_cfg(local_window=3,
+                                       local_attn_impl="chunked"), True,
+                            q, k, v)
     finally:
         band.band_attention, splash.splash_attention = orig_band, orig_splash
     assert calls == [("band", 8.0), ("band", 8.0), ("band", None)] + \

@@ -16,7 +16,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_FILES = sorted(
     os.path.relpath(p, REPO) for p in
     glob.glob(os.path.join(REPO, "owl_audio_exps_tpu_torch", "**", "*.py"),
-              recursive=True)) + ["chip_smoke.py"]
+              recursive=True)) + ["chip_smoke.py", "sp_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "owl_audio_exps_tpu")
 
 
@@ -44,7 +44,9 @@ def test_port_package_has_its_kernel_source():
         assert os.path.exists(os.path.join(
             REPO, "owl_audio_exps_tpu_torch", "csrc", src)), src
     for module in ("ops/band.py", "models/gamerft.py", "muon.py",
-                   "trainers/rft_trainer.py", "train.py"):
+                   "trainers/rft_trainer.py", "train.py", "ops/local.py",
+                   "parallel/dist.py", "parallel/mesh.py",
+                   "parallel/context.py"):
         assert os.path.join("owl_audio_exps_tpu_torch", module) in PORT_FILES
     assert len(PORT_FILES) > 30
 

@@ -156,3 +156,68 @@ def test_kernel_reads_strided_views_and_rejects_what_it_cannot_run():
     with pytest.raises(RuntimeError, match="require grad"):
         splash.frame_attention_cuda(views[0], views[1], views[2], 65, 2,
                                     True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,tpf,causal", [
+    (1024, 64, True), (1024, 64, False), (650, 65, True), (650, 65, False)])
+def test_ring_partial_matches_plain_on_card(L, tpf, causal):
+    """K4: (out, lse) of pre-scaled q, and the backward through both
+    outputs, against f32 autograd of the plain version."""
+    _need_card()
+    q, k, v = _qkv(L, seed=5, normed=True)
+    q = (q * 64 ** -0.5).to(torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    g_out = torch.randn(1, 4, L, 64, generator=gen, device="cuda")
+    g_lse = torch.randn(1, 4, L, generator=gen, device="cuda")
+    counts = (splash.lse_launches, splash.lse_dq_launches,
+              splash.lse_dkv_launches, splash.launches)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out, lse = splash.splash_attention_lse(*leaves, tpf, causal)
+    torch.autograd.backward((out, lse), (g_out, g_lse))
+    torch.cuda.synchronize()
+    assert (splash.lse_launches, splash.lse_dq_launches,
+            splash.lse_dkv_launches, splash.launches) == \
+        (counts[0] + 1, counts[1] + 1, counts[2] + 1, counts[3])
+    assert out.dtype == lse.dtype == torch.float32
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    rout, rlse = splash.splash_attention_lse_plain(*ref, tpf, causal)
+    torch.autograd.backward((rout, rlse), (g_out, g_lse))
+    err = (out - rout).abs()
+    assert err.max().item() < 2e-2 and err.mean().item() < 2e-3
+    assert (lse - rlse).abs().max().item() < 2e-2
+    for name, a, b in zip(("dq", "dk", "dv"), leaves, ref):
+        assert torch.isfinite(a.grad).all(), name
+        assert _rel_l2(a.grad, b.grad) < GRAD_REL_L2, name
+
+
+@pytest.mark.cuda
+def test_ring_and_halo_in_one_process_match_the_full_sequence_on_card():
+    """The ring's and the halo's per-step functions over 4 slices in one
+    process (K/V rotated by indexing; chip_smoke.py's harness at a small
+    size) against K1 and the band kernel over the whole sequence, forward
+    and gradients; K4 launches exact."""
+    import chip_smoke
+    _need_card()
+    n, tpf, window = 4, 64, 2
+    L = n * 2 * window * tpf
+    q, k, v = _qkv(L, seed=7, normed=True)
+    dout = _qkv(L, seed=8)[0]
+    ring = lambda *t: chip_smoke.ring_one_process(*t, tpf, n)
+    halo = lambda *t: chip_smoke.halo_one_process(*t, tpf, window, n, 8.0)
+
+    before = splash.lse_launches, splash.lse_dq_launches
+    ring_out, ring_grads = _grads(ring, q, k, v, dout)
+    torch.cuda.synchronize()
+    assert splash.lse_launches - before[0] == n * n + n * (n - 1)
+    assert splash.lse_dq_launches - before[1] == n * n
+    full_out, full_grads = _grads(lambda *a: splash.splash_attention(
+        *a, tpf, None, True), q, k, v, dout)
+    halo_out, halo_grads = _grads(halo, q, k, v, dout)
+    band_out, band_grads = _grads(lambda *a: band.band_attention(
+        *a, tpf, window, logit_bound=8.0), q, k, v, dout)
+    for a, b in ((ring_out, full_out), (halo_out, band_out)):
+        assert _rel_l2(a, b) < GRAD_REL_L2
+    for got, want in ((ring_grads, full_grads), (halo_grads, band_grads)):
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            assert _rel_l2(a, b) < GRAD_REL_L2, name

@@ -132,8 +132,8 @@ def test_routing_and_unported_paths_raise():
     assert not use_splash_path(pcfg, 4096, cuda)
 
     # a pinned band runs where its span divides the sequence (32 frames x
-    # 5 tokens, 2 chunks) and gives the frame-mask route's output; band2
-    # and chunked still raise
+    # 5 tokens, 2 chunks) and gives the frame-mask route's output, and so
+    # does a pinned chunked (ops/local.py); band2 still raises
     _, bcfg = configs(causal=True, local_window=32, attn_impl="splash",
                       local_attn_impl="band")
     binputs = [t(a) for a in av_inputs(np.random.RandomState(5), 1, 64,
@@ -145,10 +145,14 @@ def test_routing_and_unported_paths_raise():
         vs, as_ = bcore(*binputs)
     torch.testing.assert_close(vb, vs, atol=ATOL, rtol=0)
     torch.testing.assert_close(ab, as_, atol=ATOL, rtol=0)
-    for impl, match in (("band2", "slice 4"), ("chunked", "chunked")):
-        bcfg.local_attn_impl = impl
-        with pytest.raises(NotImplementedError, match=match):
-            bcore(*binputs)
+    bcfg.local_attn_impl = "chunked"
+    with torch.no_grad():
+        vc, ac = bcore(*binputs)
+    torch.testing.assert_close(vc, vs, atol=ATOL, rtol=0)
+    torch.testing.assert_close(ac, as_, atol=ATOL, rtol=0)
+    bcfg.local_attn_impl = "band2"
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        bcore(*binputs)
 
     inputs = [t(a) for a in av_inputs(np.random.RandomState(4), 1, 2,
                                       pcfg)]

@@ -393,11 +393,20 @@ def test_attention_forwards_per_step_count_the_remat(mode):
 
 
 def test_xla_memory_layouts_raise():
-    for key, value in (("scan_layers", True), ("remat_sequenced", True),
+    for key, value in (("remat_sequenced", True),
                        ("fused_head_chunks", True), ("mlp_chunks", 2)):
         _, pcfg = _configs(**{key: value})
         with pytest.raises(NotImplementedError, match=key.split("_")[0]):
             GameRFT(pcfg, device="cpu")
+    # scan_layers stacks parameters for XLA's scan: the port runs the same
+    # layer loop, so the model is the unrolled one, key for key
+    _, pcfg = _configs(scan_layers=True)
+    _, plain = _configs()
+    scanned = GameRFT(pcfg, device="cpu", seed=0).state_dict()
+    unrolled = GameRFT(plain, device="cpu", seed=0).state_dict()
+    assert set(scanned) == set(unrolled)
+    for k in unrolled:
+        torch.testing.assert_close(scanned[k], unrolled[k], atol=0, rtol=0)
 
 
 # --------------------------------------------------------------- trainer
