@@ -38,7 +38,20 @@ Phases, each of which exits non-zero on any failure:
    process through parallel/context.py's per-step functions (K/V passed
    on by indexing instead of NCCL), with exact K4 launch counts, held
    against K1 and the band kernel over the whole sequence, forward and
-   gradients.
+   gradients;
+8. the band2 kernel K5 (forward and backward) against its plain version
+   at the AV training geometry (L = 24,960 = 384 frames x 65 tokens,
+   window 16) at the routed plan (520, 2) under the fixed shift and the
+   usual softmax, at the ragged plan (208, 5) and at dit_v4's aligned plan
+   (256, 4) (L = 16,384), output and gradients checked at all 24 heads
+   (the plain version run 2 heads at a time), with its time, the plain
+   version's, its bound and SDPA's;
+9. ``AVRFTTrainer`` on configs/av_v5_8x8_weak.yml at full width (24 layers
+   x 1536, tpf 65, Muon) at 384 frames, through the port's trainer, with
+   the cuts printed: exact kernel launches per step (K5 on the 18 local
+   layers, K1 on the 6 global ones), s/step, tokens/s, MFU, peak memory,
+   device time by class of one traced step; then ``MixedAVRFTTrainer``
+   on configs/av_v5_mixed.yml with the same cuts.
 
 The last lines are the kernels' JSON record, the card line, and
 {"ok": true, "device": {...}}.
@@ -70,7 +83,8 @@ SERVE_TICKS = 6   # timed ticks after one warm tick
 # tensor
 GRAD_REL_L2 = 2e-2
 # the plain version's f32 scores take ~1 GB per head at L = 16,384: it is
-# checked at this many heads and timed over head chunks of this size
+# checked at this many heads (phases 2 and 7; phase 8 checks every head,
+# this many at a time) and timed over head chunks of this size
 LONG_L, CHECK_HEADS = 8192, 2
 TRAIN_STEPS = 6   # the config's save_interval: step 6 is saved and resumed
 # one full-width 4-layer training step, kernels vs dense attention: loss
@@ -81,6 +95,14 @@ ROUTE_LOSS_REL, ROUTE_GRAD_REL_L2, ROUTE_PARAM_REL_L2 = 1e-2, 3e-2, 1e-1
 # ranks; the ring and halo against the full-sequence kernels are held to
 # GRAD_REL_L2 per tensor (both sides bf16 kernels)
 SP_TOKENS, SP_SHARDS, SP_TPF, SP_WINDOW = 98_304, 4, 64, 16
+# AV training: the JAX package's own AV bench length (384 frames, where its
+# router takes band2), 4 steps of AVRFTTrainer and 2 of MixedAVRFTTrainer
+AV_FRAMES, AV_STEPS, MIXED_STEPS = 384, 4, 2
+# launches per AV step under group remat (attention_forwards_per_step):
+# K5 on the 18 local layers, K1 on the 6 global ones, no band kernel
+AV_LAUNCHES = {"band2_attention_fwd": 48, "band2_attention_bwd": 18,
+               "frame_attention_fwd": 18, "frame_attention_bwd_dq": 6,
+               "frame_attention_bwd_dkv": 6}
 
 
 def fail(msg: str):
@@ -117,6 +139,7 @@ KERNEL_CASES = [
     ("L3900_causal_w16_2docs", 3900, 65, True, 16, True),
     ("L4096_tpf64_causal_w16", 4096, 64, True, 16, False),
     ("L16384_tpf64_causal_global", 16384, 64, True, None, False),
+    ("L24960_tpf65_causal_global", 24960, 65, True, None, False),
 ]
 
 
@@ -231,6 +254,8 @@ def kernel_phase(dev):
 GRAD_CASES = [
     # name, kernel, L, tpf, causal, window, two documents, logit bound
     ("L16384_tpf64_causal_global", "frame", 16384, 64, True, None, False,
+     None),
+    ("L24960_tpf65_causal_global", "frame", 24960, 65, True, None, False,
      None),
     ("L3900_tpf65_causal_w16_2docs", "frame", 3900, 65, True, 16, True,
      None),
@@ -382,6 +407,136 @@ def grad_kernel_phase(dev):
                  f"(relative L2 {worst:.3e} > {GRAD_REL_L2})")
         if errs["out"][1] > KERNEL_MAX_ABS or errs["out"][2] > KERNEL_MEAN_ABS:
             fail(f"{kind} {name}: forward disagrees with its plain version")
+        del q, k, v, dout
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------- phase 8
+BAND2_CASES = [
+    # name, L, tpf, window, plan (S, m), logit bound
+    ("L24960_tpf65_520x2_bound8", 24960, 65, 16, (520, 2), 8.0),
+    ("L24960_tpf65_520x2_rowmax", 24960, 65, 16, (520, 2), None),
+    ("L24960_tpf65_208x5_bound8", 24960, 65, 16, (208, 5), 8.0),
+    ("L16384_tpf64_256x4_bound8", 16384, 64, 16, (256, 4), 8.0),
+]
+
+
+def chunked_grad_errors(got, plain, q, k, v, dout):
+    """The kernel's (out, dq, dk, dv) at every head against f32 autograd
+    of the plain version on the same bf16 inputs, CHECK_HEADS heads at a
+    time (the plain version's f32 scores of all heads at long L do not fit
+    at once): {name: (rel L2, max|d|, mean|d|)} over all heads. Also
+    times the plain version on each chunk (bf16 inputs, f32 scores):
+    returns (errors, plain fwd ms, plain bwd ms) summed over the chunks."""
+    names = ("out", "dq", "dk", "dv")
+    for name, a in zip(names, got):
+        if not torch.isfinite(a).all():
+            fail(f"kernel {name} not finite")
+    # per name: squared error, squared reference, max |d|, sum |d|
+    acc = {n: [0.0, 0.0, 0.0, 0.0] for n in names}
+    plain_fwd = plain_all = 0.0
+    for h in range(0, q.shape[1], CHECK_HEADS):
+        part = [t[:, h:h + CHECK_HEADS] for t in (q, k, v, dout)]
+        want = grads_of(plain, *(t.float() for t in part))
+        for n, a, b in zip(names, got, want):
+            d = a[:, h:h + CHECK_HEADS].float() - b
+            acc[n][0] += d.pow(2).sum().item()
+            acc[n][1] += b.pow(2).sum().item()
+            acc[n][2] = max(acc[n][2], d.abs().max().item())
+            acc[n][3] += d.abs().sum().item()
+        del want, d
+        f_ms, t_ms = fwd_bwd_ms(plain, *part, 1)
+        plain_fwd, plain_all = plain_fwd + f_ms, plain_all + t_ms
+        torch.cuda.empty_cache()
+    errs = {n: ((e[0] / e[1]) ** 0.5, e[2], e[3] / a.numel())
+            for (n, e), a in zip(acc.items(), got)}
+    return errs, plain_fwd, plain_all - plain_fwd
+
+
+def band2_phase(dev):
+    """K5 against its plain version at every head: the kernel's output and
+    gradients through autograd at H = 24, against f32 autograd of the plain
+    version chunk by chunk; with its time, the plain version's over the
+    same chunks, its bound and SDPA's with the same band mask."""
+    import torch.nn.functional as F
+    from owl_audio_exps_tpu_torch.ops import band2
+
+    B, H, Dh = 1, 24, 64
+    gen = torch.Generator(device=dev).manual_seed(30)
+    rows = {}
+    for name, L, tpf, window, plan, bound in BAND2_CASES:
+        q, k, v, dout = (torch.randn(B, H, L, Dh, generator=gen, device=dev)
+                         .to(torch.bfloat16) for _ in range(4))
+        q, k = rms_normed(q), rms_normed(k)
+        margs = (tpf, window, *plan, bound)
+        kern = lambda *t: band2.band2_attention(*t, tpf, window, *plan,
+                                                logit_bound=bound)
+        plain = lambda *t: band2.band2_attention_plain(*t, tpf, window,
+                                                       bound)
+        got = grads_of(kern, q, k, v, dout)
+        errs, plain_fwd, plain_bwd = chunked_grad_errors(got, plain, q, k, v,
+                                                         dout)
+        del got
+        torch.cuda.empty_cache()
+
+        iters = 5
+        fwd_ms = cuda_ms(lambda: band2.band2_attention_cuda(q, k, v, *margs),
+                         iters)
+        out, lse = band2.band2_attention_cuda(q, k, v, *margs)
+        bwd_ms = cuda_ms(lambda: band2.band2_attention_bwd_cuda(
+            q, k, v, out, lse, dout, *margs), iters)
+        del out, lse
+        mask = sdpa_mask(dev, L, tpf, window, True, None)
+        sdpa = lambda *t: F.scaled_dot_product_attention(
+            *t, attn_mask=mask, scale=Dh ** -0.5)
+        try:
+            lf, lt = fwd_bwd_ms(sdpa, q, k, v, dout, iters)
+            lib_fwd, lib_bwd = lf, lt - lf
+        except (RuntimeError, torch.OutOfMemoryError) as e:
+            print(f"[band2]   library call unavailable: {str(e)[:120]}",
+                  flush=True)
+            lib_fwd = lib_bwd = None
+        del mask
+        torch.cuda.empty_cache()
+
+        pairs = pairs_of(L, tpf, window, True, None, B)
+        elems, stats = B * H * L * Dh, B * H * L
+        timed = {"fwd": (fwd_ms, bound_row(4.0 * Dh * pairs * H,
+                                           8.0 * elems + 4.0 * stats),
+                         ("out",)),
+                 "bwd": (bwd_ms, bound_row(10.0 * Dh * pairs * H,
+                                           16.0 * elems + 4.0 * stats),
+                         ("dq", "dk", "dv"))}
+        for part, (ms, bnd, keys) in timed.items():
+            rows[(f"band2_attention_{part}", name)] = dict(
+                ms=ms, plain_ms=plain_fwd if part == "fwd" else plain_bwd,
+                library_ms=lib_fwd if part == "fwd" else lib_bwd,
+                max_abs_err=max(errs[n][1] for n in keys),
+                mean_abs_err=max(errs[n][2] for n in keys),
+                rel_l2=max(errs[n][0] for n in keys),
+                checked_heads=H, tflops=bnd["gflop"] / ms, **bnd)
+        lib = ("n/a" if lib_bwd is None else
+               f"fwd {lib_fwd:.4f} ms bwd {lib_bwd:.4f} ms")
+        print(f"[band2] {name}: B={B} H={H} L={L} Dh={Dh} tpf={tpf} "
+              f"window={window} plan (S, m)={plan} next ref "
+              f"{band2._next_cols(plan[0], tpf)} bound={bound} | checked at "
+              f"H={H}: " + " ".join(
+                  f"{n} rel={e[0]:.2e} max|d|={e[1]:.2e} mean|d|={e[2]:.2e}"
+                  for n, e in errs.items()), flush=True)
+        print("[band2]   " + " ".join(
+            f"{part} {ms:.4f} ms ({bnd['gflop'] / ms:.1f} TFLOP/s, bound "
+            f"{bnd['bound_ms']:.4f} ms {bnd['bound_by']})"
+            for part, (ms, bnd, _) in timed.items())
+            + f" | plain fwd {plain_fwd:.3f} ms bwd {plain_bwd:.3f} ms | "
+            f"sdpa {lib} | {pairs * H / 1e6:.1f} M visible pairs",
+            flush=True)
+        worst = max(e[0] for e in errs.values())
+        if worst > GRAD_REL_L2:
+            fail(f"band2 {name}: kernel disagrees with its plain version "
+                 f"(relative L2 {worst:.3e} > {GRAD_REL_L2})")
+        if errs["out"][1] > KERNEL_MAX_ABS or errs["out"][2] > KERNEL_MEAN_ABS:
+            fail(f"band2 {name}: forward disagrees with its plain version")
         del q, k, v, dout
         torch.cuda.empty_cache()
     return rows
@@ -585,7 +740,7 @@ def sampler_phase(dev):
 
 # ---------------------------------------------------------------- phase 5
 def kernel_counts():
-    from owl_audio_exps_tpu_torch.ops import band, splash
+    from owl_audio_exps_tpu_torch.ops import band, band2, splash
     return {"frame_attention_fwd": splash.launches,
             "frame_attention_bwd_dq": splash.dq_launches,
             "frame_attention_bwd_dkv": splash.dkv_launches,
@@ -593,34 +748,40 @@ def kernel_counts():
             "band_attention_bwd": band.bwd_launches,
             "ring_partial_fwd": splash.lse_launches,
             "ring_partial_bwd_dq": splash.lse_dq_launches,
-            "ring_partial_bwd_dkv": splash.lse_dkv_launches}
+            "ring_partial_bwd_dkv": splash.lse_dkv_launches,
+            "band2_attention_fwd": band2.fwd_launches,
+            "band2_attention_bwd": band2.bwd_launches}
 
 
 def reset_counts():
-    from owl_audio_exps_tpu_torch.ops import band, splash
+    from owl_audio_exps_tpu_torch.ops import band, band2, splash
     splash.launches = splash.dq_launches = splash.dkv_launches = 0
     splash.lse_launches = splash.lse_dq_launches = 0
     splash.lse_dkv_launches = 0
     band.fwd_launches = band.bwd_launches = 0
+    band2.fwd_launches = band2.bwd_launches = 0
 
 
-def expected_counts(cfg):
-    """Launches of each kernel in one training step, from the remat
-    structure (nn/attn.py attention_forwards_per_step) and the routing:
-    global layers take the frame-mask kernels, local layers the band."""
+def expected_counts(cfg, L: int):
+    """Launches of each kernel in one training step of L tokens, from the
+    remat structure (nn/attn.py attention_forwards_per_step) and the
+    routing (nn/attn.py attention_route): global layers take the
+    frame-mask kernels, local layers the band or band2 kernel."""
     from owl_audio_exps_tpu_torch.nn.attn import (attention_forwards_per_step,
+                                                  attention_route,
                                                   local_layer_flags)
     fwd = attention_forwards_per_step(cfg)
     flags = local_layer_flags(cfg)
     n_local = sum(flags)
-    return {"frame_attention_fwd": sum(f for f, l in zip(fwd, flags)
-                                       if not l),
-            "frame_attention_bwd_dq": len(flags) - n_local,
-            "frame_attention_bwd_dkv": len(flags) - n_local,
-            "band_attention_fwd": sum(f for f, l in zip(fwd, flags) if l),
-            "band_attention_bwd": n_local,
-            "ring_partial_fwd": 0, "ring_partial_bwd_dq": 0,
-            "ring_partial_bwd_dkv": 0}
+    local = f"{attention_route(cfg, True, L)[0]}_attention"
+    counts = dict.fromkeys(kernel_counts(), 0)
+    counts.update({
+        "frame_attention_fwd": sum(f for f, l in zip(fwd, flags) if not l),
+        "frame_attention_bwd_dq": len(flags) - n_local,
+        "frame_attention_bwd_dkv": len(flags) - n_local,
+        f"{local}_fwd": sum(f for f, l in zip(fwd, flags) if l),
+        f"{local}_bwd": n_local})
+    return counts
 
 
 def counted_trainer(base):
@@ -656,19 +817,21 @@ def state_tensors(state):
     return out
 
 
-def profile_step(trainer, state, micro, gen, step_s):
-    """Device time by kernel class of one traced training step."""
+def profile_step(trainer, state, micro, gen, step_s, tag="train"):
+    """Device time by kernel class of one traced training step (the
+    trainer's own step, outside the counting wrapper: not counted)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprof
-    from owl_audio_exps_tpu_torch.trainers.rft_trainer import RFTTrainer
+    from owl_audio_exps_tpu_torch.trainers.base import BaseTrainer
 
     with tprof(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
-        RFTTrainer.train_step(trainer, state, micro, gen)
+        BaseTrainer.train_step(trainer, state, micro, gen)
         torch.cuda.synchronize()
     classes = {"K1 fwd (frame_attention_fwd)": 0.0,
                "K1 bwd (dq + dkv)": 0.0,
                "band fwd": 0.0, "band bwd": 0.0,
+               "K5 fwd (band2)": 0.0, "K5 bwd (band2)": 0.0,
                "matmul (cuBLAS)": 0.0,
                "other (elementwise, norms, optimizer, copies)": 0.0}
     per_name = {}
@@ -690,6 +853,10 @@ def profile_step(trainer, state, micro, gen, step_s):
             classes["band fwd"] += us
         elif "band_attn_bwd" in n:
             classes["band bwd"] += us
+        elif "band2_attn_fwd" in n:
+            classes["K5 fwd (band2)"] += us
+        elif "band2_attn_bwd" in n:
+            classes["K5 bwd (band2)"] += us
         elif any(t in n.lower() for t in ("gemm", "nvjet", "cutlass",
                                           "sm90_xmma")):
             classes["matmul (cuBLAS)"] += us
@@ -698,15 +865,15 @@ def profile_step(trainer, state, micro, gen, step_s):
     busy = sum(classes.values())
     if busy == 0:
         fail("the profiler recorded no device time")
-    print(f"[train] one traced step: device busy {busy / 1e3:.1f} ms = "
+    print(f"[{tag}] one traced step: device busy {busy / 1e3:.1f} ms = "
           f"{100 * busy / 1e3 / (1e3 * step_s):.1f}% of the untraced median "
           f"step; {sum(c for _, c in per_name.values())} kernels", flush=True)
     for cls, us in classes.items():
-        print(f"[train]   {cls}: {us / 1e3:.2f} ms "
+        print(f"[{tag}]   {cls}: {us / 1e3:.2f} ms "
               f"({100 * us / busy:.1f}% of busy)", flush=True)
     for name, (us, c) in sorted(per_name.items(),
                                 key=lambda kv: -kv[1][0])[:10]:
-        print(f"[train]   {us / 1e3:9.2f} ms {c:5d}x {name[:100]}",
+        print(f"[{tag}]   {us / 1e3:9.2f} ms {c:5d}x {name[:100]}",
               flush=True)
     return {k: us / 1e3 for k, us in classes.items()}
 
@@ -734,8 +901,8 @@ def train_phase(dev):
     print("[train]   (sampler av_caching: the KV-cached samplers come with "
           "port slice 5; log_interval 1 drains metrics every step)",
           flush=True)
-    expect = expected_counts(cfg)
     L = tc.data_kwargs.window_length * cfg.tokens_per_frame
+    expect = expected_counts(cfg, L)
 
     CountedTrainer = counted_trainer(RFTTrainer)
     torch.cuda.reset_peak_memory_stats()
@@ -833,7 +1000,7 @@ def route_phase(dev):
     reset_counts()
     lk, gk = one_step("auto")
     counts = {k: n for k, n in kernel_counts().items()
-              if not k.startswith("ring_partial")}
+              if not k.startswith(("ring_partial", "band2"))}
     if not all(counts.values()):
         fail(f"route check: the kernel route launched {counts}")
     ld, gd = one_step("dense")
@@ -1088,6 +1255,121 @@ def context_phase(dev):
                 rel_l2=worst, seconds=secs)
 
 
+# ---------------------------------------------------------------- phase 9
+def av_config(name: str, work: str):
+    """configs/<name> with the AV training phase's cuts applied in the
+    config object, each printed: 384 frames, batch 1, group remat, and
+    train.py's port cuts (the data source, the eval sampler)."""
+    from owl_audio_exps_tpu_torch.configs import Config
+    from owl_audio_exps_tpu_torch.train import port_cuts
+
+    conf = Config.from_yaml(os.path.join(ROOT, "configs", name))
+    mc, tc = conf.model, conf.train
+    cuts = [(mc, "n_frames", AV_FRAMES), (tc.data_kwargs, "window_length",
+                                          AV_FRAMES),
+            (tc, "batch_size", 1), (tc, "target_batch_size", 1),
+            (mc, "gradient_checkpointing", True),
+            (mc, "remat_granularity", "group"),
+            (tc, "checkpoint_dir", os.path.join(work, "ckpt")),
+            (tc, "log_interval", 1)]
+    for node, key, value in cuts:
+        print(f"[av] cut from configs/{name}: {key} {node.get(key)!r} -> "
+              f"{value!r}", flush=True)
+        node[key] = value
+    for line in port_cuts(conf, 1):
+        print(f"[av] cut from configs/{name}: {line}", flush=True)
+    return conf
+
+
+def av_train_phase(dev):
+    """AVRFTTrainer at 384 frames (then MixedAVRFTTrainer) through the
+    port's trainer: exact launches per step, step time, MFU, peak memory
+    and one traced step."""
+    import gc
+    import shutil
+    from owl_audio_exps_tpu_torch.data import get_loader
+    from owl_audio_exps_tpu_torch.nn.attn import attention_route
+    from owl_audio_exps_tpu_torch.trainers.rft_trainer import (
+        AVRFTTrainer, MixedAVRFTTrainer)
+    from owl_audio_exps_tpu_torch.utils.mfu import (H100_PEAK_TFLOPS,
+                                                    training_flops_per_token)
+
+    work = os.path.join(ROOT, "build", "chip_smoke_av")
+    shutil.rmtree(work, ignore_errors=True)
+    out = {}
+    for name, base, n_steps in (("av_v5_8x8_weak.yml", AVRFTTrainer,
+                                 AV_STEPS),
+                                ("av_v5_mixed.yml", MixedAVRFTTrainer,
+                                 MIXED_STEPS)):
+        conf = av_config(name, work)
+        cfg, tc = conf.model, conf.train
+        L = AV_FRAMES * cfg.tokens_per_frame
+        route = attention_route(cfg, True, L)
+        expect = expected_counts(cfg, L)
+        print(f"[av] {base.__name__}: local layers take {route[0]} with "
+              f"plan {route[1]}; expected launches per step "
+              f"{ {k: n for k, n in expect.items() if n} }", flush=True)
+        if route[0] != "band2":
+            fail(f"{name}: the local layers route to {route}, not band2")
+        if {k: n for k, n in expect.items() if n} != AV_LAUNCHES:
+            fail(f"{name}: expected launches {expect}, not {AV_LAUNCHES}")
+
+        torch.cuda.reset_peak_memory_stats()
+        trainer = counted_trainer(base)(conf, device=dev)
+        t0 = time.perf_counter()
+        state = trainer.train(max_steps=n_steps)
+        wall = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_params = sum(p.numel() for p in state.model.parameters())
+        print(f"[av] {base.__name__} {cfg.n_layers} layers x d "
+              f"{cfg.d_model}, {cfg.n_heads} heads x "
+              f"{cfg.d_model // cfg.n_heads}, {n_params / 1e6:.1f} M params "
+              f"fp32, L = {L} ({AV_FRAMES} frames x tpf "
+              f"{cfg.tokens_per_frame}, local window {cfg.local_window}), "
+              f"opt {tc.opt}, remat {cfg.remat_granularity}, data "
+              f"{tc.data_id}: {n_steps} steps in {wall:.1f} s", flush=True)
+        for i, st in enumerate(trainer.steps):
+            print(f"[av]   step {i + 1}: {st['s']:.3f} s loss "
+                  f"{st['loss']:.5f} launches "
+                  f"{ {k: n for k, n in st['counts'].items() if n} }",
+                  flush=True)
+            if not math.isfinite(st["loss"]):
+                fail(f"{name} step {i + 1}: loss not finite")
+            if st["counts"] != expect:
+                fail(f"{name} step {i + 1}: kernel launches {st['counts']}, "
+                     f"expected {expect}")
+        timed = [st["s"] for st in trainer.steps[1:]]
+        step_s = statistics.median(timed)
+        tokens = L * tc.batch_size * trainer.accum_steps()
+        mfu = training_flops_per_token(cfg, L) * tokens / step_s / \
+            (H100_PEAK_TFLOPS * 1e12)
+        print(f"[av] {base.__name__} s/step median {step_s:.4f} (steps "
+              f"2-{n_steps}, min {min(timed):.4f} max {max(timed):.4f}), "
+              f"{tokens / step_s:.0f} tokens/s, MFU {100 * mfu:.2f}% of "
+              f"{H100_PEAK_TFLOPS:.0f} TFLOP/s, peak memory {peak_gb:.2f} "
+              f"GiB (max_memory_allocated)", flush=True)
+        row = dict(step_s=step_s, tokens_per_s=tokens / step_s, mfu=mfu,
+                   peak_gib=peak_gb, losses=[st["loss"] for st in
+                                             trainer.steps],
+                   per_step=expect,
+                   totals={k: sum(st["counts"][k] for st in trainer.steps)
+                           for k in expect})
+        if base is AVRFTTrainer:
+            loader = iter(get_loader(tc.data_id, tc.batch_size,
+                                     **dict(tc.data_kwargs.items())))
+            micro = [trainer.to_device(next(loader))]
+            gen = torch.Generator(device=dev).manual_seed(98)
+            row["device_ms"] = profile_step(trainer, state, micro, gen,
+                                            step_s, tag="av")
+            del micro
+        out[base.__name__] = row
+        del trainer, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    reset_counts()
+    return out
+
+
 def grads_of(fn, q, k, v, g):
     """(out, dq, dk, dv) of fn under the cotangent g."""
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -1105,6 +1387,8 @@ KERNELS = {
     "ring_partial_fwd": ("frame_attention.cu", "ops/splash.py:312"),
     "ring_partial_bwd_dq": ("frame_attention.cu", "ops/splash.py:358"),
     "ring_partial_bwd_dkv": ("frame_attention.cu", "ops/splash.py:358"),
+    "band2_attention_fwd": ("band2_attention.cu", "ops/band2.py:348"),
+    "band2_attention_bwd": ("band2_attention.cu", "ops/band2.py:552"),
 }
 MAIN_CASE = {  # the training path's geometry of each kernel
     "frame_attention_fwd": "L16384_tpf64_causal_global",
@@ -1116,6 +1400,9 @@ MAIN_CASE = {  # the training path's geometry of each kernel
     "ring_partial_fwd": "L24576_full",
     "ring_partial_bwd_dq": "L24576_full",
     "ring_partial_bwd_dkv": "L24576_full",
+    # the AV training step's local layers: plan (520, 2), fixed shift
+    "band2_attention_fwd": "L24960_tpf65_520x2_bound8",
+    "band2_attention_bwd": "L24960_tpf65_520x2_bound8",
 }
 
 
@@ -1180,11 +1467,16 @@ def main():
     route = route_phase(dev)
     grad_rows.update(k4_phase(dev))
     context = context_phase(dev)
+    grad_rows.update(band2_phase(dev))
+    av = av_train_phase(dev)
 
     launches = dict(train["totals"])
     launches["frame_attention_fwd"] += serve_launches + sampler_launches
     for name, count in context["counts"].items():
         launches[name] += count
+    for row in av.values():
+        for name, count in row["totals"].items():
+            launches[name] += count
     extra = {"frame_attention_fwd": dict(
         launches_by_path=dict(serve=serve_launches, sampler=sampler_launches,
                               train=train["totals"]["frame_attention_fwd"]),
@@ -1195,10 +1487,16 @@ def main():
     for name in ("band_attention_fwd", "band_attention_bwd"):
         extra[name]["launches_by_path"] = dict(
             train=train["totals"][name], context=context["counts"][name])
+    for name, n in av["AVRFTTrainer"]["per_step"].items():
+        if n:
+            extra.setdefault(name, {})["launches_per_av_train_step"] = n
     record = {"kernels": kernel_record(fwd_rows, grad_rows, launches, extra),
               "train": {k: v for k, v in train.items()
                         if k not in ("totals", "per_step")},
-              "route": route, "context": context}
+              "route": route, "context": context,
+              "av_train": {trainer: {k: v for k, v in row.items()
+                                     if k not in ("totals", "per_step")}
+                           for trainer, row in av.items()}}
     print(json.dumps(record), flush=True)
     print(f"[env] {card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

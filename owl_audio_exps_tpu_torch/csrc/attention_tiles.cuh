@@ -1,5 +1,5 @@
 // Tile bodies shared by the port's attention kernels (frame_attention.cu,
-// band_attention.cu), for Hopper (sm_90a).
+// band_attention.cu, band2_attention.cu), for Hopper (sm_90a).
 //
 // All of them compute attention under the frame algebra of the JAX
 // package's FrameMask: with f = index / tpf,
@@ -19,6 +19,9 @@
 // a tile whose every pair is visible skips the per-element mask
 // (tile_full). The ragged tail (L not a multiple of 64) is masked, not
 // padded: rows past L are loaded as zero, never written, and invisible.
+// The band2 kernel instead walks the tiles of its chunk plan (the bodies'
+// kPlan policy: plan_kv_range, plan_q_range), without the tiles of that
+// walk that hold no visible pair (cut_skip_tiles).
 //
 // Softmax forms. `cap` = +inf is the usual softmax (online row max in the
 // forward). A finite `cap` is the fixed-shift softmax of the TPU band
@@ -48,6 +51,7 @@ namespace owl_attn {
 constexpr int kBQ = 64;        // rows per tile (queries or keys)
 constexpr int kBK = 64;        // rows of the other operand's tiles
 constexpr int kThreads = 128;  // 4 warps x 16 rows
+constexpr int kNoFrame = 1 << 29;  // the forward's frame of a key past L
 
 using bf16 = __nv_bfloat16;
 
@@ -69,6 +73,9 @@ struct Params {
   int B, H, L, tpf, window, causal, n_frames;
   float scale;  // q pre-scale
   float cap;    // fixed-shift bound; +inf for the usual softmax
+  // band2 chunk plan (kPlan bodies only): span S, previous refs m, the
+  // NEXT ref's tokens (0 for a frame-aligned span), chunks L / S
+  int span, nrefs, next_cols, n_chunks;
 };
 
 // The C entry points all take the same arrays: 11 pointers (q, k, v, o,
@@ -100,6 +107,7 @@ inline Params make_params(const void* const* ptr, const long long* st,
   p.n_frames = (p.L + p.tpf - 1) / p.tpf;
   p.scale = scale;
   p.cap = cap;
+  p.span = p.nrefs = p.next_cols = p.n_chunks = 0;
   return p;
 }
 
@@ -305,6 +313,48 @@ __device__ __forceinline__ void q_range(const Params& p, int k0, int& begin,
   begin = (fq_min * p.tpf / kBQ) * kBQ;
 }
 
+// The band2 plan's walks (kPlan bodies; band2_attention.cu). A walk is
+// the 64-row tiles at begin, begin + 64, ... below end. Its SKIP tiles,
+// those that hold no visible pair, all lie before or after the rows
+// [lo, hi) that the tile at hand can see (a contiguous range under the
+// causal window), so they are cut off here in closed form: the tiles
+// kept each hold a visible pair, and no SKIP tile is visited or loaded.
+__device__ __forceinline__ void cut_skip_tiles(int lo, int hi, int& begin,
+                                               int& end) {
+  if (lo > begin) begin += (lo - begin) / kBK * kBK;
+  end = min(end, hi);
+}
+
+// Key tiles of the query tile at q0: the plan gives kv chunks i - m .. i
+// of each query chunk i the tile touches, and the NEXT ref of the last of
+// them, clamped to the sequence; the tile sees key frames fq_lo - window
+// + 1 .. fq_hi.
+__device__ __forceinline__ void plan_kv_range(const Params& p, int q0,
+                                              int& begin, int& end) {
+  const int last = min(q0 + kBQ, p.L) - 1;
+  const int i_lo = q0 / p.span, i_hi = last / p.span;
+  begin = max(0, (i_lo - p.nrefs) * p.span);
+  end = min(p.L, (i_hi + 1) * p.span +
+                     (i_hi + 1 < p.n_chunks ? p.next_cols : 0));
+  cut_skip_tiles(max(0, q0 / p.tpf - p.window + 1) * p.tpf,
+                 min(p.L, (last / p.tpf + 1) * p.tpf), begin, end);
+}
+
+// Query tiles of the key tile at k0: the plan reads it from query chunks
+// t .. t + m of each kv chunk t the tile touches, and from chunk t - 1
+// where the tile lies in chunk t's NEXT ref; query frames fk_lo .. fk_hi
+// + window - 1 see it.
+__device__ __forceinline__ void plan_q_range(const Params& p, int k0,
+                                             int& begin, int& end) {
+  const int last = min(k0 + kBK, p.L) - 1;
+  const int t_lo = k0 / p.span, t_hi = last / p.span;
+  const int first = k0 - t_lo * p.span < p.next_cols ? t_lo - 1 : t_lo;
+  begin = max(0, first * p.span);
+  end = min(p.L, (t_hi + p.nrefs + 1) * p.span);
+  cut_skip_tiles(k0 / p.tpf * p.tpf,
+                 min(p.L, (last / p.tpf + p.window) * p.tpf), begin, end);
+}
+
 __device__ __forceinline__ int doc_of(const Params& p, int b, int f) {
   return (p.doc && f >= 0) ? p.doc[(long long)b * p.n_frames + f] : 0;
 }
@@ -320,15 +370,17 @@ constexpr size_t fwd_smem() {
 // One 64-row query tile at q0 of head (b, h): out, and lse when p.lse.
 // The mask stays written out inline here, in this form: variants of this
 // body that call visible() / tile_full() compiled to markedly slower code
-// on the H100.
-template <int D, bool kFixed>
+// on the H100, and the one compare below ran 4-24% faster there than the
+// three compares it replaced. With kPlan the key tiles are the band2
+// plan's (plan_kv_range).
+template <int D, bool kFixed, bool kPlan = false>
 __device__ __forceinline__ void fwd_tile(const Params& p, int b, int h, int q0) {
   constexpr int LDS = D + 8;  // padded shared-memory row, in elements
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
   bf16* sK = sQ + kBQ * LDS;
   bf16* sV = sK + kBK * LDS;
-  int* sKf = reinterpret_cast<int*>(sV + kBK * LDS);  // key frame, -1 past L
+  int* sKf = reinterpret_cast<int*>(sV + kBK * LDS);  // key frame
   int* sKd = sKf + kBK;                               // key document
 
   const int L = p.L, tpf = p.tpf, window = p.window, nf = p.n_frames;
@@ -365,14 +417,28 @@ __device__ __forceinline__ void fwd_tile(const Params& p, int b, int h, int q0) 
     dq[i] = docb ? docb[min(fq[i], nf - 1)] : 0;
   }
 
+  // The frame mask without documents as one compare: fq - fk lies in
+  // [dmin, dmin + dspan] (causal: 0 .. w - 1; bidirectional: -(w - 1) ..
+  // w - 1; w the window, or the frame count without one). A key at or
+  // past L has frame kNoFrame, which puts fq - fk below any dmin.
+  const int wl = window > 0 ? min(window, nf) : nf;
+  const int dmin = causal ? 0 : 1 - wl;
+  const unsigned dspan = causal ? wl - 1 : 2 * (wl - 1);
+
   // frames the block's queries span, and the key range that can be visible
   const int fq_lo = q0 / tpf;
   const int fq_hi = (min(q0 + kBQ, L) - 1) / tpf;
-  const int fk_min = window > 0 ? max(0, fq_lo - window + 1) : 0;
-  const int fk_max =
-      causal ? fq_hi : (window > 0 ? min(nf - 1, fq_hi + window - 1) : nf - 1);
-  const int kv_end = min((fk_max + 1) * tpf, L);
-  const int kv_begin = (fk_min * tpf / kBK) * kBK;
+  int kv_begin, kv_end;
+  if constexpr (kPlan) {
+    plan_kv_range(p, q0, kv_begin, kv_end);
+  } else {
+    const int fk_min = window > 0 ? max(0, fq_lo - window + 1) : 0;
+    const int fk_max = causal ? fq_hi
+                              : (window > 0 ? min(nf - 1, fq_hi + window - 1)
+                                            : nf - 1);
+    kv_end = min((fk_max + 1) * tpf, L);
+    kv_begin = (fk_min * tpf / kBK) * kBK;
+  }
 
   float o[D / 8][4];
 #pragma unroll
@@ -387,9 +453,8 @@ __device__ __forceinline__ void fwd_tile(const Params& p, int b, int h, int q0) 
     load_tile<D, LDS>(sV, vg, p.s[OP_V][2], k0, L, 0.f);
     if (threadIdx.x < kBK) {
       const int j = k0 + threadIdx.x;
-      const int f = j < L ? j / tpf : -1;
-      sKf[threadIdx.x] = f;
-      sKd[threadIdx.x] = (docb && f >= 0) ? docb[f] : 0;
+      sKf[threadIdx.x] = j < L ? j / tpf : kNoFrame;
+      sKd[threadIdx.x] = (docb && j < L) ? docb[j / tpf] : 0;
     }
     __syncthreads();
 
@@ -422,10 +487,7 @@ __device__ __forceinline__ void fwd_tile(const Params& p, int b, int h, int q0) 
         for (int e = 0; e < 4; ++e) {
           const int j = n * 8 + t4 * 2 + (e & 1);
           const int i = e >> 1;
-          const int fk = sKf[j];
-          bool vis = fk >= 0;
-          if (causal) vis = vis && fk <= fq[i];
-          if (window > 0) vis = vis && abs(fq[i] - fk) < window;
+          bool vis = (unsigned)(fq[i] - sKf[j] - dmin) <= dspan;
           if (docb) vis = vis && sKd[j] == dq[i];
           if (!vis) s[n][e] = -INFINITY;
         }
@@ -543,8 +605,9 @@ __device__ __forceinline__ float tile_delta(const bf16* sdO, const bf16* sO,
 // dq of the 64-row query tile at q0: the block walks the same key tiles
 // as the forward. delta comes from this tile's dO and O; with
 // `write_delta` it is also stored for the dkv pass. With `kReadDelta` it
-// is read from p.delta instead (a delta' the caller computed).
-template <int D, bool kReadDelta = false>
+// is read from p.delta instead (a delta' the caller computed). With kPlan
+// the key tiles are the band2 plan's, as in fwd_tile.
+template <int D, bool kReadDelta = false, bool kPlan = false>
 __device__ __forceinline__ void dq_tile(const Params& p, int b, int h, int q0,
                                         bool write_delta) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -608,7 +671,10 @@ __device__ __forceinline__ void dq_tile(const Params& p, int b, int h, int q0,
     delta[i] = sDelta[r];
   }
   int kv_begin, kv_end;
-  kv_range(p, q0, kv_begin, kv_end);
+  if constexpr (kPlan)
+    plan_kv_range(p, q0, kv_begin, kv_end);
+  else
+    kv_range(p, q0, kv_begin, kv_end);
   const Mask mk = mask_of(p);
   const TileFrames qf = tile_frames(p, q0);
 
@@ -652,8 +718,10 @@ __device__ __forceinline__ void dq_tile(const Params& p, int b, int h, int q0,
 
 // dk, dv of the 64-row key tile at k0: the block walks the query tiles
 // that can see it (q_range). delta is read from p.delta, or, with
-// `local_delta`, computed here from each query tile's dO and O.
-template <int D>
+// `local_delta`, computed here from each query tile's dO and O. With
+// kPlan the query tiles are those whose band2 plan reads this key tile
+// (plan_q_range).
+template <int D, bool kPlan = false>
 __device__ __forceinline__ void dkv_tile(const Params& p, int b, int h, int k0,
                                          bool local_delta) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -688,7 +756,10 @@ __device__ __forceinline__ void dkv_tile(const Params& p, int b, int h, int k0,
     dk[i] = doc_of(p, b, fk[i]);
   }
   int q_begin, q_end;
-  q_range(p, k0, q_begin, q_end);
+  if constexpr (kPlan)
+    plan_q_range(p, k0, q_begin, q_end);
+  else
+    q_range(p, k0, q_begin, q_end);
   const Mask mk = mask_of(p);
   const TileFrames kf = tile_frames(p, k0);
 

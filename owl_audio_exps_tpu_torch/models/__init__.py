@@ -12,10 +12,8 @@ def get_model_cls(model_id: str):
         from .gamerft import GameRFT
         return GameRFT
     if model_id == "game_rft_audio":
-        raise NotImplementedError(
-            "model 'game_rft_audio' training wrapper (GameRFTAudio) is not "
-            "ported yet: it comes next in the training slice (ROADMAP.md "
-            "Queue 1)")
+        from .gamerft_audio import GameRFTAudio
+        return GameRFTAudio
     if model_id in _NOT_PORTED:
         raise NotImplementedError(
             f"model {model_id!r} is not ported yet (ROADMAP.md Queue 1)")

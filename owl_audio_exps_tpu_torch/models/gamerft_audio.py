@@ -1,9 +1,16 @@
-"""Joint video + audio rectified-flow denoiser (counterpart of
-owl_audio_exps_tpu/models/gamerft_audio.py ``GameRFTAudioCore``).
+"""Joint video + audio rectified-flow world model (counterpart of
+owl_audio_exps_tpu/models/gamerft_audio.py ``GameRFTAudioCore`` and
+``GameRFTAudio``).
 
 Per frame, 64 video tokens and 1 audio token are interleaved into one
 stream [b, n * (h*w + 1), d]; the per-frame cond is the timestep
-embedding plus, unless ``uncond``, the control embedding.
+embedding plus, unless ``uncond``, the control embedding. The training
+wrapper noises video and audio with one per-frame timestep and returns
+(video MSE + audio MSE, video MSE, audio MSE), all f32. The noise comes
+from a ``torch.Generator``, which gives other numbers than the JAX
+package's keys from the same seed: ``GameRFTAudio.forward`` therefore also
+takes the draws (``ts``, ``z_video``, ``z_audio``, ``has_controls``) from
+the caller, as the tests do with the JAX model's own draw.
 """
 
 from __future__ import annotations
@@ -12,6 +19,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..nn.attn import DiT
 from ..nn.embeddings import ControlEmbedding, TimestepEmbedding
@@ -19,6 +27,7 @@ from ..nn.layers import FinalLayer, Linear, reset_parameters
 from ..ops.norms import layer_norm
 from ..parallel.mesh import seq_parallel_active
 from ..utils.device import resolve_device
+from .gamerft import handle_cfg
 
 
 class GameRFTAudioCore(nn.Module):
@@ -71,9 +80,18 @@ class GameRFTAudioCore(nn.Module):
                                    torch.zeros_like(ctrl))
             cond = cond + ctrl
 
+        # the edge projections recompute in the backward under gradient
+        # checkpointing, as in the JAX package
+        remat = (cfg.get("gradient_checkpointing", False)
+                 and kv_cache is None and torch.is_grad_enabled())
+
+        def edge(layer, *args):
+            return (checkpoint(layer, *args, use_reentrant=False) if remat
+                    else layer(*args))
+
         vid = x.permute(0, 1, 3, 4, 2).reshape(b, n * h * w, c)
-        vid = self.proj_in(vid.to(self.dtype))
-        aud = self.audio_proj_in(audio.to(self.dtype))
+        vid = edge(self.proj_in, vid.to(self.dtype))
+        aud = edge(self.audio_proj_in, audio.to(self.dtype))
 
         stream = torch.cat([vid.reshape(b, n, h * w, cfg.d_model),
                             aud[:, :, None, :]], dim=2)
@@ -83,7 +101,54 @@ class GameRFTAudioCore(nn.Module):
         video = stream[:, :, :-1].reshape(b, n * h * w, cfg.d_model)
         aud_out = stream[:, :, -1]
 
-        video = self.proj_out(layer_norm(video), layer_norm(cond))
+        video = edge(self.proj_out, layer_norm(video), layer_norm(cond))
         video = video.reshape(b, n, h, w, c).permute(0, 1, 4, 2, 3)
-        aud_out = self.audio_proj_out(aud_out, cond)
+        aud_out = edge(self.audio_proj_out, aud_out, cond)
         return video, aud_out
+
+
+class GameRFTAudio(nn.Module):
+    """Training wrapper: one per-frame timestep noises video and audio."""
+
+    def __init__(self, config, dtype=torch.bfloat16, device="cuda",
+                 seed: Optional[int] = 0):
+        super().__init__()
+        self.config = config
+        self.core = GameRFTAudioCore(config, dtype=dtype, device=device,
+                                     seed=seed)
+
+    def forward(self, x, audio, mouse=None, btn=None, has_controls=None,
+                generator: Optional[torch.Generator] = None, ts=None,
+                z_video=None, z_audio=None):
+        """x: [b, n, c, h, w] and audio [b, n, c_a] latents -> (loss,
+        video_loss, audio_loss), f32. The draws come from ``generator`` in
+        the JAX package's order (cfg dropout, timesteps, video noise,
+        audio noise) unless ``ts`` [b, n], ``z_video`` (x's shape) and
+        ``z_audio`` (audio's shape) are given; a caller that hands them in
+        also hands in the post-dropout ``has_controls`` (the dropout is
+        then not applied)."""
+        b, n = x.shape[0], x.shape[1]
+        dev = x.device
+        if has_controls is None:
+            has_controls = torch.ones(b, dtype=torch.bool, device=dev)
+        if ts is None:
+            has_controls = handle_cfg(generator, has_controls,
+                                      self.config.cfg_prob)
+            ts = torch.sigmoid(torch.randn(b, n, generator=generator,
+                                           device=dev))
+            z_video = torch.randn(x.shape, generator=generator, device=dev)
+            z_audio = torch.randn(audio.shape, generator=generator,
+                                  device=dev)
+        ts = ts.float()
+        xf, af = x.float(), audio.float()
+        z_video, z_audio = z_video.float(), z_audio.float()
+        te_v = ts[:, :, None, None, None]
+        lerpd_v = xf * (1.0 - te_v) + z_video * te_v
+        te_a = ts[:, :, None]
+        lerpd_a = af * (1.0 - te_a) + z_audio * te_a
+
+        pred_v, pred_a = self.core(lerpd_v.to(x.dtype), lerpd_a.to(audio.dtype),
+                                   ts.to(x.dtype), mouse, btn, has_controls)
+        video_loss = torch.mean(torch.square(pred_v.float() - (z_video - xf)))
+        audio_loss = torch.mean(torch.square(pred_a.float() - (z_audio - af)))
+        return video_loss + audio_loss, video_loss, audio_loss

@@ -7,24 +7,29 @@ gates; layers alternate [global, local, local, local, ...]
 Routing, with the JAX package's knobs (``train_attention`` follows the
 precedence of owl_audio_exps_tpu/nn/attn.py:155-218):
 
-* ``attn_impl``: ``auto`` takes the kernels (ops/splash.py, ops/band.py)
-  for sequences of at least 1024 tokens on a CUDA device, ``splash``
-  always, ``dense`` never; otherwise the dense mask + ``dot_attention``
-  path runs.
-* ``local_attn_impl``: a causal local window without document packing
-  whose span divides the sequence (``band_available``) takes the band
-  kernel (K2/K3's port), with the fixed-shift softmax at bound sqrt(Dh)
-  unless ``band_fixed_shift: false``; ``auto`` and a pinned ``band`` do
-  so, and a pinned ``band`` raises where the band does not apply. Where
-  the JAX package's ``auto`` would take its band2 kernel (a ragged span
-  with a frame-aligned plan, owl_audio_exps_tpu/ops/band2.py:120-146),
-  the port takes its band kernel, which computes the same function,
-  until band2 is ported (port slice 4). A pinned ``band2`` raises; a
-  pinned ``chunked`` runs ops/local.py (plain PyTorch, as the JAX package
-  runs it in XLA) where its chunk divides the sequence, and raises
-  elsewhere; ``splash`` pins the frame-mask kernel. Global layers,
-  document-packed batches, bidirectional and indivisible windows take
-  the frame-mask kernel (K1).
+* ``attn_impl``: ``auto`` takes the kernels (ops/splash.py, ops/band.py,
+  ops/band2.py) for sequences of at least 1024 tokens on a CUDA device,
+  ``splash`` always, ``dense`` never; otherwise the dense mask +
+  ``dot_attention`` path runs.
+* ``local_attn_impl`` (``attention_route``): a causal local window
+  without document packing whose span C divides the sequence
+  (``band_available``) takes a band kernel, with the fixed-shift softmax
+  at bound sqrt(Dh) unless ``band_fixed_shift: false``. Which one follows
+  the JAX package (owl_audio_exps_tpu/nn/attn.py:170-203): ``auto``
+  keeps the band (K2/K3's port, ops/band.py) where the span is
+  frame-exact (``use_frame_exact``: C % 128 == 0 and tpf % 8 == 0, e.g.
+  dit_v4), and elsewhere, unless ``band_v2: false``, takes band2 (K5's
+  port, ops/band2.py) with ``best_plan``'s (S, m) where there is one (the
+  AV model's tpf 65: (520, 2) at a 16-frame window). A pinned ``band2``
+  takes ``best_plan``'s plan at any tpf and raises ValueError where there
+  is none; with ``band_v2: false`` it takes the band, as in the JAX
+  package. A pinned ``band`` keeps the band, and a pinned ``band`` or
+  ``band2`` raises where the span does not divide the sequence. A pinned
+  ``chunked`` runs ops/local.py (plain PyTorch, as the JAX package runs
+  it in XLA) where its chunk divides the sequence, and raises elsewhere;
+  ``splash`` pins the frame-mask kernel. Global layers, document-packed
+  batches, bidirectional and indivisible windows take the frame-mask
+  kernel (K1).
 * ``sequence_parallel``: when the mesh's seq axis holds more than one
   rank (parallel/mesh.py), every uncached forward runs on this rank's
   slice of the frames, at their global RoPE positions, and attention
@@ -111,41 +116,66 @@ def sp_train_attention(cfg, local: bool, q, k, v, doc_id=None):
                         logit_bound=band_logit_bound(cfg, q))
 
 
-def train_attention(cfg, local: bool, q, k, v, doc_id=None):
-    """Uncached attention dispatch to the band or the frame-mask kernel
-    (see the module docstring for the precedence)."""
-    from ..ops.band import band_attention, band_available
-    from ..ops.local import chunked_local_attention, chunked_local_available
-    from ..ops.splash import splash_attention
+def attention_route(cfg, local: bool, L: int, doc_id=None):
+    """The kernel an uncached forward of L tokens takes on a local
+    (``local``) or global layer, with its band2 plan: ("band2", (S, m)),
+    ("band", None), ("chunked", None) or ("splash", None). Raises where a
+    pinned kernel does not apply (see the module docstring)."""
+    from ..ops.band import band_available, use_frame_exact
+    from ..ops.band2 import best_plan
+    from ..ops.local import chunked_local_available
     tpf = cfg.tokens_per_frame
     window = cfg.get("local_window") if local else cfg.get("global_window")
     impl = cfg.get("local_attn_impl", "auto")
-    head_chunks = cfg.get("splash_head_chunks", 1)
-    if (local and window is not None and impl != "splash"
+    if not (local and window is not None and impl != "splash"
             and bool(cfg.causal) and doc_id is None):
-        if impl == "band2":
-            raise NotImplementedError(
-                "local_attn_impl='band2': the band2 kernel (K5) is not "
-                "ported yet; it comes with port slice 4 (ROADMAP.md "
-                "Queue 2). 'auto' and 'band' take the band kernel, which "
-                "computes the same function")
-        L = q.shape[2]
-        if impl == "chunked":
-            if not chunked_local_available(L, tpf, window, True):
-                raise ValueError(
-                    f"local_attn_impl=chunked requires a causal local "
-                    f"window whose span divides the sequence into >= 2 "
-                    f"chunks (L={L}, tpf={tpf}, window={window})")
-            return chunked_local_attention(q, k, v, tpf, window)
-        if band_available(L, tpf, window, True):
-            return band_attention(q, k, v, tpf, window,
-                                  head_chunks=head_chunks,
-                                  logit_bound=band_logit_bound(cfg, q))
-        if impl == "band":
+        return "splash", None
+    geometry = f"(L={L}, tpf={tpf}, window={window})"
+    if impl == "chunked":
+        if not chunked_local_available(L, tpf, window, True):
             raise ValueError(
-                f"local_attn_impl=band requires a causal local window whose "
-                f"span divides the sequence (L={L}, tpf={tpf}, "
-                f"window={window})")
+                f"local_attn_impl=chunked requires a causal local window "
+                f"whose span divides the sequence into >= 2 chunks "
+                f"{geometry}")
+        return "chunked", None
+    if band_available(L, tpf, window, True):
+        fw_auto = impl == "auto" and use_frame_exact(window * tpf, tpf)
+        if impl in ("auto", "band2") and not fw_auto \
+                and cfg.get("band_v2", True):
+            plan = best_plan(L, tpf, window)
+            if plan is not None:
+                return "band2", plan
+            if impl == "band2":
+                raise ValueError(f"local_attn_impl=band2: no legal band2 "
+                                 f"plan {geometry}")
+        return "band", None
+    if impl in ("band", "band2"):
+        raise ValueError(
+            f"local_attn_impl={impl} requires a causal local window whose "
+            f"span divides the sequence {geometry}")
+    return "splash", None
+
+
+def train_attention(cfg, local: bool, q, k, v, doc_id=None):
+    """Uncached attention dispatch to the band2, band or frame-mask kernel
+    (see the module docstring for the precedence)."""
+    from ..ops.band import band_attention
+    from ..ops.band2 import band2_attention
+    from ..ops.local import chunked_local_attention
+    from ..ops.splash import splash_attention
+    tpf = cfg.tokens_per_frame
+    window = cfg.get("local_window") if local else cfg.get("global_window")
+    head_chunks = cfg.get("splash_head_chunks", 1)
+    route, plan = attention_route(cfg, local, q.shape[2], doc_id)
+    if route == "band2":
+        return band2_attention(q, k, v, tpf, window, *plan,
+                               head_chunks=head_chunks,
+                               logit_bound=band_logit_bound(cfg, q))
+    if route == "band":
+        return band_attention(q, k, v, tpf, window, head_chunks=head_chunks,
+                              logit_bound=band_logit_bound(cfg, q))
+    if route == "chunked":
+        return chunked_local_attention(q, k, v, tpf, window)
     return splash_attention(q, k, v, tpf, window, bool(cfg.causal), doc_id,
                             head_chunks=head_chunks)
 

@@ -50,6 +50,15 @@ def band_available(n_tokens: int, tokens_per_frame: int,
             and C % 8 == 0 and C >= 128)
 
 
+def use_frame_exact(C: int, tokens_per_frame: int) -> bool:
+    """The JAX package's choice of K2's frame-exact bodies for a span C
+    (owl_audio_exps_tpu/ops/band.py ``_use_frame_exact`` with
+    ``OWL_BAND_FW`` unset, a TPU tuning hook the port leaves out): a
+    lane-aligned span of a sublane-aligned tpf. Where it holds, the JAX
+    router keeps the band and never asks for a band2 plan."""
+    return C % 128 == 0 and tokens_per_frame % 8 == 0
+
+
 def band_attention_plain(q, k, v, tokens_per_frame: int, window: int,
                          logit_bound: Optional[float] = None):
     """Dense reference of the kernel in the inputs' dtype (float32 for

@@ -1,6 +1,7 @@
 """Training entry point of the port:
 
     python -m owl_audio_exps_tpu_torch.train --config_path configs/dit_v4_tpu_e2e.yml --max_steps N
+    python -m owl_audio_exps_tpu_torch.train --config_path configs/av_v5_8x8_weak.yml
 
 Runs on the card (``cuda``) unless ``--device cpu`` (or ``train.device``
 in the config) asks for the CPU. Under ``torchrun`` each process takes
@@ -11,8 +12,10 @@ context-parallel dit_v4 at 98,304 tokens on four cards:
     torchrun --nproc_per_node 4 -m owl_audio_exps_tpu_torch.train --config_path configs/dit_v4_98k_sp.yml
 
 What the port does not have yet is cut, and each cut is printed
-(``port_cuts``): a data loader that is not ported becomes
-``synthetic_latent`` at the config's shapes, a mesh axis wider than the
+(``port_cuts``): a data loader that is not ported becomes the synthetic
+source with the trainer's batch columns at the config's shapes
+(``synthetic_latent`` for ``rft``, ``synthetic_av`` for ``av``,
+``synthetic_mixed`` for ``mixed_av``), a mesh axis wider than the
 processes that were started shrinks to them, and the eval sampler
 (``sampler_id``) is dropped.
 """
@@ -23,6 +26,8 @@ import argparse
 from typing import List
 
 _PORTED_DATA = ("synthetic",)
+# the synthetic source with the batch columns each trainer reads
+_SYNTHETIC_FOR = {"av": "synthetic_av", "mixed_av": "synthetic_mixed"}
 
 
 def port_cuts(cfg, world_size: int) -> List[str]:
@@ -32,13 +37,16 @@ def port_cuts(cfg, world_size: int) -> List[str]:
     cuts = []
     if tc.data_id and not tc.data_id.startswith(_PORTED_DATA):
         kw = dict((tc.data_kwargs or {}).items())
+        synthetic = _SYNTHETIC_FOR.get(tc.trainer_id, "synthetic_latent")
         shapes = dict(window_length=kw.get("window_length", mc.n_frames),
                       channels=mc.channels, sample_size=mc.sample_size,
                       n_buttons=mc.n_buttons,
                       n_mouse_axes=mc.get("n_mouse_axes", 2))
-        cuts.append(f"data_id {tc.data_id!r} -> 'synthetic_latent' "
-                    f"{shapes} (the file and S3 loaders are not ported)")
-        tc.data_id, tc.data_kwargs = "synthetic_latent", shapes
+        if synthetic != "synthetic_latent":
+            shapes["audio_channels"] = mc.audio_channels
+        cuts.append(f"data_id {tc.data_id!r} -> {synthetic!r} {shapes} "
+                    f"(the file and S3 loaders are not ported)")
+        tc.data_id, tc.data_kwargs = synthetic, shapes
     mesh = dict((tc.get("mesh") or {}).items())
     if mesh.get("seq", 1) > 1 and mesh.get("seq", 1) * max(
             mesh.get("data", 1), 1) != world_size:

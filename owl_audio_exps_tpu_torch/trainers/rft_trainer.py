@@ -1,6 +1,6 @@
 """Rectified-flow trainers (counterpart of
-owl_audio_exps_tpu/trainers/rft_trainer.py ``RFTFamilyTrainer`` and
-``RFTTrainer``).
+owl_audio_exps_tpu/trainers/rft_trainer.py ``RFTFamilyTrainer``,
+``RFTTrainer``, ``AVRFTTrainer`` and ``MixedAVRFTTrainer``).
 
 The shared loop: epoch-free iteration over the loader, gradient
 accumulation, the optimizer step and EMA of trainers/base.py, metrics
@@ -166,3 +166,52 @@ class RFTTrainer(RFTFamilyTrainer):
         raise NotImplementedError(
             "eval sampling for game_rft needs the KV-cached samplers, which "
             "come with port slice 5 (ROADMAP.md Queue 1)")
+
+
+class AVRFTTrainer(RFTFamilyTrainer):
+    """Joint AV RFT. Batch: [vid, audio, mouse, btn]."""
+
+    model_id = "game_rft_audio"
+
+    def scaled_latents(self, vid, audio):
+        """Video over ``vae_scale`` and audio over ``audio_vae_scale``
+        (``vae_scale`` where unset), in bf16."""
+        tc = self.train_cfg
+        audio_scale = tc.get("audio_vae_scale", tc.vae_scale)
+        return ((vid / tc.vae_scale).to(torch.bfloat16),
+                (audio / audio_scale).to(torch.bfloat16))
+
+    def loss_fn(self, model, batch, generator):
+        vid, audio, mouse, btn = batch[:4]
+        vid, audio = self.scaled_latents(vid, audio)
+        loss, v_loss, a_loss = model(vid, audio, mouse, btn,
+                                     generator=generator)
+        return loss, {"diffusion_loss": loss.detach(),
+                      "video_loss": v_loss.detach(),
+                      "audio_loss": a_loss.detach()}
+
+    def eval_step(self, state, sample_loader, sampler):
+        if sample_loader is None:
+            return {}
+        raise NotImplementedError(
+            "eval sampling for the AV model exports decoded media through "
+            "the VAE bridge, which comes with port slice 5 (ROADMAP.md "
+            "Queue 1)")
+
+
+class MixedAVRFTTrainer(AVRFTTrainer):
+    """Joint AV RFT on mixed labelled and unlabelled controls. Batch:
+    [vid, audio, mouse, btn, has_controls]; logs the unlabelled
+    proportion."""
+
+    def loss_fn(self, model, batch, generator):
+        vid, audio, mouse, btn, has_controls = batch[:5]
+        vid, audio = self.scaled_latents(vid, audio)
+        loss, v_loss, a_loss = model(vid, audio, mouse, btn,
+                                     has_controls=has_controls.bool(),
+                                     generator=generator)
+        return loss, {"diffusion_loss": loss.detach(),
+                      "video_loss": v_loss.detach(),
+                      "audio_loss": a_loss.detach(),
+                      "unlabelled_proportion":
+                          1.0 - has_controls.float().mean()}

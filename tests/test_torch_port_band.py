@@ -26,7 +26,7 @@ from owl_audio_exps_tpu.ops.masks import dense_mask as jax_dense_mask
 from owl_audio_exps_tpu.ops.splash import splash_attention as jax_splash
 from owl_audio_exps_tpu_torch.configs import transformer_config
 from owl_audio_exps_tpu_torch.nn.attn import train_attention
-from owl_audio_exps_tpu_torch.ops import band, splash
+from owl_audio_exps_tpu_torch.ops import band, band2, splash
 
 FWD_ATOL = 3e-5
 GRAD_TOL = 2e-4
@@ -190,6 +190,7 @@ def test_train_attention_routes_local_windows_to_the_band():
                _arrays(rs, 3, (1, 2, 256, 64), normed=True))
     calls = []
     orig_band, orig_splash = band.band_attention, splash.splash_attention
+    orig_band2 = band2.band2_attention
 
     def spy(name, fn):
         def wrapped(*a, **kw):
@@ -199,6 +200,7 @@ def test_train_attention_routes_local_windows_to_the_band():
 
     band.band_attention = spy("band", orig_band)
     splash.splash_attention = spy("splash", orig_splash)
+    band2.band2_attention = spy("band2", orig_band2)
     try:
         for impl in ("auto", "band"):
             train_attention(_route_cfg(local_attn_impl=impl), True, q, k, v)
@@ -212,7 +214,17 @@ def test_train_attention_routes_local_windows_to_the_band():
         with pytest.raises(ValueError, match="local_attn_impl=band"):
             train_attention(_route_cfg(local_window=3, local_attn_impl="band"),
                             True, q, k, v)
-        with pytest.raises(NotImplementedError, match="slice 4"):
+        # a pinned band2 takes best_plan's plan at any tpf (tpf 64, a
+        # window of 8: (256, 2) at L 1,024) and gives the frame-mask
+        # route's output; it raises where there is no plan
+        q8, k8, v8 = (torch.from_numpy(a) for a in
+                      _arrays(rs, 3, (1, 2, 1024, 64), normed=True))
+        got = train_attention(_route_cfg(local_window=8,
+                                         local_attn_impl="band2"), True,
+                              q8, k8, v8)
+        want = splash.splash_attention_plain(q8, k8, v8, 64, 8, True)
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+        with pytest.raises(ValueError, match="no legal band2 plan"):
             train_attention(_route_cfg(local_attn_impl="band2"), True,
                             q, k, v)
         # a pinned chunked runs ops/local.py (plain PyTorch): the same
@@ -228,5 +240,6 @@ def test_train_attention_routes_local_windows_to_the_band():
                             q, k, v)
     finally:
         band.band_attention, splash.splash_attention = orig_band, orig_splash
+        band2.band2_attention = orig_band2
     assert calls == [("band", 8.0), ("band", 8.0), ("band", None)] + \
-        [("splash", None)] * 5
+        [("splash", None)] * 5 + [("band2", 8.0)]

@@ -40,10 +40,11 @@ def test_port_file_imports_no_jax(path):
 
 def test_port_package_has_its_kernel_source():
     for src in ("frame_attention.cu", "band_attention.cu",
-                "attention_tiles.cuh"):
+                "band2_attention.cu", "attention_tiles.cuh"):
         assert os.path.exists(os.path.join(
             REPO, "owl_audio_exps_tpu_torch", "csrc", src)), src
-    for module in ("ops/band.py", "models/gamerft.py", "muon.py",
+    for module in ("ops/band.py", "ops/band2.py", "models/gamerft.py",
+                   "models/gamerft_audio.py", "muon.py",
                    "trainers/rft_trainer.py", "train.py", "ops/local.py",
                    "parallel/dist.py", "parallel/mesh.py",
                    "parallel/context.py"):

@@ -14,7 +14,7 @@ geometries.
 import pytest
 import torch
 
-from owl_audio_exps_tpu_torch.ops import band, splash
+from owl_audio_exps_tpu_torch.ops import band, band2, splash
 
 # gradients: kernel (bf16 in and out, bf16 P and dS) against autograd of
 # the plain version in float32 on the same bf16 inputs, as relative L2
@@ -119,6 +119,33 @@ def test_band_kernel_matches_plain_on_card(tpf, window, n_chunks, bound):
     assert err.max().item() < 2e-2 and err.mean().item() < 2e-3
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert torch.isfinite(a).all(), name
+        assert _rel_l2(a, b) < GRAD_REL_L2, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,tpf,window,span,nrefs,bound", [
+    (1024, 64, 4, 128, 2, 8.0),      # aligned
+    (2080, 65, 16, 520, 2, None),    # aligned, the AV model's plan
+    (960, 65, 8, 192, 3, 8.0),       # ragged: a NEXT ref of 96 columns
+    (2080, 65, 16, 208, 5, None)])   # ragged: a NEXT ref of 104 columns
+def test_band2_kernel_matches_plain_on_card(L, tpf, window, span, nrefs,
+                                            bound):
+    _need_card()
+    q, k, v = _qkv(L, seed=5, normed=True)
+    dout = _qkv(L, seed=6)[0]
+    counts = (band2.fwd_launches, band2.bwd_launches)
+    out, got = _grads(lambda *a: band2.band2_attention(
+        *a, tpf, window, span, nrefs, logit_bound=bound), q, k, v, dout)
+    torch.cuda.synchronize()
+    assert (band2.fwd_launches, band2.bwd_launches) == \
+        (counts[0] + 1, counts[1] + 1)
+    ref, want = _grads(lambda *a: band2.band2_attention_plain(
+        *a, tpf, window, bound), q.float(), k.float(), v.float(),
+        dout.float())
+    err = (out.float() - ref).abs()
+    assert err.max().item() < 2e-2 and err.mean().item() < 2e-3
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a).all(), name
         assert _rel_l2(a, b) < GRAD_REL_L2, name
 
 

@@ -21,7 +21,8 @@ from owl_audio_exps_tpu.nn.attn import DiT as JaxDiT
 from owl_audio_exps_tpu.utils.torch_import import export_torch_state_dict
 from owl_audio_exps_tpu_torch.models import get_core_cls
 from owl_audio_exps_tpu_torch.models.gamerft_audio import GameRFTAudioCore
-from owl_audio_exps_tpu_torch.nn.attn import DiT, use_splash_path
+from owl_audio_exps_tpu_torch.nn.attn import (DiT, attention_route,
+                                              use_splash_path)
 from owl_audio_exps_tpu_torch.ops import splash
 from owl_audio_exps_tpu_torch.utils.weights import params_from_jax
 
@@ -133,7 +134,7 @@ def test_routing_and_unported_paths_raise():
 
     # a pinned band runs where its span divides the sequence (32 frames x
     # 5 tokens, 2 chunks) and gives the frame-mask route's output, and so
-    # does a pinned chunked (ops/local.py); band2 still raises
+    # does a pinned chunked (ops/local.py) and a pinned band2 (below)
     _, bcfg = configs(causal=True, local_window=32, attn_impl="splash",
                       local_attn_impl="band")
     binputs = [t(a) for a in av_inputs(np.random.RandomState(5), 1, 64,
@@ -150,9 +151,21 @@ def test_routing_and_unported_paths_raise():
         vc, ac = bcore(*binputs)
     torch.testing.assert_close(vc, vs, atol=ATOL, rtol=0)
     torch.testing.assert_close(ac, as_, atol=ATOL, rtol=0)
-    bcfg.local_attn_impl = "band2"
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        bcore(*binputs)
+    # band2 needs a plan: the AV token layout (8 x 8 + 1 = 65 a frame),
+    # 32 frames and a 16-frame window give (520, 2)
+    _, b2cfg = configs(causal=True, sample_size=8, tokens_per_frame=65,
+                       local_window=16, attn_impl="splash",
+                       local_attn_impl="band2")
+    assert attention_route(b2cfg, True, 32 * 65) == ("band2", (520, 2))
+    b2inputs = [t(a) for a in av_inputs(np.random.RandomState(6), 1, 32,
+                                        b2cfg)]
+    b2core = GameRFTAudioCore(b2cfg, dtype=torch.float32, device="cpu")
+    with torch.no_grad():
+        v2, a2 = b2core(*b2inputs)
+        b2cfg.local_attn_impl = "splash"
+        vs2, as2 = b2core(*b2inputs)
+    torch.testing.assert_close(v2, vs2, atol=ATOL, rtol=0)
+    torch.testing.assert_close(a2, as2, atol=ATOL, rtol=0)
 
     inputs = [t(a) for a in av_inputs(np.random.RandomState(4), 1, 2,
                                       pcfg)]

@@ -165,8 +165,10 @@ def test_handle_cfg_keeps_the_exact_uncond_fraction():
 def test_registry_and_draws_from_the_generator():
     assert get_model_cls("game_rft") is GameRFT
     assert get_core_cls("game_rft") is GameRFTCore
-    with pytest.raises(NotImplementedError, match="training"):
-        get_model_cls("game_rft_audio")
+    from owl_audio_exps_tpu_torch.models.gamerft_audio import GameRFTAudio
+    assert get_model_cls("game_rft_audio") is GameRFTAudio
+    with pytest.raises(NotImplementedError, match="not ported"):
+        get_model_cls("audio_rft")
     _, pcfg = _configs()
     m = GameRFT(pcfg, dtype=torch.float32, device="cpu")
     x, mouse, btn = (_t(a) for a in _video_inputs(
@@ -479,8 +481,8 @@ def test_train_entry_point_runs_on_the_cpu_when_asked(tmp_path):
     path = tmp_path / "cfg.yml"
     path.write_text(yaml.safe_dump(cfg.to_dict()))
     main(["--config_path", str(path), "--max_steps", "1", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="slice"):
-        get_trainer_cls("av")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        get_trainer_cls("audio_rft")
     with pytest.raises(NotImplementedError, match="Muon"):
         get_trainer_cls("rft")(_train_config(
             tmp_path, scheduler="cosine",
