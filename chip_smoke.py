@@ -7,14 +7,18 @@ Usage (from the repository root, on a machine with one NVIDIA GPU):
 Phases, each of which exits non-zero on any failure:
 
 1. environment: card name and power limit, torch version, nvcc build of
-   every kernel under owl_audio_exps_tpu_torch/csrc/ (build time printed);
+   every kernel under owl_audio_exps_tpu_torch/csrc/ (build time and the
+   -Xptxas -v lines printed), and cuobjdump -sass of the K1/K4 library:
+   each of its six kernels must hold wgmma (HGMMA) and TMA (UTMALDG)
+   instructions and no mma.sync (HMMA);
 2. each kernel against its plain PyTorch version on the card, at the
-   geometries the serve and training paths give it, with its time, the
-   plain version's time, its bound and the time of one library call that
+   geometries the serve and training paths give it, with its time, its
+   TFLOP/s and share of its bound, the plain version's time, its bound and
+   the time of one library call that
    computes the same function (a yardstick the port never calls): the
    frame-mask forward (K1), its dq and dkv backward kernels, and the
-   band forward and backward (K2/K3), gradients held against autograd of
-   the plain version;
+   band forward and backward (K2/K3), output and gradients held at every
+   head against (autograd of) the plain version, 2 heads at a time;
 3. ``CausvidPipeline`` (window recompute, 60 frames x 65 tokens) at the
    full width of configs/av_v4_8x8.yml made causal (24 layers x 1536,
    24 heads x 64), 2 sampling steps, seeded random bf16 weights: timed
@@ -32,7 +36,8 @@ Phases, each of which exits non-zero on any failure:
 7. context parallelism (configs/dit_v4_98k_sp.yml: 98,304 tokens split
    over 4 seq ranks, 24,576 a rank), as far as one card holds it: the
    ring partial K4 (forward causal and full, backward with an lse
-   cotangent) against its plain version at the per-rank geometry, with
+   cotangent) against its plain version at the per-rank geometry, output,
+   logsumexp and gradients at every head (2 at a time), with
    its time, the plain version's, its bound and SDPA's; then the ring
    and the halo of all 4 slices of the 98,304-token sequence run in one
    process through parallel/context.py's per-step functions (K/V passed
@@ -82,9 +87,9 @@ SERVE_TICKS = 6   # timed ticks after one warm tick
 # the plain version in float32 on the same bf16 inputs, relative L2 per
 # tensor
 GRAD_REL_L2 = 2e-2
-# the plain version's f32 scores take ~1 GB per head at L = 16,384: it is
-# checked at this many heads (phases 2 and 7; phase 8 checks every head,
-# this many at a time) and timed over head chunks of this size
+# the plain version's f32 scores take ~1 GB per head at L = 16,384: every
+# kernel is checked at every head against it, run this many heads at a
+# time, and the plain version is timed over head chunks of this size
 LONG_L, CHECK_HEADS = 8192, 2
 TRAIN_STEPS = 6   # the config's save_interval: step 6 is saved and resumed
 # one full-width 4-layer training step, kernels vs dense attention: loss
@@ -150,6 +155,12 @@ def by_heads(fn, *ts, chunk: int = CHECK_HEADS):
             for h in range(0, ts[0].shape[1], chunk)]
 
 
+def abs_err(a, b):
+    """(max |a - b|, sum |a - b|), a against the f32 reference b."""
+    d = (a.float() - b).abs()
+    return d.max().item(), d.sum().item()
+
+
 def two_doc_ids(dev, L, tpf):
     nf = -(-L // tpf)
     return (torch.arange(nf, device=dev) >= nf // 3).int()[None]
@@ -201,16 +212,15 @@ def kernel_phase(dev):
         doc = two_doc_ids(dev, L, tpf) if two_docs else None
         args = (tpf, window, causal, doc)
         long = L >= LONG_L
-        hc = CHECK_HEADS if long else H
         out = splash.splash_attention(q, k, v, *args)
-        torch.cuda.synchronize()
-        ref = splash.splash_attention_plain(
-            q[:, :hc].float(), k[:, :hc].float(), v[:, :hc].float(), *args)
-        err = (out[:, :hc].float() - ref).abs()
-        max_abs, mean_abs = err.max().item(), err.mean().item()
         if not torch.isfinite(out).all():
             fail(f"{name}: kernel output not finite")
-        del ref, err
+        # every head against the plain version in f32, CHECK_HEADS at a time
+        stats = by_heads(lambda o, *t: abs_err(
+            o, splash.splash_attention_plain(*(x.float() for x in t), *args)),
+            out, q, k, v)
+        max_abs = max(m for m, _ in stats)
+        mean_abs = sum(a for _, a in stats) / out.numel()
 
         iters = 5 if long else 20
         ms = cuda_ms(lambda: splash.splash_attention(q, k, v, *args), iters)
@@ -228,16 +238,18 @@ def kernel_phase(dev):
         pairs = pairs_of(L, tpf, window, causal, doc, B)
         row = dict(max_abs_err=max_abs, mean_abs_err=mean_abs, ms=ms,
                    ms_with_lse=ms_lse, plain_ms=plain_ms, library_ms=lib_ms,
-                   checked_heads=hc,
+                   checked_heads=H,
                    **bound_row(4.0 * Dh * pairs * H, 4.0 * B * H * L * Dh * 2))
         row["tflops"] = row["gflop"] / ms
+        row["share_of_bound"] = row["bound_ms"] / ms
         rows[name] = row
         lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"[kernel] frame_attention_fwd {name}: B={B} H={H} L={L} "
               f"Dh={Dh} tpf={tpf} causal={causal} window={window} "
-              f"docs={2 if two_docs else 1} | checked at H={hc}: "
+              f"docs={2 if two_docs else 1} | checked at H={H}: "
               f"max|d|={max_abs:.3e} mean|d|={mean_abs:.3e} | kernel "
-              f"{ms:.4f} ms ({row['tflops']:.1f} TFLOP/s), with lse "
+              f"{ms:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
+              f"{100 * row['share_of_bound']:.1f}% of bound), with lse "
               f"{ms_lse:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib}, bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
               f"{row['gflop']:.2f} GFLOP)", flush=True)
@@ -271,23 +283,6 @@ def rms_normed(t):
             ).to(torch.bfloat16)
 
 
-def grad_errors(fn, plain, q, k, v, dout):
-    """Kernel gradients through autograd against f32 autograd of the plain
-    version on the same bf16 inputs: {name: (rel L2, max|d|, mean|d|)}."""
-    out, *got = grads_of(fn, q, k, v, dout)
-    ref, *want = grads_of(plain, q.float(), k.float(), v.float(),
-                          dout.float())
-    errs = {"out": (rel_l2(out, ref),
-                    (out.float() - ref).abs().max().item(),
-                    (out.float() - ref).abs().mean().item())}
-    for name, a, b in zip(("dq", "dk", "dv"), got, want):
-        if not torch.isfinite(a).all():
-            fail(f"kernel {name} not finite")
-        d = (a.float() - b).abs()
-        errs[name] = (rel_l2(a, b), d.max().item(), d.mean().item())
-    return errs
-
-
 def fwd_bwd_ms(fwd, q, k, v, dout, iters):
     """(forward ms, forward + backward ms) of autograd over ``fwd``
     (``dout`` a tuple of cotangents where ``fwd`` returns a tuple)."""
@@ -314,9 +309,7 @@ def grad_kernel_phase(dev):
         if kind == "band":   # unit-RMS q, k as QK rms-norm gives them
             q, k = rms_normed(q), rms_normed(k)
         doc = two_doc_ids(dev, L, tpf) if two_docs else None
-        long = L >= LONG_L
-        hc = CHECK_HEADS if long else H
-        iters = 5 if long else 20
+        iters = 5 if L >= LONG_L else 20
         if kind == "frame":
             margs = (tpf, window, causal, doc)
             kern = lambda *t: splash.splash_attention(*t, *margs)
@@ -326,7 +319,10 @@ def grad_kernel_phase(dev):
             kern = lambda *t: band.band_attention(*t, tpf, window,
                                                   logit_bound=bound)
             plain = lambda *t: band.band_attention_plain(*t, *margs)
-        errs = grad_errors(kern, plain, *(t[:, :hc] for t in (q, k, v, dout)))
+        got = grads_of(kern, q, k, v, dout)
+        errs, plain_fwd, plain_bwd = chunked_grad_errors(got, plain, q, k, v,
+                                                         dout)
+        del got
         torch.cuda.empty_cache()
 
         pairs = pairs_of(L, tpf, window, causal, doc, B)
@@ -355,10 +351,6 @@ def grad_kernel_phase(dev):
                      "bwd": (bwd_ms, bound_row(10.0 * Dh * pairs * H,
                                                16.0 * elems + 4.0 * stats))}
         del out, lse
-        # the plain version (bf16 inputs, f32 scores) over head chunks
-        pf, pt = zip(*by_heads(lambda *t: fwd_bwd_ms(plain, *t, 1), q, k, v,
-                               dout))
-        plain_fwd, plain_bwd = sum(pf), sum(pt) - sum(pf)
         mask = sdpa_mask(dev, L, tpf, window, causal, doc)
         sdpa = lambda *t: F.scaled_dot_product_attention(
             *t, attn_mask=mask, scale=Dh ** -0.5)
@@ -378,23 +370,27 @@ def grad_kernel_phase(dev):
             is_fwd = part == "fwd"
             kname = (f"band_attention_{part}" if kind == "band"
                      else f"frame_attention_bwd_{part}")
-            keys = ("out",) if is_fwd else                 (("dq",) if part == "dq" else ("dk", "dv"))                 if kind == "frame" else ("dq", "dk", "dv")
+            keys = (("out",) if is_fwd else
+                    (("dq",) if part == "dq" else ("dk", "dv"))
+                    if kind == "frame" else ("dq", "dk", "dv"))
             rows[(kname, name)] = dict(
                 ms=ms, plain_ms=plain_fwd if is_fwd else plain_bwd,
                 library_ms=lib_fwd if is_fwd else lib_bwd,
                 max_abs_err=max(errs[n][1] for n in keys),
                 mean_abs_err=max(errs[n][2] for n in keys),
-                rel_l2=max(errs[n][0] for n in keys), checked_heads=hc,
-                tflops=bnd["gflop"] / ms, **bnd)
+                rel_l2=max(errs[n][0] for n in keys), checked_heads=H,
+                tflops=bnd["gflop"] / ms, share_of_bound=bnd["bound_ms"] / ms,
+                **bnd)
         lib = ("n/a" if lib_bwd is None else
                f"fwd {lib_fwd:.4f} ms bwd {lib_bwd:.4f} ms")
         print(f"[kernel] {kind} {name}: B={B} H={H} L={L} Dh={Dh} tpf={tpf} "
               f"causal={causal} window={window} docs={2 if two_docs else 1} "
-              f"bound={bound} | checked at H={hc}: " + " ".join(
+              f"bound={bound} | checked at H={H}: " + " ".join(
                   f"{n} rel={e[0]:.2e} max|d|={e[1]:.2e} mean|d|={e[2]:.2e}"
                   for n, e in errs.items()), flush=True)
         print(f"[kernel]   " + " ".join(
-            f"{part} {ms:.4f} ms ({bnd['gflop'] / ms:.1f} TFLOP/s, bound "
+            f"{part} {ms:.4f} ms ({bnd['gflop'] / ms:.1f} TFLOP/s, "
+            f"{100 * bnd['bound_ms'] / ms:.1f}% of bound "
             f"{bnd['bound_ms']:.4f} ms {bnd['bound_by']})"
             for part, (ms, bnd) in timed.items())
             + f" | plain fwd {plain_fwd:.3f} ms bwd {plain_bwd:.3f} ms | "
@@ -422,31 +418,37 @@ BAND2_CASES = [
 ]
 
 
-def chunked_grad_errors(got, plain, q, k, v, dout):
-    """The kernel's (out, dq, dk, dv) at every head against f32 autograd
-    of the plain version on the same bf16 inputs, CHECK_HEADS heads at a
-    time (the plain version's f32 scores of all heads at long L do not fit
-    at once): {name: (rel L2, max|d|, mean|d|)} over all heads. Also
-    times the plain version on each chunk (bf16 inputs, f32 scores):
-    returns (errors, plain fwd ms, plain bwd ms) summed over the chunks."""
-    names = ("out", "dq", "dk", "dv")
+def chunked_grad_errors(got, plain, q, k, v, dout,
+                        names=("out", "dq", "dk", "dv")):
+    """The kernel's outputs and gradients ``got`` (``grads_of``, named
+    ``names``) at every head against f32 autograd of the plain version on
+    the same bf16 inputs, CHECK_HEADS heads at a time (the plain version's
+    f32 scores of all heads at long L do not fit at once): {name: (rel L2,
+    max|d|, mean|d|)} over all heads. ``dout`` is a tuple of cotangents
+    where the function returns a tuple (K4's out and lse). Also times the
+    plain version on each chunk (bf16 inputs, f32 scores): returns
+    (errors, plain fwd ms, plain bwd ms) summed over the chunks."""
     for name, a in zip(names, got):
         if not torch.isfinite(a).all():
             fail(f"kernel {name} not finite")
+    several = isinstance(dout, tuple)
     # per name: squared error, squared reference, max |d|, sum |d|
     acc = {n: [0.0, 0.0, 0.0, 0.0] for n in names}
     plain_fwd = plain_all = 0.0
     for h in range(0, q.shape[1], CHECK_HEADS):
-        part = [t[:, h:h + CHECK_HEADS] for t in (q, k, v, dout)]
-        want = grads_of(plain, *(t.float() for t in part))
+        cut = lambda t: t[:, h:h + CHECK_HEADS]
+        part = [cut(t) for t in (q, k, v)]
+        g = tuple(map(cut, dout)) if several else cut(dout)
+        g32 = tuple(t.float() for t in g) if several else g.float()
+        want = grads_of(plain, *(t.float() for t in part), g32)
         for n, a, b in zip(names, got, want):
-            d = a[:, h:h + CHECK_HEADS].float() - b
+            d = cut(a).float() - b
             acc[n][0] += d.pow(2).sum().item()
             acc[n][1] += b.pow(2).sum().item()
             acc[n][2] = max(acc[n][2], d.abs().max().item())
             acc[n][3] += d.abs().sum().item()
         del want, d
-        f_ms, t_ms = fwd_bwd_ms(plain, *part, 1)
+        f_ms, t_ms = fwd_bwd_ms(plain, *part, g, 1)
         plain_fwd, plain_all = plain_fwd + f_ms, plain_all + t_ms
         torch.cuda.empty_cache()
     errs = {n: ((e[0] / e[1]) ** 0.5, e[2], e[3] / a.numel())
@@ -525,7 +527,8 @@ def band2_phase(dev):
                   f"{n} rel={e[0]:.2e} max|d|={e[1]:.2e} mean|d|={e[2]:.2e}"
                   for n, e in errs.items()), flush=True)
         print("[band2]   " + " ".join(
-            f"{part} {ms:.4f} ms ({bnd['gflop'] / ms:.1f} TFLOP/s, bound "
+            f"{part} {ms:.4f} ms ({bnd['gflop'] / ms:.1f} TFLOP/s, "
+            f"{100 * bnd['bound_ms'] / ms:.1f}% of bound "
             f"{bnd['bound_ms']:.4f} ms {bnd['bound_by']})"
             for part, (ms, bnd, _) in timed.items())
             + f" | plain fwd {plain_fwd:.3f} ms bwd {plain_bwd:.3f} ms | "
@@ -1047,32 +1050,14 @@ def k4_phase(dev):
         k = rms_normed(k)
         g_out = torch.randn(B, H, L, Dh, generator=gen, device=dev)
         g_lse = torch.randn(B, H, L, generator=gen, device=dev)
-        hc = CHECK_HEADS
-
-        # the kernel through its autograd Function, against f32 autograd
-        # of the plain version, on the first hc heads
-        sub = [t[:, :hc] for t in (q, k, v)]
-        leaves = [t.detach().requires_grad_() for t in sub]
-        out, lse = splash.splash_attention_lse(*leaves, tpf, causal)
-        torch.autograd.backward((out, lse), (g_out[:, :hc], g_lse[:, :hc]))
-        ref = [t.detach().float().requires_grad_() for t in sub]
-        rout, rlse = splash.splash_attention_lse_plain(*ref, tpf, causal)
-        torch.autograd.backward((rout, rlse), (g_out[:, :hc],
-                                               g_lse[:, :hc]))
-        if not (torch.isfinite(out).all() and torch.isfinite(lse).all()):
-            fail(f"K4 {name}: output not finite")
-        d = (out - rout).abs()
-        errs = {"out": (rel_l2(out, rout), d.max().item(), d.mean().item()),
-                "lse": (rel_l2(lse, rlse),
-                        (lse - rlse).abs().max().item(),
-                        (lse - rlse).abs().mean().item())}
-        for gname, a, b in zip(("dq", "dk", "dv"), leaves, ref):
-            if not torch.isfinite(a.grad).all():
-                fail(f"K4 {name}: {gname} not finite")
-            dd = (a.grad.float() - b.grad).abs()
-            errs[gname] = (rel_l2(a.grad, b.grad), dd.max().item(),
-                           dd.mean().item())
-        del leaves, ref, out, lse, rout, rlse, d
+        # the kernel through its autograd Function at every head, against
+        # f32 autograd of the plain version, CHECK_HEADS heads at a time
+        got = grads_of(lambda *t: splash.splash_attention_lse(*t, tpf, causal),
+                       q, k, v, (g_out, g_lse))
+        errs, plain_fwd, plain_bwd = chunked_grad_errors(
+            got, lambda *t: splash.splash_attention_lse_plain(*t, tpf, causal),
+            q, k, v, (g_out, g_lse), names=("out", "lse", "dq", "dk", "dv"))
+        del got
         torch.cuda.empty_cache()
 
         iters = 5
@@ -1089,10 +1074,6 @@ def k4_phase(dev):
         dkv_ms = cuda_ms(lambda: splash.splash_attention_lse_bwd_dkv_cuda(
             q, k, v, lse, delta, g_bf, tpf, causal), iters)
         del out, lse, delta
-        pf, pt = zip(*by_heads(lambda q_, k_, v_, go, gl: fwd_bwd_ms(
-            lambda *a: splash.splash_attention_lse_plain(*a, tpf, causal),
-            q_, k_, v_, (go, gl), 1), q, k, v, g_out, g_lse))
-        plain_fwd, plain_bwd = sum(pf), sum(pt) - sum(pf)
         torch.cuda.empty_cache()
         mask = sdpa_mask(dev, L, tpf, None, True, None) if causal else None
         sdpa = lambda *t: F.scaled_dot_product_attention(
@@ -1126,18 +1107,20 @@ def k4_phase(dev):
                 library_ms=lib_fwd if is_fwd else lib_bwd,
                 max_abs_err=max(errs[n][1] for n in keys),
                 mean_abs_err=max(errs[n][2] for n in keys),
-                rel_l2=max(errs[n][0] for n in keys), checked_heads=hc,
-                tflops=bnd["gflop"] / ms, **bnd)
+                rel_l2=max(errs[n][0] for n in keys), checked_heads=H,
+                tflops=bnd["gflop"] / ms, share_of_bound=bnd["bound_ms"] / ms,
+                **bnd)
             if part != "fwd":
                 rows[(f"ring_partial_{part}", name)]["delta_ms"] = delta_ms
         lib = ("n/a" if lib_bwd is None else
                f"fwd {lib_fwd:.4f} ms bwd {lib_bwd:.4f} ms")
         print(f"[k4] ring partial {name}: B={B} H={H} L={L} Dh={Dh} "
-              f"tpf={tpf} causal={causal} | checked at H={hc}: " + " ".join(
+              f"tpf={tpf} causal={causal} | checked at H={H}: " + " ".join(
                   f"{n} rel={e[0]:.2e} max|d|={e[1]:.2e} mean|d|={e[2]:.2e}"
                   for n, e in errs.items()), flush=True)
         print("[k4]   " + " ".join(
-            f"{part} {ms:.4f} ms ({bnd['gflop'] / ms:.1f} TFLOP/s, bound "
+            f"{part} {ms:.4f} ms ({bnd['gflop'] / ms:.1f} TFLOP/s, "
+            f"{100 * bnd['bound_ms'] / ms:.1f}% of bound "
             f"{bnd['bound_ms']:.4f} ms {bnd['bound_by']})"
             for part, (ms, bnd, _) in timed.items())
             + f" | delta' {delta_ms:.4f} ms"
@@ -1371,11 +1354,14 @@ def av_train_phase(dev):
 
 
 def grads_of(fn, q, k, v, g):
-    """(out, dq, dk, dv) of fn under the cotangent g."""
+    """(out, dq, dk, dv) of fn under the cotangent g; where fn returns a
+    tuple (K4's out and lse), g is a tuple too and the list starts with
+    every output."""
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     out = fn(*leaves)
-    out.backward(g)
-    return [out.detach()] + [t.grad for t in leaves]
+    outs, gs = (out, g) if isinstance(out, tuple) else ((out,), (g,))
+    torch.autograd.backward(outs, gs)
+    return [o.detach() for o in outs] + [t.grad for t in leaves]
 
 
 KERNELS = {
@@ -1429,6 +1415,44 @@ def kernel_record(fwd_rows, grad_rows, launches, extra):
     return out
 
 
+# the six entry kernels of csrc/frame_attention.cu, on the Hopper bodies of
+# csrc/hopper_attention.cuh at both head dims
+HOPPER_KERNELS = [f"{k}_kernel" for k in (
+    "frame_attn_fwd", "frame_attn_bwd_dq", "frame_attn_bwd_dkv",
+    "ring_attn_fwd", "ring_attn_bwd_dq", "ring_attn_bwd_dkv")]
+
+
+def sass_check(lib):
+    """cuobjdump -sass of the built K1/K4 library: every one of the six
+    kernels (Dh 64 and 128) must multiply with HGMMA (wgmma), load with
+    UTMALDG (TMA) and hold no HMMA (mma.sync)."""
+    import shutil
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = [0, 0, 0]
+        elif fn is not None:
+            counts[fn][0] += "HGMMA" in line
+            counts[fn][1] += "UTMALDG" in line
+            counts[fn][2] += "HMMA" in line and "HGMMA" not in line
+    for name in HOPPER_KERNELS:
+        for dh in (64, 128):
+            tag = f"{len(name)}{name}ILi{dh}E"   # the mangled name
+            found = [c for f, c in counts.items() if tag in f]
+            if len(found) != 1:
+                fail(f"sass: no single {name}<{dh}> in {lib}")
+            hgmma, utmaldg, hmma = found[0]
+            print(f"[env] sass {name}<{dh}>: HGMMA {hgmma} UTMALDG {utmaldg} "
+                  f"HMMA {hmma}", flush=True)
+            if not hgmma or not utmaldg or hmma:
+                fail(f"sass: {name}<{dh}> is not on wgmma + TMA")
+
+
 def main():
     if not torch.cuda.is_available():
         print("FAILED: no CUDA device; this smoke run needs one GPU",
@@ -1456,6 +1480,7 @@ def main():
     libs = _build.build_all(verbose=True)
     print(f"[env] built {sorted(libs)} in {time.perf_counter() - t0:.1f} s "
           f"into {_build.build_dir()}", flush=True)
+    sass_check(libs["frame_attention"])
 
     fwd_rows = kernel_phase(dev)
     grad_rows = grad_kernel_phase(dev)

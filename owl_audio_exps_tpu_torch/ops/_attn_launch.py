@@ -1,11 +1,15 @@
 """Argument plumbing shared by the attention kernels' wrappers
-(ops/splash.py, ops/band.py).
+(ops/splash.py, ops/band.py, ops/band2.py).
 
-Every C entry point of csrc/frame_attention.cu and csrc/band_attention.cu
-takes the same three arrays (see csrc/attention_tiles.cuh ``make_params``):
-11 pointers (q, k, v, o, dout, dq, dk, dv, lse, delta, doc), 24 element
-strides (batch, head, row of the eight [B, H, L, Dh] operands) and 7 ints
-(B, H, L, Dh, tpf, window, causal), then its floats and the stream.
+Every C entry point of csrc/frame_attention.cu, csrc/band_attention.cu
+and csrc/band2_attention.cu takes the same three arrays (``make_params``
+in csrc/frame_attention.cu and csrc/attention_tiles.cuh): 11 pointers (q,
+k, v, o, dout, dq, dk, dv, lse, delta, doc), 24 element strides (batch,
+head, row of the eight [B, H, L, Dh] operands, ``map_strides``) and 7
+ints (B, H, L, Dh, tpf, window, causal), then its floats and the stream.
+The K1/K4 kernels read their inputs through TMA tensor maps built from
+those strides (``tma_geometry``); the band kernels through 16-byte loads
+(``operand``).
 """
 
 from __future__ import annotations
@@ -61,13 +65,88 @@ def refuse_autograd(*tensors: torch.Tensor):
 
 
 def operand(t: torch.Tensor) -> torch.Tensor:
-    """The kernels read [B, H, L, Dh] through strides with 16-byte loads:
+    """The band kernels (csrc/attention_tiles.cuh) read [B, H, L, Dh]
+    through strides with 16-byte loads:
     the last dim must be contiguous and every stride and the base 16-byte
     aligned. The layouts Attn produces (a transposed view of the
     [B, L, H, Dh] projection) qualify; anything else is copied."""
     ok = (t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:3])
           and t.data_ptr() % 16 == 0)
     return t if ok else t.contiguous()
+
+
+# TMA's limits on a tensor map (cuTensorMapEncodeTiled): a 16-byte
+# aligned base, byte strides that are multiples of 16 below 2^40, dims at
+# most 2^32; the 128-byte swizzle takes boxes of 64 bf16 columns
+TMA_ALIGN, TMA_MAX_STRIDE, TMA_MAX_DIM = 16, 1 << 40, 1 << 32
+
+
+def map_strides(shape: Sequence[int], stride: Sequence[int]) -> tuple:
+    """Element strides (batch, head, row) of a [B, H, L, Dh] view as every
+    entry point takes them: a dim of extent 1 gets the stride a dense
+    layout would give it (its own is never used, and may be one TMA
+    refuses, as the 0 of an expanded dim). This is the one place of that
+    rule: ``launch`` passes these strides, and csrc/hopper_attention.cuh
+    ``encode_map`` builds its tensor maps from them as they are."""
+    B, H, L, Dh = shape
+    row = stride[2] if L > 1 else Dh
+    head = stride[1] if H > 1 else row * L
+    batch = stride[0] if B > 1 else head * H
+    return batch, head, row
+
+
+def tma_geometry(shape: Sequence[int], stride: Sequence[int], data_ptr: int,
+                 box_rows: int, elem_bytes: int = 2) -> Dict[str, tuple]:
+    """The tensor map csrc/hopper_attention.cuh ``encode_map`` makes of a
+    [B, H, L, Dh] view (element strides ``stride``): dims (Dh, L, H, B),
+    byte strides of the row, head and batch dims (``map_strides``), and a
+    box of [box_rows, 64] elements (the 128-byte swizzle's width; Dh 128
+    takes two boxes). Raises ValueError on a view TMA cannot read in
+    place: the wrappers never copy in silence."""
+    B, H, L, Dh = shape
+    if Dh not in (64, 128):
+        raise ValueError(f"head dim {Dh}: the kernels take 64 or 128")
+    if stride[3] != 1:
+        raise ValueError(f"the head dim must be contiguous (stride "
+                         f"{stride[3]}): TMA reads rows of Dh elements")
+    if data_ptr % TMA_ALIGN:
+        raise ValueError(f"base address {data_ptr:#x} is not {TMA_ALIGN}-byte"
+                         f" aligned, as TMA needs")
+    batch, head, row = (s * elem_bytes for s in map_strides(shape, stride))
+    for name, s in (("row", row), ("head", head), ("batch", batch)):
+        if s <= 0 or s % TMA_ALIGN or s >= TMA_MAX_STRIDE:
+            raise ValueError(
+                f"{name} stride of {s} bytes: TMA takes positive multiples "
+                f"of {TMA_ALIGN} below 2^40 (strides {tuple(stride)})")
+    if max(B, H, L) > TMA_MAX_DIM:
+        raise ValueError(f"shape {tuple(shape)} exceeds TMA's 2^32 per dim")
+    return dict(dims=(Dh, L, H, B), strides=(row, head, batch),
+                box=(64, box_rows, 1, 1))
+
+
+def tma_operand(name: str, t: torch.Tensor) -> torch.Tensor:
+    """``t`` as it is, if TMA can read it in place (``tma_geometry``);
+    raises ValueError naming ``name`` otherwise."""
+    try:
+        tma_geometry(t.shape, t.stride(), t.data_ptr(), 64,
+                     t.element_size())
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+    return t
+
+
+def dense_cotangent(g: torch.Tensor) -> torch.Tensor:
+    """An output cotangent autograd hands a backward, as bf16 the kernels
+    can read: the same tensor where TMA takes its layout, else a dense
+    copy (autograd may hand an expanded gradient, e.g. of ``out.sum()``,
+    whose zero strides no tensor map takes). The caller's own views are
+    never copied: ``tma_operand`` raises on them."""
+    g = g.to(torch.bfloat16)
+    try:
+        tma_geometry(g.shape, g.stride(), g.data_ptr(), 64)
+        return g
+    except ValueError:
+        return g.contiguous()
 
 
 def empty_heads(like: torch.Tensor) -> torch.Tensor:
@@ -89,7 +168,8 @@ def launch(fn, tensors: Dict[str, torch.Tensor], ints: Sequence[int],
     for name in OPERANDS:
         t = tensors.get(name)
         ptrs.append(None if t is None else t.data_ptr())
-        strides.extend([0, 0, 0] if t is None else t.stride()[:3])
+        strides.extend([0, 0, 0] if t is None
+                       else map_strides(t.shape, t.stride()))
     for t in (lse, delta, doc):
         ptrs.append(None if t is None else t.data_ptr())
     ref = tensors["q"]

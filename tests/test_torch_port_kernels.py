@@ -27,9 +27,9 @@ def _need_card():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
 
 
-def _qkv(L, H=4, seed=0, normed=False):
+def _qkv(L, H=4, seed=0, normed=False, Dh=64):
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    ts = [torch.randn(1, H, L, 64, generator=gen, device="cuda")
+    ts = [torch.randn(1, H, L, Dh, generator=gen, device="cuda")
           for _ in range(3)]
     if normed:  # unit-RMS q and k, as QK rms-norm produces
         for i in (0, 1):
@@ -166,6 +166,11 @@ def test_kernel_reads_strided_views_and_rejects_what_it_cannot_run():
     torch.testing.assert_close(out, ref, atol=0, rtol=0)
     with pytest.raises(NotImplementedError, match="bf16"):
         splash.splash_attention(q.float(), k.float(), v.float(), 65, 2, True)
+    # TMA reads rows of 16-byte multiples: a view with 136-byte rows is
+    # refused, not copied
+    wide = torch.zeros(B, H, L, Dh + 4, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="^q: row stride"):
+        splash.splash_attention(wide[..., :Dh], k, v, 65, 2, True)
     # a strided view that requires grad goes through the backward kernels,
     # which give the same gradients as on contiguous copies
     leaf = qkv.detach().requires_grad_()
@@ -186,8 +191,38 @@ def test_kernel_reads_strided_views_and_rejects_what_it_cannot_run():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("L,tpf,window,causal,docs", [
+    (455, 65, 2, False, True), (1000, 64, 3, True, True),
+    (650, 65, None, True, False)])
+def test_kernel_head_dim_128_matches_plain_on_card(L, tpf, window, causal,
+                                                   docs):
+    """K1 at Dh 128 (its scale 128^-0.5 is no power of two, so q is
+    rescaled in shared memory) and at lengths that are not a multiple of
+    the 128-row tiles, with documents and a window: forward and
+    gradients against the plain version."""
+    _need_card()
+    q, k, v = _qkv(L, seed=11, Dh=128)
+    dout = _qkv(L, seed=12, Dh=128)[0]
+    nf = -(-L // tpf)
+    doc = ((torch.arange(nf, device="cuda") >= nf // 3).int()[None]
+           if docs else None)
+    out, got = _grads(lambda *a: splash.splash_attention(
+        *a, tpf, window, causal, doc), q, k, v, dout)
+    ref, want = _grads(lambda *a: splash.splash_attention_plain(
+        *a, tpf, window, causal, doc), q.float(), k.float(), v.float(),
+        dout.float())
+    torch.cuda.synchronize()
+    err = (out.float() - ref).abs()
+    assert err.max().item() < 2e-2 and err.mean().item() < 2e-3
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a).all(), name
+        assert _rel_l2(a, b) < GRAD_REL_L2, name
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("L,tpf,causal", [
-    (1024, 64, True), (1024, 64, False), (650, 65, True), (650, 65, False)])
+    (1024, 64, True), (1024, 64, False), (650, 65, True), (650, 65, False),
+    (1000, 64, True), (1000, 64, False), (455, 65, True), (455, 65, False)])
 def test_ring_partial_matches_plain_on_card(L, tpf, causal):
     """K4: (out, lse) of pre-scaled q, and the backward through both
     outputs, against f32 autograd of the plain version."""
@@ -216,6 +251,42 @@ def test_ring_partial_matches_plain_on_card(L, tpf, causal):
     for name, a, b in zip(("dq", "dk", "dv"), leaves, ref):
         assert torch.isfinite(a.grad).all(), name
         assert _rel_l2(a.grad, b.grad) < GRAD_REL_L2, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,tpf,causal,Dh", [
+    (1000, 64, True, 64), (1000, 64, False, 64), (455, 65, True, 64),
+    (455, 65, False, 64), (1000, 64, True, 128), (1000, 64, False, 128),
+    (455, 65, True, 128), (455, 65, False, 128)])
+def test_ring_partial_vjp_matches_plain_on_card(L, tpf, causal, Dh):
+    """K4's entry points called directly, as parallel/context.py calls
+    them: splash_attention_lse (forward) and splash_attention_lse_vjp (dq
+    and dkv on delta' with a non-zero lse cotangent), at lengths that are
+    not a multiple of the 128-row tiles, at both head dims."""
+    _need_card()
+    q, k, v = _qkv(L, seed=9, normed=True, Dh=Dh)
+    q = (q * Dh ** -0.5).to(torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    g_out = torch.randn(1, 4, L, Dh, generator=gen, device="cuda")
+    g_lse = torch.randn(1, 4, L, generator=gen, device="cuda")
+    counts = (splash.lse_launches, splash.lse_dq_launches,
+              splash.lse_dkv_launches)
+    out, lse = splash.splash_attention_lse(q, k, v, tpf, causal)
+    got = splash.splash_attention_lse_vjp(q, k, v, out, lse, g_out, g_lse,
+                                          tpf, causal)
+    torch.cuda.synchronize()
+    assert (splash.lse_launches, splash.lse_dq_launches,
+            splash.lse_dkv_launches) == tuple(c + 1 for c in counts)
+    rout, rlse = splash.splash_attention_lse_plain(q.float(), k.float(),
+                                                   v.float(), tpf, causal)
+    want = splash.splash_attention_lse_vjp_plain(
+        q.float(), k.float(), v.float(), rout, rlse, g_out, g_lse, tpf,
+        causal)
+    assert (out - rout).abs().max().item() < 2e-2
+    assert (lse - rlse).abs().max().item() < 2e-2
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a).all(), name
+        assert _rel_l2(a, b) < GRAD_REL_L2, name
 
 
 @pytest.mark.cuda
@@ -248,3 +319,24 @@ def test_ring_and_halo_in_one_process_match_the_full_sequence_on_card():
     for got, want in ((ring_grads, full_grads), (halo_grads, band_grads)):
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
             assert _rel_l2(a, b) < GRAD_REL_L2, name
+
+
+@pytest.mark.cuda
+def test_kernel_on_another_card_keeps_the_callers_device():
+    """The K1/K4 entry points bind q's card for their launch and hand the
+    calling thread its own current device back."""
+    _need_card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs: a launch on a card that is not current")
+    gen = torch.Generator(device="cuda:1").manual_seed(13)
+    q, k, v = (torch.randn(1, 2, 260, 64, generator=gen, device="cuda:1")
+               .to(torch.bfloat16) for _ in range(3))
+    with torch.cuda.device(0):
+        out = splash.splash_attention(q, k, v, 65, 2, True)
+        lse_out, _ = splash.splash_attention_lse(q, k, v, 65, True)
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(1)
+    ref = splash.splash_attention_plain(q.float(), k.float(), v.float(), 65,
+                                        2, True)
+    assert (out.float() - ref).abs().max().item() < 2e-2
+    assert torch.isfinite(lse_out).all()

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from owl_audio_exps_tpu.ops.splash import splash_attention as jax_splash
+from owl_audio_exps_tpu_torch.ops import _attn_launch as kl
 from owl_audio_exps_tpu_torch.ops import splash
 from owl_audio_exps_tpu_torch.ops.masks import dense_mask
 
@@ -86,3 +87,91 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         splash.frame_attention_cuda(q, k, v, 5, 2, True)
     assert splash.launches == before
+
+
+# ---- the tensor maps of the Hopper kernels (csrc/hopper_attention.cuh
+# encode_map computes the same geometry from the strides it is given)
+
+def _fused_views(B, L, H, Dh):
+    """q, k, v as Attn hands them over: [B, H, L, Dh] views of the fused
+    [B, L, 3, H, Dh] projection."""
+    qkv = torch.zeros(B, L, 3, H, Dh, dtype=torch.bfloat16)
+    return [qkv[:, :, i].transpose(1, 2) for i in range(3)]
+
+
+@pytest.mark.parametrize("B,L,H,Dh", [(1, 3900, 24, 64), (2, 455, 4, 64),
+                                      (1, 1040, 2, 128)])
+def test_tma_geometry_of_attn_views(B, L, H, Dh):
+    for t in _fused_views(B, L, H, Dh):
+        geo = kl.tma_geometry(t.shape, t.stride(), t.data_ptr(), 128)
+        row = 3 * H * Dh * 2      # 9,216 bytes at 24 heads of 64
+        assert geo["dims"] == (Dh, L, H, B)
+        assert geo["strides"] == (row, Dh * 2, L * row if B > 1 else
+                                  Dh * 2 * H)
+        assert geo["box"] == (64, 128, 1, 1)
+        assert kl.tma_operand("q", t) is t   # read in place, never copied
+
+
+@pytest.mark.parametrize("B,H,L,n", [(1, 24, 98_304, 4), (2, 3, 1000, 2)])
+def test_tma_geometry_of_ring_slices(B, H, L, n):
+    """The ring and the halo hand over contiguous [B, H, L, Dh] tensors or
+    slices of them along L; the kernel's output is a [B, H, L, Dh] view of
+    [B, L, H, Dh] storage (empty_heads)."""
+    full = torch.zeros(B, H, L, 64, dtype=torch.bfloat16)
+    per = L // n
+    for i in range(n):
+        t = full[:, :, i * per:(i + 1) * per]
+        geo = kl.tma_geometry(t.shape, t.stride(), t.data_ptr(), 64)
+        assert geo["dims"] == (64, per, H, B)
+        assert geo["strides"] == (128, L * 128, H * L * 128)
+        assert geo["box"] == (64, 64, 1, 1)
+    out = kl.empty_heads(full)
+    geo = kl.tma_geometry(out.shape, out.stride(), out.data_ptr(), 128)
+    assert geo["strides"][:2] == (H * 64 * 2, 128)
+
+
+@pytest.mark.parametrize("shape,stride,want", [
+    # one head sliced out of the fused projection: its head stride of
+    # Dh is replaced by the dense L * row
+    ((1, 1, 455, 64), (455 * 3 * 64, 64, 3 * 64, 1), (455 * 192, 455 * 192,
+                                                       192)),
+    # an expanded batch and head (stride 0) and a single row
+    ((1, 1, 1, 128), (0, 0, 0, 1), (128, 128, 128)),
+    # nothing of extent 1: the strides as they are
+    ((2, 3, 10, 64), (5000, 64, 192, 1), (5000, 64, 192)),
+])
+def test_map_strides_give_extent_one_dims_their_dense_stride(shape, stride,
+                                                             want):
+    """The strides every entry point receives (``launch``) and the K1/K4
+    tensor maps are built from: only a dim of extent 1 is changed."""
+    assert kl.map_strides(shape, stride) == want
+    if shape[-1] in (64, 128):
+        geo = kl.tma_geometry(shape, stride, 0, 64)
+        assert geo["strides"] == tuple(2 * s for s in reversed(want))
+
+
+def test_tma_geometry_rejects_views_tma_cannot_take():
+    q = torch.zeros(1, 2, 256, 64, dtype=torch.bfloat16)
+    wide = torch.zeros(1, 2, 256, 68, dtype=torch.bfloat16)
+    cases = {
+        "contiguous": torch.zeros(1, 2, 64, 256,             # Dh strided
+                                  dtype=torch.bfloat16).transpose(2, 3),
+        "multiples of 16": wide[..., :64],                   # 136-byte rows
+        "aligned": wide.view(-1)[1:1 + 2 * 256 * 64].view(1, 2, 256, 64),
+        "head dim": torch.zeros(1, 2, 256, 32, dtype=torch.bfloat16),
+        "positive": q[:, :1].expand(1, 2, 256, 64),          # zero head stride
+    }
+    for match, t in cases.items():
+        with pytest.raises(ValueError, match=match):
+            kl.tma_geometry(t.shape, t.stride(), t.data_ptr(), 64)
+        with pytest.raises(ValueError, match="^dout: "):
+            kl.tma_operand("dout", t)
+
+
+def test_dense_cotangent_copies_only_what_tma_cannot_take():
+    out = kl.empty_heads(torch.zeros(1, 2, 130, 64, dtype=torch.bfloat16))
+    assert kl.dense_cotangent(out) is out          # a strided view, in place
+    ones = torch.ones(()).expand(1, 2, 130, 64)    # the gradient of .sum()
+    g = kl.dense_cotangent(ones)
+    assert g.dtype == torch.bfloat16 and g.is_contiguous()
+    assert torch.equal(g.float(), ones)
