@@ -8,9 +8,10 @@ Phases, each of which exits non-zero on any failure:
 
 1. environment: card name and power limit, torch version, nvcc build of
    every kernel under owl_audio_exps_tpu_torch/csrc/ (build time and the
-   -Xptxas -v lines printed), and cuobjdump -sass of the K1/K4 library:
-   each of its six kernels must hold wgmma (HGMMA) and TMA (UTMALDG)
-   instructions and no mma.sync (HMMA);
+   -Xptxas -v lines printed), and cuobjdump -sass of every library: each
+   kernel of K1/K4 and of the band (K2/K3, and K5 behind its plan check)
+   must hold wgmma (HGMMA) and TMA (UTMALDG) instructions and no mma.sync
+   (HMMA);
 2. each kernel against its plain PyTorch version on the card, at the
    geometries the serve and training paths give it, with its time, its
    TFLOP/s and share of its bound, the plain version's time, its bound and
@@ -341,8 +342,8 @@ def grad_kernel_phase(dev):
                      "dkv": (dkv_ms, bound_row(8.0 * Dh * pairs * H,
                                                12.0 * elems + 8.0 * stats))}
         else:
-            fwd_ms = cuda_ms(lambda: band.band_attention_cuda(
-                q, k, v, *margs), iters)
+            fwd_ms = cuda_ms(lambda: band.band_attention_cuda(q, k, v, *margs),
+                             iters)
             out, lse = band.band_attention_cuda(q, k, v, *margs)
             bwd_ms = cuda_ms(lambda: band.band_attention_bwd_cuda(
                 q, k, v, out, lse, dout, *margs), iters)
@@ -517,7 +518,8 @@ def band2_phase(dev):
                 max_abs_err=max(errs[n][1] for n in keys),
                 mean_abs_err=max(errs[n][2] for n in keys),
                 rel_l2=max(errs[n][0] for n in keys),
-                checked_heads=H, tflops=bnd["gflop"] / ms, **bnd)
+                checked_heads=H, tflops=bnd["gflop"] / ms,
+                share_of_bound=bnd["bound_ms"] / ms, **bnd)
         lib = ("n/a" if lib_bwd is None else
                f"fwd {lib_fwd:.4f} ms bwd {lib_bwd:.4f} ms")
         print(f"[band2] {name}: B={B} H={H} L={L} Dh={Dh} tpf={tpf} "
@@ -833,8 +835,7 @@ def profile_step(trainer, state, micro, gen, step_s, tag="train"):
         torch.cuda.synchronize()
     classes = {"K1 fwd (frame_attention_fwd)": 0.0,
                "K1 bwd (dq + dkv)": 0.0,
-               "band fwd": 0.0, "band bwd": 0.0,
-               "K5 fwd (band2)": 0.0, "K5 bwd (band2)": 0.0,
+               "band fwd (K2/K3 or K5)": 0.0, "band bwd (K2/K3 or K5)": 0.0,
                "matmul (cuBLAS)": 0.0,
                "other (elementwise, norms, optimizer, copies)": 0.0}
     per_name = {}
@@ -853,13 +854,9 @@ def profile_step(trainer, state, micro, gen, step_s, tag="train"):
         elif "frame_attn_bwd" in n:
             classes["K1 bwd (dq + dkv)"] += us
         elif "band_attn_fwd" in n:
-            classes["band fwd"] += us
+            classes["band fwd (K2/K3 or K5)"] += us
         elif "band_attn_bwd" in n:
-            classes["band bwd"] += us
-        elif "band2_attn_fwd" in n:
-            classes["K5 fwd (band2)"] += us
-        elif "band2_attn_bwd" in n:
-            classes["K5 bwd (band2)"] += us
+            classes["band bwd (K2/K3 or K5)"] += us
         elif any(t in n.lower() for t in ("gemm", "nvjet", "cutlass",
                                           "sm90_xmma")):
             classes["matmul (cuBLAS)"] += us
@@ -1373,8 +1370,8 @@ KERNELS = {
     "ring_partial_fwd": ("frame_attention.cu", "ops/splash.py:312"),
     "ring_partial_bwd_dq": ("frame_attention.cu", "ops/splash.py:358"),
     "ring_partial_bwd_dkv": ("frame_attention.cu", "ops/splash.py:358"),
-    "band2_attention_fwd": ("band2_attention.cu", "ops/band2.py:348"),
-    "band2_attention_bwd": ("band2_attention.cu", "ops/band2.py:552"),
+    "band2_attention_fwd": ("band_attention.cu", "ops/band2.py:348"),
+    "band2_attention_bwd": ("band_attention.cu", "ops/band2.py:552"),
 }
 MAIN_CASE = {  # the training path's geometry of each kernel
     "frame_attention_fwd": "L16384_tpf64_causal_global",
@@ -1415,42 +1412,51 @@ def kernel_record(fwd_rows, grad_rows, launches, extra):
     return out
 
 
-# the six entry kernels of csrc/frame_attention.cu, on the Hopper bodies of
-# csrc/hopper_attention.cuh at both head dims
-HOPPER_KERNELS = [f"{k}_kernel" for k in (
-    "frame_attn_fwd", "frame_attn_bwd_dq", "frame_attn_bwd_dkv",
-    "ring_attn_fwd", "ring_attn_bwd_dq", "ring_attn_bwd_dkv")]
+# the entry kernels of each library (csrc/<stem>.cu), all on the Hopper
+# bodies of csrc/hopper_attention.cuh: (name, mangled template arguments)
+# for both head dims, and the band kernels (K2/K3 and K5) for both softmax
+# forms
+HOPPER_KERNELS = {
+    "frame_attention": [(f"{k}_kernel", f"ILi{dh}E") for k in (
+        "frame_attn_fwd", "frame_attn_bwd_dq", "frame_attn_bwd_dkv",
+        "ring_attn_fwd", "ring_attn_bwd_dq", "ring_attn_bwd_dkv")
+        for dh in (64, 128)],
+    "band_attention": [(f"band_attn_{k}_kernel", f"ILi{dh}ELb{fixed}E")
+                       for k in ("fwd", "bwd_dq", "bwd_dkv")
+                       for dh in (64, 128) for fixed in (0, 1)],
+}
 
 
-def sass_check(lib):
-    """cuobjdump -sass of the built K1/K4 library: every one of the six
-    kernels (Dh 64 and 128) must multiply with HGMMA (wgmma), load with
-    UTMALDG (TMA) and hold no HMMA (mma.sync)."""
+def sass_check(libs):
+    """cuobjdump -sass of every built library: each of its entry kernels
+    (HOPPER_KERNELS) must multiply with HGMMA (wgmma), load with UTMALDG
+    (TMA) and hold no HMMA (mma.sync)."""
     import shutil
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                          text=True, check=True).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            counts[fn] = [0, 0, 0]
-        elif fn is not None:
-            counts[fn][0] += "HGMMA" in line
-            counts[fn][1] += "UTMALDG" in line
-            counts[fn][2] += "HMMA" in line and "HGMMA" not in line
-    for name in HOPPER_KERNELS:
-        for dh in (64, 128):
-            tag = f"{len(name)}{name}ILi{dh}E"   # the mangled name
+    for stem, kernels in HOPPER_KERNELS.items():
+        sass = subprocess.run([tool, "-sass", str(libs[stem])],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                counts[fn] = [0, 0, 0]
+            elif fn is not None:
+                counts[fn][0] += "HGMMA" in line
+                counts[fn][1] += "UTMALDG" in line
+                counts[fn][2] += "HMMA" in line and "HGMMA" not in line
+        for name, args in kernels:
+            tag = f"{len(name)}{name}{args}"   # the mangled name
             found = [c for f, c in counts.items() if tag in f]
             if len(found) != 1:
-                fail(f"sass: no single {name}<{dh}> in {lib}")
+                fail(f"sass: no single {name}{args} in {libs[stem]}")
             hgmma, utmaldg, hmma = found[0]
-            print(f"[env] sass {name}<{dh}>: HGMMA {hgmma} UTMALDG {utmaldg} "
-                  f"HMMA {hmma}", flush=True)
+            print(f"[env] sass {stem} {name}{args}: HGMMA {hgmma} UTMALDG "
+                  f"{utmaldg} HMMA {hmma}", flush=True)
             if not hgmma or not utmaldg or hmma:
-                fail(f"sass: {name}<{dh}> is not on wgmma + TMA")
+                fail(f"sass: {name}{args} is not on wgmma + TMA")
 
 
 def main():
@@ -1480,7 +1486,7 @@ def main():
     libs = _build.build_all(verbose=True)
     print(f"[env] built {sorted(libs)} in {time.perf_counter() - t0:.1f} s "
           f"into {_build.build_dir()}", flush=True)
-    sass_check(libs["frame_attention"])
+    sass_check(libs)
 
     fwd_rows = kernel_phase(dev)
     grad_rows = grad_kernel_phase(dev)

@@ -1,17 +1,30 @@
-// Hopper tile bodies of the frame-mask attention kernels K1 (the forward,
-// dq and dkv of owl_frame_attn_*) and K4 (the ring partial,
-// owl_ring_attn_*), for sm_90a; frame_attention.cu holds their entry
-// points. The band kernels (K2/K3, K5) stay on attention_tiles.cuh.
+// Hopper tile bodies of the port's attention kernels, for sm_90a: the
+// forward, dq and dkv of the frame-mask kernels K1 (owl_frame_attn_*)
+// and K4 (the ring partial, owl_ring_attn_*), whose entry points are in
+// frame_attention.cu, and of the band kernels of band_attention.cu, for
+// K2/K3 (owl_band_attn_*) and K5 (owl_band2_attn_*, the same kernels).
 //
-// They compute the function of attention_tiles.cuh's bodies, to the same
-// rounding: visible(i, j) under the frame algebra (causal or
-// bidirectional, an optional frame window, optional per-frame document
-// ids); q pre-scaled by `scale` and rounded to bf16 before Q.K^T; f32
-// logits and softmax statistics; P and dS rounded to bf16 before their
-// products, every product accumulated in f32; the forward's f32
-// logsumexp when asked; delta = rowsum(dO * O) in K1's dq (stored for its
-// dkv), the caller's delta' = rowsum(dO * O) - g_lse in both of K4's
-// gradient kernels; rows past L read as zero and never written.
+// The function, with f = row / tpf for a query or key row:
+//   visible(i, j) iff (fk <= fq if causal) and (|fq - fk| < window if a
+//   window is set) and (doc[fq] == doc[fk] if documents are given);
+// q pre-scaled by `scale` and rounded to bf16 before Q.K^T; f32 logits
+// and softmax statistics; P and dS rounded to bf16 before their products,
+// every product accumulated in f32; the forward's f32 logsumexp when
+// asked; delta = rowsum(dO * O) in the dq kernel of K1 and the band
+// (stored for its dkv), the caller's delta' = rowsum(dO * O) - g_lse in
+// both of K4's gradient kernels; rows past L read as zero and never
+// written.
+//
+// Two softmax forms (the bodies' kFixed policy). The usual one (K1, K4,
+// and the band without a bound) keeps an online row max in the forward.
+// The fixed shift of the TPU band kernels under QK rms-norm, p =
+// exp(min(s, cap) - cap) / sum with cap = sqrt(Dh), keeps no running max
+// and never rescales the output accumulator; its forward saves lse =
+// cap + log(sum). Either way the backward recomputes P = exp(min(s, cap)
+// - lse) (no clamp in the usual form) and dS = P * (dP - delta): the
+// clamp passes its gradient straight through, as the TPU band kernel's
+// backward does (owl_audio_exps_tpu/ops/band.py:482-508). The clamp
+// applies to the f32 scaled logit s, before the exp2's log2(e) factor.
 //
 // What bounds them on the H100: operations. A visible (query, key) pair
 // costs 4 Dh flops in the forward, 6 Dh in dq and 8 Dh in dkv, at 989
@@ -50,11 +63,19 @@
 //   (a software pipeline over a ring of 3 stages). dkv keeps the plain
 //   order over 2 stages: its four accumulators leave no registers for a
 //   second set of S^T, dP^T (ptxas then serializes its products).
-// * Kept from the mma.sync bodies: key/query ranges in closed form from
-//   the frames (kv_range / q_range at the new tile heights), FULL tiles
-//   that skip the per-element mask, the mask as one unsigned compare of
-//   fq - fk against [dmin, dmin + dspan] (now in the backward too), and
-//   the heaviest query tiles of a causal grid first.
+// * The walk: key/query ranges in closed form from the frames (kv_range
+//   / q_range), FULL tiles that skip the per-element mask, the mask as
+//   one unsigned compare of fq - fk against [dmin, dmin + dspan], and the
+//   heaviest query tiles of a causal grid first. Under a causal window of
+//   w frames (the band) a 128-row tile meets C / 128 + 1 or 2 tiles of
+//   the other operand (C = w * tpf); only those at the diagonal and at
+//   the window's far edge are PARTIAL (one of each at tpf 64, up to five
+//   in all at tpf 65, whose frames straddle the tiles).
+// * The band's forward is persistent (fwd_items, a copy of the forward
+//   body of its own): one block per SM loops over the 128-row
+//   tiles, its producer loading the next tile's Q and first K/V stages
+//   while the consumers finish the current one. Its backward, and every
+//   kernel of K1 and K4, take a block per tile.
 // * No atomics: dq and dkv are two kernels, each the only writer of its
 //   output tile, so the backward is deterministic.
 //
@@ -106,6 +127,8 @@ struct Params {
   float logit_mul;    // multiplies the raw Q.K^T: scale when folded, else 1
   float inv_tpf;
   int scale_q;        // rescale Q in shared memory (scale not a power of 2)
+  float cap;          // the fixed shift's bound on s (kFixed bodies only)
+  float cap_raw;      // the same bound on the raw Q.K^T: cap / logit_mul
 };
 
 // ------------------------------------------------------- device helpers
@@ -230,6 +253,7 @@ struct Turns {
 struct Shape {
   static constexpr int kConsumers = 2, kThreads = 128 * (1 + kConsumers);
   static constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+  static constexpr bool kPersistent = false;  // one tile a block
 };
 
 // generic-proxy writes to shared memory, before wgmma reads them
@@ -269,6 +293,17 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// A raw logit as the softmax reads it: min(s, cap_raw) under the fixed
+// shift (a power-of-two logit_mul scales both sides exactly, so this is
+// min(scaled s, cap) scaled back), s itself under the usual softmax.
+template <bool kFixed>
+__device__ __forceinline__ float softmax_logit(float s, float cap_raw) {
+  if constexpr (kFixed)
+    return fminf(s, cap_raw);
+  else
+    return s;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -552,6 +587,23 @@ __device__ __forceinline__ long long stat_index(const Params& p, int b, int h,
   return ((long long)b * p.H + h) * p.L + row;
 }
 
+// The work items of a persistent block (fwd_items): the 128-row
+// tiles of every (b, h), item w = (b * H + h) * n + tile for n tiles
+// along L, taken w = blockIdx.x, blockIdx.x + gridDim.x, ... (neighbouring
+// blocks on neighbouring tiles of one head, which share their K/V in L2).
+struct Item {
+  int b, h, row0;
+};
+
+__device__ __forceinline__ int item_count(const Params& p) {
+  return (p.L + kRows - 1) / kRows * p.B * p.H;
+}
+
+__device__ __forceinline__ Item item_of(const Params& p, int w) {
+  const int n = (p.L + kRows - 1) / kRows, bh = w / n;
+  return {bh / p.H, bh % p.H, (w % n) * kRows};
+}
+
 // The query tile of this block: a causal grid runs its heaviest (last)
 // query tiles first.
 __device__ __forceinline__ int query_tile(const Params& p, int rows) {
@@ -580,7 +632,6 @@ __device__ __forceinline__ void store_rows(bf16* base, long long s_row,
 
 // ------------------------------------------------------------ forward
 
-// Q [128, D] once; K and V [128, D] per stage.
 // Q [128, D] once; K and V [128, D] per stage. (Three consumers, 192 rows
 // a block, would leave 160 registers each, and the forward spills there.)
 template <int D>
@@ -592,7 +643,19 @@ struct Fwd : Shape {
       1024 + kQBytes + 2 * kStages * kKVBytes + 8 * (1 + 2 * kStages);
 };
 
-// The forward. Replaces the splash forward kernel reached by
+// The persistent forward's block: Q double-buffered where shared memory
+// holds two (Dh 64), so that the next tile's Q lands while this one runs.
+template <int D>
+struct FwdItems : Fwd<D> {
+  using F = Fwd<D>;
+  static constexpr bool kPersistent = true;  // a block per SM (run)
+  static constexpr int kQBufs = D == 64 ? 2 : 1;
+  static constexpr size_t kSmem = 1024 + kQBufs * F::kQBytes +
+                                  2 * F::kStages * F::kKVBytes +
+                                  8 * (2 * kQBufs + 2 * F::kStages);
+};
+
+// The forward of K1 and K4. Replaces the splash forward kernel reached by
 // owl_audio_exps_tpu/ops/splash.py splash_attention (K1) and, with
 // save_residuals, splash_attention_lse (K4). Bound: 4 Dh flops and one exp
 // a visible pair. One 128-row query tile at q0 of head (b, h): the output,
@@ -802,6 +865,305 @@ __device__ __forceinline__ void fwd_block(const Maps& maps, const Params& p,
   }
 }
 
+// The band's forward (K2/K3, K5): the same tile work as fwd_block, in
+// both softmax forms (kFixed: the sum alone, no max, no rescale), on a
+// persistent grid (fwd_items). It is a second copy of the forward, not a
+// shared one: built from these parts, fwd_block's code grows (more spills,
+// K1 and K4 2.5-4.8% slower on the card, PERF.md section 6). It serves only
+// the band, which has no documents (p.doc is null): its mask is the
+// window's alone, and a change to K1's document mask needs no copy here.
+
+// The key tiles of the query tile at q0: n_tiles of kBK rows from
+// kv_begin.
+template <class C>
+__device__ __forceinline__ int kv_tiles(const Params& p, int q0,
+                                        int& kv_begin) {
+  int kv_end;
+  kv_range(p, q0, kRows, C::kBK, kv_begin, kv_end);
+  return (kv_end - kv_begin + C::kBK - 1) / C::kBK;
+}
+
+// The producer's loads for the query tile at q0 of (b, h): Q into sQ
+// (completing on barQ), then its n_tiles key tiles from kv_begin through
+// the stage ring from slot g0 (stage g % kStages, phase (g / kStages) & 1
+// for slot g, so a block that runs several tiles keeps one ring).
+template <int D>
+__device__ __forceinline__ void fwd_load(const Maps& maps, const Params& p,
+                                         int b, int h, int q0, int kv_begin,
+                                         int n_tiles, uint8_t* sQ,
+                                         uint64_t* barQ, uint8_t* sK,
+                                         uint8_t* sV, uint64_t* full,
+                                         uint64_t* empty, int g0) {
+  using C = Fwd<D>;
+  mbar_expect_tx(barQ, C::kQBytes);
+  load_rows<D, C::kBM>(sQ, &maps.q, barQ, q0, h, b);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int g = g0 + t, s = g % C::kStages;
+    mbar_wait(&empty[s], ((g / C::kStages) & 1) ^ 1);
+    mbar_expect_tx(&full[s], 2 * C::kKVBytes);
+    const int k0 = kv_begin + t * C::kBK;
+    load_rows<D, C::kBK>(sK + s * C::kKVBytes, &maps.k, &full[s], k0, h, b);
+    load_rows<D, C::kBK>(sV + s * C::kKVBytes, &maps.v, &full[s], k0, h, b);
+  }
+}
+
+// A consumer warpgroup's part of the query tile at q0 of (b, h): Q from
+// sQ once barQ completes phase q_phase, its n_tiles key tiles from ring
+// slot g0; arrives on qfree (when given) once Q is read. `first`: the
+// block's first tile (the turns start).
+template <int D, bool kFixed>
+__device__ __forceinline__ void fwd_compute(const Params& p, int b, int h,
+                                            int q0, int kv_begin,
+                                            int n_tiles, uint8_t* sQ,
+                                            uint64_t* barQ, int q_phase,
+                                            uint64_t* qfree, uint8_t* sK,
+                                            uint8_t* sV, uint64_t* full,
+                                            uint64_t* empty, int g0,
+                                            const Turns& turn, bool first) {
+  using C = Fwd<D>;
+  const int cw = threadIdx.x / 128 - 1;  // rows [64 cw, 64 cw + 64)
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int r0 = q0 + 64 * cw;           // this warpgroup's first row
+  const int row = r0 + 16 * warp + g;    // this thread's rows: row, row + 8
+  const int L = p.L;
+  const Mask mk = mask_of(p);
+  int fq[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) fq[i] = min(row + 8 * i, L - 1) / p.tpf;
+  const float c = p.logit_mul * kLog2e;
+  const float cap2 = kFixed ? p.cap * kLog2e : 0.f;
+
+  mbar_wait(barQ, q_phase);
+  if (p.scale_q) {
+    scale_rows<D, C::kBM>(sQ, 64 * cw, 64, p.scale, tid, 128);
+    fence_async_smem();
+    named_sync(1 + cw, 128);
+  }
+  const uint32_t q_addr = smem_u32(sQ);
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  // S_t = Q.K_t^T into sc (ring slot g0 + t, once it has landed)
+  float sc[C::kBK / 2];
+  auto ready = [&](int t) {
+    mbar_wait(&full[(g0 + t) % C::kStages], ((g0 + t) / C::kStages) & 1);
+  };
+  auto issue_s = [&](int t) {
+    const uint32_t k_addr =
+        smem_u32(sK + (g0 + t) % C::kStages * C::kKVBytes);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_ss<C::kBK>(sc, kmajor<C::kBM>(q_addr, 64 * cw, kk),
+                     kmajor<C::kBK>(k_addr, 0, kk), kk > 0);
+    wg_commit();
+  };
+  if (first) turn.init();
+  ready(0);
+  turn.begin();
+  wg_fence();
+  issue_s(0);
+  turn.end();
+  wg_wait0();
+  keep(sc);
+
+  // Software pipeline: the softmax of tile t runs while P_{t-1}.V_{t-1}
+  // is still on the tensor cores, and S_{t+1} is issued with P_t.V_t.
+  uint32_t pa[C::kBK / 16][4];
+  // the last tile is peeled (no next tile to issue), so that every
+  // wgmma group in the loop is committed on every path
+  auto step = [&](int t, auto more) {
+    const int s = (g0 + t) % C::kStages;
+    const int k0 = kv_begin + t * C::kBK;
+
+    if (!tile_full(p, r0, 64, k0, C::kBK)) {
+#pragma unroll
+      for (int j = 0; j < C::kBK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = k0 + 8 * j + 2 * t4 + e;
+          const int fk = col < L ? frame_of(p, col) : kNoFrame;
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            if (!in_mask(mk, fq[i], fk)) sc[4 * j + 2 * i + e] = -INFINITY;
+        }
+    }
+
+    // a row's values live in the 4 threads of a quad
+    [[maybe_unused]] float alpha[2];
+    if constexpr (kFixed) {  // p = exp(min(s, cap) - cap): no max, no rescale
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < C::kBK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float pv = ex2(fmaf(
+                softmax_logit<true>(sc[4 * j + 2 * i + e], p.cap_raw), c,
+                -cap2));
+            sc[4 * j + 2 * i + e] = pv;
+            sum += pv;
+          }
+        l[i] += sum;
+      }
+    } else {  // online softmax
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < C::kBK / 8; ++j)
+          mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * i], sc[4 * j + 2 * i + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 2));
+        const float m_new = fmaxf(m[i], mx);
+        // a row with nothing visible yet keeps m = -inf; shift by 0 then
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        alpha[i] = ex2((m[i] - m_use) * c);
+        m[i] = m_new;
+        const float mc = m_use * c;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < C::kBK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float pv = ex2(fmaf(sc[4 * j + 2 * i + e], c, -mc));
+            sc[4 * j + 2 * i + e] = pv;
+            sum += pv;
+          }
+        l[i] = l[i] * alpha[i] + sum;
+      }
+    }
+    // P_{t-1}.V_{t-1} done: its stage is free, o is ours (unconditional,
+    // so that ptxas sees no path reading o while a product writes it)
+    wg_wait0();
+    keep(o);
+    if (t > 0 && tid == 0) mbar_arrive(&empty[(g0 + t - 1) % C::kStages]);
+    if constexpr (!kFixed) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 0] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
+    }
+    to_a<C::kBK>(pa, sc);
+    keep(pa);
+    keep(o);
+    constexpr bool next = decltype(more)::value;
+    if constexpr (next) ready(t + 1);
+    turn.begin();
+    wg_fence();
+    if constexpr (next) issue_s(t + 1);
+    const uint32_t v_addr = smem_u32(sV + s * C::kKVBytes);
+#pragma unroll
+    for (int kk = 0; kk < C::kBK / 16; ++kk)
+      mma_rs<D>(o, pa[kk], mnmajor<C::kBK>(v_addr, kk));
+    wg_commit();
+    turn.end();
+    if constexpr (next) {  // S_{t+1} done; P_t.V_t may still run
+      wg_wait1();
+      keep(sc);
+    }
+  };
+  for (int t = 0; t + 1 < n_tiles; ++t) step(t, std::true_type{});
+  step(n_tiles - 1, std::false_type{});
+  wg_wait0();
+  keep(o);
+  if (tid == 0) {
+    mbar_arrive(&empty[(g0 + n_tiles - 1) % C::kStages]);
+    if (qfree) mbar_arrive(qfree);  // this item's Q is read
+  }
+
+  // normalise and write; rows at or past L are not written
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffff, li, 1);
+    li += __shfl_xor_sync(0xffffffff, li, 2);
+    inv[i] = li > 0.f ? 1.f / li : 0.f;
+    const int r = row + 8 * i;
+    if (p.lse && t4 == 0 && r < L) {
+      const float shift =
+          kFixed ? p.cap
+                 : (m[i] == -INFINITY ? 0.f : m[i] * p.logit_mul);
+      p.lse[stat_index(p, b, h, r)] = li > 0.f ? shift + logf(li) : INFINITY;
+    }
+  }
+  store_rows<D>(p.o + b * p.s_o[0] + h * p.s_o[1], p.s_o[2], row, L, o,
+                inv, t4);
+}
+
+// The persistent forward: a block runs the query tiles blockIdx.x,
+// blockIdx.x + gridDim.x, ... of all (b, h) (item_of) through one stage
+// ring. The producer loads the next tile's Q (into the other buffer, or
+// once the consumers have read this one) and its first K/V stages while
+// the consumers finish the current tile and write it out.
+template <int D, bool kFixed>
+__device__ __forceinline__ void fwd_items(const Maps& maps,
+                                          const Params& p) {
+  using C = FwdItems<D>;
+  uint8_t* sQ = smem_base();
+  uint8_t* sK = sQ + C::kQBufs * C::kQBytes;
+  uint8_t* sV = sK + C::kStages * C::kKVBytes;
+  uint64_t* barQ = reinterpret_cast<uint64_t*>(sV + C::kStages * C::kKVBytes);
+  uint64_t* qfree = barQ + C::kQBufs;
+  uint64_t* full = qfree + C::kQBufs;
+  uint64_t* empty = full + C::kStages;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < C::kQBufs; ++i) {
+      mbar_init(&barQ[i], 1);
+      mbar_init(&qfree[i], C::kConsumers);
+    }
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], C::kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int n_items = item_count(p);
+  if (threadIdx.x < 128) {  // producer
+    regs_dec<C::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      prefetch_map(&maps.q);
+      prefetch_map(&maps.k);
+      prefetch_map(&maps.v);
+      for (int i = 0, w = blockIdx.x, g = 0; w < n_items;
+           ++i, w += gridDim.x) {
+        const int qb = i % C::kQBufs, use = i / C::kQBufs;
+        const Item it = item_of(p, w);
+        int kv_begin;
+        const int n_tiles = kv_tiles<C>(p, it.row0, kv_begin);
+        mbar_wait(&qfree[qb], (use & 1) ^ 1);
+        fwd_load<D>(maps, p, it.b, it.h, it.row0, kv_begin, n_tiles,
+                    sQ + qb * C::kQBytes, &barQ[qb], sK, sV, full, empty, g);
+        g += n_tiles;
+      }
+    }
+  } else {  // consumers
+    regs_inc<C::kConsumerRegs>();
+    const Turns turn{(int)threadIdx.x / 128 - 1};
+    for (int i = 0, w = blockIdx.x, g = 0; w < n_items; ++i, w += gridDim.x) {
+      const int qb = i % C::kQBufs, use = i / C::kQBufs;
+      const Item it = item_of(p, w);
+      int kv_begin;
+      const int n_tiles = kv_tiles<C>(p, it.row0, kv_begin);
+      fwd_compute<D, kFixed>(p, it.b, it.h, it.row0, kv_begin, n_tiles,
+                             sQ + qb * C::kQBytes, &barQ[qb], use & 1,
+                             &qfree[qb], sK, sV, full, empty, g, turn,
+                             i == 0);
+      g += n_tiles;
+    }
+  }
+}
+
 // ----------------------------------------------------------------- dq
 
 // Q, dO (and O, for K1's delta) [128, D] once; K and V [64, D] per stage.
@@ -817,15 +1179,16 @@ struct Dq : Shape {
 
 // dq. Replaces the splash library's dq kernel (_splash_attention_bwd_dq,
 // reached by splash_attention's vjp, K1, and splash_attention_lse_vjp,
-// K4). Bound: 6 Dh flops and one exp a visible pair. dq of the 128-row
+// K4), and the query side of the band backwards (K2/K3, K5). Bound: 6 Dh
+// flops and one exp a visible pair. dq of the 128-row
 // query tile at q0: the same keys as the forward, in 64-row tiles (128
 // need 64 more registers a thread, and ptxas serializes the products). Each
 // consumer: S = Q.K^T and dP = dO.V^T (m64 n64, K-major), P = exp(S - lse)
 // masked, dS = P (dP - delta), dQ += dS.K with dS from registers and K
 // MN-major; pipelined and taking turns. delta comes from this tile's dO
 // and O and is stored for the dkv pass, or, with kReadDelta (K4), is read
-// from p.delta.
-template <int D, bool kReadDelta>
+// from p.delta. With kFixed, P = exp(min(S, cap) - lse).
+template <int D, bool kReadDelta, bool kFixed = false>
 __device__ __forceinline__ void dq_block(const Maps& maps, const Params& p,
                                          int b, int h, int q0) {
   using C = Dq<D>;
@@ -982,7 +1345,10 @@ __device__ __forceinline__ void dq_block(const Maps& maps, const Params& p,
             const int x = 4 * j + 2 * i + e;
             const bool vis =
                 full_tile || (in_mask(mk, fq[i], fk) && dk == docq[i]);
-            const float pij = vis ? ex2(fmaf(sc[x], c, -lse2[i])) : 0.f;
+            const float pij =
+                vis ? ex2(fmaf(softmax_logit<kFixed>(sc[x], p.cap_raw), c,
+                               -lse2[i]))
+                    : 0.f;
             sc[x] = pij * (dp[x] - delta[i]);  // dS
           }
         }
@@ -1037,7 +1403,8 @@ struct Dkv : Shape {
 };
 
 // dkv. Replaces the splash library's dkv kernel (_splash_attention_bwd_dkv,
-// K1 and K4). Bound: 8 Dh flops and one exp a visible pair. dk, dv of the
+// K1 and K4), and the key side of the band backwards (K2/K3, K5). Bound:
+// 8 Dh flops and one exp a visible pair. dk, dv of the
 // 128-row key tile at k0: the query tiles that can see it (q_range), taking
 // turns but not pipelined (see the header). Each consumer computes the
 // transposed products directly:
@@ -1046,7 +1413,8 @@ struct Dkv : Shape {
 // which is the register A operand of dV += P^T.dO and dK += dS^T.Q (dO and
 // Q MN-major). The producer warp's 32 lanes also copy each query tile's
 // lse (times log2 e) and delta into shared memory and arrive with it.
-template <int D>
+// With kFixed, P^T = exp(min(S^T, cap) - lse).
+template <int D, bool kFixed = false>
 __device__ __forceinline__ void dkv_block(const Maps& maps, const Params& p,
                                           int b, int h, int k0) {
   using C = Dkv<D>;
@@ -1180,7 +1548,10 @@ __device__ __forceinline__ void dkv_block(const Maps& maps, const Params& p,
             const int x = 4 * j + 2 * i + e;
             const bool vis =
                 full_tile || (in_mask(mk, fqc, fk[i]) && docc == dock[i]);
-            const float pij = vis ? ex2(fmaf(st[x], c, -lc)) : 0.f;
+            const float pij =
+                vis ? ex2(fmaf(softmax_logit<kFixed>(st[x], p.cap_raw), c,
+                               -lc))
+                    : 0.f;
             st[x] = pij;                       // P^T
             dpt[x] = pij * (dpt[x] - dc);      // dS^T
           }
@@ -1283,6 +1654,117 @@ int launch(Kernel kernel, size_t smem, dim3 grid, int threads,
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, threads, smem, stream>>>(maps, p);
   return (int)cudaGetLastError();
+}
+
+enum Operand { OP_Q, OP_K, OP_V, OP_O, OP_DO, OP_DQ, OP_DK, OP_DV };
+
+// Every C entry point (frame_attention.cu, band_attention.cu) takes the
+// same arrays: 11 pointers (q, k, v, o, dout, dq, dk, dv, lse, delta,
+// doc), 24 element strides (batch, head, row of the 8 tensor operands in
+// that order, a dim of extent 1 given its dense stride by
+// ops/_attn_launch.py map_strides) and 7 ints (B, H, L, Dh, tpf, window,
+// causal); band2's 3 more ints are its plan. `cap` is the fixed shift's
+// bound on the scaled logits (read by kFixed bodies).
+inline Params make_params(const void* const* ptr, const long long* st,
+                          const int* in, float scale, float cap) {
+  Params p;
+  p.o = static_cast<bf16*>(const_cast<void*>(ptr[OP_O]));
+  p.dq = static_cast<bf16*>(const_cast<void*>(ptr[OP_DQ]));
+  p.dk = static_cast<bf16*>(const_cast<void*>(ptr[OP_DK]));
+  p.dv = static_cast<bf16*>(const_cast<void*>(ptr[OP_DV]));
+  for (int j = 0; j < 3; ++j) {
+    p.s_o[j] = st[3 * OP_O + j];
+    p.s_dq[j] = st[3 * OP_DQ + j];
+    p.s_dk[j] = st[3 * OP_DK + j];
+    p.s_dv[j] = st[3 * OP_DV + j];
+  }
+  p.lse = static_cast<float*>(const_cast<void*>(ptr[8]));
+  p.delta = static_cast<float*>(const_cast<void*>(ptr[9]));
+  p.doc = static_cast<const int*>(ptr[10]);
+  p.B = in[0];
+  p.H = in[1];
+  p.L = in[2];
+  p.tpf = in[4];
+  p.window = in[5];
+  p.causal = in[6];
+  p.n_frames = (p.L + p.tpf - 1) / p.tpf;
+  p.inv_tpf = 1.f / (float)p.tpf;
+  p.scale = scale;
+  // a power-of-two scale folds into the f32 logits exactly
+  int e;
+  const bool pow2 = frexpf(scale, &e) == 0.5f;
+  p.logit_mul = pow2 ? scale : 1.f;
+  p.scale_q = !pow2;
+  p.cap = cap;
+  p.cap_raw = cap / p.logit_mul;  // exact: logit_mul is a power of two
+  return p;
+}
+
+// Tensor maps of the inputs a kernel reads, with its box heights.
+inline int make_maps(Maps* m, const void* const* ptr, const long long* st,
+                     const int* in, int rows_q, int rows_kv, bool with_o,
+                     bool with_dout) {
+  const int B = in[0], H = in[1], L = in[2], D = in[3];
+  int err = encode_map(&m->q, ptr[OP_Q], st + 3 * OP_Q, B, H, L, D, rows_q);
+  if (!err)
+    err = encode_map(&m->k, ptr[OP_K], st + 3 * OP_K, B, H, L, D, rows_kv);
+  if (!err)
+    err = encode_map(&m->v, ptr[OP_V], st + 3 * OP_V, B, H, L, D, rows_kv);
+  if (!err && with_o)
+    err = encode_map(&m->o, ptr[OP_O], st + 3 * OP_O, B, H, L, D, rows_q);
+  if (!err && with_dout)
+    err = encode_map(&m->dout, ptr[OP_DO], st + 3 * OP_DO, B, H, L, D,
+                     rows_q);
+  return err;
+}
+
+// One launch of the kernel for head dim D with block shape Cfg<D>: its
+// tensor maps (boxes of Cfg's rows), its grid, its threads and shared
+// memory. The grid: Cfg::kBM-row tiles x (B * H), one tile a block; a
+// persistent kernel (Cfg::kPersistent, fwd_items) takes min(sms, tiles)
+// blocks on a 1-D grid, each looping over the tiles.
+template <template <int> class Cfg, int D, typename Kernel>
+int launch_d(Kernel kernel, const Params& p, const void* const* ptr,
+             const long long* st, const int* in, cudaStream_t stream,
+             bool with_o, bool with_dout, int sms) {
+  using C = Cfg<D>;
+  Maps m{};
+  const int err =
+      make_maps(&m, ptr, st, in, C::kBoxQ, C::kBoxKV, with_o, with_dout);
+  if (err) return err;
+  dim3 grid((p.L + C::kBM - 1) / C::kBM, p.B * p.H);
+  if (C::kPersistent) grid = dim3(min(sms, (int)(grid.x * grid.y)));
+  return launch(kernel, C::kSmem, grid, C::kThreads, stream, m, p);
+}
+
+// The kernel for the head dim (64 or 128), on q's device.
+template <template <int> class Cfg, typename K64, typename K128>
+int run(K64 k64, K128 k128, const Params& p, const void* const* ptr,
+        const long long* st, const int* in, void* stream, bool with_o,
+        bool with_dout) {
+  if (in[3] != 64 && in[3] != 128) return (int)cudaErrorInvalidValue;
+  // Bind q's device to this thread: the tensor-map encoder (a CUDA
+  // driver API call) needs a current context (an autograd thread may have
+  // none yet), and the launch must go to the tensors' device. The
+  // caller's device is restored before returning.
+  cudaPointerAttributes attr;
+  int prev = 0;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e == cudaSuccess) e = cudaPointerGetAttributes(&attr, ptr[OP_Q]);
+  if (e == cudaSuccess) e = cudaSetDevice(attr.device);
+  int sms = 0;
+  if (e == cudaSuccess && Cfg<64>::kPersistent)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                               attr.device);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err =
+      in[3] == 64 ? launch_d<Cfg, 64>(k64, p, ptr, st, in, s, with_o,
+                                      with_dout, sms)
+                  : launch_d<Cfg, 128>(k128, p, ptr, st, in, s, with_o,
+                                       with_dout, sms);
+  if (prev != attr.device) e = cudaSetDevice(prev);
+  return err ? err : (int)e;
 }
 
 }  // namespace owl_hopper

@@ -1,15 +1,14 @@
 """Argument plumbing shared by the attention kernels' wrappers
 (ops/splash.py, ops/band.py, ops/band2.py).
 
-Every C entry point of csrc/frame_attention.cu, csrc/band_attention.cu
-and csrc/band2_attention.cu takes the same three arrays (``make_params``
-in csrc/frame_attention.cu and csrc/attention_tiles.cuh): 11 pointers (q,
-k, v, o, dout, dq, dk, dv, lse, delta, doc), 24 element strides (batch,
-head, row of the eight [B, H, L, Dh] operands, ``map_strides``) and 7
-ints (B, H, L, Dh, tpf, window, causal), then its floats and the stream.
-The K1/K4 kernels read their inputs through TMA tensor maps built from
-those strides (``tma_geometry``); the band kernels through 16-byte loads
-(``operand``).
+Every C entry point of csrc/frame_attention.cu and csrc/band_attention.cu
+takes the same three arrays (``make_params`` in
+csrc/hopper_attention.cuh): 11 pointers (q, k, v, o, dout, dq, dk, dv,
+lse, delta, doc), 24 element strides (batch, head, row of the eight [B,
+H, L, Dh] operands, ``map_strides``) and 7 ints (B, H, L, Dh, tpf,
+window, causal; band2 adds its plan), then its floats and the stream.
+Every kernel reads its inputs through TMA tensor maps built from those
+strides (``tma_geometry``), in place (``tma_views``).
 """
 
 from __future__ import annotations
@@ -56,23 +55,13 @@ def check_operands(ref: torch.Tensor, **tensors: torch.Tensor):
 
 def refuse_autograd(*tensors: torch.Tensor):
     """A raw launch has no backward: a caller that needs gradients goes
-    through the autograd Function of ops/splash.py or ops/band.py."""
+    through the autograd Function of ops/splash.py, ops/band.py or
+    ops/band2.py."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             "raw kernel launch on tensors that require grad; call "
             "splash_attention / band_attention, whose autograd Function "
             "launches the backward kernels")
-
-
-def operand(t: torch.Tensor) -> torch.Tensor:
-    """The band kernels (csrc/attention_tiles.cuh) read [B, H, L, Dh]
-    through strides with 16-byte loads:
-    the last dim must be contiguous and every stride and the base 16-byte
-    aligned. The layouts Attn produces (a transposed view of the
-    [B, L, H, Dh] projection) qualify; anything else is copied."""
-    ok = (t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:3])
-          and t.data_ptr() % 16 == 0)
-    return t if ok else t.contiguous()
 
 
 # TMA's limits on a tensor map (cuTensorMapEncodeTiled): a 16-byte
@@ -133,6 +122,12 @@ def tma_operand(name: str, t: torch.Tensor) -> torch.Tensor:
     except ValueError as e:
         raise ValueError(f"{name}: {e}") from None
     return t
+
+
+def tma_views(**tensors: torch.Tensor) -> list:
+    """The kernels read q, k, v, out and dout through TMA tensor maps: each
+    as it is, or ValueError for a view TMA cannot take (never a copy)."""
+    return [tma_operand(name, t) for name, t in tensors.items()]
 
 
 def dense_cotangent(g: torch.Tensor) -> torch.Tensor:

@@ -11,9 +11,14 @@ straight through, as the TPU kernel's backward treats it. Without it the
 softmax is the usual one.
 
 On a CUDA tensor ``band_attention`` launches the hand-written kernels of
-``csrc/band_attention.cu``: the forward, counted in ``fwd_launches``, and
-one backward launch that writes dq, dk and dv, counted in
-``bwd_launches`` (``BandAttentionFunction`` joins them). On a CPU tensor
+``csrc/band_attention.cu`` (the wgmma + TMA bodies of
+csrc/hopper_attention.cuh; the forward on a persistent grid, a block per
+SM): the forward, counted in ``fwd_launches``, and one backward call that
+writes dq, dk and dv (a dq kernel that also stores delta = rowsum(dO *
+O), then a dkv kernel that reads it), counted once in ``bwd_launches``
+(``BandAttentionFunction`` joins them). The kernels read q, k, v, out
+and dout through TMA tensor maps, in place: a view TMA cannot take
+raises ValueError. On a CPU tensor
 it runs ``band_attention_plain``, and autograd over it is the plain
 backward. There is no other route.
 
@@ -103,7 +108,7 @@ def band_attention_cuda(q, k, v, tokens_per_frame: int, window: int,
     if not band_available(L, tokens_per_frame, window, True):
         raise ValueError(f"band kernel: no band of {window} frames x "
                          f"{tokens_per_frame} tokens divides L = {L}")
-    q, k, v = (kl.operand(t) for t in (q, k, v))
+    q, k, v = kl.tma_views(q=q, k=k, v=v)
     out = kl.empty_heads(q)
     B, H, L, Dh = q.shape
     lse = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
@@ -116,25 +121,26 @@ def band_attention_cuda(q, k, v, tokens_per_frame: int, window: int,
 
 def band_attention_bwd_cuda(q, k, v, out, lse, dout, tokens_per_frame: int,
                             window: int, logit_bound: Optional[float] = None):
-    """Launch the backward kernel. Returns (dq, dk, dv), bf16."""
+    """Launch the backward (its dq kernel, which stores delta =
+    rowsum(dO * O), then its dkv kernel). Returns (dq, dk, dv), bf16."""
     global bwd_launches
     kl.check_operands(q, q=q, k=k, v=v, out=out, dout=dout)
-    q, k, v, out, dout = (kl.operand(t) for t in (q, k, v, out, dout))
+    q, k, v, out, dout = kl.tma_views(q=q, k=k, v=v, out=out, dout=dout)
+    lse = lse.to(torch.float32).contiguous()
     dq, dk, dv = (kl.empty_heads(q) for _ in range(3))
     kl.launch(kl.entry(_SOURCE, "owl_band_attn_bwd", 2),
               dict(q=q, k=k, v=v, o=out, dout=dout, dq=dq, dk=dk, dv=dv),
               _ints(q, tokens_per_frame, window),
-              _floats(q.shape[-1], logit_bound),
-              lse=lse.to(torch.float32).contiguous(),
-              what="band attention backward")
+              _floats(q.shape[-1], logit_bound), lse=lse,
+              delta=torch.empty_like(lse), what="band attention backward")
     bwd_launches += 1
     return dq, dk, dv
 
 
 class BandAttentionFunction(torch.autograd.Function):
-    """Forward kernel (saving the logsumexp) with the one-launch backward
-    kernel. Under ``torch.utils.checkpoint`` the recomputed forward is a
-    forward launch like any other and is counted in ``fwd_launches``."""
+    """Forward kernel (saving the logsumexp) with the backward kernels.
+    Under ``torch.utils.checkpoint`` the recomputed forward is a forward
+    launch like any other and is counted in ``fwd_launches``."""
 
     @staticmethod
     def forward(ctx, q, k, v, tokens_per_frame, window, logit_bound):
@@ -148,7 +154,7 @@ class BandAttentionFunction(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = band_attention_bwd_cuda(
-            q, k, v, out, lse, dout.to(torch.bfloat16), *ctx.args)
+            q, k, v, out, lse, kl.dense_cotangent(dout), *ctx.args)
         return dq, dk, dv, None, None, None
 
 

@@ -14,20 +14,25 @@ before the first and the NEXT ref of the last chunk are gated out. A
 legal plan (``check_plan``: m * S >= C - 1, the JAX assertion) holds
 every visible pair, so the plan changes the work and never the function.
 
-On a CUDA tensor ``band2_attention`` launches the hand-written kernels of
-``csrc/band2_attention.cu``: the forward, counted in ``fwd_launches``,
-which also writes the f32 logsumexp, and one backward launch that writes
-dq, dk and dv, counted in ``bwd_launches`` (``Band2AttentionFunction``
-joins them). Each block of the forward owns a 64-row query tile and walks
-the key tiles of its chunks' refs; in the backward, dq blocks walk the
-same tiles and dk/dv blocks own a key tile of chunk t and walk query
-chunks t .. t + m, plus chunk t - 1 where the tile lies in chunk t's NEXT
-ref. Every (query tile, key tile) pair is classified exactly from global
-token indices: SKIP tiles are never loaded, FULL tiles run unmasked,
-PARTIAL tiles are masked per element (csrc/attention_tiles.cuh
-``plan_kv_range``, ``plan_q_range``, ``tile_skip``). On a CPU tensor
-``band2_attention`` runs ``band2_attention_plain``, and autograd over it
-is the plain backward. There is no other route.
+On a CUDA tensor ``band2_attention`` launches the band's hand-written
+kernels through the plan-checking entry points ``owl_band2_attn_*`` of
+``csrc/band_attention.cu``: the forward, counted in ``fwd_launches``,
+which also writes the f32 logsumexp, and one backward call that writes
+dq, dk and dv (a dq kernel that also stores delta = rowsum(dO * O), then
+a dkv kernel that reads it), counted once in ``bwd_launches``
+(``Band2AttentionFunction`` joins them). On the H100 the plan is validated
+(``check_plan``, and again by the entry points) but no longer shapes the
+work: the kernels are the band's, on the wgmma + TMA bodies of
+csrc/hopper_attention.cuh (the forward on a persistent grid). A block
+works on 128-row tiles of the sequence and walks the closed-form window
+range of the other operand (``kv_range`` / ``q_range`` there): the tiles
+that hold a visible pair, which a legal plan's chunks always contain.
+Each (query tile, key tile) pair is classified from global token
+indices: FULL tiles run unmasked, the diagonal and window-edge tiles are
+masked per element. The kernels read q, k, v, out and dout through TMA
+tensor maps, in place: a view TMA cannot take raises ValueError. On a
+CPU tensor ``band2_attention`` runs ``band2_attention_plain``, and
+autograd over it is the plain backward. There is no other route.
 
 ``best_plan`` is the JAX package's auto policy with ``OWL_BAND2`` unset:
 that variable is a TPU tuning hook and is left out, as the port leaves
@@ -49,7 +54,7 @@ from .band import band_attention_plain
 fwd_launches = 0
 bwd_launches = 0
 
-_SOURCE = "band2_attention"
+_SOURCE = "band_attention"
 
 
 # ------------------------------------------------------------------ plan
@@ -149,7 +154,7 @@ def band2_attention_cuda(q, k, v, tokens_per_frame: int, window: int,
     kl.check_operands(q, q=q, k=k, v=v)
     kl.refuse_autograd(q, k, v)
     check_plan(q.shape[2], tokens_per_frame, window, span, nrefs)
-    q, k, v = (kl.operand(t) for t in (q, k, v))
+    q, k, v = kl.tma_views(q=q, k=k, v=v)
     out = kl.empty_heads(q)
     B, H, L, Dh = q.shape
     lse = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
@@ -164,26 +169,27 @@ def band2_attention_cuda(q, k, v, tokens_per_frame: int, window: int,
 def band2_attention_bwd_cuda(q, k, v, out, lse, dout, tokens_per_frame: int,
                              window: int, span: int, nrefs: int,
                              logit_bound: Optional[float] = None):
-    """Launch the backward kernel. Returns (dq, dk, dv), bf16."""
+    """Launch the backward (its dq kernel, which stores delta =
+    rowsum(dO * O), then its dkv kernel). Returns (dq, dk, dv), bf16."""
     global bwd_launches
     kl.check_operands(q, q=q, k=k, v=v, out=out, dout=dout)
     check_plan(q.shape[2], tokens_per_frame, window, span, nrefs)
-    q, k, v, out, dout = (kl.operand(t) for t in (q, k, v, out, dout))
+    q, k, v, out, dout = kl.tma_views(q=q, k=k, v=v, out=out, dout=dout)
+    lse = lse.to(torch.float32).contiguous()
     dq, dk, dv = (kl.empty_heads(q) for _ in range(3))
     kl.launch(kl.entry(_SOURCE, "owl_band2_attn_bwd", 2),
               dict(q=q, k=k, v=v, o=out, dout=dout, dq=dq, dk=dk, dv=dv),
               _ints(q, tokens_per_frame, window, span, nrefs),
-              _floats(q.shape[-1], logit_bound),
-              lse=lse.to(torch.float32).contiguous(),
-              what="band2 attention backward")
+              _floats(q.shape[-1], logit_bound), lse=lse,
+              delta=torch.empty_like(lse), what="band2 attention backward")
     bwd_launches += 1
     return dq, dk, dv
 
 
 class Band2AttentionFunction(torch.autograd.Function):
-    """Forward kernel (saving the logsumexp) with the one-launch backward
-    kernel. Under ``torch.utils.checkpoint`` the recomputed forward is a
-    forward launch like any other and is counted in ``fwd_launches``."""
+    """Forward kernel (saving the logsumexp) with the backward kernels.
+    Under ``torch.utils.checkpoint`` the recomputed forward is a forward
+    launch like any other and is counted in ``fwd_launches``."""
 
     @staticmethod
     def forward(ctx, q, k, v, tokens_per_frame, window, span, nrefs,
@@ -198,7 +204,7 @@ class Band2AttentionFunction(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = band2_attention_bwd_cuda(
-            q, k, v, out, lse, dout.to(torch.bfloat16), *ctx.args)
+            q, k, v, out, lse, kl.dense_cotangent(dout), *ctx.args)
         return dq, dk, dv, None, None, None, None, None
 
 

@@ -108,7 +108,7 @@ def frame_attention_cuda(q, k, v, tokens_per_frame: int,
     doc = _doc(doc_id, q, tokens_per_frame)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    q, k, v = _tma_views(q=q, k=k, v=v)
+    q, k, v = kl.tma_views(q=q, k=k, v=v)
     out = kl.empty_heads(q)
     B, H, L, _ = q.shape
     lse = (torch.empty(B, H, L, dtype=torch.float32, device=q.device)
@@ -121,18 +121,12 @@ def frame_attention_cuda(q, k, v, tokens_per_frame: int,
     return (out, lse) if return_lse else out
 
 
-def _tma_views(**tensors):
-    """The kernels read q, k, v, out and dout through TMA tensor maps: each
-    as it is, or ValueError for a view TMA cannot take (never a copy)."""
-    return [kl.tma_operand(name, t) for name, t in tensors.items()]
-
-
 def _bwd_args(q, k, v, out, dout, tokens_per_frame, doc_id, scale):
     kl.check_operands(q, q=q, k=k, v=v, out=out, dout=dout)
     doc = _doc(doc_id, q, tokens_per_frame)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    q, k, v, out, dout = _tma_views(q=q, k=k, v=v, out=out, dout=dout)
+    q, k, v, out, dout = kl.tma_views(q=q, k=k, v=v, out=out, dout=dout)
     return dict(q=q, k=k, v=v, o=out, dout=dout), doc, float(scale)
 
 
@@ -282,7 +276,7 @@ def splash_attention_lse_cuda(q, k, v, tokens_per_frame: int, causal: bool):
     global lse_launches
     kl.check_operands(q, q=q, k=k, v=v)
     kl.refuse_autograd(q, k, v)
-    q, k, v = _tma_views(q=q, k=k, v=v)
+    q, k, v = kl.tma_views(q=q, k=k, v=v)
     out = kl.empty_heads(q)
     B, H, L, _ = q.shape
     lse = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
@@ -305,7 +299,7 @@ def ring_delta(out, g_out, g_lse):
 def _lse_bwd_args(q, k, v, lse, delta, g_out, tokens_per_frame, causal):
     g_out = kl.dense_cotangent(g_out)
     kl.check_operands(q, q=q, k=k, v=v, dout=g_out)
-    q, k, v, g_out = _tma_views(q=q, k=k, v=v, dout=g_out)
+    q, k, v, g_out = kl.tma_views(q=q, k=k, v=v, dout=g_out)
     lse, delta = (t.to(torch.float32).contiguous() for t in (lse, delta))
     for name, t in (("lse", lse), ("delta", delta)):
         if tuple(t.shape) != tuple(q.shape[:3]):

@@ -11,9 +11,10 @@ gradients, float32 reassociation between the dense and the chunked sums.
 The CUDA kernel runs only on a card: tests/test_torch_port_kernels.py
 holds it against the plain version there. What the kernel computes
 around its tiles is modelled in Python here (tests/torch_port_util.py
-``plan_kv_range``, ``plan_q_range``, ``tile_class``, the arithmetic of
-csrc/attention_tiles.cuh) and held to the dense mask, so every visible
-pair is walked exactly once in both backward roles.
+``kv_range``, ``q_range``, ``tile_full``, the arithmetic of
+csrc/hopper_attention.cuh) and held to the dense mask, so every visible
+pair is walked exactly once by the forward, dq and dkv kernels, and to
+the plan, whose refs hold every visible pair.
 """
 
 import types
@@ -152,39 +153,42 @@ PLANS = [  # L, tpf, window, S, m
 
 @pytest.mark.parametrize("L,tpf,window,S,m", PLANS)
 def test_kernel_walk_covers_every_visible_pair_once(L, tpf, window, S, m):
-    """The kernel's walk, in Python: query tiles over the plan's key
-    ranges (forward and dq) and key tiles over the plan's query ranges
-    (dk, dv), with the SKIP tiles cut off. Every visible pair lies in
-    exactly one walked tile of each walk, no walked tile is SKIP, FULL
-    tiles hold only visible pairs; the tile counts are those of
-    ``kernel_tiles``; and the tile classes refine the TPU's static ref
+    """The kernels' walk, in Python: 128-row blocks over the closed-form
+    window ranges (forward: 128-row key tiles; dq: 64-row key tiles; dkv:
+    128-row key blocks over 64-row query tiles). Each kernel visits every
+    visible pair exactly once and no pair twice, every tile a block visits
+    holds a visible pair, FULL pairs hold only visible pairs; the plan's
+    refs hold every visible pair, so a walk that ignores the plan gives the
+    plan's output; and the exact tile classes refine the TPU's static ref
     classes (its ``_ref_class``)."""
-    T = walk.WALK_TILE
     fc = band2._next_cols(S, tpf)
     vis = dense_mask(L, tpf, window, None, 0, True).numpy()
-    tiles = walk.kernel_tiles(L, tpf, window, S, m, fc)
-    for role in ("q", "kv"):
+    for kind, height in walk.WALKS.items():
+        for t0, o0 in walk.block_tiles(L, tpf, window, kind):
+            r0, c0 = (o0, t0) if kind == "dkv" else (t0, o0)
+            rows = height if kind == "dkv" else walk.BLOCK_ROWS
+            cols = walk.BLOCK_ROWS if kind == "dkv" else height
+            assert vis[r0:r0 + rows, c0:c0 + cols].any(), (kind, t0, o0)
         cover = np.zeros((L, L), np.int32)
-        counts = [0, 0, 0]
-        for t0 in range(0, L, T):
-            rng = walk.plan_kv_range if role == "q" else walk.plan_q_range
-            begin, end = rng(L, tpf, window, S, m, fc, t0)
-            for o0 in range(begin, end, T):
-                r0, c0 = (t0, o0) if role == "q" else (o0, t0)
-                cls = walk.tile_class(r0, r0 + T, c0, c0 + T, L, tpf, window)
-                counts[cls] += 1
-                blk = vis[r0:r0 + T, c0:c0 + T]
-                assert cls != walk.SKIP and blk.any(), (role, r0, c0)
-                if cls == walk.FULL:
-                    assert blk.shape == (T, T) and blk.all(), (role, r0, c0)
-                cover[r0:r0 + T, c0:c0 + T] += 1
-        assert (cover[vis] == 1).all(), role
-        assert tiles[role] == dict(zip(("skip", "full", "partial"), counts))
+        for (r0, r1), (c0, c1), cls in walk.band_walk(L, tpf, window, kind):
+            blk = vis[r0:r1, c0:c1]
+            if cls == walk.FULL:
+                assert blk.shape == (r1 - r0, c1 - c0) and blk.all(), \
+                    (kind, r0, c0)
+            cover[r0:r1, c0:c1] += 1
+        assert (cover[vis] == 1).all() and cover.max() == 1, kind
+    # the plan: query chunk i reads kv chunks i - m .. i and the NEXT ref
+    # of chunk i + 1 (gated at the edges)
+    plan, nc = np.zeros((L, L), bool), L // S
+    for i in range(nc):
+        plan[i * S:(i + 1) * S, max(0, (i - m) * S):
+             (i + 1) * S + (fc if i + 1 < nc else 0)] = True
+    assert plan[vis].all()
     # exact classes never contradict the TPU's static ones (8-row blocks
     # of each chunk against each of its refs)
-    for i in range(L // S):
+    for i in range(nc):
         for d in range(-1 if fc else 0, m + 1):
-            if i - d < 0 or (d < 0 and i == L // S - 1):
+            if i - d < 0 or (d < 0 and i == nc - 1):
                 continue    # refs gated at the edges
             c0 = (i - d) * S
             ncols = fc if d < 0 else S
@@ -195,6 +199,30 @@ def test_kernel_walk_covers_every_visible_pair_once(L, tpf, window, S, m):
                                         c0 + ncols, L, tpf, window)
                 if static != walk.PARTIAL:
                     assert exact == static, (i, d, r0)
+
+
+@pytest.mark.parametrize("L,tpf,window,most_tiles,most_partial,full_share", [
+    (24960, 65, 16, 11, 5, 0.65), (16384, 64, 16, 9, 2, 0.83),
+    (4160, 65, 16, 10, 4, 0.63), (2080, 65, 16, 10, 4, 0.60)])
+def test_kernel_walk_is_short(L, tpf, window, most_tiles, most_partial,
+                              full_share):
+    """The forward's walk at the window-16 geometries of the band paths:
+    a 128-row block meets at most ``most_tiles`` key tiles of 128 rows
+    (C / 128 + 1 or 2, the block's frames and the alignment), a consumer
+    half inside L at most ``most_partial`` PARTIAL ones (the diagonal and
+    the window's far edge, each one or two tiles wide where frames of 65
+    rows straddle the tiles), and at least ``full_share`` of all (half,
+    tile) pairs run unmasked."""
+    per_block, partial, n_full, n = {}, {}, 0, 0
+    for t0, _ in walk.block_tiles(L, tpf, window, "fwd"):
+        per_block[t0] = per_block.get(t0, 0) + 1
+    for (r0, r1), _, cls in walk.band_walk(L, tpf, window, "fwd"):
+        if r1 <= L:
+            partial[r0] = partial.get(r0, 0) + (cls == walk.PARTIAL)
+        n_full, n = n_full + (cls == walk.FULL), n + 1
+    assert max(per_block.values()) == most_tiles
+    assert max(partial.values()) == most_partial
+    assert n_full / n >= full_share
 
 
 # -------------------------------------------------------------- routing

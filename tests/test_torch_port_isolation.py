@@ -40,7 +40,7 @@ def test_port_file_imports_no_jax(path):
 
 def test_port_package_has_its_kernel_source():
     for src in ("frame_attention.cu", "band_attention.cu",
-                "band2_attention.cu", "attention_tiles.cuh"):
+                "hopper_attention.cuh"):
         assert os.path.exists(os.path.join(
             REPO, "owl_audio_exps_tpu_torch", "csrc", src)), src
     for module in ("ops/band.py", "ops/band2.py", "models/gamerft.py",

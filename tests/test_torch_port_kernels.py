@@ -150,6 +150,75 @@ def test_band2_kernel_matches_plain_on_card(L, tpf, window, span, nrefs,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind,L,tpf,window,plan,bounded", [
+    ("band", 1040, 65, 8, None, True), ("band", 2080, 65, 16, None, False),
+    ("band2", 960, 65, 8, (192, 3), True),
+    ("band2", 2080, 65, 16, (208, 5), False)])
+def test_band_kernels_head_dim_128_match_plain_on_card(kind, L, tpf, window,
+                                                       plan, bounded):
+    """The band (K2/K3) and band2 (K5) kernels at Dh 128 (its scale
+    128^-0.5 is no power of two, so q is rescaled in shared memory and the
+    bound sqrt(128) is not folded) at lengths that are not a multiple of
+    the 128-row tiles: forward and gradients against the plain version,
+    one forward and one backward launch."""
+    _need_card()
+    q, k, v = _qkv(L, seed=13, normed=True, Dh=128)
+    dout = _qkv(L, seed=14, Dh=128)[0]
+    bound = 128 ** 0.5 if bounded else None
+    mod = band if kind == "band" else band2
+    extra = () if plan is None else plan
+    counts = (mod.fwd_launches, mod.bwd_launches)
+    out, got = _grads(lambda *a: getattr(mod, f"{kind}_attention")(
+        *a, tpf, window, *extra, logit_bound=bound), q, k, v, dout)
+    torch.cuda.synchronize()
+    assert (mod.fwd_launches, mod.bwd_launches) == \
+        (counts[0] + 1, counts[1] + 1)
+    ref, want = _grads(lambda *a: getattr(mod, f"{kind}_attention_plain")(
+        *a, tpf, window, bound), q.float(), k.float(), v.float(),
+        dout.float())
+    err = (out.float() - ref).abs()
+    assert err.max().item() < 2e-2 and err.mean().item() < 2e-3
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a).all(), name
+        assert _rel_l2(a, b) < GRAD_REL_L2, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["band", "band2"])
+def test_band_kernels_read_strided_views_on_card(kind):
+    """The band kernels read Attn's fused [B, H, L, Dh] views of the [B, L,
+    3, H, Dh] projection in place (TMA tensor maps): the output and the
+    gradients equal those of contiguous copies bit for bit; a view TMA
+    cannot read is refused, not copied."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    B, H, Dh, tpf, window = 2, 4, 64, 65, 8
+    # C = 520 must divide the band's L; band2's plan (192, 3) tiles 960
+    L, args = ((1040, (tpf, window)) if kind == "band" else
+               (960, (tpf, window, 192, 3)))
+    fn = getattr(band if kind == "band" else band2, f"{kind}_attention")
+    qkv = torch.randn(B, L, 3, H, Dh, generator=gen, device="cuda")
+    qkv = (qkv * torch.rsqrt(qkv.pow(2).mean(-1, keepdim=True))).to(
+        torch.bfloat16)
+    leaf = qkv.detach().requires_grad_()
+    views = [leaf[:, :, i].transpose(1, 2) for i in range(3)]
+    out = fn(*views, *args, logit_bound=8.0)
+    out.sum().backward()
+    flat = [t.detach().contiguous().requires_grad_() for t in views]
+    ref = fn(*flat, *args, logit_bound=8.0)
+    ref.sum().backward()
+    torch.cuda.synchronize()
+    assert out.shape == (B, H, L, Dh)
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
+    for i, t in enumerate(flat):
+        torch.testing.assert_close(leaf.grad[:, :, i].transpose(1, 2),
+                                   t.grad, atol=0, rtol=0)
+    wide = torch.zeros(B, H, L, Dh + 4, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="^q: row stride"):
+        fn(wide[..., :Dh], flat[1], flat[2], *args)
+
+
+@pytest.mark.cuda
 def test_kernel_reads_strided_views_and_rejects_what_it_cannot_run():
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(1)

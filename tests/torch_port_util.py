@@ -41,18 +41,21 @@ def t(a) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------------
-# The band2 kernel's walk (owl_audio_exps_tpu_torch/csrc/attention_tiles.cuh
-# plan_kv_range, plan_q_range, cut_skip_tiles, tile_full; 64-row tiles),
-# written again in Python so the CPU tests can hold it to the dense mask.
-# A model of the kernel's arithmetic, not a measurement of it.
+# The band kernels' walk (owl_audio_exps_tpu_torch/csrc/hopper_attention.cuh
+# kv_range, q_range and tile_full, run causal with a frame window and no
+# documents; band and band2 alike), written again in Python so the CPU
+# tests can hold it to the dense mask. A model of the kernels' arithmetic,
+# not a measurement of them.
 
-WALK_TILE = 64
+BLOCK_ROWS, HALF_ROWS = 128, 64   # a block's own tile; one consumer's half
+# each kernel: the height of the other operand's tiles it walks
+WALKS = {"fwd": 128, "dq": 64, "dkv": 64}
 SKIP, FULL, PARTIAL = 0, 1, 2
 
 
 def tile_class(r0: int, r1: int, c0: int, c1: int, n_tokens: int,
                tokens_per_frame: int, window: int) -> int:
-    """Class of query rows [r0, r1) against key rows [c0, c1), global
+    """Exact class of query rows [r0, r1) against key rows [c0, c1), global
     token indices, under the causal frame window. Rows and keys at or
     past L are invisible."""
     re, ce = min(r1, n_tokens), min(c1, n_tokens)
@@ -68,59 +71,69 @@ def tile_class(r0: int, r1: int, c0: int, c1: int, n_tokens: int,
     return PARTIAL
 
 
-def _cut_skip_tiles(lo: int, hi: int, begin: int, end: int):
-    """Cut a walk's SKIP tiles, all before or after the rows [lo, hi) the
-    tile at hand can see."""
-    if lo > begin:
-        begin += (lo - begin) // WALK_TILE * WALK_TILE
-    return begin, min(end, hi)
+def kv_range(n_tokens: int, tokens_per_frame: int, window: int, q0: int,
+             rows: int, bk: int):
+    """Key rows [begin, end) that can be visible from query rows [q0, q0 +
+    rows), begin aligned down to ``bk`` (the kernel's kv_range)."""
+    tpf = tokens_per_frame
+    fq_lo, fq_hi = q0 // tpf, (min(q0 + rows, n_tokens) - 1) // tpf
+    fk_min = max(0, fq_lo - window + 1)
+    return fk_min * tpf // bk * bk, min((fq_hi + 1) * tpf, n_tokens)
 
 
-def plan_kv_range(n_tokens: int, tokens_per_frame: int, window: int,
-                  span: int, nrefs: int, next_cols: int, q0: int):
-    """Key rows [begin, end) the kernel walks for the query tile at q0:
-    the plan's chunks, without the SKIP tiles."""
-    tpf, last = tokens_per_frame, min(q0 + WALK_TILE, n_tokens) - 1
-    nc = n_tokens // span
-    i_lo, i_hi = q0 // span, last // span
-    begin = max(0, (i_lo - nrefs) * span)
-    end = min(n_tokens, (i_hi + 1) * span
-              + (next_cols if i_hi + 1 < nc else 0))
-    return _cut_skip_tiles(max(0, q0 // tpf - window + 1) * tpf,
-                           min(n_tokens, (last // tpf + 1) * tpf),
-                           begin, end)
+def q_range(n_tokens: int, tokens_per_frame: int, window: int, k0: int,
+            rows: int, bq: int):
+    """Query rows [begin, end) that can see some key of rows [k0, k0 +
+    rows): query frames fk .. fk + window - 1, begin aligned down to
+    ``bq`` (the kernel's q_range, causal)."""
+    tpf, nf = tokens_per_frame, -(-n_tokens // tokens_per_frame)
+    fk_lo, fk_hi = k0 // tpf, (min(k0 + rows, n_tokens) - 1) // tpf
+    fq_max = min(nf - 1, fk_hi + window - 1)
+    return fk_lo * tpf // bq * bq, min((fq_max + 1) * tpf, n_tokens)
 
 
-def plan_q_range(n_tokens: int, tokens_per_frame: int, window: int,
-                 span: int, nrefs: int, next_cols: int, k0: int):
-    """Query rows [begin, end) the kernel walks for the key tile at k0:
-    the chunks whose plan reads it, without the SKIP tiles."""
-    tpf, last = tokens_per_frame, min(k0 + WALK_TILE, n_tokens) - 1
-    t_lo, t_hi = k0 // span, last // span
-    first = t_lo - 1 if k0 - t_lo * span < next_cols else t_lo
-    begin = max(0, first * span)
-    end = min(n_tokens, (t_hi + nrefs + 1) * span)
-    return _cut_skip_tiles(k0 // tpf * tpf,
-                           min(n_tokens, (last // tpf + window) * tpf),
-                           begin, end)
+def tile_full(n_tokens: int, tokens_per_frame: int, window: int, q0: int,
+              nq: int, k0: int, nk: int) -> bool:
+    """The kernel's FULL test of query rows [q0, q0 + nq) against key rows
+    [k0, k0 + nk) (tile_full, causal, a window, no documents)."""
+    if q0 + nq > n_tokens or k0 + nk > n_tokens:
+        return False
+    tpf = tokens_per_frame
+    fq_lo, fq_hi = q0 // tpf, (q0 + nq - 1) // tpf
+    fk_lo, fk_hi = k0 // tpf, (k0 + nk - 1) // tpf
+    return (fk_hi <= fq_lo and fq_hi - fk_lo < window
+            and fk_hi - fq_lo < window)
 
 
-def kernel_tiles(n_tokens: int, tokens_per_frame: int, window: int,
-                 span: int, nrefs: int, next_cols: int) -> dict:
-    """Tiles of one head that the forward (or dq) blocks ("q") and the
-    dk/dv blocks ("kv") walk, by class, as the model counts them."""
-    out = {}
-    for role, rng in (("q", plan_kv_range), ("kv", plan_q_range)):
-        counts = [0, 0, 0]
-        for t0 in range(0, n_tokens, WALK_TILE):
-            begin, end = rng(n_tokens, tokens_per_frame, window, span,
-                             nrefs, next_cols, t0)
-            for o0 in range(begin, end, WALK_TILE):
-                r0, c0 = (t0, o0) if role == "q" else (o0, t0)
-                counts[tile_class(r0, r0 + WALK_TILE, c0, c0 + WALK_TILE,
-                                  n_tokens, tokens_per_frame, window)] += 1
-        out[role] = dict(zip(("skip", "full", "partial"), counts))
-    return out
+def block_tiles(n_tokens: int, tokens_per_frame: int, window: int,
+                kind: str):
+    """(own row, other row) of every tile the blocks of kernel ``kind``
+    ("fwd", "dq" or "dkv") visit: a block owns BLOCK_ROWS rows (queries,
+    or keys for dkv) and walks the other operand's range in tiles of
+    ``WALKS[kind]`` rows, ceil((end - begin) / height) of them."""
+    other = WALKS[kind]
+    rng = q_range if kind == "dkv" else kv_range
+    for t0 in range(0, n_tokens, BLOCK_ROWS):
+        begin, end = rng(n_tokens, tokens_per_frame, window, t0, BLOCK_ROWS,
+                         other)
+        for o0 in range(begin, end, other):
+            yield t0, o0
+
+
+def band_walk(n_tokens: int, tokens_per_frame: int, window: int,
+              kind: str):
+    """((query rows), (key rows), class) of every (consumer half, tile)
+    pair kernel ``kind`` visits, as the kernel classes it: FULL (no mask)
+    or PARTIAL (masked per element)."""
+    other = WALKS[kind]
+    for t0, o0 in block_tiles(n_tokens, tokens_per_frame, window, kind):
+        for h0 in (t0, t0 + HALF_ROWS):
+            (q0, nq), (k0, nk) = (((o0, other), (h0, HALF_ROWS))
+                                  if kind == "dkv" else
+                                  ((h0, HALF_ROWS), (o0, other)))
+            full = tile_full(n_tokens, tokens_per_frame, window, q0, nq, k0,
+                             nk)
+            yield (q0, q0 + nq), (k0, k0 + nk), FULL if full else PARTIAL
 
 
 def av_inputs(rs: np.random.RandomState, b: int, n: int, cfg, dtype=np.float32):
