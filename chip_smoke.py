@@ -57,7 +57,18 @@ Phases, each of which exits non-zero on any failure:
    the cuts printed: exact kernel launches per step (K5 on the 18 local
    layers, K1 on the 6 global ones), s/step, tokens/s, MFU, peak memory,
    device time by class of one traced step; then ``MixedAVRFTTrainer``
-   on configs/av_v5_mixed.yml with the same cuts.
+   on configs/av_v5_mixed.yml with the same cuts;
+10. the audio serve of bench_torch.py (``AudioCachingSampler`` over the
+   ring KV cache, ``AudioRFTCore`` 16 layers x d 1024, a 120-token ring,
+   240 new tokens, seeded bf16 weights), which reaches no kernel of the
+   port (its attention is plain PyTorch, as the JAX package's is plain
+   XLA): three cached forwards (a 119-token prefill, a fused 2-token
+   forward that commits one token, a decoding forward) against one
+   uncached forward of the same tokens, on the split and the single
+   ring; the CUDA-graph token loop against the eager step on the same
+   draws; int8 weights and the int8 ring against bf16; RTF of bf16, int8
+   and 32 int8 streams, ms and kernels per token with and without the
+   graph, and the device-busy share of one traced 16-token window.
 
 The last lines are the kernels' JSON record, the card line, and
 {"ok": true, "device": {...}}.
@@ -109,6 +120,18 @@ AV_FRAMES, AV_STEPS, MIXED_STEPS = 384, 4, 2
 AV_LAUNCHES = {"band2_attention_fwd": 48, "band2_attention_bwd": 18,
                "frame_attention_fwd": 18, "frame_attention_bwd_dq": 6,
                "frame_attention_bwd_dkv": 6}
+# audio serve: cached forwards against the uncached forward, relative L2
+# of the new tokens' velocities (the serve limit, FORWARD_REL_L2); the
+# CUDA graph's tokens against the eager step's, max |diff| where cuBLAS
+# picks another algorithm under capture (identical is expected)
+AUDIO_GRAPH_MAX_ABS = 1e-2
+# int8 limits of the JAX package's tests: an int8-weight forward keeps a
+# cosine above 0.995 with the float forward (tests/test_wquant.py); a
+# decoding forward on the int8 ring stays within 0.05 x max(max |ref|, 1)
+# of the bf16 ring's, and the int8-ring sampler within 0.25 max |diff| of
+# the bf16-ring sampler on the same draws (tests/test_kv_quant.py)
+INT8_FORWARD_COS, INT8_RING_DECODE, INT8_RING_SAMPLER = 0.995, 0.05, 0.25
+AUDIO_PROFILE_TOKENS = 16
 
 
 def fail(msg: str):
@@ -1350,6 +1373,268 @@ def av_train_phase(dev):
     return out
 
 
+# --------------------------------------------------------------- phase 10
+def kernel_classes(per_name):
+    """Device us by kernel class of {name: (us, n)}."""
+    classes = {}
+    for name, (us, _) in per_name.items():
+        low = name.lower()
+        if any(s in low for s in ("gemm", "gemv", "nvjet", "cutlass",
+                                  "sm90_xmma")):
+            cls = "matmul (cuBLAS)"
+        elif "softmax" in low:
+            cls = "softmax"
+        elif "reduce" in low:
+            cls = "reductions (norms, amax)"
+        elif any(s in low for s in ("index", "gather", "scatter", "cat",
+                                    "copy")):
+            cls = "copies, index, cat"
+        elif "elementwise" in low:
+            cls = "elementwise"
+        else:
+            cls = "other"
+        classes[cls] = classes.get(cls, 0.0) + us
+    return classes
+
+
+def trace_tokens(loop, core, n: int, graphed: bool):
+    """Trace ``n`` tokens of ``loop``: (device us by kernel name, host
+    launch calls by API name, wall ms of the window)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprof
+
+    torch.cuda.synchronize()
+    with tprof(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loop.run(core, n, graphed)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    per_name, api = {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us, k = per_name.get(e.name, (0.0, 0))
+            per_name[e.name] = (us + e.time_range.elapsed_us(), k + 1)
+        elif e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                        "cuLaunchKernel", "cudaGraphLaunch",
+                        "cudaMemcpyAsync", "cudaMemsetAsync"):
+            api[e.name] = api.get(e.name, 0) + 1
+    return per_name, api, wall_ms
+
+
+def audio_serve_phase(dev):
+    """bench_torch.py's audio serve on the card; see the module docstring
+    (phase 10). Reaches no kernel of the port."""
+    import numpy as np
+    import bench_torch as bench
+    from owl_audio_exps_tpu_torch.nn.kv_cache import KVCache
+    from owl_audio_exps_tpu_torch.nn.wquant import (quantize_params_int8,
+                                                    quantized_names)
+    from owl_audio_exps_tpu_torch.sampling.audio_caching import draw_noise
+
+    reset_counts()
+    bf = torch.bfloat16
+    cfg = bench.make_cfg()
+    t0 = time.perf_counter()
+    core = bench.make_core(cfg, dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in core.parameters())
+    print(f"[audio] AudioRFTCore {cfg.n_layers} layers x d {cfg.d_model}, "
+          f"{cfg.n_heads} heads x {cfg.d_model // cfg.n_heads}, "
+          f"{cfg.channels} channels, local window {cfg.local_window}, "
+          f"{n_params / 1e6:.1f} M params bf16, init "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    out = {}
+
+    # cached forwards against one uncached forward of the same 121 tokens
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n = bench.INIT_LEN + 1
+    xs = torch.randn(1, n, cfg.channels, generator=gen, device=dev).to(bf)
+    ts = torch.rand(1, n, generator=gen, device=dev).to(bf)
+    with torch.no_grad():
+        full = core(xs, ts)
+        for split in ("auto", False):
+            cfg.split_local_cache = split
+            cache = KVCache.from_config(cfg, 1, capacity_frames=bench.INIT_LEN,
+                                        dtype=bf, device=dev)
+            p1 = core(xs[:, :n - 2], ts[:, :n - 2], kv_cache=cache,
+                      write=True)
+            p2 = core(xs[:, n - 2:], ts[:, n - 2:], kv_cache=cache,
+                      write=True, write_len=1)
+            p3 = core(xs[:, n - 1:], ts[:, n - 1:], kv_cache=cache,
+                      decoding=True)
+            errs = dict(prefill=rel_l2(p1, full[:, :n - 2]),
+                        fused=rel_l2(p2, full[:, n - 2:]),
+                        decoding=rel_l2(p3, full[:, n - 1:]))
+            ring = "split" if cache.split else "single"
+            print(f"[audio] cached vs uncached forward, {ring} ring "
+                  f"(length {int(cache.length)}, rope_offset "
+                  f"{int(cache.rope_offset)}): rel L2 "
+                  f"{ {k: f'{v:.3e}' for k, v in errs.items()} } "
+                  f"(tolerance {FORWARD_REL_L2})", flush=True)
+            if not all(e <= FORWARD_REL_L2 for e in errs.values()):
+                fail(f"cached forwards on the {ring} ring disagree with the "
+                     "uncached forward")
+            if cache.split == (split is False):
+                fail(f"split_local_cache {split!r} gave split={cache.split}")
+            out[f"cached_vs_full_{ring}"] = errs
+        cfg.split_local_cache = "auto"
+
+    # the CUDA-graph loop against the eager step, on the same draws
+    sampler = bench.make_sampler()
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(1, bench.INIT_LEN, cfg.channels)).to(
+        dev, bf)
+    noise = draw_noise(gen.manual_seed(12), 1, bench.INIT_LEN, cfg.channels,
+                       bench.NUM_TOKENS, dev)
+    graph_out = sampler(core, x, noise=noise)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager_out = sampler.sample_eager(core, x, noise=noise)
+    eager_out.cpu()
+    # one eager run (the host-bound eager loop takes seconds a run), timed
+    # as bench_torch.py times a run
+    eager_rtf = bench.NUM_TOKENS / bench.LATENTS_PER_SECOND / (
+        time.perf_counter() - t0)
+    shape = (1, bench.INIT_LEN + bench.NUM_TOKENS, cfg.channels)
+    if tuple(graph_out.shape) != shape or \
+            not torch.isfinite(graph_out).all():
+        fail(f"serve output {tuple(graph_out.shape)} (want {shape}) or not "
+             "finite")
+    d = (graph_out.float() - eager_out.float()).abs().max().item()
+    same = torch.equal(graph_out, eager_out)
+    print(f"[audio] CUDA-graph loop vs eager step over "
+          f"{bench.NUM_TOKENS} tokens: identical {same}, max |diff| {d:.3e}"
+          + ("" if same else " (cuBLAS picks other algorithms under "
+             f"capture; tolerance {AUDIO_GRAPH_MAX_ABS})"), flush=True)
+    if d > AUDIO_GRAPH_MAX_ABS:
+        fail("the graph-replayed tokens disagree with the eager step")
+    out.update(graph_identical=same, graph_max_abs=d)
+
+    # int8 weights: one uncached forward, and the serve on the same draws
+    qcore = quantize_params_int8(core)
+    names = quantized_names(qcore)
+    with torch.no_grad():
+        fq = core(xs, ts).float().flatten()
+        fqq = qcore(xs, ts).float().flatten()
+    cos = (torch.dot(fq, fqq) / (fq.norm() * fqq.norm())).item()
+    q_out = sampler(qcore, x, noise=noise)
+    dq = (q_out.float() - graph_out.float()).abs().max().item()
+    print(f"[audio] int8 weights ({len(names)} Linear layers of >= 65,536 "
+          f"weights): forward cosine {cos:.6f} (limit > {INT8_FORWARD_COS}); "
+          f"serve max |diff| vs bf16 {dq:.3e}, finite "
+          f"{bool(torch.isfinite(q_out).all())}", flush=True)
+    if not cos > INT8_FORWARD_COS or not torch.isfinite(q_out).all():
+        fail("the int8-weight forward or serve diverged")
+
+    # the int8 ring against the bf16 ring (same seeded weights)
+    core_kq = bench.make_core(bench.make_cfg(kv_quant="int8"), dev)
+    with torch.no_grad():
+        dec = {}
+        for name, c in (("bf16", core), ("int8", core_kq)):
+            cache = KVCache.from_config(c.config, 1,
+                                        capacity_frames=bench.INIT_LEN,
+                                        dtype=bf, device=dev)
+            c(xs[:, :n - 1], ts[:, :n - 1], kv_cache=cache, write=True)
+            dec[name] = c(xs[:, n - 1:], ts[:, n - 1:], kv_cache=cache,
+                          decoding=True).float()
+    ring_err = (dec["int8"] - dec["bf16"]).abs().max().item()
+    ring_lim = INT8_RING_DECODE * max(dec["bf16"].abs().max().item(), 1.0)
+    kq_out = sampler(core_kq, x, noise=noise)
+    kq_err = (kq_out.float() - graph_out.float()).abs().max().item()
+    print(f"[audio] int8 ring vs bf16 ring: decoding forward max |diff| "
+          f"{ring_err:.3e} (limit {ring_lim:.3e}); serve max |diff| "
+          f"{kq_err:.3e} over {bench.NUM_TOKENS} tokens (limit "
+          f"{INT8_RING_SAMPLER})", flush=True)
+    if ring_err > ring_lim or kq_err > INT8_RING_SAMPLER:
+        fail("the int8 ring diverged from the bf16 ring")
+    out.update(int8_forward_cos=cos, int8_serve_max_abs=dq,
+               int8_ring_decode_max_abs=ring_err,
+               int8_ring_serve_max_abs=kq_err)
+
+    # RTF: bf16 with the graph and eager, int8, 32 int8 streams
+    def serve(c):
+        return lambda x, g: sampler(c, x, generator=g)
+
+    rtf = {"bf16": bench.measure(serve(core), x), "bf16_eager": eager_rtf,
+           "int8": bench.measure(serve(qcore), x)}
+    core32 = quantize_params_int8(core_kq)
+    del core_kq
+    x32 = torch.from_numpy(rs.randn(32, bench.INIT_LEN, 64)).to(dev, bf)
+    rtf["int8_32stream_agg"] = bench.measure(serve(core32), x32)
+    print(f"[audio] RTF (audio s per s, {bench.NUM_TOKENS} tokens, median of "
+          f"3 after a warm-up; eager: one run): bf16 {rtf['bf16']:.4f} (eager "
+          f"{rtf['bf16_eager']:.4f}, graph / eager "
+          f"{rtf['bf16'] / rtf['bf16_eager']:.3f}x), int8 "
+          f"{rtf['int8']:.4f}, 32 int8 streams (int8 ring) aggregate "
+          f"{rtf['int8_32stream_agg']:.2f}", flush=True)
+    out["rtf"] = rtf
+
+    # ms and kernels per token, graph and eager; one traced window
+    loop = sampler.prepare(core, x, noise)
+    loop.run(core, 4, True)
+    k = AUDIO_PROFILE_TOKENS
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    loop.run(core, 4 * k, True)
+    end.record()
+    torch.cuda.synchronize()
+    graph_ms = start.elapsed_time(end) / (4 * k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop.run(core, k, False)
+    torch.cuda.synchronize()
+    eager_ms = 1e3 * (time.perf_counter() - t0) / k
+    per_name, api, wall = trace_tokens(loop, core, k, True)
+    e_per_name, e_api, e_wall = trace_tokens(loop, core, k, False)
+    busy = sum(us for us, _ in per_name.values()) / 1e3
+    kernels = sum(c for _, c in per_name.values())
+    e_kernels = sum(c for _, c in e_per_name.values())
+    e_busy = sum(us for us, _ in e_per_name.values()) / 1e3
+    launches = sum(c for name, c in e_api.items() if "Launch" in name)
+    if busy == 0 or e_busy == 0:
+        fail("the profiler recorded no device time in the audio window")
+    print(f"[audio] per token: graph {graph_ms:.3f} ms (CUDA events over "
+          f"{4 * k} replays), eager {eager_ms:.3f} ms (host clock over {k} "
+          f"steps); kernels per token {kernels / k:.1f} graph, "
+          f"{e_kernels / k:.1f} eager; host launch calls per token "
+          f"{api.get('cudaGraphLaunch', 0) / k:.2f} graph launches, "
+          f"{launches / k:.1f} eager kernel launches", flush=True)
+    # tracing slows the replays, so the busy share is also taken against
+    # the untraced graph time of the same tokens (as profile_tick does)
+    print(f"[audio] traced {k}-token window with the graph: device busy "
+          f"{busy:.2f} ms = {100 * busy / (k * graph_ms):.1f}% of the "
+          f"untraced {k * graph_ms:.2f} ms ({100 * busy / wall:.1f}% of the "
+          f"traced wall {wall:.2f} ms); eager: busy {e_busy:.2f} of "
+          f"{e_wall:.2f} ms traced wall ({100 * e_busy / e_wall:.1f}%), "
+          f"{100 * e_busy / (k * eager_ms):.1f}% of the untraced "
+          f"{k * eager_ms:.2f} ms", flush=True)
+    classes = kernel_classes(per_name)
+    for cls, us in sorted(classes.items(), key=lambda kv: -kv[1]):
+        print(f"[audio]   {cls}: {us / 1e3:.3f} ms "
+              f"({100 * us / 1e3 / busy:.1f}% of busy)", flush=True)
+    for name, (us, c) in sorted(per_name.items(),
+                                key=lambda kv: -kv[1][0])[:10]:
+        print(f"[audio]   {us / 1e3:8.3f} ms {c:5d}x {name[:100]}",
+              flush=True)
+    counts = kernel_counts()
+    if any(counts.values()):
+        fail(f"the audio serve launched kernels of the port: {counts}")
+    out.update(ms_per_token=dict(graph=graph_ms, eager=eager_ms),
+               kernels_per_token=dict(graph=kernels / k,
+                                      eager=e_kernels / k),
+               eager_launch_calls_per_token=launches / k,
+               busy=dict(graph_ms=busy, graph_wall_ms=wall, eager_ms=e_busy,
+                         eager_wall_ms=e_wall),
+               device_ms_by_class={c: us / 1e3 for c, us in classes.items()},
+               port_kernel_launches=0)
+    del core, qcore, core32, sampler, loop
+    torch.cuda.empty_cache()
+    print(f"[audio] still allocated after the phase: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB", flush=True)
+    return out
+
+
 def grads_of(fn, q, k, v, g):
     """(out, dq, dk, dv) of fn under the cotangent g; where fn returns a
     tuple (K4's out and lse), g is a tuple too and the list starts with
@@ -1494,6 +1779,7 @@ def main():
     serve_launches, tick_ms, breakdown = pipeline_phase(dev, SERVE_TICKS)
     reset_counts()
     sampler_launches = sampler_phase(dev)
+    audio = audio_serve_phase(dev)
     train = train_phase(dev)
     route = route_phase(dev)
     grad_rows.update(k4_phase(dev))
@@ -1524,7 +1810,7 @@ def main():
     record = {"kernels": kernel_record(fwd_rows, grad_rows, launches, extra),
               "train": {k: v for k, v in train.items()
                         if k not in ("totals", "per_step")},
-              "route": route, "context": context,
+              "route": route, "context": context, "audio_serve": audio,
               "av_train": {trainer: {k: v for k, v in row.items()
                                      if k not in ("totals", "per_step")}
                            for trainer, row in av.items()}}

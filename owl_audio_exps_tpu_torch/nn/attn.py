@@ -48,8 +48,21 @@ layout with no counterpart here) runs the same layer loop and remat:
 the function is unchanged. The XLA memory layouts ``remat_sequenced``,
 ``fused_head_chunks`` and ``mlp_chunks`` > 1 raise.
 
-KV-cached forwards (``kv_cache`` not None) come with the cached serve
-slice and raise here.
+KV-cached forwards (``kv_cache`` not None, nn/kv_cache.py) follow
+owl_audio_exps_tpu/nn/attn.py:68-139 and :221-309. The masks come from
+the ring's device counters (``build_masks``): ``decode_mask_from_cache``
+over [ring slots | new tokens], with the fused write's eviction rows
+under ``write_len``; under ``decoding`` validity alone, local layers cut
+to their trailing ``local_window`` frames. Attention is plain PyTorch,
+as the JAX package's is plain XLA there: ``cache_attn_impl`` ``concat``
+(``dot_attention`` over the concatenated K/V) or ``noconcat``
+(``cached_dot_attention``); a decoding local layer whose window is
+shorter than the ring gathers its trailing window from its ring
+(``can_local_gather``). ``decode_impl`` takes ``auto`` or ``dense``.
+RoPE positions start at the ring's ``rope_offset``. With ``write``, each
+layer writes the leading ``write_len`` tokens (all by default) of its
+rotated K and V into its own ring right after its attention has read it,
+and the counters advance once, after the last layer.
 """
 
 from __future__ import annotations
@@ -60,8 +73,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import dot_attention
-from ..ops.masks import dense_mask
+from ..ops.attention import cached_dot_attention, dot_attention
+from ..ops.masks import decode_mask_from_cache, dense_mask
 from ..ops.norms import rms_norm
 from ..ops.rope import rope_table_for
 from ..parallel.mesh import seq_parallel_active
@@ -81,16 +94,73 @@ def use_splash_path(config, q_len: int, device) -> bool:
     return torch.device(device).type == "cuda" and q_len >= 1024
 
 
+def can_local_gather(config, q_len: int, kv_cache) -> bool:
+    """Whether a decoding local layer gathers its trailing window from its
+    ring instead of masking the whole ring."""
+    local_w = config.get("local_window")
+    if kv_cache is None or local_w is None:
+        return False
+    span = local_w * config.tokens_per_frame
+    return span > q_len and span < kv_cache.capacity
+
+
 def build_masks(config, q_len: int, doc_id: Optional[torch.Tensor],
-                device=None):
-    """(local, global) bool masks [q_len, q_len] (or [b, q_len, q_len]
-    with doc_id) for one uncached forward."""
+                device=None, kv_cache=None, decoding: bool = False,
+                write_len: Optional[int] = None):
+    """(local, global) bool masks of one forward: [q_len, q_len] (or [b,
+    q_len, q_len] with doc_id) without a cache; [q_len, alloc + q_len]
+    over [ring slots | new tokens] with one, each mask indexing the slots
+    of the ring its layers read. A decoding forward's local mask is None
+    where its layers gather their window (``can_local_gather``)."""
     tpf = config.tokens_per_frame
+    local_w = config.get("local_window")
+    global_w = config.get("global_window")
     causal = bool(config.causal)
-    local = dense_mask(q_len, tpf, config.get("local_window"), doc_id, 0,
-                       causal, device=device)
-    glob = dense_mask(q_len, tpf, config.get("global_window"), doc_id, 0,
-                      causal, device=device)
+    if kv_cache is None:
+        local = dense_mask(q_len, tpf, local_w, doc_id, 0, causal,
+                           device=device)
+        glob = dense_mask(q_len, tpf, global_w, doc_id, 0, causal,
+                          device=device)
+        return local, glob
+
+    rel = kv_cache.slot_rel_idx()
+    length = kv_cache.length
+    lrel = kv_cache.slot_rel_idx(local=True)
+    lcap, _, _, llength = kv_cache.ring_view(True)
+    new = torch.ones(q_len, dtype=torch.bool, device=rel.device)
+    if decoding:
+        # visibility is slot validity (and the new tokens); local layers
+        # see the trailing local_window frames of [ring | new]
+        valid = torch.cat([rel < length, new])
+        glob = valid[None, :].expand(q_len, rel.shape[0] + q_len)
+        if can_local_gather(config, q_len, kv_cache):
+            local = None
+        elif local_w is not None:
+            q_abs = llength + torch.arange(q_len, dtype=torch.int32,
+                                           device=rel.device)
+            kv_order = torch.cat([lrel, q_abs])
+            lvalid = torch.cat([lrel < llength, new])
+            cutoff = llength + q_len - local_w * tpf
+            local = (lvalid & (kv_order >= cutoff))[None, :].expand(
+                q_len, lrel.shape[0] + q_len)
+        else:
+            local = glob
+        return local, glob
+
+    # the fused write: rows past the committed block see the post-commit
+    # ring; wl 0 when the whole forward is committed
+    wl = 0 if (write_len is None or write_len >= q_len) else write_len
+    if wl and global_w is not None and global_w * tpf < kv_cache.capacity:
+        # decoding masks are validity alone, so a finite global window
+        # would make fused and unfused ticks differ
+        raise ValueError(
+            "fused write-forward (write_len) requires global_window=None "
+            "or >= ring capacity: decode masks are validity-only, so a "
+            "finite global window would break fused/unfused equivalence")
+    local = decode_mask_from_cache(lrel, llength, q_len, tpf, local_w, causal,
+                                   write_len=wl, capacity=lcap)
+    glob = decode_mask_from_cache(rel, length, q_len, tpf, global_w, causal,
+                                  write_len=wl, capacity=kv_cache.capacity)
     return local, glob
 
 
@@ -180,6 +250,35 @@ def train_attention(cfg, local: bool, q, k, v, doc_id=None):
                             head_chunks=head_chunks)
 
 
+def cached_attention(cfg, layer_idx: int, local: bool, q, k, v, mask,
+                     kv_cache):
+    """Attention of new tokens q, k, v [B, H, L, Dh] (normed, rotated, in
+    the compute dtype) over [layer's ring | new tokens]."""
+    impl = cfg.get("decode_impl", "auto")
+    if impl not in ("auto", "dense"):
+        raise ValueError(
+            f"decode_impl={impl!r}: valid values are 'auto'/'dense' (the "
+            "JAX package deleted its flash-decode kernel; cached attention "
+            "is dense)")
+    noconcat = cfg.get("cache_attn_impl", "concat") == "noconcat"
+    L, dtype = q.shape[2], q.dtype
+    if mask is None and local and can_local_gather(cfg, L, kv_cache):
+        # a decoding local layer sees the trailing local_window frames of
+        # [ring | new]: its ring's trailing window, then the new tokens
+        n_gather = cfg.get("local_window") * cfg.tokens_per_frame - L
+        ck, cv, valid = kv_cache.gather_trailing(layer_idx, n_gather,
+                                                 local=True)
+        mask = torch.cat([valid, torch.ones(L, dtype=torch.bool,
+                                            device=valid.device)])[None, :]
+    else:
+        ck, cv = kv_cache.read_layer(layer_idx)
+    ck, cv = ck.to(dtype), cv.to(dtype)
+    if noconcat:
+        return cached_dot_attention(q, ck, cv, k, v, mask)
+    return dot_attention(q, torch.cat([ck, k], dim=2),
+                         torch.cat([cv, v], dim=2), mask)
+
+
 class Attn(nn.Module):
     """Fused-QKV attention with QK rms-norm and RoPE.
 
@@ -200,7 +299,11 @@ class Attn(nn.Module):
         self.out = Linear(d, d, dtype=dtype, device=device)
 
     def forward(self, x, mask, splash: bool = False, doc_id=None,
-                pos_offset: int = 0):
+                pos_offset: int = 0, kv_cache=None,
+                write_len: Optional[int] = None):
+        """With ``kv_cache``, attends over this layer's ring and, when
+        ``write_len`` is given, writes the leading ``write_len`` tokens'
+        K and V into it."""
         cfg = self.config
         B, L, _ = x.shape
         H = cfg.n_heads
@@ -209,10 +312,20 @@ class Attn(nn.Module):
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         q, k = rms_norm(q), rms_norm(k)
         rope = rope_table_for(cfg)
-        positions = torch.arange(pos_offset, pos_offset + L, device=x.device)
+        if kv_cache is not None:
+            positions = kv_cache.write_positions(L)
+        else:
+            positions = torch.arange(pos_offset, pos_offset + L,
+                                     device=x.device)
         q, k = rope(q, positions), rope(k, positions)
         q, k, v = (t.to(self.dtype) for t in (q, k, v))
-        if seq_parallel_active(cfg):
+        if kv_cache is not None:
+            out = cached_attention(cfg, self.layer_idx, self.local, q, k, v,
+                                   mask, kv_cache)
+            if write_len is not None:
+                kv_cache.write_layer(self.layer_idx, k[:, :, :write_len],
+                                     v[:, :, :write_len])
+        elif seq_parallel_active(cfg):
             out = sp_train_attention(cfg, self.local, q, k, v, doc_id)
         elif splash:
             out = train_attention(cfg, self.local, q, k, v, doc_id)
@@ -238,9 +351,11 @@ class DiTBlock(nn.Module):
         self.gate2 = Gate(d, **kw)
 
     def forward(self, x, cond, mask, splash: bool = False, doc_id=None,
-                pos_offset: int = 0):
+                pos_offset: int = 0, kv_cache=None,
+                write_len: Optional[int] = None):
         x = x + self.gate1(self.attn(self.adaln1(x, cond), mask, splash,
-                                     doc_id, pos_offset), cond)
+                                     doc_id, pos_offset, kv_cache,
+                                     write_len), cond)
         return x + self.gate2(self.mlp(self.adaln2(x, cond)), cond)
 
 
@@ -309,14 +424,17 @@ class DiT(nn.Module):
         return x
 
     def forward(self, x, cond, doc_id=None, kv_cache=None,
-                pos_offset: int = 0):
+                pos_offset: int = 0, write: bool = False,
+                decoding: bool = False, write_len: Optional[int] = None):
         """x: [B, L, d] tokens. Under context parallelism (see the module
         docstring) x is this rank's slice and ``pos_offset`` the global
-        position of its first token."""
+        position of its first token. With ``kv_cache`` the forward attends
+        over the ring; ``write`` commits the leading ``write_len`` tokens
+        (all by default) to it, and ``decoding`` takes the decoding
+        masks."""
         if kv_cache is not None:
-            raise NotImplementedError(
-                "KV-cached forwards are not ported yet: they come with the "
-                "cached serve slice (ROADMAP.md, port slice 5)")
+            return self._cached(x, cond, doc_id, kv_cache, write, decoding,
+                                write_len)
         cfg = self.config
         L, n = x.shape[1], cfg.n_layers
         splash = use_splash_path(cfg, L, x.device)
@@ -337,3 +455,17 @@ class DiT(nn.Module):
                                x, *args, True, use_reentrant=False)
             return x
         return self._run_blocks(0, n, x, *args, remat)
+
+    def _cached(self, x, cond, doc_id, kv_cache, write, decoding, write_len):
+        cfg = self.config
+        L = x.shape[1]
+        local_mask, global_mask = build_masks(
+            cfg, L, doc_id, kv_cache=kv_cache, decoding=decoding,
+            write_len=write_len if write else None)
+        wl = (L if write_len is None else write_len) if write else None
+        for idx, local in enumerate(local_layer_flags(cfg)):
+            x = self.blocks[idx](x, cond, local_mask if local else global_mask,
+                                 False, doc_id, 0, kv_cache, wl)
+        if write:
+            kv_cache.advance(wl)
+        return x

@@ -5,7 +5,9 @@ Parameters are stored as ``nn.Parameter``s in the torch reference layout
 weights and inputs to it, as the JAX package does. ``reset_parameters``
 draws the reference's initial distributions from an explicit generator:
 torch's default ``nn.Linear`` init, U(±1/sqrt(fan_in)), or for the
-MLPs' layers N(0, 2 / fan_in^2) with zero bias.
+MLPs' layers N(0, 2 / fan_in^2) with zero bias. A ``Linear`` quantized
+for serving (nn/wquant.py) holds ``weight_q`` int8 and ``weight_s`` per
+output channel in place of ``weight`` and dequantizes on read.
 """
 
 from __future__ import annotations
@@ -46,9 +48,24 @@ class Linear(nn.Module):
         if self.bias is not None:
             self.bias.uniform_(-bound, bound, generator=generator)
 
+    @torch.no_grad()
+    def quantize_(self, scale_dtype=torch.bfloat16):
+        """Replace ``weight`` by int8 ``weight_q`` and per-output-channel
+        ``weight_s`` (nn/wquant.py)."""
+        from .wquant import quantize_kernel
+        q, s = quantize_kernel(self.weight, scale_dtype)
+        self.weight = None
+        self.register_buffer("weight_q", q)
+        self.register_buffer("weight_s", s)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(self.dtype)
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+        if self.weight is None:
+            from .wquant import dequantize_kernel
+            w = dequantize_kernel(self.weight_q, self.weight_s, self.dtype)
+        else:
+            w = self.weight.to(self.dtype)
+        return F.linear(x.to(self.dtype), w, bias)
 
 
 class MLPCustom(nn.Module):

@@ -9,7 +9,10 @@ The angle tables are numpy float32, computed once per config:
 
 ``apply_rope`` rotates interleaved pairs in place,
 out[2i] = x[2i]·c − x[2i+1]·s and out[2i+1] = x[2i+1]·c + x[2i]·s,
-in float32, at absolute token positions (clipped to the table).
+in float32, at absolute token positions (clipped to the table); the
+positions may be a device tensor (the ring cache's write positions).
+``rope_rebase_tables`` gives the constant rotation that moves every cached
+key back by a whole number of frames (KVCache.rebase_rope).
 """
 
 from __future__ import annotations
@@ -153,7 +156,8 @@ def get_rope_freqs(config) -> np.ndarray:
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
     """x: [..., t, head_dim]; cos/sin: [n_tokens, F] float32 tables (the
-    un-rotated tail past 2F passes through); positions: [t] int64."""
+    un-rotated tail past 2F passes through); positions: [t] integer
+    tensor on x's device."""
     f = cos.shape[-1]
     positions = positions.clamp(0, cos.shape[0] - 1)
     c = cos[positions]
@@ -176,6 +180,10 @@ class RopeTable:
         self.sin_np = np.sin(angles).astype(np.float32)
         self._dev = {}
 
+    @property
+    def n_tokens(self) -> int:
+        return self.cos_np.shape[0]
+
     def tables(self, device):
         key = str(device)
         if key not in self._dev:
@@ -186,6 +194,18 @@ class RopeTable:
     def __call__(self, x: torch.Tensor, positions: torch.Tensor):
         cos, sin = self.tables(x.device)
         return apply_rope(x, cos, sin, positions)
+
+
+def rope_rebase_tables(config, delta_frames: int):
+    """(cos, sin) float32 numpy [1, F] of the constant angle that rotates a
+    cached key from frame position f to f - ``delta_frames``: every table
+    family is linear in the frame index, so the angle difference is one
+    vector shared by every slot and frame."""
+    angles = get_rope_freqs(config)
+    per = angles.shape[0] // _table_frames(config)
+    delta = angles[0] - angles[delta_frames * per]
+    return (np.cos(delta)[None, :].astype(np.float32),
+            np.sin(delta)[None, :].astype(np.float32))
 
 
 _TABLE_CACHE: dict = {}

@@ -15,7 +15,10 @@ def randn(shape, dtype, device, generator: Optional[torch.Generator]):
 
 
 def zlerp(x: torch.Tensor, alpha: float,
-          generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Partial re-noising: x * (1 - alpha) + z * alpha."""
-    z = randn(x.shape, x.dtype, x.device, generator)
-    return x * (1.0 - alpha) + z * alpha
+          generator: Optional[torch.Generator] = None,
+          z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Partial re-noising: x * (1 - alpha) + z * alpha, with the float32
+    draw ``z`` (cast to x's dtype) given or taken from ``generator``."""
+    if z is None:
+        z = randn(x.shape, x.dtype, x.device, generator)
+    return x * (1.0 - alpha) + z.to(x.device, x.dtype) * alpha

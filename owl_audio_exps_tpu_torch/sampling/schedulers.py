@@ -31,3 +31,13 @@ def resolve_schedule(n_steps: int, custom_schedule=None) -> np.ndarray:
     if custom_schedule is not None:
         return get_deltas(custom_schedule)
     return get_sd3_euler(n_steps)
+
+
+def scan_or_unroll(body, init, dt: np.ndarray):
+    """Run ``body(state, dt_i) -> (state, None)`` over the static schedule
+    ``dt`` in a Python loop (the JAX package's ``lax.scan`` or unrolled
+    loop); ``dt_i`` is a Python float."""
+    state = init
+    for d in dt:
+        state, _ = body(state, float(d))
+    return state

@@ -2,6 +2,7 @@
 
     python -m owl_audio_exps_tpu_torch.train --config_path configs/dit_v4_tpu_e2e.yml --max_steps N
     python -m owl_audio_exps_tpu_torch.train --config_path configs/av_v5_8x8_weak.yml
+    python -m owl_audio_exps_tpu_torch.train --config_path configs/audio.yml --max_steps 2
 
 Runs on the card (``cuda``) unless ``--device cpu`` (or ``train.device``
 in the config) asks for the CPU. Under ``torchrun`` each process takes
@@ -15,9 +16,12 @@ What the port does not have yet is cut, and each cut is printed
 (``port_cuts``): a data loader that is not ported becomes the synthetic
 source with the trainer's batch columns at the config's shapes
 (``synthetic_latent`` for ``rft``, ``synthetic_av`` for ``av``,
-``synthetic_mixed`` for ``mixed_av``), a mesh axis wider than the
-processes that were started shrinks to them, and the eval sampler
-(``sampler_id``) is dropped.
+``synthetic_mixed`` for ``mixed_av``, and for ``audio_rft``
+``synthetic_audio_latent`` of ``sample_size`` latents, the latent window
+the model trains on), a mesh axis wider than the processes that were
+started shrinks to them, and an eval sampler that is not ported, or whose
+trainer's eval is not, is dropped (the audio trainer keeps
+``audio_caching``).
 """
 
 from __future__ import annotations
@@ -27,7 +31,10 @@ from typing import List
 
 _PORTED_DATA = ("synthetic",)
 # the synthetic source with the batch columns each trainer reads
-_SYNTHETIC_FOR = {"av": "synthetic_av", "mixed_av": "synthetic_mixed"}
+_SYNTHETIC_FOR = {"av": "synthetic_av", "mixed_av": "synthetic_mixed",
+                  "audio_rft": "synthetic_audio_latent"}
+# the eval samplers the port runs, by trainer
+_PORTED_EVAL = {"audio_rft": ("audio_caching",)}
 
 
 def port_cuts(cfg, world_size: int) -> List[str]:
@@ -38,11 +45,16 @@ def port_cuts(cfg, world_size: int) -> List[str]:
     if tc.data_id and not tc.data_id.startswith(_PORTED_DATA):
         kw = dict((tc.data_kwargs or {}).items())
         synthetic = _SYNTHETIC_FOR.get(tc.trainer_id, "synthetic_latent")
-        shapes = dict(window_length=kw.get("window_length", mc.n_frames),
-                      channels=mc.channels, sample_size=mc.sample_size,
-                      n_buttons=mc.n_buttons,
-                      n_mouse_axes=mc.get("n_mouse_axes", 2))
-        if synthetic != "synthetic_latent":
+        if synthetic == "synthetic_audio_latent":
+            # the audio loader's window counts waveform samples; the
+            # model trains on sample_size latents
+            shapes = dict(window_length=mc.sample_size, channels=mc.channels)
+        else:
+            shapes = dict(window_length=kw.get("window_length", mc.n_frames),
+                          channels=mc.channels, sample_size=mc.sample_size,
+                          n_buttons=mc.n_buttons,
+                          n_mouse_axes=mc.get("n_mouse_axes", 2))
+        if synthetic in ("synthetic_av", "synthetic_mixed"):
             shapes["audio_channels"] = mc.audio_channels
         cuts.append(f"data_id {tc.data_id!r} -> {synthetic!r} {shapes} "
                     f"(the file and S3 loaders are not ported)")
@@ -55,9 +67,10 @@ def port_cuts(cfg, world_size: int) -> List[str]:
                     f"started: {world_size})")
         mesh["seq"] = new
         tc.mesh = mesh
-    if tc.get("sampler_id"):
-        cuts.append(f"sampler_id {tc.sampler_id!r} -> None (the KV-cached "
-                    "samplers are not ported)")
+    if tc.get("sampler_id") and \
+            tc.sampler_id not in _PORTED_EVAL.get(tc.trainer_id, ()):
+        cuts.append(f"sampler_id {tc.sampler_id!r} -> None (the AV cached "
+                    "samplers and the AV eval are not ported)")
         tc.sampler_id = None
     return cuts
 

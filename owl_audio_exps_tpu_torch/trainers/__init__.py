@@ -1,6 +1,6 @@
 """Trainer registry (counterpart of owl_audio_exps_tpu/trainers/__init__.py)."""
 
-_NOT_PORTED = ("audio_rft", "causvid_vid", "sforce_vid", "ode_distill_vid",
+_NOT_PORTED = ("causvid_vid", "sforce_vid", "ode_distill_vid",
                "audio_vae")
 
 
@@ -14,9 +14,11 @@ def get_trainer_cls(trainer_id: str):
     if trainer_id == "mixed_av":
         from .rft_trainer import MixedAVRFTTrainer
         return MixedAVRFTTrainer
+    if trainer_id == "audio_rft":
+        from .rft_trainer import AudioRFTTrainer
+        return AudioRFTTrainer
     if trainer_id in _NOT_PORTED:
         raise NotImplementedError(
-            f"trainer {trainer_id!r} is not ported yet: the audio trainer, "
-            "distillation and the VAE trainer are queued in ROADMAP.md "
-            "Queue 1")
+            f"trainer {trainer_id!r} is not ported yet: distillation and "
+            "the VAE trainer are queued in ROADMAP.md Queue 1 item 6")
     raise ValueError(f"Invalid trainer id: {trainer_id}")

@@ -1,12 +1,14 @@
 """Rectified-flow trainers (counterpart of
 owl_audio_exps_tpu/trainers/rft_trainer.py ``RFTFamilyTrainer``,
-``RFTTrainer``, ``AVRFTTrainer`` and ``MixedAVRFTTrainer``).
+``RFTTrainer``, ``AVRFTTrainer``, ``MixedAVRFTTrainer`` and
+``AudioRFTTrainer``).
 
 The shared loop: epoch-free iteration over the loader, gradient
 accumulation, the optimizer step and EMA of trainers/base.py, metrics
 drained at the logging cadence (the only host sync of the loop), saves
 every ``save_interval`` steps, eval sampling every ``sample_interval``
-steps when an eval loader is configured. The noise comes from one
+steps when the trainer's eval has what it reads (an eval loader, or for
+the audio trainer only the sampler). The noise comes from one
 ``torch.Generator`` on the device, seeded 1234 plus the data rank, so the
 seq ranks of one data rank draw alike. Under several processes every
 rank starts from rank 0's initial parameters, loads the batches of its
@@ -32,6 +34,9 @@ class RFTFamilyTrainer(BaseTrainer):
     """Common loop for the flow-matching trainers."""
 
     model_id: str = None
+    # whether eval_step samples from an eval loader (sample_data_id); the
+    # sampler is built only when what the eval reads is configured
+    eval_reads_loader: bool = True
 
     def __init__(self, cfg, device=None):
         super().__init__(cfg, device)
@@ -63,12 +68,15 @@ class RFTFamilyTrainer(BaseTrainer):
                             **dict((self.train_cfg.data_kwargs or {}).items(),
                                    process_index=self.mesh.data_index))
         sampler = sample_loader = None
-        if self.train_cfg.sampler_id and self.train_cfg.get("sample_data_id"):
-            # without an eval loader the sampler is never called (eval_step
-            # returns {}), so it is only built when one is configured
+        has_loader = bool(self.train_cfg.get("sample_data_id"))
+        if self.train_cfg.sampler_id and (has_loader
+                                          or not self.eval_reads_loader):
+            # an eval that reads a loader without one returns {} and never
+            # calls the sampler, so it is only built when it is used
             from ..sampling import get_sampler_cls
             skw = dict((self.train_cfg.sampler_kwargs or {}).items())
             sampler = get_sampler_cls(self.train_cfg.sampler_id)(**skw)
+        if sampler is not None and has_loader:
             sample_loader = iter(get_loader(
                 self.train_cfg.sample_data_id, self.train_cfg.n_samples,
                 **dict((self.train_cfg.get("sample_data_kwargs")
@@ -164,8 +172,8 @@ class RFTTrainer(RFTFamilyTrainer):
         if sample_loader is None:
             return {}
         raise NotImplementedError(
-            "eval sampling for game_rft needs the KV-cached samplers, which "
-            "come with port slice 5 (ROADMAP.md Queue 1)")
+            "eval sampling for game_rft needs the video cached samplers "
+            "(ROADMAP.md Queue 1 item 3)")
 
 
 class AVRFTTrainer(RFTFamilyTrainer):
@@ -195,8 +203,8 @@ class AVRFTTrainer(RFTFamilyTrainer):
             return {}
         raise NotImplementedError(
             "eval sampling for the AV model exports decoded media through "
-            "the VAE bridge, which comes with port slice 5 (ROADMAP.md "
-            "Queue 1)")
+            "the VAE bridge, which is not ported yet (ROADMAP.md Queue 1 "
+            "item 6)")
 
 
 class MixedAVRFTTrainer(AVRFTTrainer):
@@ -215,3 +223,51 @@ class MixedAVRFTTrainer(AVRFTTrainer):
                       "audio_loss": a_loss.detach(),
                       "unlabelled_proportion":
                           1.0 - has_controls.float().mean()}
+
+
+# the VAE paths of the audio trainer (ROADMAP.md Queue 1 item 6)
+_VAE_KEYS = ("vae_ckpt_path", "vae_cfg_path", "eval_media_dir")
+
+
+class AudioRFTTrainer(RFTFamilyTrainer):
+    """Unconditional audio RFT on pre-encoded latents. Batch: [latents
+    [b, n, c]]. The JAX trainer can also encode raw waveforms through a
+    frozen VAE and export decoded eval clips; the port has no VAE yet, so
+    ``vae_ckpt_path``, ``vae_cfg_path`` and ``eval_media_dir`` raise."""
+
+    model_id = "audio_rft"
+    eval_reads_loader = False
+
+    def __init__(self, cfg, device=None):
+        for key in _VAE_KEYS:
+            if cfg.train.get(key):
+                raise NotImplementedError(
+                    f"{key}: the audio VAE (encoding waveforms, decoding "
+                    "eval clips) is not ported yet (ROADMAP.md Queue 1 "
+                    "item 6)")
+        super().__init__(cfg, device)
+        self._eval_core = None
+
+    def loss_fn(self, model, batch, generator):
+        loss = model(batch[0].to(torch.bfloat16), generator=generator)
+        return loss, {"diffusion_loss": loss.detach()}
+
+    def eval_step(self, state, sample_loader, sampler):
+        """Sample from the EMA weights with the configured sampler;
+        returns the std of the latents."""
+        from ..models.audiorft import AudioRFTCore
+        c = self.model_cfg
+        if self._eval_core is None:
+            self._eval_core = AudioRFTCore(c, dtype=torch.bfloat16,
+                                           device=self.device, seed=None)
+        core = self._eval_core
+        with torch.no_grad():
+            for name, p in core.named_parameters():
+                p.copy_(state.ema["core." + name])
+        b = min(self.train_cfg.n_samples, 4)
+        gen = torch.Generator(device=self.device).manual_seed(7)
+        ctx = torch.randn(b, c.sample_size // 2, c.channels, generator=gen,
+                          device=self.device).to(torch.bfloat16)
+        latents = sampler(core, ctx, generator=gen.manual_seed(8))
+        return {"eval/audio_latent_std":
+                latents.float().std(correction=0).item()}

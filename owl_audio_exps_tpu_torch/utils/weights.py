@@ -9,8 +9,12 @@ the heads-major [H, 3, Dh] rows of every QKV projection are permuted back
 to the torch reference's [3, H, Dh]. The port's modules load the result
 with ``load_state_dict`` directly: ``GameRFTAudioCore`` and ``GameRFTCore``
 from their own trees, the ``GameRFT`` training wrapper from its tree,
-whose ``core`` subtree becomes the ``core.`` prefix. The mapping is
-linear, so a tree of gradients maps the same way.
+whose ``core`` subtree becomes the ``core.`` prefix, and ``AudioRFTCore``
+from its tree (``t_embed``, ``proj_in``, ``transformer``, ``proj_out``).
+The mapping is linear, so a tree of gradients maps the same way. Trees are
+float: a tree quantized by the JAX package's ``quantize_params_int8`` is
+refused; carry the float tree and quantize the port's module after
+loading (nn/wquant.py).
 
 A tree of a ``scan_layers`` model, whose transformer keeps
 ``groups/blocks_j`` with every leaf stacked over [n_groups] (the layout
@@ -82,6 +86,11 @@ def params_from_jax(params: dict, n_heads: int) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node, path):
+        if isinstance(node, dict) and path and path[-1] == "kernel":
+            raise ValueError(
+                f"{'/'.join(path)} is an int8-quantized kernel: carry the "
+                "float tree, then quantize the port's module "
+                "(nn/wquant.py quantize_params_int8)")
         if isinstance(node, dict):
             for k, v in node.items():
                 walk(v, path + [k])

@@ -16,7 +16,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_FILES = sorted(
     os.path.relpath(p, REPO) for p in
     glob.glob(os.path.join(REPO, "owl_audio_exps_tpu_torch", "**", "*.py"),
-              recursive=True)) + ["chip_smoke.py", "sp_smoke.py"]
+              recursive=True)) + ["chip_smoke.py", "sp_smoke.py",
+                                  "bench_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "owl_audio_exps_tpu")
 
 
@@ -47,7 +48,8 @@ def test_port_package_has_its_kernel_source():
                    "models/gamerft_audio.py", "muon.py",
                    "trainers/rft_trainer.py", "train.py", "ops/local.py",
                    "parallel/dist.py", "parallel/mesh.py",
-                   "parallel/context.py"):
+                   "parallel/context.py", "nn/kv_cache.py", "nn/wquant.py",
+                   "models/audiorft.py", "sampling/audio_caching.py"):
         assert os.path.join("owl_audio_exps_tpu_torch", module) in PORT_FILES
     assert len(PORT_FILES) > 30
 
@@ -72,6 +74,33 @@ core = GameRFTAudioCore(cfg, dtype=torch.float32, device="cpu")
 pipe = CausvidPipeline(core, cfg, window_length=3, device="cpu")
 frame, audio, _ = pipe(np.zeros(2), np.zeros(3))
 assert torch.isfinite(frame.float()).all()
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "flax", "owl_audio_exps_tpu")]
+print("FORBIDDEN", bad)
+"""
+    res = _run(code)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "FORBIDDEN []" in res.stdout
+
+
+def test_audio_serve_runs_without_importing_jax():
+    code = """
+import sys, torch
+from owl_audio_exps_tpu_torch.configs import transformer_config
+from owl_audio_exps_tpu_torch.models.audiorft import AudioRFTCore
+from owl_audio_exps_tpu_torch.nn.wquant import quantize_params_int8
+from owl_audio_exps_tpu_torch.sampling import get_sampler_cls
+import bench_torch
+cfg = transformer_config(model_id="audio_rft", n_layers=2, n_heads=2,
+    d_model=32, channels=4, tokens_per_frame=1, n_frames=16, causal=True,
+    uncond=True, has_audio=True, rope_impl="audio1d", local_window=4,
+    kv_quant="int8")
+core = quantize_params_int8(AudioRFTCore(cfg, dtype=torch.float32,
+                                         device="cpu"), min_elems=256)
+sampler = get_sampler_cls("audio_caching")(n_steps=2, num_tokens=3,
+                                           max_window=6)
+out = sampler(core, torch.zeros(1, 4, 4), generator=torch.Generator())
+assert out.shape == (1, 7, 4) and torch.isfinite(out).all()
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "flax", "owl_audio_exps_tpu")]
 print("FORBIDDEN", bad)
@@ -123,9 +152,27 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         CausvidPipeline(core, cfg)
     from owl_audio_exps_tpu_torch.configs import Config
-    from owl_audio_exps_tpu_torch.trainers.rft_trainer import RFTTrainer
+    from owl_audio_exps_tpu_torch.trainers.rft_trainer import (
+        AudioRFTTrainer, RFTTrainer)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         RFTTrainer(Config.from_dict({"model": {"model_id": "game_rft"}}))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AudioRFTTrainer(Config.from_dict({"model": {"model_id":
+                                                    "audio_rft"}}))
+    from owl_audio_exps_tpu_torch.models.audiorft import AudioRFTCore
+    acfg = transformer_config(model_id="audio_rft", n_layers=1, n_heads=2,
+                              d_model=16, channels=4, tokens_per_frame=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AudioRFTCore(acfg)
+
+
+def test_bench_torch_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the bench would run")
+    res = subprocess.run([sys.executable, "bench_torch.py"], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0 and "device='cpu'" in res.stderr
+    assert "streaming_audio_rtf" not in res.stdout
 
 
 @pytest.mark.parametrize("alone", [False, True],

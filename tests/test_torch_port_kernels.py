@@ -409,3 +409,42 @@ def test_kernel_on_another_card_keeps_the_callers_device():
                                         2, True)
     assert (out.float() - ref).abs().max().item() < 2e-2
     assert torch.isfinite(lse_out).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_write,kv_quant", [(True, None),
+                                                  (False, "int8")])
+def test_graphed_token_step_matches_the_eager_step(fused_write, kv_quant):
+    """The audio sampler's CUDA-graph token loop (sampling/audio_caching.py)
+    against the same step run eagerly, on the same draws, at a small width:
+    a rolling ring that evicts, with a RoPE rebase between two segments.
+    Identical output is expected; cuBLAS may pick other algorithms under
+    capture, so the bound is 1e-2 (chip_smoke.py's)."""
+    _need_card()
+    from owl_audio_exps_tpu_torch.configs import transformer_config
+    from owl_audio_exps_tpu_torch.models.audiorft import AudioRFTCore
+    from owl_audio_exps_tpu_torch.sampling.audio_caching import (
+        AudioCachingSampler, draw_noise)
+    cfg = transformer_config(
+        model_id="audio_rft", n_layers=4, n_heads=4, d_model=128,
+        channels=16, tokens_per_frame=1, n_frames=16, rope_headroom=16,
+        causal=True, uncond=True, has_audio=True, rope_impl="audio1d",
+        local_window=4, global_window=None, local_idx=2, kv_quant=kv_quant)
+    core = AudioRFTCore(cfg, dtype=torch.bfloat16, device="cuda",
+                        seed=0).to(torch.bfloat16)
+    sampler = AudioCachingSampler(n_steps=2, num_tokens=40,
+                                  custom_schedule=[1.0, 0.5], max_window=12,
+                                  fused_write=fused_write)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(2, 12, 16, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    noise = draw_noise(gen, 2, 12, 16, 40, "cuda")
+    graphed = sampler(core, x, noise=noise)
+    eager = sampler.sample_eager(core, x, noise=noise)
+    again = sampler(core, x, noise=noise)     # replays the captured step
+    torch.cuda.synchronize()
+    loop = next(iter(sampler._loops.values()))[1]
+    assert loop.graph is not None
+    assert graphed.shape == (2, 52, 16) and torch.isfinite(graphed).all()
+    assert (graphed.float() - eager.float()).abs().max().item() <= 1e-2
+    assert torch.equal(graphed, again)

@@ -171,8 +171,15 @@ def test_routing_and_unported_paths_raise():
                                       pcfg)]
     pcfg.attn_impl, pcfg.local_attn_impl = "splash", "auto"
     core = GameRFTAudioCore(pcfg, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="cached serve slice"):
-        core(*inputs, kv_cache=object())
+    # cached forwards run (nn/kv_cache.py); a pinned decode_impl other
+    # than auto/dense raises
+    from owl_audio_exps_tpu_torch.nn.kv_cache import KVCache
+    cache = KVCache.from_config(pcfg, 1, capacity_frames=4,
+                                dtype=torch.float32, device="cpu")
+    pcfg.decode_impl = "flash"
+    with pytest.raises(ValueError, match="decode_impl"):
+        core(*inputs, kv_cache=cache)
+    pcfg.decode_impl = "auto"
     _, mm = configs(backbone="mmdit")
     with pytest.raises(NotImplementedError, match="mmdit"):
         GameRFTAudioCore(mm, device="cpu")

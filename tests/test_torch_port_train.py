@@ -168,7 +168,7 @@ def test_registry_and_draws_from_the_generator():
     from owl_audio_exps_tpu_torch.models.gamerft_audio import GameRFTAudio
     assert get_model_cls("game_rft_audio") is GameRFTAudio
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_model_cls("audio_rft")
+        get_model_cls("game_mft_audio")
     _, pcfg = _configs()
     m = GameRFT(pcfg, dtype=torch.float32, device="cpu")
     x, mouse, btn = (_t(a) for a in _video_inputs(
@@ -482,7 +482,7 @@ def test_train_entry_point_runs_on_the_cpu_when_asked(tmp_path):
     path.write_text(yaml.safe_dump(cfg.to_dict()))
     main(["--config_path", str(path), "--max_steps", "1", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_trainer_cls("audio_rft")
+        get_trainer_cls("audio_vae")
     with pytest.raises(NotImplementedError, match="Muon"):
         get_trainer_cls("rft")(_train_config(
             tmp_path, scheduler="cosine",

@@ -40,6 +40,30 @@ def t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
+# the ring KV cache's state (nn/kv_cache.py): counters, rings, int8 scales
+COUNTERS = ("start", "length", "rope_offset", "lstart", "llength")
+RINGS = ("k", "v", "lk", "lv", "ks", "vs", "lks", "lvs")
+
+
+def assert_same_state(jc, pc):
+    for name in COUNTERS:
+        a, b = getattr(jc, name), getattr(pc, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert b.dtype == torch.int32 and b.ndim == 0, name
+            assert int(a) == int(b), name
+    for name in RINGS:
+        a, b = getattr(jc, name), getattr(pc, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert tuple(a.shape) == tuple(b.shape), name
+            np.testing.assert_allclose(b.float().numpy(),
+                                       np.asarray(a, np.float32),
+                                       atol=1e-6, rtol=0, err_msg=name)
+    assert (jc.shadow, jc.lshadow, jc.groups, jc.slots) == \
+        (pc.shadow, pc.lshadow, pc.groups, pc.slots)
+
+
 # ------------------------------------------------------------------------
 # The band kernels' walk (owl_audio_exps_tpu_torch/csrc/hopper_attention.cuh
 # kv_range, q_range and tile_full, run causal with a frame window and no
