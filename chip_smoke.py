@@ -68,7 +68,21 @@ Phases, each of which exits non-zero on any failure:
    ring; the CUDA-graph token loop against the eager step on the same
    draws; int8 weights and the int8 ring against bf16; RTF of bf16, int8
    and 32 int8 streams, ms and kernels per token with and without the
-   graph, and the device-busy share of one traced 16-token window.
+   graph, and the device-busy share of one traced 16-token window;
+11. the KV-cached video and AV serve, which reaches no kernel of the port
+   either (cached attention is plain PyTorch): ``AVCachingSamplerV2`` on
+   configs/dit_v4.yml at full width (16 layers x 1536) on the eval's clip
+   (60 frames, 30 of them context), the config's 16 steps and the 2-step
+   [1.0, 0.5] schedule with CFG 1.3, graph against eager on the same
+   draws, frames/s, and its cached forwards against one uncached forward;
+   ``CausalAVWindowSampler`` on configs/av_v5_8x8_weak.yml (24 layers,
+   W 16, 4 steps, CFG 1.3) for a few frames, step 0 against the uncached
+   forward; ``AVCachedStreamingPipeline`` at configs/causvid.yml's width
+   (24 layers x 1536, tpf 65, a 120-frame ring, 2 steps, fused write) for
+   1 and 8 sessions: the graphed steady tick against the eager tick, ms
+   and kernels a tick, the device-busy share of one traced tick, and one
+   session run across a RoPE rebase; every port kernel's launches there
+   must be 0.
 
 The last lines are the kernels' JSON record, the card line, and
 {"ok": true, "device": {...}}.
@@ -76,6 +90,7 @@ The last lines are the kernels' JSON record, the card line, and
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -132,6 +147,14 @@ AUDIO_GRAPH_MAX_ABS = 1e-2
 # the bf16-ring sampler on the same draws (tests/test_kv_quant.py)
 INT8_FORWARD_COS, INT8_RING_DECODE, INT8_RING_SAMPLER = 0.995, 0.05, 0.25
 AUDIO_PROFILE_TOKENS = 16
+# phase 11: the cached video and AV serve. Graph replays against the eager
+# loop max |diff| (identical expected; cuBLAS may pick other algorithms
+# under capture); the causal window sampler's frames (cut for time); the
+# AV pipeline's ring, steps, sessions, context and tick counts
+CACHED_GRAPH_MAX_ABS = 1e-2
+CAUSAL_FRAMES = 3
+PIPE_WINDOW, PIPE_STEPS, PIPE_SESSIONS = 120, 2, (1, 8)
+PIPE_PRIME, PIPE_COMPARE_TICKS, PIPE_TICKS, PIPE_EAGER_TICKS = 8, 8, 30, 8
 
 
 def fail(msg: str):
@@ -914,15 +937,15 @@ def train_phase(dev):
     cfg, tc = conf.model, conf.train
     work = os.path.join(ROOT, "build", "chip_smoke_train")
     shutil.rmtree(work, ignore_errors=True)
-    cuts = dict(sampler_id=None, max_steps=TRAIN_STEPS,
+    cuts = dict(max_steps=TRAIN_STEPS,
                 checkpoint_dir=os.path.join(work, "ckpt"),
                 output_path=os.path.join(work, "export"), log_interval=1)
     for key, value in cuts.items():
         print(f"[train] cut from configs/dit_v4_tpu_e2e.yml: {key} "
               f"{tc.get(key)!r} -> {value!r}", flush=True)
         tc[key] = value
-    print("[train]   (sampler av_caching: the KV-cached samplers come with "
-          "port slice 5; log_interval 1 drains metrics every step)",
+    print("[train]   (log_interval 1 drains metrics every step; the config "
+          "has no eval loader, so its av_caching eval never samples)",
           flush=True)
     L = tc.data_kwargs.window_length * cfg.tokens_per_frame
     expect = expected_counts(cfg, L)
@@ -1635,6 +1658,422 @@ def audio_serve_phase(dev):
     return out
 
 
+# --------------------------------------------------------------- phase 11
+def sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def max_abs(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def phase11_config(name: str):
+    """configs/<name>, loaded for phase 11."""
+    from owl_audio_exps_tpu_torch.configs import Config
+    return Config.from_yaml(os.path.join(ROOT, "configs", name))
+
+
+def make_core(cfg, dev, seed: int):
+    from owl_audio_exps_tpu_torch.models import get_core_cls
+    return get_core_cls(cfg.model_id)(cfg, dtype=torch.bfloat16, device=dev,
+                                      seed=seed).to(torch.bfloat16).eval()
+
+
+def check_no_port_kernels(what: str):
+    counts = kernel_counts()
+    if any(counts.values()):
+        fail(f"{what} launched kernels of the port: {counts}")
+
+
+def cached_sampler_phase(dev):
+    """``AVCachingSamplerV2`` on configs/dit_v4.yml: the eval's clip (a
+    60-frame window, its first half as context), the config's sampler and
+    the 2-step schedule; graph vs eager; cached vs uncached forwards."""
+    from owl_audio_exps_tpu_torch.nn.kv_cache import KVCache
+    from owl_audio_exps_tpu_torch.sampling import get_sampler_cls
+    from owl_audio_exps_tpu_torch.sampling.common import draw_noise
+
+    conf = phase11_config("dit_v4.yml")
+    cfg, tc = conf.model, conf.train
+    kw = tc.sampler_kwargs.to_dict()
+    clip = tc.sample_data_kwargs.window_length
+    ctx = clip // 2
+    core = make_core(cfg, dev, seed=5)
+    print(f"[cached] AVCachingSamplerV2 ({tc.sampler_id}) on "
+          f"configs/dit_v4.yml: {cfg.n_layers} layers x d {cfg.d_model}, "
+          f"{cfg.n_heads} heads, tpf {cfg.tokens_per_frame}, local window "
+          f"{cfg.local_window}; the eval's {clip}-frame clip, {ctx} frames "
+          f"of context: num_frames {kw['num_frames']} -> {clip - ctx} (the "
+          f"clip's remaining frames)", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    bf = torch.bfloat16
+    item = (cfg.channels, cfg.sample_size, cfg.sample_size)
+    x = torch.randn((1, ctx) + item, generator=gen, device=dev).to(bf)
+    mouse = torch.randn(1, clip, 2, generator=gen, device=dev)
+    btn = (torch.rand(1, clip, cfg.n_buttons, generator=gen,
+                      device=dev) > 0.5).float()
+    n = clip - ctx
+    noise = draw_noise(gen, 1, ctx, item, n, dev)
+    out = {}
+    runs = {"config": dict(kw),
+            "two_step_cfg": dict(kw, n_steps=2, custom_schedule=[1.0, 0.5],
+                                 cfg_scale=1.3)}
+    for tag, skw in runs.items():
+        sampler = get_sampler_cls(tc.sampler_id)(**skw)
+        reset_counts()
+        graphed = sampler(core, x, mouse, btn, noise=noise)
+        sync(dev)
+        t0 = time.perf_counter()
+        again = sampler(core, x, mouse, btn, noise=noise)
+        again.cpu()
+        graph_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eager = sampler.sample_eager(core, x, mouse, btn, noise=noise)
+        eager.cpu()
+        eager_s = time.perf_counter() - t0
+        check_no_port_kernels(f"AVCachingSamplerV2 ({tag})")
+        loop = next(iter(sampler._loops.values()))[1]
+        shape = (1, ctx + n) + item
+        if loop.graph is None or not graphed.is_cuda:
+            fail(f"sampler ({tag}): no CUDA graph was captured")
+        if tuple(graphed.shape) != shape or \
+                not torch.isfinite(graphed).all():
+            fail(f"sampler ({tag}): output {tuple(graphed.shape)} (want "
+                 f"{shape}) or not finite")
+        d = max(max_abs(graphed, eager), max_abs(again, eager))
+        same = torch.equal(graphed, eager) and torch.equal(again, eager)
+        print(f"[cached]   {tag} (n_steps {skw['n_steps']}, schedule "
+              f"{skw.get('custom_schedule') or 'sd3'}, cfg_scale "
+              f"{skw['cfg_scale']}): {n} frames, graph {n / graph_s:.2f} "
+              f"frames/s ({1e3 * graph_s / n:.2f} ms a frame), eager "
+              f"{n / eager_s:.2f} frames/s; graph vs eager identical {same}, "
+              f"max |diff| {d:.3e} (tolerance {CACHED_GRAPH_MAX_ABS}); no "
+              f"port kernel launched", flush=True)
+        if d > CACHED_GRAPH_MAX_ABS:
+            fail(f"sampler ({tag}): graph replays disagree with the eager "
+                 "loop")
+        out[tag] = dict(n_steps=skw["n_steps"], cfg_scale=skw["cfg_scale"],
+                        frames=n, graph_fps=n / graph_s,
+                        eager_fps=n / eager_s, graph_identical=same,
+                        graph_max_abs=d)
+        del sampler, loop
+        gc.collect()
+
+    # cached forwards (prefill, fused 2-frame, decoding) against one
+    # uncached forward of the same frames (the kernel route on the card)
+    xs = torch.randn((1, ctx + 1) + item, generator=gen, device=dev).to(bf)
+    ts = torch.rand(1, ctx + 1, generator=gen, device=dev).to(bf)
+    m, b = mouse[:, :ctx + 1], btn[:, :ctx + 1]
+    with torch.no_grad():
+        reset_counts()
+        full = core(xs, ts, m, b)
+        launched = {k: v for k, v in kernel_counts().items() if v}
+        cache = KVCache.from_config(cfg, 1, capacity_frames=clip, dtype=bf,
+                                    device=dev)
+        reset_counts()
+        p1 = core(xs[:, :ctx - 1], ts[:, :ctx - 1], m[:, :ctx - 1],
+                  b[:, :ctx - 1], kv_cache=cache, write=True)
+        p2 = core(xs[:, ctx - 1:], ts[:, ctx - 1:], m[:, ctx - 1:],
+                  b[:, ctx - 1:], kv_cache=cache, write=True, write_len=1)
+        p3 = core(xs[:, ctx:], ts[:, ctx:], m[:, ctx:], b[:, ctx:],
+                  kv_cache=cache, decoding=True)
+        check_no_port_kernels("the cached forwards")
+    errs = dict(prefill=rel_l2(p1, full[:, :ctx - 1]),
+                fused=rel_l2(p2, full[:, ctx - 1:]),
+                decoding=rel_l2(p3, full[:, ctx:]))
+    print(f"[cached]   cached forwards vs one uncached forward of {ctx + 1} "
+          f"frames (L {(ctx + 1) * cfg.tokens_per_frame}, the kernel route: "
+          f"{launched}, not counted): rel L2 "
+          f"{ {k: f'{v:.3e}' for k, v in errs.items()} } (tolerance "
+          f"{FORWARD_REL_L2})", flush=True)
+    if not all(e <= FORWARD_REL_L2 for e in errs.values()):
+        fail("cached forwards disagree with the uncached forward")
+    out["cached_vs_full"] = errs
+    del core, cache, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def causal_window_phase(dev):
+    """``CausalAVWindowSampler`` on configs/av_v5_8x8_weak.yml as written
+    (W 16, 4 steps, CFG 1.3), a few frames; step 0 against the uncached
+    forward of the same window."""
+    from owl_audio_exps_tpu_torch.nn.kv_cache import KVCache
+    from owl_audio_exps_tpu_torch.sampling import get_sampler_cls
+
+    conf = phase11_config("av_v5_8x8_weak.yml")
+    cfg, tc = conf.model, conf.train
+    kw = tc.sampler_kwargs.to_dict()
+    print(f"[causal] {tc.sampler_id} on configs/av_v5_8x8_weak.yml "
+          f"({cfg.n_layers} layers x d {cfg.d_model}, tpf "
+          f"{cfg.tokens_per_frame}, W {kw['window_length']}, n_steps "
+          f"{kw['n_steps']}, cfg_scale {kw['cfg_scale']}): num_frames "
+          f"{kw['num_frames']} -> {CAUSAL_FRAMES} for time", flush=True)
+    kw["num_frames"] = CAUSAL_FRAMES
+    core = make_core(cfg, dev, seed=6)
+    sampler = get_sampler_cls(tc.sampler_id)(**kw)
+    W = sampler.window_length
+    gen = torch.Generator(device=dev).manual_seed(31)
+    bf = torch.bfloat16
+    p = cfg.sample_size
+    x = torch.randn(1, W, cfg.channels, p, p, generator=gen,
+                    device=dev).to(bf)
+    a = torch.randn(1, W, cfg.audio_channels, generator=gen,
+                    device=dev).to(bf)
+    m = torch.randn(1, W, 2, generator=gen, device=dev).to(bf)
+    b = (torch.rand(1, W, cfg.n_buttons, generator=gen, device=dev)
+         > 0.5).to(bf)
+    reset_counts()
+    t0 = time.perf_counter()
+    _, _, x_out, a_out, _, _ = sampler(core, x, a, m, b, generator=gen)
+    x_out.cpu()
+    secs = time.perf_counter() - t0
+    check_no_port_kernels("CausalAVWindowSampler")
+    n_out = W + CAUSAL_FRAMES
+    if tuple(x_out.shape) != (1, n_out, cfg.channels, p, p) or \
+            tuple(a_out.shape) != (1, n_out, cfg.audio_channels) or \
+            not (torch.isfinite(x_out).all() and torch.isfinite(a_out).all()):
+        fail(f"causal window sampler output {tuple(x_out.shape)} "
+             f"{tuple(a_out.shape)} or not finite")
+
+    # step 0: the whole window through a fresh ring, against one uncached
+    # forward (the kernel route) of the same window
+    wt = torch.full((1, W), sampler.noise_prev, dtype=bf, device=dev)
+    wt[:, -1] = 1.0
+    hc = torch.ones(1, dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        cache = KVCache.from_config(cfg, 1, capacity_frames=W, dtype=bf,
+                                    device=dev)
+        cv, ca = core(x, a, wt, m, b, has_controls=hc, kv_cache=cache,
+                      write=True)
+        check_no_port_kernels("the causal sampler's step 0")
+        uv, ua = core(x, a, wt, m, b, has_controls=hc)
+    launched = {k: v for k, v in kernel_counts().items() if v}
+    reset_counts()
+    errs = dict(video=rel_l2(cv, uv), audio=rel_l2(ca, ua))
+    print(f"[causal]   {CAUSAL_FRAMES} frames in {secs:.2f} s "
+          f"({1e3 * secs / CAUSAL_FRAMES:.1f} ms a frame, eager: fresh rings "
+          f"every frame); no port kernel launched; step 0 (L "
+          f"{W * cfg.tokens_per_frame} through a fresh ring) vs the "
+          f"uncached forward (the kernel route: {launched}, not counted): "
+          f"rel L2 "
+          f"{ {k: f'{v:.3e}' for k, v in errs.items()} } (tolerance "
+          f"{FORWARD_REL_L2})", flush=True)
+    if not all(e <= FORWARD_REL_L2 for e in errs.values()):
+        fail("the causal sampler's step 0 disagrees with the uncached "
+             "forward")
+    del core, sampler, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(frames=CAUSAL_FRAMES, ms_per_frame=1e3 * secs / CAUSAL_FRAMES,
+                step0_vs_full=errs)
+
+
+def pipeline_config():
+    """configs/causvid.yml's model with a RoPE table twice the ring: at
+    its n_frames 16 (a 32-frame table) a 120-frame ring could not rebase,
+    and positions past the table would clamp."""
+    conf = phase11_config("causvid.yml")
+    cfg = conf.model
+    headroom = 2 * PIPE_WINDOW - cfg.n_frames
+    print(f"[serve11] configs/causvid.yml model ({cfg.n_layers} layers x d "
+          f"{cfg.d_model}, {cfg.n_heads} heads, tpf {cfg.tokens_per_frame}, "
+          f"local window {cfg.local_window}); cut: rope_headroom "
+          f"{cfg.get('rope_headroom')!r} -> {headroom} (a "
+          f"{2 * PIPE_WINDOW}-frame RoPE table, twice the "
+          f"{PIPE_WINDOW}-frame ring)", flush=True)
+    cfg.rope_headroom = headroom
+    return cfg
+
+
+def trace_call(fn):
+    """(device us by kernel name, wall ms) of one traced call of ``fn``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprof
+
+    torch.cuda.synchronize()
+    with tprof(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    per_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us, k = per_name.get(e.name, (0.0, 0))
+            per_name[e.name] = (us + e.time_range.elapsed_us(), k + 1)
+    return per_name, wall_ms
+
+
+def cached_pipeline_phase(dev, window_tick_ms: float):
+    """``AVCachedStreamingPipeline`` at configs/causvid.yml's width: 120
+    frame ring, 2 steps, fused write; 1 and 8 sessions, graph vs eager,
+    ms and kernels a tick, one traced tick, a session across a rebase."""
+    import numpy as np
+    from owl_audio_exps_tpu_torch.inference.pipeline import (
+        AVCachedStreamingPipeline)
+
+    cfg = pipeline_config()
+    core = make_core(cfg, dev, seed=7)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    p = cfg.sample_size
+    rs = np.random.RandomState(5)
+
+    def context(B):
+        return (torch.randn(B, PIPE_PRIME, cfg.channels, p, p, generator=gen,
+                            device=dev),
+                torch.randn(B, PIPE_PRIME, cfg.audio_channels, generator=gen,
+                            device=dev),
+                torch.randn(B, PIPE_PRIME, 2, generator=gen, device=dev),
+                (torch.rand(B, PIPE_PRIME, cfg.n_buttons, generator=gen,
+                            device=dev) > 0.5).float())
+
+    def controls(B):
+        return (rs.randn(B, 2).astype(np.float32),
+                (rs.rand(B, cfg.n_buttons) > 0.5).astype(np.float32))
+
+    def pipe_of(B, graphed, seed=9):
+        return AVCachedStreamingPipeline(
+            core, cfg, window_frames=PIPE_WINDOW, sampling_steps=PIPE_STEPS,
+            seed=seed, n_sessions=B, fused_write=True, device=dev,
+            graphed=graphed)
+
+    def tick_ms(pipe, B, n):
+        ms = []
+        for _ in range(n):
+            frame, audio, secs = pipe(*controls(B))
+            if not (torch.isfinite(frame.float()).all()
+                    and torch.isfinite(audio.float()).all()):
+                fail("a cached tick gave non-finite output")
+            ms.append(1e3 * secs)
+        return statistics.median(ms), ms
+
+    out = {}
+    for B in PIPE_SESSIONS:
+        reset_counts()
+        ctx = context(B)
+        pipes = [pipe_of(B, True), pipe_of(B, False)]
+        for pipe in pipes:
+            pipe.prime(*ctx)
+        # graph vs eager on the same draws, through the warm-up, the
+        # capture and the first replays
+        d, same = 0.0, True
+        for i in range(PIPE_COMPARE_TICKS):
+            ctrl = controls(B)
+            (fg, ag, _), (fe, ae, _) = (pp(*ctrl) for pp in pipes)
+            d = max(d, max_abs(fg, fe), max_abs(ag, ae))
+            same = same and torch.equal(fg, fe) and torch.equal(ag, ae)
+        graphed, eager = pipes
+        if not graphed.loop.graphs or not fg.is_cuda:
+            fail(f"{B} sessions: no CUDA graph was captured for the steady "
+                 "tick")
+        if tuple(fg.shape) != (B, cfg.channels, p, p) or \
+                tuple(ag.shape) != (B, cfg.audio_channels):
+            fail(f"tick output shapes {tuple(fg.shape)} {tuple(ag.shape)}")
+        if d > CACHED_GRAPH_MAX_ABS:
+            fail(f"{B} sessions: the graphed tick disagrees with the eager "
+                 "tick")
+        g_ms, g_all = tick_ms(graphed, B, PIPE_TICKS)
+        e_ms, e_all = tick_ms(eager, B, PIPE_EAGER_TICKS)
+        del eager, pipes
+        per_name, wall = trace_call(lambda: graphed(*controls(B)))
+        e_pipe = pipe_of(B, False)
+        e_pipe.prime(*ctx)
+        e_pipe(*controls(B))     # the first tick; later ticks are steady
+        e_per_name, e_wall = trace_call(lambda: e_pipe(*controls(B)))
+        del e_pipe
+        busy = sum(us for us, _ in per_name.values()) / 1e3
+        kernels = sum(c for _, c in per_name.values())
+        e_kernels = sum(c for _, c in e_per_name.values())
+        if busy == 0:
+            fail("the profiler recorded no device time in the cached tick")
+        classes = kernel_classes(per_name)
+        print(f"[serve11] {B} session(s), ring {PIPE_WINDOW} frames (L "
+              f"{PIPE_WINDOW * cfg.tokens_per_frame}), {PIPE_STEPS} steps, "
+              f"fused write, primed with {PIPE_PRIME} frames: graph vs eager "
+              f"over {PIPE_COMPARE_TICKS} ticks identical {same}, max |diff| "
+              f"{d:.3e} (tolerance {CACHED_GRAPH_MAX_ABS}); ms a tick median "
+              f"graphed {g_ms:.2f} (min {min(g_all):.2f} max {max(g_all):.2f},"
+              f" {PIPE_TICKS} ticks), eager {e_ms:.2f} (min {min(e_all):.2f} "
+              f"max {max(e_all):.2f}, {PIPE_EAGER_TICKS} ticks); kernels a "
+              f"tick {kernels} graphed, {e_kernels} eager; one traced "
+              f"graphed tick: device busy {busy:.2f} ms = "
+              f"{100 * busy / g_ms:.1f}% of the untraced median tick "
+              f"({100 * busy / wall:.1f}% of its traced wall {wall:.2f} ms)",
+              flush=True)
+        for cls, us in sorted(classes.items(), key=lambda kv: -kv[1]):
+            print(f"[serve11]   {cls}: {us / 1e3:.3f} ms "
+                  f"({100 * us / 1e3 / busy:.1f}% of busy)", flush=True)
+        for name, (us, c) in sorted(per_name.items(),
+                                    key=lambda kv: -kv[1][0])[:8]:
+            print(f"[serve11]   {us / 1e3:8.3f} ms {c:5d}x {name[:100]}",
+                  flush=True)
+        row = dict(graph_identical=same, graph_max_abs=d,
+                   tick_ms=dict(graphed=g_ms, eager=e_ms),
+                   kernels_per_tick=dict(graphed=kernels, eager=e_kernels),
+                   busy_ms=busy, traced_wall_ms=wall,
+                   busy_share_of_tick=busy / g_ms,
+                   device_ms_by_class={c: us / 1e3
+                                       for c, us in classes.items()})
+        if B == 1:
+            # run the session on until the next frame would leave the
+            # RoPE table: one rebase between two ticks
+            rebase_at = None
+            for i in range(2 * PIPE_WINDOW + 8):
+                off = graphed._off_frames
+                frame, audio, _ = graphed(*controls(B))
+                if not torch.isfinite(frame.float()).all():
+                    fail(f"tick {i} of the long session is not finite")
+                if graphed._off_frames < off:
+                    rebase_at = off
+                    break
+            if rebase_at is None:
+                fail("the long session never rebased its RoPE positions")
+            for _ in range(4):
+                frame, audio, _ = graphed(*controls(B))
+            if not (torch.isfinite(frame.float()).all()
+                    and torch.isfinite(audio.float()).all()):
+                fail("ticks after the rebase are not finite")
+            print(f"[serve11]   the session rebased its ring at frame "
+                  f"{rebase_at} (RoPE table {graphed._table_f} frames, "
+                  f"moved down {graphed._delta_f}); 4 graphed ticks after it "
+                  f"finite; rope_offset {int(graphed.cache.rope_offset)} "
+                  f"tokens", flush=True)
+            row["rebase_at_frame"] = rebase_at
+        check_no_port_kernels(f"the cached AV serve ({B} sessions)")
+        out[f"sessions_{B}"] = row
+        del graphed
+        gc.collect()
+        torch.cuda.empty_cache()
+    one = out["sessions_1"]["tick_ms"]["graphed"]
+    print(f"[serve11] cached tick (1 session, graphed) {one:.2f} ms against "
+          f"phase 3's window-recompute tick {window_tick_ms:.2f} ms (W 60, "
+          f"the same 24 x 1536 width, 128 video channels there, 64 here): "
+          f"{window_tick_ms / one:.2f}x", flush=True)
+    out["window_recompute_tick_ms"] = window_tick_ms
+    del core
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def cached_serve_phase(dev, window_tick_ms: float):
+    """Phase 11: the KV-cached video and AV serve; reaches no kernel of
+    the port."""
+    out = dict(sampler=cached_sampler_phase(dev),
+               causal_window=causal_window_phase(dev),
+               pipeline=cached_pipeline_phase(dev, window_tick_ms),
+               port_kernel_launches=0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[serve11] still allocated after the phase: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB", flush=True)
+    return out
+
+
 def grads_of(fn, q, k, v, g):
     """(out, dq, dk, dv) of fn under the cotangent g; where fn returns a
     tuple (K4's out and lse), g is a tuple too and the list starts with
@@ -1780,6 +2219,7 @@ def main():
     reset_counts()
     sampler_launches = sampler_phase(dev)
     audio = audio_serve_phase(dev)
+    cached = cached_serve_phase(dev, tick_ms)
     train = train_phase(dev)
     route = route_phase(dev)
     grad_rows.update(k4_phase(dev))
@@ -1801,6 +2241,8 @@ def main():
     for name in train["per_step"]:
         extra.setdefault(name, {})["launches_per_train_step"] = \
             train["per_step"][name]
+        # phase 11 fails unless every kernel launched 0 times there
+        extra[name]["launches_cached_serve"] = cached["port_kernel_launches"]
     for name in ("band_attention_fwd", "band_attention_bwd"):
         extra[name]["launches_by_path"] = dict(
             train=train["totals"][name], context=context["counts"][name])
@@ -1811,6 +2253,7 @@ def main():
               "train": {k: v for k, v in train.items()
                         if k not in ("totals", "per_step")},
               "route": route, "context": context, "audio_serve": audio,
+              "cached_serve": cached,
               "av_train": {trainer: {k: v for k, v in row.items()
                                      if k not in ("totals", "per_step")}
                            for trainer, row in av.items()}}

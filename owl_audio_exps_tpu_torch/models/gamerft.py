@@ -91,10 +91,15 @@ class GameRFTCore(nn.Module):
             reset_parameters(self, gen)
 
     def forward(self, x, t, mouse=None, btn=None, doc_id=None,
-                has_controls=None, kv_cache=None, frame_offset: int = 0):
+                has_controls=None, kv_cache=None, frame_offset: int = 0,
+                write: bool = False, decoding: bool = False,
+                write_len: Optional[int] = None):
         """x [b, n, c, h, w], t [b, n] -> velocity of x's shape. Under
         context parallelism x holds this rank's frames, the first of them
-        frame ``frame_offset`` of the sequence."""
+        frame ``frame_offset`` of the sequence. With ``kv_cache`` the
+        forward attends over the ring (updated in place) and, with
+        ``write``, commits its leading ``write_len`` frames (all by
+        default) to it (nn/attn.py ``DiT``)."""
         cfg = self.config
         b, n, c, h, w = x.shape
         cond = self.t_embed(t)
@@ -113,8 +118,10 @@ class GameRFTCore(nn.Module):
         tokens = tokens.to(self.dtype)
         tokens = (checkpoint(self.proj_in, tokens, use_reentrant=False)
                   if remat else self.proj_in(tokens))
-        tokens = self.transformer(tokens, cond, doc_id, kv_cache,
-                                  pos_offset=frame_offset * h * w)
+        tokens = self.transformer(
+            tokens, cond, doc_id, kv_cache, pos_offset=frame_offset * h * w,
+            write=write, decoding=decoding,
+            write_len=None if write_len is None else write_len * h * w)
         tokens = (checkpoint(self.proj_out, tokens, cond, use_reentrant=False)
                   if remat else self.proj_out(tokens, cond))
         return tokens.reshape(b, n, h, w, c).permute(0, 1, 4, 2, 3)

@@ -65,7 +65,13 @@ class GameRFTAudioCore(nn.Module):
             reset_parameters(self, gen)
 
     def forward(self, x, audio, t, mouse=None, btn=None, has_controls=None,
-                kv_cache=None):
+                kv_cache=None, write: bool = False, decoding: bool = False,
+                write_len: Optional[int] = None):
+        """x [b, n, c, h, w], audio [b, n, c_a], t [b, n] -> (v_video,
+        v_audio). With ``kv_cache`` the forward attends over the ring
+        (updated in place) and, with ``write``, commits its leading
+        ``write_len`` frames (all by default) to it: each frame's 64 video
+        tokens and then its audio token, in stream order."""
         cfg = self.config
         if seq_parallel_active(cfg):
             raise NotImplementedError(
@@ -96,7 +102,9 @@ class GameRFTAudioCore(nn.Module):
         stream = torch.cat([vid.reshape(b, n, h * w, cfg.d_model),
                             aud[:, :, None, :]], dim=2)
         stream = stream.reshape(b, n * (h * w + 1), cfg.d_model)
-        stream = self.transformer(stream, cond, None, kv_cache)
+        stream = self.transformer(
+            stream, cond, None, kv_cache, write=write, decoding=decoding,
+            write_len=None if write_len is None else write_len * (h * w + 1))
         stream = stream.reshape(b, n, h * w + 1, cfg.d_model)
         video = stream[:, :, :-1].reshape(b, n * h * w, cfg.d_model)
         aud_out = stream[:, :, -1]

@@ -16,10 +16,10 @@ counters, the pending token, the run's noise drawn before the loop and
 indexed by a device-side token counter, and the output. On a CUDA device
 the step runs eagerly a few times on a side stream, is then captured once
 as a ``torch.cuda.CUDAGraph`` and replayed for every later token, with no
-host work between tokens; on the CPU the same step runs eagerly. A failed
-capture raises. RoPE rebases (sessions that outlive the position table)
-run between the replays of two segments, as the JAX package runs them
-between its scans.
+host work between tokens; on the CPU the same step runs eagerly
+(sampling/common.py ``StepLoop``). A failed capture raises. RoPE rebases
+(sessions that outlive the position table) run between the replays of
+two segments, as the JAX package runs them between its scans.
 
 Random draws: the context noise [b, init_len, c] and each token's initial
 and re-noise draws [num_tokens, b, 1, c], all float32 (``SamplerNoise``),
@@ -31,43 +31,23 @@ the carry and ``t`` in the model dtype.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 
 from ..nn.kv_cache import KVCache, rope_rebase_plan, rope_rebase_segments
-from .common import zlerp
+from .common import SamplerNoise, StepLoop, check_noise, draw_noise, zlerp
 from .schedulers import resolve_schedule, scan_or_unroll
 
-# eager steps on a side stream before the capture
-WARMUP_STEPS = 3
 
-
-class SamplerNoise(NamedTuple):
-    ctx: torch.Tensor      # [b, init_len, c]: the context's re-noise
-    init: torch.Tensor     # [num_tokens, b, 1, c]: each token's start
-    renoise: torch.Tensor  # [num_tokens, b, 1, c]: each token's re-noise
-
-
-def draw_noise(generator: Optional[torch.Generator], batch: int,
-               init_len: int, channels: int, num_tokens: int,
-               device) -> SamplerNoise:
-    """A run's float32 draws from ``generator`` (the context's, then each
-    token's initial and re-noise draws)."""
-    ctx = torch.randn(batch, init_len, channels, generator=generator,
-                      device=device)
-    tok = torch.randn(num_tokens, 2, batch, 1, channels, generator=generator,
-                      device=device)
-    return SamplerNoise(ctx, tok[:, 0], tok[:, 1])
-
-
-class TokenLoop:
+class TokenLoop(StepLoop):
     """The static buffers of one generation and one token's step on them:
     the ring cache, the pending (deferred) token, the run's draws, the
     output [num_tokens, b, c] and the token counter ``i``."""
 
     def __init__(self, sampler, config, batch: int, channels: int,
                  capacity: int, dtype, device):
+        super().__init__(device)
         # the sampler's settings, copied: the sampler keeps its loops, and
         # a loop that pointed back at it would free them (their cores and
         # graphs) only at a garbage collection
@@ -75,7 +55,6 @@ class TokenLoop:
         self.fused_write = sampler.fused_write
         self.noise_prev = sampler.noise_prev
         self.dtype = dtype
-        self.device = torch.device(device)
         n = sampler.num_tokens
         self.cache = KVCache.from_config(config, batch,
                                          capacity_frames=capacity,
@@ -89,7 +68,6 @@ class TokenLoop:
         self.t_one = torch.ones(batch, 1, dtype=dtype, **kw)
         self.t_prev = torch.full((batch, 1), sampler.noise_prev, dtype=dtype,
                                  **kw)
-        self.graph = None
 
     def step(self, core):
         """Generate token ``i`` and advance ``i``."""
@@ -125,31 +103,6 @@ class TokenLoop:
                  write=True, decoding=True)
         self.tokens.index_copy_(0, self.i, cur[:, 0][None])
         self.i.add_(1)
-
-    def run(self, core, n: int, graphed: bool):
-        """Generate ``n`` tokens: eagerly, or (``graphed``, a CUDA device)
-        by replaying the captured step, capturing it first if needed."""
-        if not graphed:
-            for _ in range(n):
-                self.step(core)
-            return
-        if self.graph is None:
-            warm = min(WARMUP_STEPS, n)
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                for _ in range(warm):
-                    self.step(core)
-            torch.cuda.current_stream(self.device).wait_stream(side)
-            n -= warm
-            if n == 0:
-                return
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                self.step(core)
-            self.graph = graph
-        for _ in range(n):
-            self.graph.replay()
 
 
 class AudioCachingSampler:
@@ -208,13 +161,8 @@ class AudioCachingSampler:
         x, capacity = self.window(x)
         b, init_len, c = x.shape
         n = self.num_tokens
-        want = dict(ctx=(b, init_len, c), init=(n, b, 1, c),
+        check_noise(noise, ctx=(b, init_len, c), init=(n, b, 1, c),
                     renoise=(n, b, 1, c))
-        for name, shape in want.items():
-            got = tuple(getattr(noise, name).shape)
-            if got != shape:
-                raise ValueError(f"noise.{name} has shape {got}, the run "
-                                 f"needs {shape}")
         key = (id(core), b, c, capacity, x.dtype, str(x.device))
         if key not in self._loops:
             self._loops[key] = (core, TokenLoop(self, core.config, b, c,

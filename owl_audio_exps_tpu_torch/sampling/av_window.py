@@ -1,13 +1,22 @@
-"""Sliding-window diffusion-forcing sampler for the joint AV model
-(counterpart of owl_audio_exps_tpu/sampling/av_window.py
-``AVWindowSampler``).
+"""Sliding-window diffusion-forcing samplers for the joint AV model
+(counterpart of owl_audio_exps_tpu/sampling/av_window.py).
 
 Per new frame the last ``window_length`` frames form the working window:
 history slots are re-noised to ``noise_prev``, the final slot starts from
-pure noise and is denoised over ``n_steps`` Euler steps with 2-pass CFG,
-recomputing the whole window each step. The JAX ``lax.scan`` loops are
-Python loops here; noise comes from an explicit ``torch.Generator``.
-The causal, KV-cached subclasses come with the cached serve slice.
+pure noise and is denoised over ``n_steps`` Euler steps with 2-pass CFG.
+
+* ``AVWindowSampler`` recomputes the whole window each step.
+* ``CausalAVWindowSampler`` (a causal model) runs step 0 over the whole
+  window into a fresh ring of capacity ``window_length`` with writes on,
+  then drops the denoising frame from the ring (``drop_newest(1)``; the
+  RoPE offset is not rewound, as in the JAX package), one ring for the
+  conditional pass and one for the unconditional; steps 1+ feed only the
+  final frame against those rings.
+* ``CausalAVWindowSamplerNoCFG``: one ring, no unconditional pass, for
+  distilled students.
+
+The JAX ``lax.scan`` loops are Python loops here; noise comes from an
+explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -16,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from ..nn.kv_cache import KVCache
 from ..utils.controls import batch_permute_to_length
 from .common import randn, zlerp
 from .schedulers import resolve_schedule
@@ -123,3 +133,61 @@ class AVWindowSampler:
         x_out = torch.cat([x, torch.stack(frames_x, dim=1)], dim=1)
         a_out = torch.cat([audio, torch.stack(frames_a, dim=1)], dim=1)
         return x_out, a_out, ext_mouse, ext_btn
+
+
+class CausalAVWindowSampler(AVWindowSampler):
+    """Causal model and per-frame rings; after step 0 only the final frame
+    is fed (the rings hold the history)."""
+
+    causal = True
+    use_cfg = True
+
+    @torch.no_grad()
+    def _denoise_frame(self, core, window_x, window_a, window_t,
+                       w_mouse, w_btn, dt):
+        b, W = window_x.shape[:2]
+        dev = window_x.device
+        cond_mask = torch.ones(b, dtype=torch.bool, device=dev)
+
+        def step0(has_controls):
+            cache = KVCache.from_config(core.config, b, capacity_frames=W,
+                                        dtype=window_x.dtype, device=dev)
+            pv, pa = core(window_x, window_a, window_t, w_mouse, w_btn,
+                          has_controls=has_controls, kv_cache=cache,
+                          write=True)
+            # the denoising frame does not stay in the ring
+            return pv, pa, cache.drop_newest(1)
+
+        pv, pa, cache_c = step0(cond_mask)
+        cache_u = cache_c
+        if self.use_cfg:
+            pv_u, pa_u, cache_u = step0(~cond_mask)
+            pv = pv_u + self.cfg_scale * (pv - pv_u)
+            pa = pa_u + self.cfg_scale * (pa - pa_u)
+        # the JAX sampler's step-0 update multiplies by a NumPy float32
+        # scalar, which makes its carry float32 from here on; the frame
+        # is cast back to the window's dtype at the end
+        d0 = float(dt[0])
+        cur_x = window_x[:, -1:].float() - pv[:, -1:].float() * d0
+        cur_a = window_a[:, -1:].float() - pa[:, -1:].float() * d0
+        cur_t = window_t[:, -1:].float() - d0
+        last_mouse, last_btn = w_mouse[:, -1:], w_btn[:, -1:]
+        for dt_i in (float(d) for d in dt[1:]):
+            pv, pa = core(cur_x, cur_a, cur_t, last_mouse, last_btn,
+                          has_controls=cond_mask, kv_cache=cache_c)
+            if self.use_cfg:
+                pv_u, pa_u = core(cur_x, cur_a, cur_t, last_mouse, last_btn,
+                                  has_controls=~cond_mask, kv_cache=cache_u)
+                pv = pv_u + self.cfg_scale * (pv - pv_u)
+                pa = pa_u + self.cfg_scale * (pa - pa_u)
+            cur_x = cur_x - pv.float() * dt_i
+            cur_a = cur_a - pa.float() * dt_i
+            cur_t = cur_t - dt_i
+        return (cur_x[:, 0].to(window_x.dtype),
+                cur_a[:, 0].to(window_a.dtype))
+
+
+class CausalAVWindowSamplerNoCFG(CausalAVWindowSampler):
+    """One ring, no unconditional pass: for distilled students."""
+
+    use_cfg = False

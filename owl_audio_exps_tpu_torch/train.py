@@ -18,10 +18,11 @@ source with the trainer's batch columns at the config's shapes
 (``synthetic_latent`` for ``rft``, ``synthetic_av`` for ``av``,
 ``synthetic_mixed`` for ``mixed_av``, and for ``audio_rft``
 ``synthetic_audio_latent`` of ``sample_size`` latents, the latent window
-the model trains on), a mesh axis wider than the processes that were
-started shrinks to them, and an eval sampler that is not ported, or whose
-trainer's eval is not, is dropped (the audio trainer keeps
-``audio_caching``).
+the model trains on), and so does an eval loader (``sample_data_id``, at
+its ``window_length``); a mesh axis wider than the processes that were
+started shrinks to them; and an eval sampler that the trainer's eval does
+not run is dropped (``rft`` runs the cached video samplers, ``av`` and
+``mixed_av`` the window samplers, ``audio_rft`` ``audio_caching``).
 """
 
 from __future__ import annotations
@@ -34,7 +35,25 @@ _PORTED_DATA = ("synthetic",)
 _SYNTHETIC_FOR = {"av": "synthetic_av", "mixed_av": "synthetic_mixed",
                   "audio_rft": "synthetic_audio_latent"}
 # the eval samplers the port runs, by trainer
-_PORTED_EVAL = {"audio_rft": ("audio_caching",)}
+_VIDEO_SAMPLERS = ("av_caching", "av_caching_v1", "av_caching_one_step")
+_AV_SAMPLERS = ("av_window", "av_causal", "av_causal_no_cfg",
+                "av_causal_one_step")
+_PORTED_EVAL = {"rft": _VIDEO_SAMPLERS, "av": _AV_SAMPLERS,
+                "mixed_av": _AV_SAMPLERS, "audio_rft": ("audio_caching",)}
+
+
+def _synthetic_shapes(synthetic: str, mc, window_length: int):
+    """The batch shapes of the synthetic source ``synthetic``."""
+    if synthetic == "synthetic_audio_latent":
+        # the audio loader's window counts waveform samples; the model
+        # trains on sample_size latents
+        return dict(window_length=mc.sample_size, channels=mc.channels)
+    shapes = dict(window_length=window_length, channels=mc.channels,
+                  sample_size=mc.sample_size, n_buttons=mc.n_buttons,
+                  n_mouse_axes=mc.get("n_mouse_axes", 2))
+    if synthetic in ("synthetic_av", "synthetic_mixed"):
+        shapes["audio_channels"] = mc.audio_channels
+    return shapes
 
 
 def port_cuts(cfg, world_size: int) -> List[str]:
@@ -42,23 +61,18 @@ def port_cuts(cfg, world_size: int) -> List[str]:
     ``world_size`` processes; returns one line per cut."""
     tc, mc = cfg.train, cfg.model
     cuts = []
-    if tc.data_id and not tc.data_id.startswith(_PORTED_DATA):
-        kw = dict((tc.data_kwargs or {}).items())
-        synthetic = _SYNTHETIC_FOR.get(tc.trainer_id, "synthetic_latent")
-        if synthetic == "synthetic_audio_latent":
-            # the audio loader's window counts waveform samples; the
-            # model trains on sample_size latents
-            shapes = dict(window_length=mc.sample_size, channels=mc.channels)
-        else:
-            shapes = dict(window_length=kw.get("window_length", mc.n_frames),
-                          channels=mc.channels, sample_size=mc.sample_size,
-                          n_buttons=mc.n_buttons,
-                          n_mouse_axes=mc.get("n_mouse_axes", 2))
-        if synthetic in ("synthetic_av", "synthetic_mixed"):
-            shapes["audio_channels"] = mc.audio_channels
-        cuts.append(f"data_id {tc.data_id!r} -> {synthetic!r} {shapes} "
-                    f"(the file and S3 loaders are not ported)")
-        tc.data_id, tc.data_kwargs = synthetic, shapes
+    synthetic = _SYNTHETIC_FOR.get(tc.trainer_id, "synthetic_latent")
+    for key in ("data_id", "sample_data_id"):
+        data_id = tc.get(key)
+        if not data_id or data_id.startswith(_PORTED_DATA):
+            continue
+        kw_key = key.replace("_id", "_kwargs")
+        kw = dict((tc.get(kw_key) or {}).items())
+        shapes = _synthetic_shapes(synthetic, mc, kw.get("window_length",
+                                                         mc.n_frames))
+        cuts.append(f"{key} {data_id!r} -> {synthetic!r} {shapes} (the "
+                    f"file and S3 loaders are not ported)")
+        tc[key], tc[kw_key] = synthetic, shapes
     mesh = dict((tc.get("mesh") or {}).items())
     if mesh.get("seq", 1) > 1 and mesh.get("seq", 1) * max(
             mesh.get("data", 1), 1) != world_size:
@@ -69,8 +83,8 @@ def port_cuts(cfg, world_size: int) -> List[str]:
         tc.mesh = mesh
     if tc.get("sampler_id") and \
             tc.sampler_id not in _PORTED_EVAL.get(tc.trainer_id, ()):
-        cuts.append(f"sampler_id {tc.sampler_id!r} -> None (the AV cached "
-                    "samplers and the AV eval are not ported)")
+        cuts.append(f"sampler_id {tc.sampler_id!r} -> None (this "
+                    f"trainer's eval with it is not ported)")
         tc.sampler_id = None
     return cuts
 

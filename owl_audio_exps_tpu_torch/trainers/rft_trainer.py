@@ -8,7 +8,9 @@ accumulation, the optimizer step and EMA of trainers/base.py, metrics
 drained at the logging cadence (the only host sync of the loop), saves
 every ``save_interval`` steps, eval sampling every ``sample_interval``
 steps when the trainer's eval has what it reads (an eval loader, or for
-the audio trainer only the sampler). The noise comes from one
+the audio trainer only the sampler): the eval samples from the EMA
+weights, the video trainer's with the cached video samplers, the AV
+trainers' with the window samplers. The noise comes from one
 ``torch.Generator`` on the device, seeded 1234 plus the data rank, so the
 seq ranks of one data rank draw alike. Under several processes every
 rank starts from rank 0's initial parameters, loads the batches of its
@@ -41,10 +43,27 @@ class RFTFamilyTrainer(BaseTrainer):
     def __init__(self, cfg, device=None):
         super().__init__(cfg, device)
         self.model_id = self.model_cfg.model_id or self.model_id
+        self._eval_core = None
 
     # ---- subclass hooks -------------------------------------------------
     def eval_step(self, state: TrainState, sample_loader, sampler):
         return {}
+
+    def ema_core(self, state: TrainState):
+        """The model's core (built once) holding the EMA weights, which
+        the eval samples from."""
+        from ..models import get_core_cls
+        if self._eval_core is None:
+            self._eval_core = get_core_cls(self.model_id)(
+                self.model_cfg, dtype=torch.bfloat16, device=self.device,
+                seed=None)
+        with torch.no_grad():
+            for name, p in self._eval_core.named_parameters():
+                p.copy_(state.ema["core." + name])
+        return self._eval_core
+
+    def eval_generator(self, seed: int = 0) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(seed)
 
     # ---- shared loop ----------------------------------------------------
     def init_state(self, seed: int = 0) -> TrainState:
@@ -169,11 +188,26 @@ class RFTTrainer(RFTFamilyTrainer):
         return loss, {"diffusion_loss": loss.detach()}
 
     def eval_step(self, state, sample_loader, sampler):
+        """Sample from the EMA core with the configured sampler (the
+        cached video samplers), the first half of an eval clip (at least
+        one frame) as context; returns the latents' std and, with
+        ``eval_sample_dir``, saves them as samples_<step>.npy."""
         if sample_loader is None:
             return {}
-        raise NotImplementedError(
-            "eval sampling for game_rft needs the video cached samplers "
-            "(ROADMAP.md Queue 1 item 3)")
+        vid, mouse, btn = self.to_device(next(sample_loader)[:3])
+        vid = (vid / self.train_cfg.vae_scale).to(torch.bfloat16)
+        ctx_len = max(1, vid.shape[1] // 2)
+        latents = sampler(self.ema_core(state), vid[:, :ctx_len], mouse,
+                          btn, generator=self.eval_generator())
+        out = {"eval/latent_std": latents.float().std(correction=0).item()}
+        sdir = self.train_cfg.get("eval_sample_dir")
+        if sdir and self.is_main:
+            import os
+            os.makedirs(sdir, exist_ok=True)
+            np.save(os.path.join(
+                sdir, f"samples_{self.total_step_counter}.npy"),
+                latents.float().cpu().numpy())
+        return out
 
 
 class AVRFTTrainer(RFTFamilyTrainer):
@@ -199,12 +233,26 @@ class AVRFTTrainer(RFTFamilyTrainer):
                       "audio_loss": a_loss.detach()}
 
     def eval_step(self, state, sample_loader, sampler):
+        """Sample an eval clip from the EMA core with the configured
+        window sampler; returns the video and audio latents' stds."""
         if sample_loader is None:
             return {}
-        raise NotImplementedError(
-            "eval sampling for the AV model exports decoded media through "
-            "the VAE bridge, which is not ported yet (ROADMAP.md Queue 1 "
-            "item 6)")
+        vid, audio, mouse, btn = self.to_device(next(sample_loader)[:4])
+        vid = (vid / self.train_cfg.vae_scale).to(torch.bfloat16)
+        _, _, xl, al, em, eb = sampler(
+            self.ema_core(state), vid, audio.to(torch.bfloat16), mouse, btn,
+            generator=self.eval_generator())
+        self._export_media(xl, al, em, eb)
+        return {"eval/video_latent_std": xl.float().std(correction=0).item(),
+                "eval/audio_latent_std": al.float().std(correction=0).item()}
+
+    def _export_media(self, video_latents, audio_latents, mouse, btn):
+        """Decoded eval media, when ``eval_media_dir`` is set: they need
+        the VAE bridge, which is not ported yet."""
+        if self.train_cfg.get("eval_media_dir") and self.is_main:
+            raise NotImplementedError(
+                "eval_media_dir: exporting decoded eval media needs the VAE "
+                "bridge, which is not ported yet (ROADMAP.md Queue 1 item 6)")
 
 
 class MixedAVRFTTrainer(AVRFTTrainer):
@@ -246,7 +294,6 @@ class AudioRFTTrainer(RFTFamilyTrainer):
                     "eval clips) is not ported yet (ROADMAP.md Queue 1 "
                     "item 6)")
         super().__init__(cfg, device)
-        self._eval_core = None
 
     def loss_fn(self, model, batch, generator):
         loss = model(batch[0].to(torch.bfloat16), generator=generator)
@@ -255,19 +302,12 @@ class AudioRFTTrainer(RFTFamilyTrainer):
     def eval_step(self, state, sample_loader, sampler):
         """Sample from the EMA weights with the configured sampler;
         returns the std of the latents."""
-        from ..models.audiorft import AudioRFTCore
         c = self.model_cfg
-        if self._eval_core is None:
-            self._eval_core = AudioRFTCore(c, dtype=torch.bfloat16,
-                                           device=self.device, seed=None)
-        core = self._eval_core
-        with torch.no_grad():
-            for name, p in core.named_parameters():
-                p.copy_(state.ema["core." + name])
         b = min(self.train_cfg.n_samples, 4)
-        gen = torch.Generator(device=self.device).manual_seed(7)
+        gen = self.eval_generator(7)
         ctx = torch.randn(b, c.sample_size // 2, c.channels, generator=gen,
                           device=self.device).to(torch.bfloat16)
-        latents = sampler(core, ctx, generator=gen.manual_seed(8))
+        latents = sampler(self.ema_core(state), ctx,
+                          generator=gen.manual_seed(8))
         return {"eval/audio_latent_std":
                 latents.float().std(correction=0).item()}

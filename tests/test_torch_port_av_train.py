@@ -279,12 +279,18 @@ def test_av_entry_point_and_port_cuts(tmp_path):
         cfg = Config.from_yaml(os.path.join(repo, "configs", name))
         assert (cfg.train.trainer_id, cfg.train.data_id) == (trainer_id,
                                                              data_id)
+        sampler_id = cfg.train.sampler_id
         cuts = port_cuts(cfg, 1)
-        assert [c.split()[0] for c in cuts] == ["data_id", "sampler_id"]
+        # the eval loader is cut to the same source; the window samplers
+        # the AV eval runs are kept
+        assert [c.split()[0] for c in cuts] == ["data_id", "sample_data_id"]
         assert cfg.train.data_id == synthetic and synthetic in cuts[0]
+        assert cfg.train.sample_data_id == synthetic and synthetic in cuts[1]
+        assert cfg.train.sampler_id == sampler_id
         kw = dict(cfg.train.data_kwargs.items())
         assert kw == dict(window_length=16, channels=64, sample_size=8,
                           n_buttons=11, n_mouse_axes=2, audio_channels=64)
+        assert dict(cfg.train.sample_data_kwargs.items()) == kw
         batch = next(iter(get_loader(cfg.train.data_id, 2, **kw)))
         assert len(batch) == (4 if trainer_id == "av" else 5)
         assert batch[1].shape == (2, 16, 64)

@@ -242,7 +242,7 @@ def _sp_config(tmp_path, world: int):
 
 def test_sp_trainer_step_matches_seq1(tmp_path):
     cfg4, cuts = _sp_config(tmp_path, 4)
-    assert [c.split()[0] for c in cuts] == ["data_id", "mesh", "sampler_id"]
+    assert [c.split()[0] for c in cuts] == ["data_id", "mesh"]
     assert cfg4.train.mesh["seq"] == 4 and cfg4.train.data_id == \
         "synthetic_latent"
     res = workers.run_ranks(workers.trainer_step_worker, 4,
@@ -287,7 +287,8 @@ def test_mesh_config_and_the_port_cuts():
     cfg = Config.from_yaml(os.path.join(REPO, "configs",
                                         "dit_v4_98k_sp.yml"))
     cuts = port_cuts(cfg, 4)
-    assert len(cuts) == 3 and cfg.train.sampler_id is None
+    # the rft eval runs the cached video sampler: av_caching is kept
+    assert len(cuts) == 2 and cfg.train.sampler_id == "av_caching"
     assert cfg.train.data_kwargs["window_length"] == 1536
     assert dict(cfg.train.mesh.items())["seq"] == 4
     assert port_cuts(cfg, 4) == []      # nothing left to cut
@@ -391,7 +392,8 @@ def test_torchrun_entry_point_trains_context_parallel_on_gloo(tmp_path):
         env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert res.returncode == 0, res.stderr[-3000:]
     out = res.stdout
-    assert out.count("[train] cut:") == 3 and "mesh seq 8 -> 2" in out
+    # data_id and mesh; the rft eval's av_caching sampler is kept
+    assert out.count("[train] cut:") == 2 and "mesh seq 8 -> 2" in out
     assert out.count("[step 1]") == 1 and out.count("[step 2]") == 1
     assert (tmp_path / "ckpt" / "step_2.pt").exists()
 

@@ -49,7 +49,9 @@ def test_port_package_has_its_kernel_source():
                    "trainers/rft_trainer.py", "train.py", "ops/local.py",
                    "parallel/dist.py", "parallel/mesh.py",
                    "parallel/context.py", "nn/kv_cache.py", "nn/wquant.py",
-                   "models/audiorft.py", "sampling/audio_caching.py"):
+                   "models/audiorft.py", "sampling/audio_caching.py",
+                   "sampling/av_caching.py", "sampling/av_window.py",
+                   "inference/pipeline.py"):
         assert os.path.join("owl_audio_exps_tpu_torch", module) in PORT_FILES
     assert len(PORT_FILES) > 30
 
@@ -110,6 +112,40 @@ print("FORBIDDEN", bad)
     assert "FORBIDDEN []" in res.stdout
 
 
+def test_cached_serve_runs_without_importing_jax():
+    code = """
+import sys, numpy as np, torch
+from owl_audio_exps_tpu_torch.configs import transformer_config
+from owl_audio_exps_tpu_torch.models.gamerft import GameRFTCore
+from owl_audio_exps_tpu_torch.models.gamerft_audio import GameRFTAudioCore
+from owl_audio_exps_tpu_torch.inference.pipeline import (
+    AVCachedStreamingPipeline)
+from owl_audio_exps_tpu_torch.sampling import get_sampler_cls
+kw = dict(n_layers=2, n_heads=2, d_model=32, channels=4, sample_size=2,
+    n_buttons=3, causal=True, local_window=2)
+cfg = transformer_config(model_id="game_rft_audio", audio_channels=4,
+    tokens_per_frame=5, has_audio=True, **kw)
+core = GameRFTAudioCore(cfg, dtype=torch.float32, device="cpu")
+pipe = AVCachedStreamingPipeline(core, cfg, window_frames=4,
+    sampling_steps=2, device="cpu")
+for _ in range(3):
+    frame, audio, _ = pipe(np.zeros(2), np.zeros(3))
+assert torch.isfinite(frame.float()).all() and audio.shape == (1, 4)
+vcfg = transformer_config(model_id="game_rft", tokens_per_frame=4, **kw)
+vcore = GameRFTCore(vcfg, dtype=torch.float32, device="cpu")
+out = get_sampler_cls("av_caching")(n_steps=2, num_frames=2)(
+    vcore, torch.zeros(1, 2, 4, 2, 2), torch.zeros(1, 4, 2),
+    torch.zeros(1, 4, 3), generator=torch.Generator())
+assert out.shape == (1, 4, 4, 2, 2) and torch.isfinite(out).all()
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "flax", "owl_audio_exps_tpu")]
+print("FORBIDDEN", bad)
+"""
+    res = _run(code)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "FORBIDDEN []" in res.stdout
+
+
 def test_port_trainer_runs_without_importing_jax(tmp_path):
     code = f"""
 import sys, torch
@@ -151,6 +187,21 @@ def test_entry_points_default_to_the_card():
     core = GameRFTAudioCore(cfg, dtype=torch.float32, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         CausvidPipeline(core, cfg)
+    # the cached serve: the pipelines, and the cores that the cached
+    # samplers (which follow their inputs' device) sample
+    from owl_audio_exps_tpu_torch.inference.pipeline import (
+        AVCachedStreamingPipeline, CachedStreamingPipeline)
+    from owl_audio_exps_tpu_torch.models.gamerft import GameRFTCore
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AVCachedStreamingPipeline(core, cfg)
+    vcfg = transformer_config(model_id="game_rft", n_layers=1, n_heads=2,
+                              d_model=16, channels=4, sample_size=2,
+                              tokens_per_frame=4, n_buttons=3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GameRFTCore(vcfg)
+    vcore = GameRFTCore(vcfg, dtype=torch.float32, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CachedStreamingPipeline(vcore, vcfg)
     from owl_audio_exps_tpu_torch.configs import Config
     from owl_audio_exps_tpu_torch.trainers.rft_trainer import (
         AudioRFTTrainer, RFTTrainer)

@@ -448,3 +448,50 @@ def test_graphed_token_step_matches_the_eager_step(fused_write, kv_quant):
     assert graphed.shape == (2, 52, 16) and torch.isfinite(graphed).all()
     assert (graphed.float() - eager.float()).abs().max().item() <= 1e-2
     assert torch.equal(graphed, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_sessions", [1, 2])
+def test_graphed_steady_tick_matches_the_eager_tick(n_sessions):
+    """The cached AV serve's steady tick replayed from its CUDA graph
+    (inference/pipeline.py) against the same tick run eagerly, on the same
+    draws (two pipelines seeded alike), at a small width: past the ring's
+    capacity and across RoPE rebases. Identical output is expected; cuBLAS
+    may pick other algorithms under capture, so the bound is 1e-2
+    (chip_smoke.py's)."""
+    _need_card()
+    import numpy as np
+    from owl_audio_exps_tpu_torch.configs import transformer_config
+    from owl_audio_exps_tpu_torch.inference.pipeline import (
+        AVCachedStreamingPipeline)
+    from owl_audio_exps_tpu_torch.models.gamerft_audio import (
+        GameRFTAudioCore)
+    cfg = transformer_config(
+        model_id="game_rft_audio", n_layers=4, n_heads=4, d_model=128,
+        channels=16, audio_channels=8, sample_size=2, tokens_per_frame=5,
+        n_frames=8, rope_headroom=8, n_buttons=3, causal=True, has_audio=True,
+        local_window=2, global_window=None, local_idx=2)
+    core = GameRFTAudioCore(cfg, dtype=torch.bfloat16, device="cuda",
+                            seed=0).to(torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    ctx = (torch.randn(n_sessions, 3, 16, 2, 2, generator=gen,
+                       device="cuda"),
+           torch.randn(n_sessions, 3, 8, generator=gen, device="cuda"),
+           torch.zeros(n_sessions, 3, 2, device="cuda"),
+           torch.zeros(n_sessions, 3, 3, device="cuda"))
+    pipes = [AVCachedStreamingPipeline(core, cfg, window_frames=6,
+                                       sampling_steps=2, seed=4,
+                                       n_sessions=n_sessions, graphed=g)
+             for g in (True, False)]
+    for p in pipes:
+        p.prime(*ctx)
+    rs = np.random.RandomState(0)
+    for i in range(24):
+        mouse = rs.randn(n_sessions, 2).astype(np.float32)
+        btn = (rs.rand(n_sessions, 3) > 0.5).astype(np.float32)
+        (fg, ag, _), (fe, ae, _) = (p(mouse, btn) for p in pipes)
+        assert torch.isfinite(fg.float()).all()
+        for got, want in ((fg, fe), (ag, ae)):
+            assert (got.float() - want.float()).abs().max().item() <= 1e-2
+    assert pipes[0].loop.graphs and not pipes[1].loop.graphs
+    assert int(pipes[0].cache.rope_offset) == int(pipes[1].cache.rope_offset)

@@ -5,11 +5,17 @@ CPU: inputs are made with numpy from a seed and handed to both."""
 from __future__ import annotations
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
 from owl_audio_exps_tpu.configs import transformer_config as jax_config
+from owl_audio_exps_tpu.models.gamerft import GameRFTCore as JaxVideoCore
+from owl_audio_exps_tpu.models.gamerft_audio import (
+    GameRFTAudioCore as JaxAVCore)
 from owl_audio_exps_tpu_torch.configs import transformer_config as port_config
+from owl_audio_exps_tpu_torch.models.gamerft import GameRFTCore
+from owl_audio_exps_tpu_torch.models.gamerft_audio import GameRFTAudioCore
 from owl_audio_exps_tpu_torch.utils.weights import params_from_jax
 
 TINY_AV = dict(
@@ -40,12 +46,59 @@ def t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
+# The cached serve's cores (tests/test_torch_port_{av_caching,av_window,
+# cached_serve,eval}.py): 3 layers, local_idx 2, so layers 0 and 2 are
+# global and layer 1 local; JAX params from key 0 carried into a float32
+# port core.
+VIDEO = dict(model_id="game_rft", n_layers=3, n_heads=2, d_model=64,
+             channels=4, sample_size=2, tokens_per_frame=4, n_frames=16,
+             n_buttons=3, causal=True, uncond=False, has_audio=False,
+             rope_impl="ortho", local_window=2, global_window=None,
+             cfg_prob=0.0, local_idx=2)
+AV = dict(VIDEO, model_id="game_rft_audio", audio_channels=4,
+          tokens_per_frame=5, has_audio=True, n_frames=8)
+
+
+def video_cores(**over):
+    kw = dict(VIDEO, **over)
+    jcfg, pcfg = jax_config(**kw), port_config(**kw)
+    jcore = JaxVideoCore(jcfg, dtype=jnp.float32)
+    params = jax.jit(jcore.init)(jax.random.key(0), jnp.zeros((1, 4, 4, 2, 2)),
+                                 jnp.zeros((1, 4)), jnp.zeros((1, 4, 2)),
+                                 jnp.zeros((1, 4, 3)))
+    port = GameRFTCore(pcfg, dtype=torch.float32, device="cpu", seed=None)
+    return jcfg, pcfg, jcore, params, load_jax_params(port, params,
+                                                      pcfg.n_heads)
+
+
+def av_cores(**over):
+    kw = dict(AV, **over)
+    jcfg, pcfg = jax_config(**kw), port_config(**kw)
+    jcore = JaxAVCore(jcfg, dtype=jnp.float32)
+    params = jax.jit(jcore.init)(
+        jax.random.key(0), jnp.zeros((1, 4, 4, 2, 2)), jnp.zeros((1, 4, 4)),
+        jnp.zeros((1, 4)), jnp.zeros((1, 4, 2)), jnp.zeros((1, 4, 3)))
+    port = GameRFTAudioCore(pcfg, dtype=torch.float32, device="cpu",
+                            seed=None)
+    return jcfg, pcfg, jcore, params, load_jax_params(port, params,
+                                                      pcfg.n_heads)
+
+
+def video_inputs(seed, b, n_ctx, n_ctrl):
+    rs = np.random.RandomState(seed)
+    return (rs.randn(b, n_ctx, 4, 2, 2).astype(np.float32),
+            rs.randn(b, n_ctrl, 2).astype(np.float32),
+            (rs.rand(b, n_ctrl, 3) > 0.5).astype(np.float32))
+
+
 # the ring KV cache's state (nn/kv_cache.py): counters, rings, int8 scales
 COUNTERS = ("start", "length", "rope_offset", "lstart", "llength")
 RINGS = ("k", "v", "lk", "lv", "ks", "vs", "lks", "lvs")
 
 
-def assert_same_state(jc, pc):
+def assert_same_state(jc, pc, atol: float = 1e-6):
+    """The ring state of a JAX cache and a port cache: counters exact,
+    rings within ``atol``."""
     for name in COUNTERS:
         a, b = getattr(jc, name), getattr(pc, name)
         assert (a is None) == (b is None), name
@@ -59,9 +112,27 @@ def assert_same_state(jc, pc):
             assert tuple(a.shape) == tuple(b.shape), name
             np.testing.assert_allclose(b.float().numpy(),
                                        np.asarray(a, np.float32),
-                                       atol=1e-6, rtol=0, err_msg=name)
+                                       atol=atol, rtol=0, err_msg=name)
     assert (jc.shadow, jc.lshadow, jc.groups, jc.slots) == \
         (pc.shadow, pc.lshadow, pc.groups, pc.slots)
+
+
+def jax_sampler_draws(key, ctx_shape, item, num: int):
+    """The float32 draws of a JAX cached sampler (sampling/
+    audio_caching.py, sampling/av_caching.py) as numpy arrays (ctx, init,
+    renoise): split(key) -> (rng, r_ctx), the context's draw of
+    ``ctx_shape``, then per step split(rng, 3) -> (rng, r_init,
+    r_renoise), each [b, 1, *item]."""
+    f32 = jax.numpy.float32
+    rng, r_ctx = jax.random.split(key)
+    ctx = np.asarray(jax.random.normal(r_ctx, tuple(ctx_shape), f32))
+    shape = (ctx_shape[0], 1) + tuple(item)
+    init, renoise = [], []
+    for _ in range(num):
+        rng, r_init, r_ren = jax.random.split(rng, 3)
+        init.append(np.asarray(jax.random.normal(r_init, shape, f32)))
+        renoise.append(np.asarray(jax.random.normal(r_ren, shape, f32)))
+    return ctx, np.stack(init), np.stack(renoise)
 
 
 # ------------------------------------------------------------------------
