@@ -82,7 +82,26 @@ Phases, each of which exits non-zero on any failure:
    1 and 8 sessions: the graphed steady tick against the eager tick, ms
    and kernels a tick, the device-busy share of one traced tick, and one
    session run across a RoPE rebase; every port kernel's launches there
-   must be 0.
+   must be 0;
+12. the distillation trainers at the width of configs/dit_v4_dmd.yml,
+   dit_v4_sf.yml and dit_v4_prune.yml (16 x d 1536, tpf 64, a 60-frame
+   window: L = 3,840, which the band span 1,024 does not divide, so every
+   layer of teacher, student and critic takes K1), from a seeded dit_v4
+   teacher saved with save_clean_export and read back by versatile_load,
+   with the cuts printed (synthetic data, accumulation 1; for the ODE
+   trainer AdamW for Muon, batch 1 and no student_ckpt, each naming the
+   reference's reason): 2 outer steps of ``CausVidTrainer`` (10 critic
+   and 2 student steps), 1 of ``SelfForceTrainer`` and 1 of
+   ``DistillODETrainer`` (the 8-layer student pruned from the teacher;
+   8 trajectory states stacked on the batch axis, so K1 runs at B 8),
+   with exact K1 launches per critic, student and ODE step, seconds and
+   tokens/s per step, peak memory, finite metrics, the teacher
+   bit-equal to its export and the student, critic and EMA changed; one
+   traced DMD student step; one DMD loss at 4 layers through the kernels
+   against dense attention (phase 6's limits); a Self-Forcing rollout
+   with its backward that launches no port kernel; and the CausVid
+   student's export served by the config's ``av_caching`` sampler (2
+   steps at [1.0, 0.5]) for a few frames, launching no port kernel.
 
 The last lines are the kernels' JSON record, the card line, and
 {"ok": true, "device": {...}}.
@@ -184,14 +203,20 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 # ---------------------------------------------------------------- phase 2
 KERNEL_CASES = [
-    # name, L, tpf, causal, window, two documents
-    ("L3900_causal_w16", 3900, 65, True, 16, False),
-    ("L3900_causal_global", 3900, 65, True, None, False),
-    ("L1040_bidir_w16", 1040, 65, False, 16, False),
-    ("L3900_causal_w16_2docs", 3900, 65, True, 16, True),
-    ("L4096_tpf64_causal_w16", 4096, 64, True, 16, False),
-    ("L16384_tpf64_causal_global", 16384, 64, True, None, False),
-    ("L24960_tpf65_causal_global", 24960, 65, True, None, False),
+    # name, L, tpf, causal, window, two documents, batch
+    ("L3900_causal_w16", 3900, 65, True, 16, False, 1),
+    ("L3900_causal_global", 3900, 65, True, None, False, 1),
+    ("L1040_bidir_w16", 1040, 65, False, 16, False, 1),
+    ("L3900_causal_w16_2docs", 3900, 65, True, 16, True, 1),
+    ("L4096_tpf64_causal_w16", 4096, 64, True, 16, False, 1),
+    ("L16384_tpf64_causal_global", 16384, 64, True, None, False, 1),
+    ("L24960_tpf65_causal_global", 24960, 65, True, None, False, 1),
+    # the distillation window (phase 12): every layer at L 3,840, and the
+    # ODE student's 8 trajectory states on the batch axis
+    ("L3840_tpf64_causal_w16", 3840, 64, True, 16, False, 1),
+    ("L3840_tpf64_causal_global", 3840, 64, True, None, False, 1),
+    ("L3840_tpf64_causal_w16_B8", 3840, 64, True, 16, False, 8),
+    ("L3840_tpf64_causal_global_B8", 3840, 64, True, None, False, 8),
 ]
 
 
@@ -250,15 +275,15 @@ def kernel_phase(dev):
     import torch.nn.functional as F
     from owl_audio_exps_tpu_torch.ops import splash
 
-    B, H, Dh = 1, 24, 64
+    H, Dh = 24, 64
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = {}
-    for name, L, tpf, causal, window, two_docs in KERNEL_CASES:
+    for name, L, tpf, causal, window, two_docs, B in KERNEL_CASES:
         q, k, v = (torch.randn(B, H, L, Dh, generator=gen, device=dev)
                    .to(torch.bfloat16) for _ in range(3))
         doc = two_doc_ids(dev, L, tpf) if two_docs else None
         args = (tpf, window, causal, doc)
-        long = L >= LONG_L
+        long = B * L >= LONG_L
         out = splash.splash_attention(q, k, v, *args)
         if not torch.isfinite(out).all():
             fail(f"{name}: kernel output not finite")
@@ -311,17 +336,26 @@ def kernel_phase(dev):
 
 # ------------------------------------------------------- phase 2, gradients
 GRAD_CASES = [
-    # name, kernel, L, tpf, causal, window, two documents, logit bound
+    # name, kernel, L, tpf, causal, window, two documents, logit bound,
+    # batch
     ("L16384_tpf64_causal_global", "frame", 16384, 64, True, None, False,
-     None),
+     None, 1),
     ("L24960_tpf65_causal_global", "frame", 24960, 65, True, None, False,
-     None),
+     None, 1),
     ("L3900_tpf65_causal_w16_2docs", "frame", 3900, 65, True, 16, True,
-     None),
-    ("L1040_tpf65_bidir_w16", "frame", 1040, 65, False, 16, False, None),
-    ("L16384_tpf64_w16_bound8", "band", 16384, 64, True, 16, False, 8.0),
-    ("L16384_tpf64_w16_rowmax", "band", 16384, 64, True, 16, False, None),
-    ("L4160_tpf65_w16_bound8", "band", 4160, 65, True, 16, False, 8.0),
+     None, 1),
+    ("L1040_tpf65_bidir_w16", "frame", 1040, 65, False, 16, False, None, 1),
+    ("L16384_tpf64_w16_bound8", "band", 16384, 64, True, 16, False, 8.0, 1),
+    ("L16384_tpf64_w16_rowmax", "band", 16384, 64, True, 16, False, None, 1),
+    ("L4160_tpf65_w16_bound8", "band", 4160, 65, True, 16, False, 8.0, 1),
+    # the distillation window (phase 12), B 1 and the ODE student's B 8
+    ("L3840_tpf64_causal_w16", "frame", 3840, 64, True, 16, False, None, 1),
+    ("L3840_tpf64_causal_global", "frame", 3840, 64, True, None, False,
+     None, 1),
+    ("L3840_tpf64_causal_w16_B8", "frame", 3840, 64, True, 16, False, None,
+     8),
+    ("L3840_tpf64_causal_global_B8", "frame", 3840, 64, True, None, False,
+     None, 8),
 ]
 
 
@@ -347,16 +381,17 @@ def grad_kernel_phase(dev):
     import torch.nn.functional as F
     from owl_audio_exps_tpu_torch.ops import band, splash
 
-    B, H, Dh = 1, 24, 64
+    H, Dh = 24, 64
     gen = torch.Generator(device=dev).manual_seed(10)
     rows = {}
-    for name, kind, L, tpf, causal, window, two_docs, bound in GRAD_CASES:
+    for name, kind, L, tpf, causal, window, two_docs, bound, B in \
+            GRAD_CASES:
         q, k, v, dout = (torch.randn(B, H, L, Dh, generator=gen, device=dev)
                          .to(torch.bfloat16) for _ in range(4))
         if kind == "band":   # unit-RMS q, k as QK rms-norm gives them
             q, k = rms_normed(q), rms_normed(k)
         doc = two_doc_ids(dev, L, tpf) if two_docs else None
-        iters = 5 if L >= LONG_L else 20
+        iters = 5 if B * L >= LONG_L else 20
         if kind == "frame":
             margs = (tpf, window, causal, doc)
             kern = lambda *t: splash.splash_attention(*t, *margs)
@@ -871,13 +906,21 @@ def state_tensors(state):
 def profile_step(trainer, state, micro, gen, step_s, tag="train"):
     """Device time by kernel class of one traced training step (the
     trainer's own step, outside the counting wrapper: not counted)."""
+    from owl_audio_exps_tpu_torch.trainers.base import BaseTrainer
+    return profile_call(
+        lambda: BaseTrainer.train_step(trainer, state, micro, gen), step_s,
+        tag)
+
+
+def profile_call(fn, step_s, tag):
+    """Device time by kernel class of one traced call of ``fn``, printed
+    against ``step_s``, the untraced median of such calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprof
-    from owl_audio_exps_tpu_torch.trainers.base import BaseTrainer
 
     with tprof(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
-        BaseTrainer.train_step(trainer, state, micro, gen)
+        fn()
         torch.cuda.synchronize()
     classes = {"K1 fwd (frame_attention_fwd)": 0.0,
                "K1 bwd (dq + dkv)": 0.0,
@@ -2074,6 +2117,429 @@ def cached_serve_phase(dev, window_tick_ms: float):
     return out
 
 
+# --------------------------------------------------------------- phase 12
+DISTILL_DIR = os.path.join(ROOT, "build", "chip_smoke_distill")
+# outer steps of each trainer (CausVid: update_ratio critic steps and one
+# student step each); the distilled student's served frames
+CAUSVID_STEPS, SF_STEPS, ODE_STEPS, DISTILL_SERVE_FRAMES = 2, 1, 1, 8
+K1_NAMES = ("frame_attention_fwd", "frame_attention_bwd_dq",
+            "frame_attention_bwd_dkv")
+
+
+def k1_counts(fwd: int, bwd: int):
+    counts = dict.fromkeys(kernel_counts(), 0)
+    counts.update(zip(K1_NAMES, (fwd, bwd, bwd)))
+    return counts
+
+
+def distill_cut(tc, name, key, value, why):
+    print(f"[distill] cut from configs/{name}: {key} {tc.get(key)!r} -> "
+          f"{value!r} ({why})", flush=True)
+    tc[key] = value
+
+
+def distill_config(name: str, teacher: str, **cuts):
+    """configs/<name> with phase 12's cuts, each printed: the loaders to
+    the synthetic source (train.py port_cuts), accumulation 1, the
+    teacher (and the student) from the saved seeded export, and ``cuts``
+    ({key: (value, reason)}). The configs' save_interval is not reached:
+    a full checkpoint (the student, its EMA, the critic and both AdamW
+    states) is ~20 GB at this width, more disk writes than a smoke run
+    should make; the CPU tests write and read it back."""
+    from owl_audio_exps_tpu_torch.configs import Config
+    from owl_audio_exps_tpu_torch.train import port_cuts
+    conf = Config.from_yaml(os.path.join(ROOT, "configs", name))
+    tc = conf.train
+    for line in port_cuts(conf, 1):
+        print(f"[distill] cut from configs/{name}: {line}", flush=True)
+    work = os.path.join(DISTILL_DIR, name.split(".")[0])
+    base = {
+        "target_batch_size": (1, "accumulation 1: one micro-batch a step"),
+        "teacher_cfg": (os.path.join(ROOT, tc.teacher_cfg),
+                        "the same file, from the repository root"),
+        "teacher_ckpt": (teacher, "the seeded dit_v4 export saved above"),
+        "student_ckpt": (teacher, "the seeded dit_v4 export saved above"),
+        "checkpoint_dir": (os.path.join(work, "ckpt"), "under build/"),
+        "log_interval": (1, "metrics drained every step")}
+    base.update(cuts)
+    for key, (value, why) in base.items():
+        distill_cut(tc, name, key, value, why)
+    return conf
+
+
+def save_distill_teacher(dev) -> str:
+    """A seeded configs/dit_v4.yml core (float32 master weights) saved
+    with the port's save_clean_export; returns its directory."""
+    from owl_audio_exps_tpu_torch.configs import Config
+    from owl_audio_exps_tpu_torch.models.gamerft import GameRFTCore
+    from owl_audio_exps_tpu_torch.utils.checkpoints import save_clean_export
+    import shutil
+    shutil.rmtree(DISTILL_DIR, ignore_errors=True)
+    cfg = Config.from_yaml(os.path.join(ROOT, "configs", "dit_v4.yml")).model
+    core = GameRFTCore(cfg, dtype=torch.bfloat16, device=dev, seed=0)
+    path = os.path.join(DISTILL_DIR, "teacher")
+    t0 = time.perf_counter()
+    save_clean_export(path, {n: p.detach() for n, p in
+                             core.named_parameters()})
+    n = sum(p.numel() for p in core.parameters())
+    print(f"[distill] teacher: configs/dit_v4.yml seeded (seed 0), "
+          f"{n / 1e6:.1f} M float32 params, saved with save_clean_export to "
+          f"{os.path.relpath(path, ROOT)} in {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
+    del core
+    torch.cuda.empty_cache()
+    return path
+
+
+def counted_distill(base):
+    """A subclass of the distillation trainer ``base`` that sets every
+    kernel count to 0 before each critic, student or ODE step and records
+    the counts, the step's seconds and its metrics after it."""
+
+    class CountedDistill(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.calls = []
+
+        def _counted(self, kind, step, *a):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(*a)
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            self.calls.append(dict(kind=kind, s=s, counts=kernel_counts(),
+                                   metrics={k: float(v) for k, v in
+                                            metrics.items()}))
+            return metrics
+
+        def init_distill_state(self):
+            state = super().init_distill_state()
+            self.initial_student = {n: p.detach().to("cpu", copy=True)
+                                    for n, p in
+                                    state.student.named_parameters()}
+            return state
+
+        def critic_step(self, *a):
+            return self._counted("critic", super().critic_step, *a)
+
+        def student_step(self, *a):
+            return self._counted("student", super().student_step, *a)
+
+        def step(self, *a):
+            return self._counted("ode", super().step, *a)
+
+    return CountedDistill
+
+
+def distill_expect(trainer, L: int):
+    """Exact launches of each kind of step of ``trainer`` at L tokens,
+    from the configs: every layer of teacher, student and critic takes K1
+    (attention_route), a graded forward launches what the remat structure
+    says (attention_forwards_per_step), a forward under no gradient one
+    per layer, and each graded layer one dq and one dkv."""
+    from owl_audio_exps_tpu_torch.nn.attn import (attention_forwards_per_step,
+                                                  attention_route)
+    from owl_audio_exps_tpu_torch.trainers.ode_distill import (
+        DistillODETrainer)
+    from owl_audio_exps_tpu_torch.trainers.self_forcing import (
+        SelfForceTrainer)
+    s_cfg, t_cfg = trainer.model_cfg, trainer.teacher_cfg
+    for cfg in (s_cfg, t_cfg):
+        for local in (True, False):
+            if attention_route(cfg, local, L)[0] != "splash":
+                fail(f"distill: a layer at L {L} does not route to K1")
+    n_s, n_t = s_cfg.n_layers, t_cfg.n_layers
+    graded = sum(attention_forwards_per_step(s_cfg))
+    if isinstance(trainer, DistillODETrainer):
+        steps = trainer.train_cfg.get("ode_steps", 8)
+        return {"ode": k1_counts(steps * 2 * n_t + graded, n_s)}
+    if isinstance(trainer, SelfForceTrainer):
+        # the rollout's cached forwards take plain attention
+        return {"critic": k1_counts(graded, n_s),
+                "student": k1_counts(2 * n_t + n_s, 0)}
+    return {"critic": k1_counts(n_s + graded, n_s),
+            "student": k1_counts(graded + 2 * n_t + n_s, n_s)}
+
+
+def run_distill(dev, conf, base, steps: int, tag: str):
+    """Train ``steps`` outer steps of ``base`` (counted) on ``conf``; fails
+    unless every step's launches are exact and its metrics finite, the
+    teacher bit-equal to its export, and the student, its EMA and (where
+    it trains) the critic moved. Returns (trainer, state, summary)."""
+    from owl_audio_exps_tpu_torch.utils.checkpoints import versatile_load
+    tc = conf.train
+    L = tc.data_kwargs.window_length * conf.model.tokens_per_frame
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = counted_distill(base)(conf, device=dev)
+    t0 = time.perf_counter()
+    state = trainer.train(max_steps=steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expect = distill_expect(trainer, L)
+    by_kind = {}
+    for i, call in enumerate(trainer.calls):
+        print(f"[{tag}]   {call['kind']} step {i + 1}: {call['s']:.3f} s "
+              f"{call['metrics']} K1 "
+              f"{[call['counts'][k] for k in K1_NAMES]}", flush=True)
+        if not all(math.isfinite(v) for v in call["metrics"].values()):
+            fail(f"{tag}: {call['kind']} step {i + 1} metrics not finite")
+        if call["counts"] != expect[call["kind"]]:
+            fail(f"{tag}: {call['kind']} step {i + 1} launched "
+                 f"{call['counts']}, expected {expect[call['kind']]}")
+        by_kind.setdefault(call["kind"], []).append(call["s"])
+
+    teacher = versatile_load(tc.teacher_ckpt, map_location=dev)
+    for name, p in trainer.teacher.named_parameters():
+        if not torch.equal(p, teacher[name]):
+            fail(f"{tag}: the teacher's {name} changed")
+    init = trainer.initial_student
+    moved = {"student": state.student.named_parameters(),
+             "EMA": state.student_ema.items()}
+    if "critic" in by_kind:
+        moved["critic"] = state.critic.named_parameters()
+    for what, named in moved.items():
+        if all(torch.equal(p.detach().cpu(), init[n]) for n, p in named):
+            fail(f"{tag}: the {what} did not change")
+    print(f"[{tag}] teacher bit-equal to its export; "
+          f"{', '.join(moved)} changed", flush=True)
+
+    tokens = L * tc.batch_size * trainer.accum_steps()
+    summary = dict(L=L, batch=tc.batch_size, steps=steps, wall_s=wall,
+                   peak_gib=peak, tokens_per_micro_step=tokens,
+                   launches_per_step={k: {n: c[n] for n in K1_NAMES}
+                                      for k, c in expect.items()},
+                   totals={n: sum(c["counts"][n] for c in trainer.calls)
+                           for n in K1_NAMES})
+    for kind, secs in by_kind.items():
+        med = statistics.median(secs[1:] or secs)
+        summary[f"{kind}_step_s"] = med
+        summary[f"{kind}_tokens_per_s"] = tokens / med
+        print(f"[{tag}] {kind} step: median {med:.4f} s (of {len(secs)}, "
+              f"the first left out where there are more; min "
+              f"{min(secs):.4f} max {max(secs):.4f}), {tokens / med:.0f} "
+              f"tokens/s, K1 {[expect[kind][n] for n in K1_NAMES]} "
+              f"(fwd, dq, dkv) a step", flush=True)
+    print(f"[{tag}] {type(trainer).__bases__[0].__name__} on {tc.trainer_id}"
+          f": {steps} outer steps in {wall:.1f} s, L {L}, batch "
+          f"{tc.batch_size}, peak memory {peak:.2f} GiB "
+          f"(max_memory_allocated)", flush=True)
+    return trainer, state, summary
+
+
+def distill_batch(trainer):
+    from owl_audio_exps_tpu_torch.data import get_loader
+    tc = trainer.train_cfg
+    return trainer.to_device(next(iter(get_loader(
+        tc.data_id, tc.batch_size, **dict(tc.data_kwargs.items())))))
+
+
+def dmd_route_phase(dev):
+    """One DMD loss at full width and 4 layers (teacher and student) through
+    the kernels and through dense attention, on the same draws: loss and
+    student gradients held to phase 6's limits."""
+    from owl_audio_exps_tpu_torch.configs import Config
+    from owl_audio_exps_tpu_torch.train import port_cuts
+    from owl_audio_exps_tpu_torch.trainers.causvid import CausVidTrainer
+    print("[distill-route] configs/dit_v4_dmd.yml at 4 layers, seeded "
+          "teacher (the student's config, seed 1), student and critic "
+          "(seed 0); one DMD loss", flush=True)
+    batch, draws = None, None
+
+    def one(attn_impl):
+        nonlocal batch, draws
+        conf = Config.from_yaml(os.path.join(ROOT, "configs",
+                                             "dit_v4_dmd.yml"))
+        port_cuts(conf, 1)
+        conf.model.n_layers = 4
+        conf.model.attn_impl = attn_impl
+        for key in ("teacher_cfg", "teacher_ckpt", "student_ckpt"):
+            conf.train[key] = None
+        trainer = CausVidTrainer(conf, device=dev)
+        state = trainer.init_distill_state()
+        if batch is None:
+            batch = distill_batch(trainer)
+            draws = trainer.loss_draws(trainer.scaled_video(batch[0]),
+                                       batch[1])
+        reset_counts()
+        loss, _ = trainer.dmd_loss(state.student, state.critic, batch, draws)
+        loss.backward()
+        counts = kernel_counts()
+        return loss.item(), {n: p.grad.float() for n, p in
+                             state.student.named_parameters()}, counts
+
+    lk, gk, ck = one("auto")
+    ld, gd, cd = one("dense")
+    if not all(ck[n] for n in K1_NAMES) or any(cd.values()):
+        fail(f"distill route: kernels {ck}, dense {cd}")
+    loss_rel = abs(lk - ld) / abs(ld)
+    num = sum((gk[n] - gd[n]).pow(2).sum() for n in gd)
+    den = sum(gd[n].pow(2).sum() for n in gd)
+    total = (num / den).sqrt().item()
+    per = {n: rel_l2(gk[n], gd[n]) for n in gd if gd[n].norm() > 0}
+    worst = max(per, key=per.get)
+    print(f"[distill-route] kernels (K1 {[ck[n] for n in K1_NAMES]}) vs "
+          f"dense: DMD loss {lk:.6f} vs {ld:.6f} (rel {loss_rel:.2e}, "
+          f"tolerance {ROUTE_LOSS_REL}); student gradient rel L2 "
+          f"{total:.3e} (tolerance {ROUTE_GRAD_REL_L2}), worst "
+          f"{per[worst]:.3e} ({worst}; tolerance {ROUTE_PARAM_REL_L2})",
+          flush=True)
+    if loss_rel > ROUTE_LOSS_REL or total > ROUTE_GRAD_REL_L2 or \
+            per[worst] > ROUTE_PARAM_REL_L2:
+        fail("the DMD loss through the kernels disagrees with dense")
+    reset_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(loss_rel=loss_rel, grad_rel_l2=total, worst_param=per[worst])
+
+
+def sf_rollout_check(trainer, state, tag):
+    """One Self-Forcing rollout with gradient and its backward: no kernel
+    of the port launches (the cached forwards take plain attention)."""
+    vid, mouse, btn = distill_batch(trainer)[:3]
+    vid = trainer.scaled_video(vid)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    window, mask, *_ = trainer.get_rollouts(state.student, vid, mouse, btn,
+                                            True)
+    (window * mask[:, :, None, None, None]).sum().backward()
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    check_no_port_kernels("the Self-Forcing rollout")
+    state.student.zero_grad(set_to_none=True)
+    if not torch.isfinite(window).all():
+        fail(f"{tag}: the rollout is not finite")
+    print(f"[{tag}] one rollout ({trainer.rollout_frames()} frames, "
+          f"rollout_steps {trainer.train_cfg.rollout_steps}, ring of "
+          f"{vid.shape[1]} frames) with its backward: {s:.3f} s, 0 port "
+          f"kernels", flush=True)
+    return s
+
+
+def distilled_serve_phase(dev, export: str, conf):
+    """The CausVid student's EMA export, read back with versatile_load
+    into a core and served by the config's eval sampler for a few frames;
+    no kernel of the port launches."""
+    from owl_audio_exps_tpu_torch.models.gamerft import GameRFTCore
+    from owl_audio_exps_tpu_torch.sampling import get_sampler_cls
+    from owl_audio_exps_tpu_torch.utils.checkpoints import (unwrap_core,
+                                                            versatile_load)
+    cfg, tc = conf.model, conf.train
+    core = GameRFTCore(cfg, dtype=torch.bfloat16, device=dev, seed=None)
+    core.load_state_dict(unwrap_core(versatile_load(export,
+                                                    map_location=dev)))
+    core = core.to(torch.bfloat16).eval()
+    kw = tc.sampler_kwargs.to_dict()
+    print(f"[distill-serve] cut: sampler_kwargs num_frames "
+          f"{kw['num_frames']} -> {DISTILL_SERVE_FRAMES} (a few frames)",
+          flush=True)
+    kw["num_frames"] = DISTILL_SERVE_FRAMES
+    sampler = get_sampler_cls(tc.sampler_id)(**kw)
+    n_ctx = 8
+    gen = torch.Generator(device=dev).manual_seed(7)
+    ctx = torch.randn(1, n_ctx, cfg.channels, cfg.sample_size,
+                      cfg.sample_size, generator=gen, device=dev
+                      ).to(torch.bfloat16)
+    total = n_ctx + DISTILL_SERVE_FRAMES
+    mouse = torch.zeros(1, total, 2, dtype=torch.bfloat16, device=dev)
+    btn = torch.zeros(1, total, cfg.n_buttons, dtype=torch.bfloat16,
+                      device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sampler(core, ctx, mouse, btn, generator=gen.manual_seed(8))
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    check_no_port_kernels("the distilled student's serve")
+    want = (1, total, cfg.channels, cfg.sample_size, cfg.sample_size)
+    if tuple(out.shape) != want or not torch.isfinite(out.float()).all():
+        fail(f"distilled serve: output {tuple(out.shape)} (want {want}) or "
+             f"not finite")
+    print(f"[distill-serve] {tc.sampler_id} ({kw['n_steps']} steps at "
+          f"{kw.get('custom_schedule')}, cfg {kw['cfg_scale']}) on "
+          f"{os.path.relpath(export, ROOT)}: {DISTILL_SERVE_FRAMES} frames "
+          f"after {n_ctx} of context in {s:.2f} s (graph capture "
+          f"included), std {out.float().std().item():.4f}, finite, 0 port "
+          f"kernels", flush=True)
+    del core, sampler
+    return dict(frames=DISTILL_SERVE_FRAMES, s=s)
+
+
+def distill_phase(dev):
+    """Phase 12: the distillation trainers at dit_v4 width."""
+    from owl_audio_exps_tpu_torch.trainers.causvid import CausVidTrainer
+    from owl_audio_exps_tpu_torch.trainers.ode_distill import (
+        DistillODETrainer, prune_layer_indices, transfer_pruned_params)
+    from owl_audio_exps_tpu_torch.trainers.self_forcing import (
+        SelfForceTrainer)
+    from owl_audio_exps_tpu_torch.utils.checkpoints import (save_clean_export,
+                                                            versatile_load)
+    teacher = save_distill_teacher(dev)
+    out = {}
+
+    conf = distill_config("dit_v4_dmd.yml", teacher)
+    trainer, state, out["CausVidTrainer"] = run_distill(
+        dev, conf, CausVidTrainer, CAUSVID_STEPS, "distill-dmd")
+    step_s = out["CausVidTrainer"]["student_step_s"]
+    micro = [distill_batch(trainer)]
+    out["CausVidTrainer"]["device_ms"] = profile_call(
+        lambda: CausVidTrainer.student_step(trainer, state, micro), step_s,
+        "distill-dmd")
+    export = os.path.join(DISTILL_DIR, "dit_v4_dmd_export")
+    save_clean_export(export, state.student_ema)
+    print(f"[distill-dmd] the student's EMA exported with save_clean_export "
+          f"(the trainer's output_path export) to "
+          f"{os.path.relpath(export, ROOT)}", flush=True)
+    del trainer, state, micro
+    out["route"] = dmd_route_phase(dev)
+
+    conf_sf = distill_config("dit_v4_sf.yml", teacher)
+    trainer, state, out["SelfForceTrainer"] = run_distill(
+        dev, conf_sf, SelfForceTrainer, SF_STEPS, "distill-sf")
+    out["SelfForceTrainer"]["rollout_s"] = sf_rollout_check(
+        trainer, state, "distill-sf")
+    del trainer, state
+
+    conf_ode = distill_config(
+        "dit_v4_prune.yml", teacher,
+        opt=("AdamW", "the reference's build_simple_opt rejects Muon, "
+             "owl_audio_exps_tpu/trainers/distill_common.py:68"),
+        batch_size=(1, "the 8 trajectory states stack on the batch axis: "
+                    "at batch 8 that is 245,760 tokens with gradient"),
+        student_ckpt=(None, "the 16-layer export does not fit the 8-layer "
+                      "student; the reference raises in device_put, "
+                      "owl_audio_exps_tpu/trainers/distill_common.py:"
+                      "150-152; the student starts pruned from the "
+                      "teacher"))
+    trainer, state, out["DistillODETrainer"] = run_distill(
+        dev, conf_ode, DistillODETrainer, ODE_STEPS, "distill-ode")
+    n_t, n_s = trainer.teacher_cfg.n_layers, trainer.model_cfg.n_layers
+    pruned = transfer_pruned_params(
+        versatile_load(teacher, map_location="cpu"), n_t, n_s)
+    if set(pruned) != set(trainer.initial_student) or not all(
+            torch.equal(v, trainer.initial_student[n])
+            for n, v in pruned.items()):
+        fail("distill-ode: the student did not start as the pruned teacher")
+    idx = prune_layer_indices(n_t, n_s)
+    print(f"[distill-ode] the {n_s}-layer student started as teacher blocks "
+          f"{idx} (transfer_pruned_params of the export, exact)", flush=True)
+    out["DistillODETrainer"]["pruned_from"] = idx
+    del trainer, state
+
+    out["serve"] = distilled_serve_phase(dev, export, conf)
+    import shutil
+    shutil.rmtree(DISTILL_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[distill] still allocated after the phase: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB", flush=True)
+    return out
+
+
 def grads_of(fn, q, k, v, g):
     """(out, dq, dk, dv) of fn under the cotangent g; where fn returns a
     tuple (K4's out and lse), g is a tuple too and the list starts with
@@ -2226,6 +2692,7 @@ def main():
     context = context_phase(dev)
     grad_rows.update(band2_phase(dev))
     av = av_train_phase(dev)
+    distill = distill_phase(dev)
 
     launches = dict(train["totals"])
     launches["frame_attention_fwd"] += serve_launches + sampler_launches
@@ -2249,6 +2716,14 @@ def main():
     for name, n in av["AVRFTTrainer"]["per_step"].items():
         if n:
             extra.setdefault(name, {})["launches_per_av_train_step"] = n
+    for trainer in ("CausVidTrainer", "SelfForceTrainer",
+                    "DistillODETrainer"):
+        for name, count in distill[trainer]["totals"].items():
+            launches[name] += count
+        for kind, counts in distill[trainer]["launches_per_step"].items():
+            for name, n in counts.items():
+                extra[name].setdefault("launches_per_distill_step", {}) \
+                    .setdefault(trainer, {})[kind] = n
     record = {"kernels": kernel_record(fwd_rows, grad_rows, launches, extra),
               "train": {k: v for k, v in train.items()
                         if k not in ("totals", "per_step")},
@@ -2256,7 +2731,11 @@ def main():
               "cached_serve": cached,
               "av_train": {trainer: {k: v for k, v in row.items()
                                      if k not in ("totals", "per_step")}
-                           for trainer, row in av.items()}}
+                           for trainer, row in av.items()},
+              "distill": {k: ({n: v for n, v in row.items()
+                               if n not in ("totals", "launches_per_step")}
+                              if k.endswith("Trainer") else row)
+                          for k, row in distill.items()}}
     print(json.dumps(record), flush=True)
     print(f"[env] {card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,6 +3,7 @@
     python -m owl_audio_exps_tpu_torch.train --config_path configs/dit_v4_tpu_e2e.yml --max_steps N
     python -m owl_audio_exps_tpu_torch.train --config_path configs/av_v5_8x8_weak.yml
     python -m owl_audio_exps_tpu_torch.train --config_path configs/audio.yml --max_steps 2
+    python -m owl_audio_exps_tpu_torch.train --config_path configs/dit_v4_dmd.yml --max_steps 2
 
 Runs on the card (``cuda``) unless ``--device cpu`` (or ``train.device``
 in the config) asks for the CPU. Under ``torchrun`` each process takes
@@ -18,11 +19,15 @@ source with the trainer's batch columns at the config's shapes
 (``synthetic_latent`` for ``rft``, ``synthetic_av`` for ``av``,
 ``synthetic_mixed`` for ``mixed_av``, and for ``audio_rft``
 ``synthetic_audio_latent`` of ``sample_size`` latents, the latent window
-the model trains on), and so does an eval loader (``sample_data_id``, at
-its ``window_length``); a mesh axis wider than the processes that were
-started shrinks to them; and an eval sampler that the trainer's eval does
-not run is dropped (``rft`` runs the cached video samplers, ``av`` and
-``mixed_av`` the window samplers, ``audio_rft`` ``audio_caching``).
+the model trains on; the distillation trainers ``causvid_vid``,
+``sforce_vid`` and ``ode_distill_vid`` take ``synthetic_latent``), and so
+does an eval loader (``sample_data_id``, at its ``window_length``); a mesh
+axis wider than the processes that were started shrinks to them; and an
+eval sampler that the trainer's eval does not run is dropped (``rft`` and
+the distillation trainers run the cached video samplers, ``av`` and
+``mixed_av`` the window samplers, ``audio_rft`` ``audio_caching``). A
+distillation config's ``teacher_cfg`` is a path the trainer reads, as the
+JAX trainer does.
 """
 
 from __future__ import annotations
@@ -39,7 +44,9 @@ _VIDEO_SAMPLERS = ("av_caching", "av_caching_v1", "av_caching_one_step")
 _AV_SAMPLERS = ("av_window", "av_causal", "av_causal_no_cfg",
                 "av_causal_one_step")
 _PORTED_EVAL = {"rft": _VIDEO_SAMPLERS, "av": _AV_SAMPLERS,
-                "mixed_av": _AV_SAMPLERS, "audio_rft": ("audio_caching",)}
+                "mixed_av": _AV_SAMPLERS, "audio_rft": ("audio_caching",),
+                "causvid_vid": _VIDEO_SAMPLERS, "sforce_vid": _VIDEO_SAMPLERS,
+                "ode_distill_vid": _VIDEO_SAMPLERS}
 
 
 def _synthetic_shapes(synthetic: str, mc, window_length: int):

@@ -1,8 +1,5 @@
 """Trainer registry (counterpart of owl_audio_exps_tpu/trainers/__init__.py)."""
 
-_NOT_PORTED = ("causvid_vid", "sforce_vid", "ode_distill_vid",
-               "audio_vae")
-
 
 def get_trainer_cls(trainer_id: str):
     if trainer_id == "rft":
@@ -17,8 +14,17 @@ def get_trainer_cls(trainer_id: str):
     if trainer_id == "audio_rft":
         from .rft_trainer import AudioRFTTrainer
         return AudioRFTTrainer
-    if trainer_id in _NOT_PORTED:
+    if trainer_id == "causvid_vid":
+        from .causvid import CausVidTrainer
+        return CausVidTrainer
+    if trainer_id == "sforce_vid":
+        from .self_forcing import SelfForceTrainer
+        return SelfForceTrainer
+    if trainer_id == "ode_distill_vid":
+        from .ode_distill import DistillODETrainer
+        return DistillODETrainer
+    if trainer_id == "audio_vae":
         raise NotImplementedError(
-            f"trainer {trainer_id!r} is not ported yet: distillation and "
-            "the VAE trainer are queued in ROADMAP.md Queue 1 item 6")
+            "trainer 'audio_vae' is not ported yet: the VAEs and their "
+            "trainer are queued in ROADMAP.md Queue 1 item 6")
     raise ValueError(f"Invalid trainer id: {trainer_id}")

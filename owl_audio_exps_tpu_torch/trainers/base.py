@@ -27,6 +27,7 @@ import os
 import signal
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -229,6 +230,11 @@ class BaseTrainer:
         return getattr(self, "_preempted", False)
 
     # ----------------------------------------------------------- helpers
+    def to_device(self, batch):
+        """A loader's numpy batch -> tensors on the trainer's device."""
+        return [torch.from_numpy(np.asarray(x)).to(self.device)
+                for x in batch]
+
     def log_interval(self) -> int:
         """Steps between host-blocking metric drains."""
         return int(self.train_cfg.get("log_interval") or 10)

@@ -73,9 +73,6 @@ class RFTFamilyTrainer(BaseTrainer):
         broadcast_from_main(model)
         return self.make_state(model.train())
 
-    def to_device(self, batch):
-        return [torch.from_numpy(np.asarray(x)).to(self.device) for x in batch]
-
     def train(self, max_steps: Optional[int] = None) -> TrainState:
         accum = self.accum_steps()
         state = self.init_state()

@@ -3,8 +3,12 @@ owl_audio_exps_tpu/utils/checkpoints.py, which uses orbax).
 
 A checkpoint is one file holding {"params", "ema_params", "opt_state",
 "step"}: parameter and EMA state dicts, the optimizer's state dict and
-the step count. Files are written to a temporary name and renamed, so a
-crash mid-save never leaves a torn checkpoint under the final name.
+the step count (the distillation trainers add their critic's). Files are
+written to a temporary name and renamed, so a crash mid-save never leaves
+a torn checkpoint under the final name. ``versatile_load`` reads the
+inference weights of either kind of file, or of a clean export's
+directory, and ``unwrap_core`` takes a training wrapper's core out of
+them.
 """
 
 from __future__ import annotations
@@ -33,3 +37,29 @@ def load_checkpoint(path: str, map_location=None) -> Dict[str, Any]:
 def save_clean_export(path: str, ema_params: Dict[str, torch.Tensor]) -> None:
     """EMA-only export for inference: ``<path>/params.pt``."""
     save_checkpoint(os.path.join(path, "params.pt"), {"params": ema_params})
+
+
+def versatile_load(path: str, map_location=None) -> Dict[str, Any]:
+    """The inference weights of a checkpoint: its ``ema_params``, else its
+    ``params``, else the whole object (the JAX package's versatile_load).
+    ``path`` is a ``save_checkpoint`` file, or the directory of a
+    ``save_clean_export``, whose ``params.pt`` is read."""
+    if os.path.isdir(path):
+        path = os.path.join(path, "params.pt")
+    state = load_checkpoint(path, map_location=map_location)
+    for key in ("ema_params", "params"):
+        if isinstance(state, dict) and key in state:
+            return state[key]
+    return state
+
+
+def unwrap_core(state_dict: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+    """A training wrapper's weights (``core.``-prefixed names, as
+    ``GameRFT`` saves them) -> its core's state dict; a core's own state
+    dict is returned as it is."""
+    prefix = "core."
+    if any(k.startswith(prefix) for k in state_dict):
+        return {k[len(prefix):]: v for k, v in state_dict.items()
+                if k.startswith(prefix)}
+    return state_dict

@@ -307,4 +307,4 @@ def test_av_entry_point_and_port_cuts(tmp_path):
         main(["--config_path", str(path), "--max_steps", "1", "--device",
               "cpu"])
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_trainer_cls("causvid_vid")
+        get_trainer_cls("audio_vae")

@@ -51,7 +51,9 @@ def test_port_package_has_its_kernel_source():
                    "parallel/context.py", "nn/kv_cache.py", "nn/wquant.py",
                    "models/audiorft.py", "sampling/audio_caching.py",
                    "sampling/av_caching.py", "sampling/av_window.py",
-                   "inference/pipeline.py"):
+                   "inference/pipeline.py", "trainers/distill_common.py",
+                   "trainers/causvid.py", "trainers/self_forcing.py",
+                   "trainers/ode_distill.py"):
         assert os.path.join("owl_audio_exps_tpu_torch", module) in PORT_FILES
     assert len(PORT_FILES) > 30
 
@@ -162,6 +164,11 @@ cfg = Config.from_dict({{"model": dict(model_id="game_rft", n_layers=2,
     checkpoint_dir={str(tmp_path)!r}, log_interval=1)}})
 state = get_trainer_cls("rft")(cfg, device="cpu").train(max_steps=2)
 assert state.step == 2
+cfg.train.merge(dict(trainer_id="sforce_vid", update_ratio=1,
+    min_rollout_frames=2, rollout_steps=2, vae_scale=1.0, opt="AdamW",
+    opt_kwargs=dict(lr=1e-3)))
+state = get_trainer_cls("sforce_vid")(cfg, device="cpu").train(max_steps=1)
+assert state.step == 1
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "flax", "owl_audio_exps_tpu")]
 print("FORBIDDEN", bad)
@@ -210,6 +217,11 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         AudioRFTTrainer(Config.from_dict({"model": {"model_id":
                                                     "audio_rft"}}))
+    from owl_audio_exps_tpu_torch.trainers import get_trainer_cls
+    for trainer_id in ("causvid_vid", "sforce_vid", "ode_distill_vid"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            get_trainer_cls(trainer_id)(Config.from_dict(
+                {"model": {"model_id": "game_rft"}}))
     from owl_audio_exps_tpu_torch.models.audiorft import AudioRFTCore
     acfg = transformer_config(model_id="audio_rft", n_layers=1, n_heads=2,
                               d_model=16, channels=4, tokens_per_frame=1)

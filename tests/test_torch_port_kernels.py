@@ -27,9 +27,9 @@ def _need_card():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
 
 
-def _qkv(L, H=4, seed=0, normed=False, Dh=64):
+def _qkv(L, H=4, seed=0, normed=False, Dh=64, B=1):
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    ts = [torch.randn(1, H, L, Dh, generator=gen, device="cuda")
+    ts = [torch.randn(B, H, L, Dh, generator=gen, device="cuda")
           for _ in range(3)]
     if normed:  # unit-RMS q and k, as QK rms-norm produces
         for i in (0, 1):
@@ -95,6 +95,37 @@ def test_kernel_backward_matches_plain_on_card(L, tpf, window, causal, docs):
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == torch.bfloat16 and torch.isfinite(a).all(), name
         assert _rel_l2(a, b) < GRAD_REL_L2, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,window", [(2, 16), (2, None), (8, 16)])
+def test_kernel_at_the_distill_geometry_matches_plain_on_card(B, window):
+    """K1 forward, dq and dkv at the distillation window (60 frames x 64
+    tokens, L 3,840, which the band span 1,024 does not divide, so local
+    layers take K1 too) at B > 1: 2 samples, and the ODE student's 8
+    trajectory states stacked on the batch axis."""
+    _need_card()
+    L, tpf = 3840, 64
+    q, k, v = _qkv(L, seed=3, normed=True, B=B)
+    dout = _qkv(L, seed=4, B=B)[0]
+    counts = (splash.launches, splash.dq_launches, splash.dkv_launches)
+    out, got = _grads(lambda *a: splash.splash_attention(
+        *a, tpf, window, True), q, k, v, dout)
+    torch.cuda.synchronize()
+    assert (splash.launches, splash.dq_launches, splash.dkv_launches) == \
+        tuple(c + 1 for c in counts)
+    ref, want = _grads(lambda *a: splash.splash_attention_plain(
+        *a, tpf, window, True), q.float(), k.float(), v.float(),
+        dout.float())
+    err = (out.float() - ref).abs()
+    assert err.max().item() < 2e-2 and err.mean().item() < 2e-3
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a).all(), name
+        assert _rel_l2(a, b) < GRAD_REL_L2, name
+    # each sample of the batch is the kernel's own B 1 result
+    one = splash.splash_attention(q[1:2], k[1:2], v[1:2], tpf, window,
+                                  True)
+    assert torch.equal(one, out[1:2].detach())
 
 
 @pytest.mark.cuda

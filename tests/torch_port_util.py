@@ -9,13 +9,17 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from owl_audio_exps_tpu.configs import Config as JaxConfig
 from owl_audio_exps_tpu.configs import transformer_config as jax_config
 from owl_audio_exps_tpu.models.gamerft import GameRFTCore as JaxVideoCore
 from owl_audio_exps_tpu.models.gamerft_audio import (
     GameRFTAudioCore as JaxAVCore)
+from owl_audio_exps_tpu.trainers import get_trainer_cls as jax_trainer_cls
+from owl_audio_exps_tpu_torch.configs import Config
 from owl_audio_exps_tpu_torch.configs import transformer_config as port_config
 from owl_audio_exps_tpu_torch.models.gamerft import GameRFTCore
 from owl_audio_exps_tpu_torch.models.gamerft_audio import GameRFTAudioCore
+from owl_audio_exps_tpu_torch.trainers import get_trainer_cls
 from owl_audio_exps_tpu_torch.utils.weights import params_from_jax
 
 TINY_AV = dict(
@@ -239,3 +243,91 @@ def av_inputs(rs: np.random.RandomState, b: int, n: int, cfg, dtype=np.float32):
             rs.rand(b, n).astype(dtype),
             rs.randn(b, n, 2).astype(dtype),
             (rs.rand(b, n, cfg.n_buttons) > 0.5).astype(dtype))
+
+
+# ------------------------------------------------------------------------
+# The distillation trainers (tests/test_torch_port_distill*.py) at
+# tests/test_distill.py's tiny width, and their tolerances: losses rtol
+# 1e-5; gradients atol 1e-5, rtol 1e-3; states after a step atol 1e-6.
+
+LOSS_RTOL, GRAD_ATOL, GRAD_RTOL, STATE_ATOL = 1e-5, 1e-5, 1e-3, 1e-6
+
+MODEL = dict(model_id="game_rft", n_layers=2, n_heads=2, d_model=32,
+             channels=4, sample_size=2, tokens_per_frame=4, n_frames=8,
+             n_buttons=3, causal=True, uncond=False, has_audio=False,
+             rope_impl="ortho", local_window=2, global_window=None,
+             cfg_prob=0.0)
+KW = dict(window_length=4, channels=4, sample_size=2, n_buttons=3)
+
+
+def raw_cfg(tmp_path, trainer_id, model=None, **train):
+    return {
+        "model": dict(MODEL, **(model or {})),
+        "train": dict(dict(
+            trainer_id=trainer_id, data_id="synthetic_latent",
+            data_kwargs=dict(KW), target_batch_size=2, batch_size=2,
+            epochs=1, opt="AdamW", opt_kwargs={"lr": 1e-3},
+            d_opt_kwargs={"lr": 2e-3}, checkpoint_dir=str(tmp_path / "ckpt"),
+            save_interval=1000, sample_interval=1000, vae_scale=0.63,
+            update_ratio=2, rollout_steps=2, min_rollout_frames=2,
+            regression_weight=0.1), **train),
+        "wandb": {"run_name": f"test_{trainer_id}"}}
+
+
+def jax_example_args(cfg):
+    return (jnp.zeros((1, 4, 4, 2, 2)), jnp.zeros((1, 4)),
+            jnp.zeros((1, 4, 2)), jnp.zeros((1, 4, cfg.n_buttons)))
+
+
+def _load(core, params, n_heads=2):
+    core.load_state_dict(params_from_jax(numpy_params(params), n_heads),
+                         strict=True)
+
+
+def trainers(tmp_path, trainer_id, model=None, **train):
+    """(JAX trainer, its state, port trainer, its state) on the same
+    float32 weights; the critic starts from weights of its own."""
+    raw = raw_cfg(tmp_path, trainer_id, model, **train)
+    jtr = jax_trainer_cls(trainer_id)(JaxConfig.from_dict(raw))
+    jtr.student = jtr.critic = JaxVideoCore(jtr.model_cfg, dtype=jnp.float32)
+    jtr.teacher = JaxVideoCore(jtr.teacher_cfg, dtype=jnp.float32)
+    jstate = jtr.init_distill_state(jtr.example_args())
+    jstate = jstate.replace(critic_params=jax.jit(jtr.critic.init)(
+        jax.random.key(2), *jax_example_args(jtr.model_cfg))["params"])
+
+    ptr = get_trainer_cls(trainer_id)(Config.from_dict(raw), device="cpu",
+                                      dtype=torch.float32)
+    pstate = ptr.init_distill_state()
+    _load(pstate.student, jstate.student_params)
+    _load(pstate.critic, jstate.critic_params)
+    _load(ptr.teacher, jtr.teacher_params)
+    pstate.student_ema = ptr.ema_of(pstate.student)
+    return jtr, jstate, ptr, pstate
+
+
+def batch(seed, b=2, n=4):
+    rs = np.random.RandomState(seed)
+    return (rs.randn(b, n, 4, 2, 2).astype(np.float32),
+            rs.randn(b, n, 2).astype(np.float32),
+            (rs.rand(b, n, 3) > 0.5).astype(np.float32))
+
+
+def assert_grads(named_params, jax_grads, n_heads=2):
+    want = params_from_jax(numpy_params(jax_grads), n_heads)
+    got = {n: p.grad for n, p in named_params}
+    assert set(got) == set(want)
+    for name, g in got.items():
+        assert g is not None, name
+        np.testing.assert_allclose(g.numpy(), want[name].numpy(),
+                                   atol=GRAD_ATOL, rtol=GRAD_RTOL,
+                                   err_msg=name)
+
+
+def assert_params(named, jax_tree, n_heads=2, what=""):
+    want = params_from_jax(numpy_params(jax_tree), n_heads)
+    got = dict(named)
+    assert set(got) == set(want)
+    for name, p in got.items():
+        np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(),
+                                   atol=STATE_ATOL, rtol=0,
+                                   err_msg=f"{what}{name}")
