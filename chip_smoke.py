@@ -101,7 +101,26 @@ Phases, each of which exits non-zero on any failure:
    against dense attention (phase 6's limits); a Self-Forcing rollout
    with its backward that launches no port kernel; and the CausVid
    student's export served by the config's ``av_caching`` sampler (2
-   steps at [1.0, 0.5]) for a few frames, launching no port kernel.
+   steps at [1.0, 0.5]) for a few frames, launching no port kernel;
+13. the VAEs and the decoded serve, which reach no kernel of the port
+   either (the convolutions are cuDNN's, as the JAX package leaves them to
+   XLA): the DC-AE decoder at its dc-ae-f64c128 widths with
+   configs/causvid.yml's 64 latent channels (208,114,691 seeded bf16
+   parameters) at batch 1 and 8, ms a frame, TFLOP/s counted from the
+   shapes, share of the bound, peak memory, bf16 against float32 on the
+   same weights; the bridge's audio decoder on one latent and a
+   120-latent window, its encoder on 16 x 88,200 samples, bf16 against
+   float32, and both forms of every transposed convolution in float32;
+   ``AVCachedStreamingPipeline`` as in phase 11 decoding every tick
+   through DC-AE and the audio decoder at 1 and 8 sessions beside an
+   undecoded pipeline on the same draws (each decoded tick equal to the
+   decoders applied to the undecoded tick's latents); the headless game
+   loop (inference/game_cv.py) with --vae dcae; ``AudioVAETrainer`` on
+   configs/audio_vae.yml as written for 6 steps on seeded tone files
+   (s/step, audio-seconds a second, peak memory, params and EMA changed);
+   and one AV clip sampled by configs/av_v5_8x8_weak.yml's eval sampler,
+   decoded through the AV trainer's decoders (vae_id dcae) and written as
+   a WAV.
 
 The last lines are the kernels' JSON record, the card line, and
 {"ok": true, "device": {...}}.
@@ -2540,6 +2559,477 @@ def distill_phase(dev):
     return out
 
 
+# --------------------------------------------------------------- phase 13
+VAE_DIR = os.path.join(ROOT, "build", "chip_smoke_vae")
+# decoded serve: ticks compared (decoded vs the decoders applied to the
+# undecoded tick's latents) and timed, each pipeline in turn; the
+# headless game loop's ticks (at most 60 a second, so its stats line,
+# printed each second, comes at least once)
+VAE_COMPARE_TICKS, VAE_TICKS, GAME_TICKS = 4, 12, 72
+VAE_TRAIN_STEPS = 6
+# float32 references of the VAEs run with TF32 off (main); the two forms
+# of the audio decoder's transposed convolution agree to float32
+# reassociation
+UPCONV_REL_L2 = 1e-5
+
+
+def dcae_flops(latent_channels: int, hw: int) -> int:
+    """FLOPs (2 a multiply-add) of one DC-AE decode of an hw x hw latent,
+    counted from the shapes on the meta device: every convolution and
+    projection and the attention's products; elementwise work (norms,
+    activations, shuffles) is not counted."""
+    from owl_audio_exps_tpu_torch.nn import dcae
+    m = dcae.DCAEDecoder(latent_channels=latent_channels, device="meta",
+                         seed=None)
+    total = [0]
+
+    def dense(mod, inp, out):
+        total[0] += 2 * out.numel() * mod.weight[0].numel()
+
+    def attn(mod, inp, out):
+        b, c, hh, ww = out.shape
+        L, hd = hh * ww, mod.head_dim
+        inner = mod.to_q.out_features
+        g = (1 + len(mod.to_qkv_multiscale)) * inner // hd
+        total[0] += 2 * b * L * c * 3 * inner      # the fused q, k, v
+        if L > hd:     # v kᵀ, its product with q, and the key sums
+            total[0] += 2 * b * g * L * hd * (2 * hd + 1)
+        else:
+            total[0] += 4 * b * g * L * L * hd
+
+    for mod in m.modules():
+        if isinstance(mod, (dcae.Conv2d,)) or type(mod).__name__ == "Linear":
+            mod.register_forward_hook(dense)
+        elif isinstance(mod, dcae.MultiscaleLinearAttention):
+            mod.register_forward_hook(attn)
+    with torch.no_grad():
+        m(torch.zeros(1, latent_channels, hw, hw, device="meta"))
+    return total[0]
+
+
+def video_decode_phase(dev):
+    """The DC-AE decoder at the JAX defaults (dc-ae-f64c128 widths) with
+    configs/causvid.yml's 64 latent channels, seeded bf16 weights: ms a
+    frame at batch 1 and 8, TFLOP/s, share of the bound, peak memory;
+    bf16 against a float32 decode of the same weights."""
+    from owl_audio_exps_tpu_torch.nn.dcae import DCAEDecoder
+    from owl_audio_exps_tpu_torch.utils.owl_vae_bridge import (
+        DCAEVideoDecoder)
+    lc = phase11_config("causvid.yml").model.channels
+    dec = DCAEVideoDecoder(latent_channels=lc, device=dev)
+    n_params = sum(p.numel() for p in dec.module.parameters())
+    w_bytes = sum(p.numel() * p.element_size()
+                  for p in dec.module.parameters())
+    flops = dcae_flops(lc, 8)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    print(f"[vae13] DCAEDecoder (dc-ae-f64c128 widths, latent_channels {lc} "
+          f"of configs/causvid.yml), {n_params:,} parameters, seeded bf16 "
+          f"weights ({w_bytes / 2 ** 20:.1f} MiB), 8 x 8 latent -> 256 x 256 "
+          f"x 3; {flops / 1e12:.4f} TFLOP a frame (convolutions, "
+          f"projections, attention; counted from the shapes)", flush=True)
+    out = dict(parameters=n_params, tflop_per_frame=flops / 1e12)
+    for b in (1, 8):
+        z = torch.randn(b, lc, 8, 8, generator=gen, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        frames = dec(z)
+        if tuple(frames.shape) != (b, 256, 256, 3) or \
+                frames.dtype != torch.float32 or \
+                not torch.isfinite(frames).all():
+            fail(f"DCAE frames {tuple(frames.shape)} {frames.dtype} or not "
+                 "finite")
+        # warm-up past cuDNN's first plans for each shape and the clocks'
+        # ramp (the first calls of the process)
+        ms = cuda_ms(lambda: dec(z), 20, warmup=10) / b
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        # per frame: the weights read once a call, a float32 latent in,
+        # a float32 frame out
+        row = bound_row(flops,
+                        w_bytes / b + z[0].numel() * 4 + 256 * 256 * 3 * 4)
+        bound, bound_by = row["bound_ms"], row["bound_by"]
+        tflops = flops / (ms * 1e-3) / 1e12
+        print(f"[vae13]   batch {b}: {ms:.4f} ms a frame, {tflops:.1f} "
+              f"TFLOP/s, bound {bound:.4f} ms ({bound_by}) = "
+              f"{100 * bound / ms:.1f}% of it, peak {peak:.2f} GiB",
+              flush=True)
+        out[f"batch_{b}"] = dict(ms_per_frame=ms, tflops=tflops,
+                                 bound_ms=bound, bound_by=bound_by,
+                                 share_of_bound=bound / ms, peak_gib=peak)
+    # one traced batch-1 decode: device busy against its wall time
+    z = torch.randn(1, lc, 8, 8, generator=gen, device=dev)
+    per_name, wall = trace_call(lambda: dec(z))
+    busy = sum(us for us, _ in per_name.values()) / 1e3
+    kernels = sum(c for _, c in per_name.values())
+    print(f"[vae13]   one traced batch-1 decode: {kernels} kernels, device "
+          f"busy {busy:.2f} ms of {wall:.2f} ms wall "
+          f"({100 * busy / wall:.1f}%); the largest:", flush=True)
+    for name, (us, c) in sorted(per_name.items(),
+                                key=lambda kv: -kv[1][0])[:6]:
+        print(f"[vae13]     {us / 1e3:7.3f} ms {c:4d}x {name[:90]}",
+              flush=True)
+    out["traced_batch_1"] = dict(kernels=kernels, busy_ms=busy,
+                                 wall_ms=wall)
+    # float32 on the same (bf16-rounded) weights, TF32 off
+    ref = DCAEDecoder(latent_channels=lc, dtype=torch.float32, device=dev,
+                      seed=None).eval()
+    ref.load_state_dict({k: v.float() for k, v in
+                         dec.module.state_dict().items()})
+    ref = ref.to(memory_format=torch.channels_last)
+    z = torch.randn(2, lc, 8, 8, generator=gen, device=dev)
+    with torch.no_grad():
+        want = ref(z).permute(0, 2, 3, 1)
+    err = rel_l2(dec(z), want)
+    f32_ms = cuda_ms(lambda: ref(z), 3) / 2
+    print(f"[vae13]   bf16 vs a float32 decode of the same weights (TF32 "
+          f"off, {f32_ms:.2f} ms a frame): rel L2 {err:.3e} (tolerance "
+          f"{FORWARD_REL_L2})", flush=True)
+    if err > FORWARD_REL_L2:
+        fail("the bf16 DCAE decode disagrees with float32")
+    out.update(bf16_vs_f32_rel_l2=err, f32_ms_per_frame=f32_ms)
+    del dec, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def audio_codec_phase(dev):
+    """The bridge's audio decoder on one latent (a tick) and on a
+    120-latent window, its encoder on 88,200 samples at batch 16, bf16
+    against float32 on the same weights; both forms of every transposed
+    convolution in float32 at the window's shapes."""
+    from owl_audio_exps_tpu_torch.nn.audio_vae import (AudioDecoder,
+                                                       AudioEncoder)
+    from owl_audio_exps_tpu_torch.utils.owl_vae_bridge import (
+        SAMPLES_PER_LATENT, get_audio_encoder_decoder)
+    lc = phase11_config("causvid.yml").model.audio_channels
+    enc, adec = get_audio_encoder_decoder(latent_channels=lc, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    tick = torch.randn(1, 1, lc, generator=gen, device=dev)
+    window = torch.randn(1, 120, lc, generator=gen, device=dev)
+    wf = 0.3 * torch.randn(16, 120 * SAMPLES_PER_LATENT, 2, generator=gen,
+                           device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    rows = dict(decode_tick_ms=cuda_ms(lambda: adec(tick), 20, warmup=10),
+                decode_window_ms=cuda_ms(lambda: adec(window), 20,
+                                         warmup=10),
+                encode_b16_ms=cuda_ms(lambda: enc(wf), 10, warmup=5),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    refs = []
+    for fast, cls in ((enc, AudioEncoder), (adec, AudioDecoder)):
+        ref = cls(latent_channels=lc, dtype=torch.float32, device=dev).eval()
+        ref.load_state_dict({k: v.float() for k, v in
+                             fast.module.state_dict().items()})
+        refs.append(ref)
+    with torch.no_grad():
+        errs = dict(decode_window=rel_l2(adec(window), refs[1](window)),
+                    encode_b16=rel_l2(enc(wf), refs[0](wf)))
+    up_errs, t = {}, 120
+    with torch.no_grad():
+        for i in range(refs[1].n_stages):
+            up = getattr(refs[1], f"up_{i}")
+            x = torch.randn(1, up.weight.shape[1], t, generator=gen,
+                            device=dev)
+            up_errs[f"up_{i}"] = rel_l2(up(x), up.dilated(x))
+            t *= up.s
+    print(f"[vae13] audio VAE of the bridge (latent_channels {lc}), seeded "
+          f"bf16 weights: decode one latent (735 samples) "
+          f"{rows['decode_tick_ms']:.3f} ms, a 120-latent window (88,200 "
+          f"samples) {rows['decode_window_ms']:.3f} ms; encode 16 x 88,200 "
+          f"samples {rows['encode_b16_ms']:.3f} ms; peak "
+          f"{rows['peak_gib']:.2f} GiB; bf16 vs float32 rel L2 "
+          f"{ {k: f'{v:.3e}' for k, v in errs.items()} } (tolerance "
+          f"{FORWARD_REL_L2}); conv_transpose1d vs the zero-dilated form, "
+          f"float32, rel L2 { {k: f'{v:.2e}' for k, v in up_errs.items()} } "
+          f"(tolerance {UPCONV_REL_L2})", flush=True)
+    if any(e > FORWARD_REL_L2 for e in errs.values()):
+        fail("the bf16 audio VAE disagrees with float32")
+    if any(e > UPCONV_REL_L2 for e in up_errs.values()):
+        fail("the two forms of the transposed convolution disagree")
+    rows.update(bf16_vs_f32_rel_l2=errs, upconv_forms_rel_l2=up_errs)
+    del enc, adec, refs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def decoded_serve_phase(dev):
+    """``AVCachedStreamingPipeline`` at configs/causvid.yml's width (as
+    phase 11: ring 120, 2 steps, fused write, graphed) decoding every
+    tick through DC-AE and the bridge's audio decoder, at 1 and 8
+    sessions, beside an undecoded pipeline on the same draws; then the
+    headless game loop with --vae dcae."""
+    import contextlib
+    import io
+    import numpy as np
+    from owl_audio_exps_tpu_torch.inference import game_cv
+    from owl_audio_exps_tpu_torch.inference.pipeline import (
+        AVCachedStreamingPipeline)
+    from owl_audio_exps_tpu_torch.utils.owl_vae_bridge import (
+        DCAEVideoDecoder, get_audio_encoder_decoder,
+        make_batched_audio_decode_fn, make_batched_decode_fn)
+
+    cfg = pipeline_config()
+    tc = phase11_config("causvid.yml").train
+    core = make_core(cfg, dev, seed=7)
+    dec = DCAEVideoDecoder(latent_channels=cfg.channels, device=dev)
+    _, adec = get_audio_encoder_decoder(latent_channels=cfg.audio_channels,
+                                        device=dev)
+    fdec = make_batched_decode_fn(dec, tc.vae_batch_size)
+    afn = make_batched_audio_decode_fn(adec, tc.vae_batch_size)
+    scales = dict(image_scale=tc.vae_scale, audio_scale=tc.audio_vae_scale)
+    print(f"[vae13] decoded serve: frames through DC-AE and audio through "
+          f"the bridge, {tc.vae_batch_size} at a time (vae_batch_size), "
+          f"scales {scales} (configs/causvid.yml)", flush=True)
+    rs = np.random.RandomState(7)
+    gen = torch.Generator(device=dev).manual_seed(43)
+    p = cfg.sample_size
+    out = {}
+    for B in PIPE_SESSIONS:
+        reset_counts()
+        ctx = (torch.randn(B, PIPE_PRIME, cfg.channels, p, p, generator=gen,
+                           device=dev),
+               torch.randn(B, PIPE_PRIME, cfg.audio_channels, generator=gen,
+                           device=dev),
+               torch.randn(B, PIPE_PRIME, 2, generator=gen, device=dev),
+               (torch.rand(B, PIPE_PRIME, cfg.n_buttons, generator=gen,
+                           device=dev) > 0.5).float())
+        kw = dict(window_frames=PIPE_WINDOW, sampling_steps=PIPE_STEPS,
+                  seed=9, n_sessions=B, fused_write=True, device=dev)
+        decoded = AVCachedStreamingPipeline(
+            core, cfg, frame_decode_fn=fdec, audio_decode_fn=afn, **scales,
+            **kw)
+        plain = AVCachedStreamingPipeline(core, cfg, **kw)
+        for pipe in (decoded, plain):
+            pipe.prime(*ctx)
+        d_ms, u_ms, diff = [], [], 0.0
+        for i in range(VAE_COMPARE_TICKS + VAE_TICKS):
+            ctrl = (rs.randn(B, 2).astype(np.float32),
+                    (rs.rand(B, cfg.n_buttons) > 0.5).astype(np.float32))
+            frame, audio, secs_d = decoded(*ctrl)
+            lat, alat, secs_u = plain(*ctrl)
+            if i < VAE_COMPARE_TICKS:
+                want_f = fdec(lat[:, None] * tc.vae_scale)
+                want_f = want_f[0] if B == 1 else want_f
+                want_a = afn(alat[:, None] * tc.audio_vae_scale)
+                diff = max(diff, max_abs(frame, want_f),
+                           max_abs(audio, want_a))
+            else:
+                d_ms.append(1e3 * secs_d)
+                u_ms.append(1e3 * secs_u)
+        shape = (1, 256, 256, 3) if B == 1 else (B, 1, 256, 256, 3)
+        if tuple(frame.shape) != shape or \
+                tuple(audio.shape) != (B, 735, 2) or \
+                not (torch.isfinite(frame).all()
+                     and torch.isfinite(audio).all()):
+            fail(f"decoded tick output {tuple(frame.shape)} "
+                 f"{tuple(audio.shape)} or not finite")
+        if diff > CACHED_GRAPH_MAX_ABS:
+            fail(f"{B} sessions: the decoded tick disagrees with the "
+                 "decoders applied to the undecoded tick's latents")
+        check_no_port_kernels(f"the decoded serve ({B} sessions)")
+        dm, um = statistics.median(d_ms), statistics.median(u_ms)
+        print(f"[vae13] {B} session(s): frames {tuple(frame.shape)}, audio "
+              f"{tuple(audio.shape)}; decoded tick vs the decoders on the "
+              f"undecoded tick's latents (same draws, {VAE_COMPARE_TICKS} "
+              f"ticks) max |diff| {diff:.3e} (tolerance "
+              f"{CACHED_GRAPH_MAX_ABS}); ms a tick median decoded {dm:.2f} "
+              f"(min {min(d_ms):.2f}), undecoded {um:.2f} (min "
+              f"{min(u_ms):.2f}) over {VAE_TICKS} ticks each in turn: "
+              f"decoding adds {dm - um:.2f} ms; no port kernel launched",
+              flush=True)
+        out[f"sessions_{B}"] = dict(tick_ms_decoded=dm, tick_ms_undecoded=um,
+                                    decode_vs_latents_max_abs=diff)
+        del decoded, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+    del core, dec, adec, fdec, afn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the game loop reads a config file: configs/causvid.yml with phase
+    # 11's RoPE cut, so its 8 + GAME_TICKS frames stay inside the table
+    import yaml
+    with open(os.path.join(ROOT, "configs", "causvid.yml")) as f:
+        raw = yaml.safe_load(f)
+    raw["model"]["rope_headroom"] = cfg.rope_headroom
+    os.makedirs(VAE_DIR, exist_ok=True)
+    cfg_path = os.path.join(VAE_DIR, "causvid_rope.yml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(raw, f)
+    reset_counts()
+    buf = io.StringIO()
+    argv = ["--config_path", cfg_path, "--headless", "--vae", "dcae",
+            "--ticks", str(GAME_TICKS)]
+    with contextlib.redirect_stdout(buf):
+        ticks = game_cv.main(argv)
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("fps=")]
+    print(f"[vae13] game_cv.main on configs/causvid.yml (rope_headroom "
+          f"{cfg.rope_headroom}, as above) {' '.join(argv[2:])}: {ticks} "
+          f"ticks; its stats: {lines}", flush=True)
+    check_no_port_kernels("the headless game loop")
+    if ticks != GAME_TICKS or not lines:
+        fail("the headless game loop printed no FPS line")
+    out["game_cv_fps_lines"] = lines
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def vae_train_phase(dev):
+    """configs/audio_vae.yml as written (batch 16, 88,200-sample windows,
+    AdamW 1e-4 / wd 1e-4) with two cuts, printed: root_dir -> seeded tone
+    files this phase writes, and VAE_TRAIN_STEPS steps."""
+    import shutil
+    import numpy as np
+    from owl_audio_exps_tpu_torch.trainers import get_trainer_cls
+
+    conf = phase11_config("audio_vae.yml")
+    tc = conf.train
+    root = os.path.join(VAE_DIR, "waveforms")
+    os.makedirs(root, exist_ok=True)
+    rs = np.random.RandomState(23)
+    for i in range(8):      # 3 s stereo tones with noise
+        t = np.arange(3 * 44100) / 44100.0
+        f = rs.uniform(80, 4000, size=2)
+        wf = 0.4 * np.sin(2 * np.pi * f[None] * t[:, None]) \
+            + 0.02 * rs.randn(t.size, 2)
+        torch.save(torch.from_numpy(wf.astype(np.float32)),
+                   os.path.join(root, f"tone{i}_wf.pt"))
+    print(f"[vae13] configs/audio_vae.yml: batch {tc.batch_size} x "
+          f"{tc.data_kwargs.window_length} samples, opt_kwargs "
+          f"{tc.opt_kwargs.to_dict()}; cuts: data_kwargs.root_dir "
+          f"{tc.data_kwargs.root_dir!r} -> 8 seeded 3 s tone files under "
+          f"{os.path.relpath(root, ROOT)} (no waveform data in the "
+          f"repository), {VAE_TRAIN_STEPS} steps; checkpoint_dir -> "
+          f"{os.path.relpath(VAE_DIR, ROOT)} (save_interval "
+          f"{tc.save_interval}: no save in these steps)", flush=True)
+    tc.data_kwargs.root_dir = root
+    tc.checkpoint_dir = os.path.join(VAE_DIR, "ckpt")
+    trainer = get_trainer_cls(tc.trainer_id)(conf, device=dev)
+    logs, init = [], {}
+    trainer.logger.log = lambda log, step: logs.append(dict(log))
+    make_state = trainer.init_state
+
+    def init_state(seed=0):
+        state = make_state(seed)
+        init.update({n: p.detach().clone()
+                     for n, p in state.model.named_parameters()})
+        return state
+
+    trainer.init_state = init_state
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.train(max_steps=VAE_TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_no_port_kernels("the audio VAE trainer")
+    if state.step != VAE_TRAIN_STEPS or len(logs) != VAE_TRAIN_STEPS:
+        fail("the audio VAE trainer did not take its steps")
+    for log in logs:
+        if not all(math.isfinite(log[k])
+                   for k in ("loss", "l1", "stft", "latent_l2")):
+            fail(f"audio VAE metrics not finite: {log}")
+    moved = [n for n, p in state.model.named_parameters()
+             if not torch.equal(p.detach(), init[n])
+             and not torch.equal(state.ema[n], init[n])]
+    if len(moved) != len(init):
+        fail(f"params or EMA unchanged: "
+             f"{sorted(set(init) - set(moved))[:4]}")
+    step_s = statistics.median(log["time"] for log in logs[1:])
+    audio_s = tc.batch_size * tc.data_kwargs.window_length / 44100.0
+    print(f"[vae13] audio VAE trainer, {VAE_TRAIN_STEPS} steps: s/step "
+          f"median of steps 2-{VAE_TRAIN_STEPS} {step_s:.4f} (first "
+          f"{logs[0]['time']:.2f} s), {audio_s / step_s:.1f} audio-seconds "
+          f"a second, peak {peak:.2f} GiB; loss {logs[0]['loss']:.4f} -> "
+          f"{logs[-1]['loss']:.4f}, metrics finite, every parameter and its "
+          f"EMA changed", flush=True)
+    del trainer, state, init
+    shutil.rmtree(VAE_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(step_s=step_s, first_step_s=logs[0]["time"],
+                audio_seconds_per_s=audio_s / step_s, peak_gib=peak,
+                loss_first=logs[0]["loss"], loss_last=logs[-1]["loss"])
+
+
+def av_export_phase(dev):
+    """One AV clip sampled by configs/av_v5_8x8_weak.yml's eval sampler
+    (frames cut as in phase 11) on a seeded core, decoded through the
+    trainer's decoders with vae_id dcae, and its WAV written and read
+    back. The GIF and AVI writers need PIL, which the CPU tests hold."""
+    from scipy.io import wavfile
+    from owl_audio_exps_tpu_torch.sampling import get_sampler_cls
+    from owl_audio_exps_tpu_torch.trainers import get_trainer_cls
+    from owl_audio_exps_tpu_torch.utils.media import write_wav
+
+    conf = phase11_config("av_v5_8x8_weak.yml")
+    cfg, tc = conf.model, conf.train
+    kw = tc.sampler_kwargs.to_dict()
+    print(f"[vae13] AV eval export on configs/av_v5_8x8_weak.yml: cuts "
+          f"vae_id {tc.vae_id!r} -> 'dcae' (the decoder this phase runs), "
+          f"num_frames {kw['num_frames']} -> {CAUSAL_FRAMES} for time",
+          flush=True)
+    tc.vae_id = "dcae"
+    kw["num_frames"] = CAUSAL_FRAMES
+    trainer = get_trainer_cls(tc.trainer_id)(conf, device=dev)
+    core = make_core(cfg, dev, seed=6)
+    sampler = get_sampler_cls(tc.sampler_id)(**kw)
+    W = sampler.window_length
+    gen = torch.Generator(device=dev).manual_seed(37)
+    bf = torch.bfloat16
+    p = cfg.sample_size
+    x = torch.randn(1, W, cfg.channels, p, p, generator=gen,
+                    device=dev).to(bf)
+    a = torch.randn(1, W, cfg.audio_channels, generator=gen,
+                    device=dev).to(bf)
+    m = torch.randn(1, W, 2, generator=gen, device=dev).to(bf)
+    b = (torch.rand(1, W, cfg.n_buttons, generator=gen, device=dev)
+         > 0.5).to(bf)
+    reset_counts()
+    _, _, xl, al, em, eb = sampler(core, x, a, m, b, generator=gen)
+    t0 = time.perf_counter()
+    frames, wf, mouse, btn = trainer.decode_media(xl, al, em, eb)
+    secs = time.perf_counter() - t0
+    check_no_port_kernels("the AV export's decode")
+    n = min(xl.shape[1], al.shape[1], em.shape[1], eb.shape[1])
+    if frames.shape != (n, 256, 256, 3) or wf.shape != (n * 735, 2) or \
+            mouse.shape != (n, 2) or not (np_finite(frames)
+                                          and np_finite(wf)):
+        fail(f"AV export decode {frames.shape} {wf.shape} or not finite")
+    os.makedirs(VAE_DIR, exist_ok=True)
+    path = write_wav(os.path.join(VAE_DIR, "step_0.wav"), wf)
+    rate, back = wavfile.read(path)
+    if rate != 44100 or back.shape != wf.shape:
+        fail(f"the exported WAV reads back as {rate} Hz {back.shape}")
+    print(f"[vae13]   a {n}-frame clip sampled ({tc.sampler_id}), decoded "
+          f"in {secs:.2f} s through the trainer's decoders: frames "
+          f"{frames.shape}, waveform {wf.shape}; {os.path.relpath(path, ROOT)} "
+          f"written and read back at {rate} Hz", flush=True)
+    import shutil
+    shutil.rmtree(VAE_DIR, ignore_errors=True)
+    del trainer, core, sampler
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(frames=n, decode_s=secs)
+
+
+def np_finite(a) -> bool:
+    import numpy as np
+    return bool(np.isfinite(a).all())
+
+
+def vae_phase(dev):
+    """Phase 13: the VAEs, the decoded serve, the audio VAE trainer and
+    the AV export's decode; reaches no kernel of the port."""
+    out = dict(video_decode=video_decode_phase(dev),
+               audio_codec=audio_codec_phase(dev),
+               decoded_serve=decoded_serve_phase(dev),
+               audio_vae_train=vae_train_phase(dev),
+               av_export=av_export_phase(dev), port_kernel_launches=0)
+    print(f"[vae13] still allocated after the phase: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB", flush=True)
+    return out
+
+
 def grads_of(fn, q, k, v, g):
     """(out, dq, dk, dv) of fn under the cotangent g; where fn returns a
     tuple (K4's out and lse), g is a tuple too and the list starts with
@@ -2693,6 +3183,7 @@ def main():
     grad_rows.update(band2_phase(dev))
     av = av_train_phase(dev)
     distill = distill_phase(dev)
+    vae = vae_phase(dev)
 
     launches = dict(train["totals"])
     launches["frame_attention_fwd"] += serve_launches + sampler_launches
@@ -2708,8 +3199,9 @@ def main():
     for name in train["per_step"]:
         extra.setdefault(name, {})["launches_per_train_step"] = \
             train["per_step"][name]
-        # phase 11 fails unless every kernel launched 0 times there
+        # phases 11 and 13 fail unless every kernel launched 0 times there
         extra[name]["launches_cached_serve"] = cached["port_kernel_launches"]
+        extra[name]["launches_vae_phase"] = vae["port_kernel_launches"]
     for name in ("band_attention_fwd", "band_attention_bwd"):
         extra[name]["launches_by_path"] = dict(
             train=train["totals"][name], context=context["counts"][name])
@@ -2735,7 +3227,8 @@ def main():
               "distill": {k: ({n: v for n, v in row.items()
                                if n not in ("totals", "launches_per_step")}
                               if k.endswith("Trainer") else row)
-                          for k, row in distill.items()}}
+                          for k, row in distill.items()},
+              "vae": vae}
     print(json.dumps(record), flush=True)
     print(f"[env] {card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,12 @@ one ring, one batch row each. The host knows the ring's write offset, so
 when the next frame would leave the RoPE table an exact rebase
 (nn/kv_cache.py ``rope_rebase_plan``) runs between ticks and sessions
 are unbounded. Cached attention is plain PyTorch (as the JAX package's is
-plain XLA), so no kernel of the port runs on these pipelines.
+plain XLA), so no kernel of the port runs on these pipelines. With
+``frame_decode_fn`` / ``audio_decode_fn`` (utils/owl_vae_bridge.py) a
+tick returns the decoded frames as the JAX pipelines shape them
+([n_sessions, 1, H, W, 3], one session [1, H, W, 3]) and the waveforms
+[n_sessions, 735, 2]; decoding runs after the tick, outside its graph,
+as the JAX package decodes after its jitted tick.
 
 The JAX package runs each tick as one jitted program. Here a tick works
 on static buffers (sampling/common.py ``StepLoop``): the ring, the
@@ -76,9 +81,15 @@ class CausvidPipeline:
     ``core`` is a port ``GameRFTAudioCore`` on ``device`` (default
     "cuda", which raises without a card; pass ``device="cpu"`` for CPU
     runs). Noise comes from a ``torch.Generator`` seeded with ``seed``.
+    ``frame_decode_fn`` decodes each tick's frame after the tick; it is
+    handed the latent [1, c, h, w], as the JAX pipeline hands it (so the
+    bridge's ``make_batched_decode_fn``, which reads [b, n, c, h, w],
+    refuses it in both packages). ``audio_decode_fn`` is kept and not
+    called, as in the JAX pipeline.
     """
 
     def __init__(self, core, config, frame_decode_fn=None,
+                 audio_decode_fn=None,
                  image_scale: float = 1.0, audio_scale: float = 1.0,
                  window_length: int = 60, alpha: float = 0.2,
                  sampling_steps: int = 1, seed: int = 0, device="cuda"):
@@ -86,6 +97,7 @@ class CausvidPipeline:
         self.core = core
         self.config = config
         self.frame_decode_fn = frame_decode_fn
+        self.audio_decode_fn = audio_decode_fn
         self.image_scale = image_scale
         self.audio_scale = audio_scale
         self.W = window_length

@@ -4,6 +4,7 @@
     python -m owl_audio_exps_tpu_torch.train --config_path configs/av_v5_8x8_weak.yml
     python -m owl_audio_exps_tpu_torch.train --config_path configs/audio.yml --max_steps 2
     python -m owl_audio_exps_tpu_torch.train --config_path configs/dit_v4_dmd.yml --max_steps 2
+    python -m owl_audio_exps_tpu_torch.train --config_path configs/audio_vae.yml --max_steps 6
 
 Runs on the card (``cuda``) unless ``--device cpu`` (or ``train.device``
 in the config) asks for the CPU. Under ``torchrun`` each process takes
@@ -21,7 +22,11 @@ source with the trainer's batch columns at the config's shapes
 ``synthetic_audio_latent`` of ``sample_size`` latents, the latent window
 the model trains on; the distillation trainers ``causvid_vid``,
 ``sforce_vid`` and ``ode_distill_vid`` take ``synthetic_latent``), and so
-does an eval loader (``sample_data_id``, at its ``window_length``); a mesh
+does an eval loader (``sample_data_id``, at its ``window_length``); the
+waveform loader ``local_waveform`` is ported and kept, except for an
+``audio_rft`` config that names no audio VAE (``vae_ckpt_path`` /
+``vae_cfg_path``, as configs/audio.yml), whose waveforms would reach the
+model unencoded, and which takes ``synthetic_audio_latent``; a mesh
 axis wider than the processes that were started shrinks to them; and an
 eval sampler that the trainer's eval does not run is dropped (``rft`` and
 the distillation trainers run the cached video samplers, ``av`` and
@@ -35,7 +40,7 @@ from __future__ import annotations
 import argparse
 from typing import List
 
-_PORTED_DATA = ("synthetic",)
+_PORTED_DATA = ("synthetic", "local_waveform")
 # the synthetic source with the batch columns each trainer reads
 _SYNTHETIC_FOR = {"av": "synthetic_av", "mixed_av": "synthetic_mixed",
                   "audio_rft": "synthetic_audio_latent"}
@@ -71,14 +76,19 @@ def port_cuts(cfg, world_size: int) -> List[str]:
     synthetic = _SYNTHETIC_FOR.get(tc.trainer_id, "synthetic_latent")
     for key in ("data_id", "sample_data_id"):
         data_id = tc.get(key)
-        if not data_id or data_id.startswith(_PORTED_DATA):
+        why = "the file and S3 loaders are not ported"
+        if data_id == "local_waveform" and tc.trainer_id == "audio_rft" \
+                and not (tc.get("vae_ckpt_path") or tc.get("vae_cfg_path")):
+            why = ("the config names no audio VAE (vae_ckpt_path, "
+                   "vae_cfg_path), so its waveforms would reach the model "
+                   "unencoded")
+        elif not data_id or data_id.startswith(_PORTED_DATA):
             continue
         kw_key = key.replace("_id", "_kwargs")
         kw = dict((tc.get(kw_key) or {}).items())
         shapes = _synthetic_shapes(synthetic, mc, kw.get("window_length",
                                                          mc.n_frames))
-        cuts.append(f"{key} {data_id!r} -> {synthetic!r} {shapes} (the "
-                    f"file and S3 loaders are not ported)")
+        cuts.append(f"{key} {data_id!r} -> {synthetic!r} {shapes} ({why})")
         tc[key], tc[kw_key] = synthetic, shapes
     mesh = dict((tc.get("mesh") or {}).items())
     if mesh.get("seq", 1) > 1 and mesh.get("seq", 1) * max(

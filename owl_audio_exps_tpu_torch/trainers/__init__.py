@@ -24,7 +24,6 @@ def get_trainer_cls(trainer_id: str):
         from .ode_distill import DistillODETrainer
         return DistillODETrainer
     if trainer_id == "audio_vae":
-        raise NotImplementedError(
-            "trainer 'audio_vae' is not ported yet: the VAEs and their "
-            "trainer are queued in ROADMAP.md Queue 1 item 6")
+        from .audio_vae_trainer import AudioVAETrainer
+        return AudioVAETrainer
     raise ValueError(f"Invalid trainer id: {trainer_id}")

@@ -10,7 +10,10 @@ every ``save_interval`` steps, eval sampling every ``sample_interval``
 steps when the trainer's eval has what it reads (an eval loader, or for
 the audio trainer only the sampler): the eval samples from the EMA
 weights, the video trainer's with the cached video samplers, the AV
-trainers' with the window samplers. The noise comes from one
+trainers' with the window samplers; with ``eval_media_dir`` the AV
+trainers export the decoded clip and the audio trainer a decoded WAV
+through the VAE bridge (utils/owl_vae_bridge.py), which also encodes the
+audio trainer's waveforms when it names a VAE. The noise comes from one
 ``torch.Generator`` on the device, seeded 1234 plus the data rank, so the
 seq ranks of one data rank draw alike. Under several processes every
 rank starts from rank 0's initial parameters, loads the batches of its
@@ -211,6 +214,7 @@ class AVRFTTrainer(RFTFamilyTrainer):
     """Joint AV RFT. Batch: [vid, audio, mouse, btn]."""
 
     model_id = "game_rft_audio"
+    _media_decoders = None
 
     def scaled_latents(self, vid, audio):
         """Video over ``vae_scale`` and audio over ``audio_vae_scale``
@@ -243,13 +247,58 @@ class AVRFTTrainer(RFTFamilyTrainer):
         return {"eval/video_latent_std": xl.float().std(correction=0).item(),
                 "eval/audio_latent_std": al.float().std(correction=0).item()}
 
+    def media_decoders(self):
+        """(video frame decoder, audio decode) of the eval export, built
+        once on the trainer's device: the bridge's decoder of ``vae_id``
+        (with ``vae_cfg_path`` / ``vae_ckpt_path``) and the bridge's
+        audio decoder of ``audio_channels`` on seeded weights (the JAX
+        trainer reads no audio VAE checkpoint here)."""
+        if self._media_decoders is None:
+            from ..utils.owl_vae_bridge import (get_audio_encoder_decoder,
+                                                get_decoder_only)
+            tc = self.train_cfg
+            dec = get_decoder_only(tc.vae_id, tc.get("vae_cfg_path"),
+                                   tc.get("vae_ckpt_path"),
+                                   latent_channels=self.model_cfg.channels,
+                                   device=self.device)
+            _, adec = get_audio_encoder_decoder(
+                latent_channels=self.model_cfg.audio_channels,
+                device=self.device)
+            self._media_decoders = (dec, adec)
+        return self._media_decoders
+
+    def decode_media(self, video_latents, audio_latents, mouse, btn):
+        """The first clip of a sample, cropped to the trailing window its
+        streams share (a window sampler may return more latents than
+        controls), decoded ``vae_batch_size`` at a time: (frames [n, H, W,
+        3], waveform [n * 735, 2], mouse [n, 2], buttons [n, k]), numpy
+        float32."""
+        from ..utils.owl_vae_bridge import (make_batched_audio_decode_fn,
+                                            make_batched_decode_fn)
+        tc = self.train_cfg
+        n = min(video_latents.shape[1], audio_latents.shape[1],
+                mouse.shape[1], btn.shape[1])
+        dec, adec = self.media_decoders()
+        frames = make_batched_decode_fn(dec, tc.vae_batch_size)(
+            video_latents[:1, -n:] * tc.vae_scale)[0]
+        wf = make_batched_audio_decode_fn(adec, tc.vae_batch_size)(
+            audio_latents[:1, -n:] * tc.get("audio_vae_scale", 1.0))[0]
+        return tuple(x.float().cpu().numpy()
+                     for x in (frames, wf, mouse[0, -n:], btn[0, -n:]))
+
     def _export_media(self, video_latents, audio_latents, mouse, btn):
-        """Decoded eval media, when ``eval_media_dir`` is set: they need
-        the VAE bridge, which is not ported yet."""
-        if self.train_cfg.get("eval_media_dir") and self.is_main:
-            raise NotImplementedError(
-                "eval_media_dir: exporting decoded eval media needs the VAE "
-                "bridge, which is not ported yet (ROADMAP.md Queue 1 item 6)")
+        """With ``eval_media_dir``: the decoded first clip written as
+        step_<n>.gif / .wav and one muxed AV file, controls drawn on the
+        frames (utils/media.py ``save_av_bundle``)."""
+        out_dir = self.train_cfg.get("eval_media_dir")
+        if not out_dir or not self.is_main:
+            return
+        from ..utils.media import save_av_bundle
+        frames, wf, mouse, btn = self.decode_media(
+            video_latents, audio_latents, mouse, btn)
+        save_av_bundle(out_dir, f"step_{self.total_step_counter}",
+                       video_frames=frames, waveform=wf, mouse=mouse,
+                       buttons=btn)
 
 
 class MixedAVRFTTrainer(AVRFTTrainer):
@@ -270,41 +319,74 @@ class MixedAVRFTTrainer(AVRFTTrainer):
                           1.0 - has_controls.float().mean()}
 
 
-# the VAE paths of the audio trainer (ROADMAP.md Queue 1 item 6)
-_VAE_KEYS = ("vae_ckpt_path", "vae_cfg_path", "eval_media_dir")
-
-
 class AudioRFTTrainer(RFTFamilyTrainer):
-    """Unconditional audio RFT on pre-encoded latents. Batch: [latents
-    [b, n, c]]. The JAX trainer can also encode raw waveforms through a
-    frozen VAE and export decoded eval clips; the port has no VAE yet, so
-    ``vae_ckpt_path``, ``vae_cfg_path`` and ``eval_media_dir`` raise."""
+    """Unconditional audio RFT. Batch: [latents [b, n, c]], or with
+    ``vae_ckpt_path`` / ``vae_cfg_path`` [waveforms [b, T, 2]], which the
+    frozen encoder of the bridge (64 latent channels; the checkpoint at
+    ``vae_ckpt_path + "_enc"``, else seeded weights) encodes and divides
+    by ``vae_scale`` each step. With ``eval_media_dir`` the eval decodes
+    its first sample through the bridge's decoder (``vae_ckpt_path +
+    "_dec"``) and writes audio_<step>.wav."""
 
     model_id = "audio_rft"
     eval_reads_loader = False
 
     def __init__(self, cfg, device=None):
-        for key in _VAE_KEYS:
-            if cfg.train.get(key):
-                raise NotImplementedError(
-                    f"{key}: the audio VAE (encoding waveforms, decoding "
-                    "eval clips) is not ported yet (ROADMAP.md Queue 1 "
-                    "item 6)")
         super().__init__(cfg, device)
+        tc = self.train_cfg
+        self.encode_fn = self._audio_decoder = None
+        if tc.get("vae_ckpt_path") or tc.get("vae_cfg_path"):
+            from ..utils.owl_vae_bridge import get_audio_encoder_decoder
+            self.encode_fn, _ = get_audio_encoder_decoder(
+                tc.get("vae_cfg_path"), tc.get("vae_ckpt_path"),
+                device=self.device)
+
+    def _seq_tokens(self) -> int:
+        """One token a latent, ``sample_size`` a sample, also when the
+        loader's windows count waveform samples (as the JAX trainer
+        counts them)."""
+        return self.model_cfg.sample_size
+
+    def to_latents(self, x: torch.Tensor) -> torch.Tensor:
+        """Waveforms [b, T, 2] -> encoded latents over ``vae_scale`` when
+        the trainer has an encoder; anything else as it is."""
+        if x.ndim == 3 and x.shape[-1] == 2 and self.encode_fn is not None:
+            return self.encode_fn(x) / self.train_cfg.vae_scale
+        return x
 
     def loss_fn(self, model, batch, generator):
-        loss = model(batch[0].to(torch.bfloat16), generator=generator)
+        loss = model(self.to_latents(batch[0]).to(torch.bfloat16),
+                     generator=generator)
         return loss, {"diffusion_loss": loss.detach()}
 
     def eval_step(self, state, sample_loader, sampler):
         """Sample from the EMA weights with the configured sampler;
-        returns the std of the latents."""
-        c = self.model_cfg
-        b = min(self.train_cfg.n_samples, 4)
+        returns the std of the latents, and with ``eval_media_dir`` writes
+        the first sample's decoded waveform."""
+        c, tc = self.model_cfg, self.train_cfg
+        b = min(tc.n_samples, 4)
         gen = self.eval_generator(7)
         ctx = torch.randn(b, c.sample_size // 2, c.channels, generator=gen,
                           device=self.device).to(torch.bfloat16)
         latents = sampler(self.ema_core(state), ctx,
                           generator=gen.manual_seed(8))
-        return {"eval/audio_latent_std":
-                latents.float().std(correction=0).item()}
+        out = {"eval/audio_latent_std":
+               latents.float().std(correction=0).item()}
+        out_dir = tc.get("eval_media_dir")
+        if out_dir and self.is_main:
+            import os
+            from ..utils.media import write_wav
+            from ..utils.owl_vae_bridge import (
+                get_audio_encoder_decoder, make_batched_audio_decode_fn)
+            if self._audio_decoder is None:
+                _, dec = get_audio_encoder_decoder(
+                    tc.get("vae_cfg_path"), tc.get("vae_ckpt_path"),
+                    latent_channels=c.channels, device=self.device)
+                self._audio_decoder = make_batched_audio_decode_fn(
+                    dec, tc.vae_batch_size)
+            wf = self._audio_decoder(latents[:1] * tc.vae_scale)[0]
+            os.makedirs(out_dir, exist_ok=True)
+            write_wav(os.path.join(
+                out_dir, f"audio_{self.total_step_counter}.wav"),
+                wf.float().cpu().numpy())
+        return out

@@ -8,12 +8,14 @@ written to a temporary name and renamed, so a crash mid-save never leaves
 a torn checkpoint under the final name. ``versatile_load`` reads the
 inference weights of either kind of file, or of a clean export's
 directory, and ``unwrap_core`` takes a training wrapper's core out of
-them.
+them. ``load_torch_file`` reads a state_dict in the torch reference's
+layout (the port's own) from either, or from an owl_wms checkpoint.
 """
 
 from __future__ import annotations
 
 import os
+import re
 from typing import Any, Dict
 
 import torch
@@ -63,3 +65,18 @@ def unwrap_core(state_dict: Dict[str, torch.Tensor]
         return {k[len(prefix):]: v for k, v in state_dict.items()
                 if k.startswith(prefix)}
     return state_dict
+
+
+def load_torch_file(path: str) -> Dict[str, torch.Tensor]:
+    """A state_dict in the torch reference's layout (the port's own) from
+    a port checkpoint or export (``versatile_load``) or a torch file: the
+    EMA, else the model, of an owl_wms {"model", "ema"} checkpoint, with
+    the DDP, torch.compile and EMA-wrapper prefixes (``module.``,
+    ``_orig_mod.``, ``ema_model.``) stripped, as the JAX package's
+    ``load_torch_file`` and ``normalize_torch_keys`` read it."""
+    sd = versatile_load(path, map_location="cpu")
+    if isinstance(sd, dict) and isinstance(sd.get("model"), dict):
+        sd = sd.get("ema", sd["model"])
+    return {re.sub(r"^ema_model\.", "", k).replace("_orig_mod.", "")
+            .replace("module.", ""): v for k, v in sd.items()
+            if torch.is_tensor(v)}

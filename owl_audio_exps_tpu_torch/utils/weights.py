@@ -16,6 +16,10 @@ float: a tree quantized by the JAX package's ``quantize_params_int8`` is
 refused; carry the float tree and quantize the port's module after
 loading (nn/wquant.py).
 
+``vae_params_from_jax`` does the same for the VAEs (nn/audio_vae.py,
+nn/dcae.py and the bridge's pixel-shuffle decoder), whose convolution
+kernels take their own transposes.
+
 A tree of a ``scan_layers`` model, whose transformer keeps
 ``groups/blocks_j`` with every leaf stacked over [n_groups] (the layout
 of owl_audio_exps_tpu/utils/layer_stacking.py), is unstacked first:
@@ -117,6 +121,54 @@ def params_from_jax(params: dict, n_heads: int) -> Dict[str, torch.Tensor]:
         elif leaf == "scale":
             leaf = "weight"
         out[".".join(mod_path + [leaf])] = torch.from_numpy(np.array(value))
+
+    walk(params, [])
+    return out
+
+
+# flax's automatic names inside the audio VAE's ResBlock1D and the
+# pixel-shuffle video decoder -> the port's module names
+_VAE_RENAMES = {"GroupNorm_0": "norm1", "Conv_0": "conv1",
+                "GroupNorm_1": "norm2", "Conv_1": "conv2"}
+_VAE_INDEXED = re.compile(r"^(up_blocks)_(\d+)_(\d+)$"
+                          r"|^(to_qkv_multiscale)_(\d+)_(proj_in|proj_out)$")
+
+
+def vae_params_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """The JAX package's VAE params (``AudioVAE`` / ``AudioEncoder`` /
+    ``AudioDecoder``, ``DCAEDecoder``, the bridge's pixel-shuffle
+    decoder; optionally under a top-level "params" key) -> the port's
+    state_dict of those modules: a 1-D conv or conv-transpose kernel [k,
+    in, out] -> [out, in, k] (the port's ``UpConv1d`` keeps flax's
+    un-flipped kernel), a 2-D conv kernel [kh, kw, in / g, out] -> [out,
+    in / g, kh, kw], a ``Dense`` kernel transposed, norm ``scale`` ->
+    ``weight``; ``up_blocks_i_j`` -> ``up_blocks.i.j``,
+    ``to_qkv_multiscale_s_proj_in`` -> ``to_qkv_multiscale.s.proj_in``,
+    and flax's ``GroupNorm_k`` / ``Conv_k`` -> ``norm{k+1}`` /
+    ``conv{k+1}``."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    perms = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + [k])
+            return
+        mod = []
+        for p in path[:-1]:
+            m = _VAE_INDEXED.match(p)
+            if m:
+                mod.extend(g for g in m.groups() if g is not None)
+            else:
+                mod.append(_VAE_RENAMES.get(p, p))
+        leaf, value = path[-1], np.asarray(node)
+        if leaf == "kernel":
+            value, leaf = np.transpose(value, perms[value.ndim]), "weight"
+        elif leaf == "scale":
+            leaf = "weight"
+        out[".".join(mod + [leaf])] = torch.from_numpy(np.array(value))
 
     walk(params, [])
     return out

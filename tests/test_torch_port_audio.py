@@ -334,11 +334,38 @@ def test_audio_trainer_trains_samples_and_refuses_the_vae(tmp_path):
     assert state.step == 4
     (step, log), = [e for e in logged if "eval/audio_latent_std" in e[1]]
     assert step == 4 and np.isfinite(log["eval/audio_latent_std"])
-    for key in ("vae_ckpt_path", "vae_cfg_path", "eval_media_dir"):
-        bad = _audio_train_dict(tmp_path)
-        bad["train"][key] = "/nonexistent"
-        with pytest.raises(NotImplementedError, match="item 6"):
-            get_trainer_cls("audio_rft")(Config.from_dict(bad), device="cpu")
+    # the VAE keys are ported: vae_cfg_path takes the bridge's
+    # seeded encoder, vae_ckpt_path reads <path>_enc (and _dec), and
+    # waveforms [b, T, 2] are encoded while latents pass as they are
+    from owl_audio_exps_tpu_torch.utils.owl_vae_bridge import (
+        get_audio_encoder_decoder)
+    enc, dec = get_audio_encoder_decoder(device="cpu")
+    torch.save(enc.module.state_dict(), tmp_path / "vae_enc")
+    torch.save(dec.module.state_dict(), tmp_path / "vae_dec")
+    wf = torch.randn(1, 2 * 735, 2)
+    for key, value in (("vae_cfg_path", "in_repo"),
+                       ("vae_ckpt_path", str(tmp_path / "vae"))):
+        raw_vae = _audio_train_dict(tmp_path)
+        raw_vae["train"][key] = value
+        tr_vae = get_trainer_cls("audio_rft")(Config.from_dict(raw_vae),
+                                              device="cpu")
+        lat = tr_vae.to_latents(wf)
+        assert tuple(lat.shape) == (1, 2, 64) and torch.isfinite(lat).all()
+        if key == "vae_ckpt_path":
+            torch.testing.assert_close(lat, enc(wf), rtol=0, atol=0)
+        x = torch.randn(2, 32, 16)
+        assert tr_vae.to_latents(x) is x
+    # eval_media_dir: the eval decodes its first sample and writes a WAV
+    raw_media = _audio_train_dict(tmp_path)
+    raw_media["train"].update(save_interval=1000,
+                              eval_media_dir=str(tmp_path / "media"))
+    tr_media = get_trainer_cls("audio_rft")(Config.from_dict(raw_media),
+                                            device="cpu")
+    tr_media.train(max_steps=4)
+    from scipy.io import wavfile
+    rate, samples = wavfile.read(tmp_path / "media" / "audio_4.wav")
+    assert rate == 44100 and samples.shape[1] == 2
+    assert samples.shape[0] % 735 == 0 and samples.dtype == np.int16
 
 
 def test_audio_entry_point_and_port_cuts(tmp_path, capsys):

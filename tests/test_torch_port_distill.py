@@ -126,8 +126,11 @@ def test_registry():
     for trainer_id in ("causvid_vid", "sforce_vid", "ode_distill_vid"):
         assert jax_trainer_cls(trainer_id).__name__ == \
             get_trainer_cls(trainer_id).__name__
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        get_trainer_cls("audio_vae")
+    assert get_trainer_cls("audio_vae").__name__ == \
+        jax_trainer_cls("audio_vae").__name__ == "AudioVAETrainer"
+    from owl_audio_exps_tpu_torch.models import get_model_cls
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+        get_model_cls("game_mft_audio")
     with pytest.raises(ValueError, match="Invalid trainer id"):
         get_trainer_cls("causvid")
 

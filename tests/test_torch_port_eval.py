@@ -13,6 +13,7 @@ step (rtol 2^-7), the samples plus atol 1e-2. The CLI runs the eval through
 ``python -m owl_audio_exps_tpu_torch.train``.
 """
 
+import os
 from types import SimpleNamespace
 
 import jax
@@ -155,6 +156,10 @@ def test_av_eval_step_returns_both_stds(tmp_path, trainer_id, data_id):
     again = tr.eval_step(state, iter(loader), sampler)
     assert again == out     # the eval draws from a fixed seed
     assert tr.eval_step(state, None, sampler) == {}
+    # with eval_media_dir the eval decodes its first clip through the VAE
+    # bridge (vae_id null: the pixel-shuffle decoder) and writes it
     tr.train_cfg.eval_media_dir = str(tmp_path / "media")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tr.eval_step(state, iter(loader), sampler)
+    tr.total_step_counter = 7
+    assert tr.eval_step(state, iter(loader), sampler) == out
+    names = sorted(os.listdir(tmp_path / "media"))
+    assert {"step_7.gif", "step_7.wav"} <= set(names) and len(names) == 3

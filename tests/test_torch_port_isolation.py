@@ -53,7 +53,11 @@ def test_port_package_has_its_kernel_source():
                    "sampling/av_caching.py", "sampling/av_window.py",
                    "inference/pipeline.py", "trainers/distill_common.py",
                    "trainers/causvid.py", "trainers/self_forcing.py",
-                   "trainers/ode_distill.py"):
+                   "trainers/ode_distill.py", "nn/audio_vae.py", "nn/dcae.py",
+                   "utils/owl_vae_bridge.py", "utils/media.py",
+                   "utils/vis.py", "data/local_waveform.py",
+                   "trainers/audio_vae_trainer.py",
+                   "inference/game_cv.py"):
         assert os.path.join("owl_audio_exps_tpu_torch", module) in PORT_FILES
     assert len(PORT_FILES) > 30
 
@@ -178,6 +182,38 @@ print("FORBIDDEN", bad)
     assert "FORBIDDEN []" in res.stdout
 
 
+def test_vaes_and_their_trainer_run_without_importing_jax(tmp_path):
+    code = f"""
+import os, sys, numpy as np, torch
+from owl_audio_exps_tpu_torch.configs import Config
+from owl_audio_exps_tpu_torch.trainers import get_trainer_cls
+from owl_audio_exps_tpu_torch.utils.owl_vae_bridge import (
+    DCAEVideoDecoder, get_audio_encoder_decoder, make_batched_decode_fn)
+dec = DCAEVideoDecoder(latent_channels=4, block_out_channels=(8, 16),
+    block_types=("ResBlock", "EfficientViTBlock"), layers_per_block=(1, 1),
+    qkv_multiscales=((), (5,)), attention_head_dim=8, device="cpu")
+frames = make_batched_decode_fn(dec, 2)(torch.zeros(1, 3, 4, 2, 2))
+assert frames.shape == (1, 3, 4, 4, 3) and torch.isfinite(frames).all()
+enc, adec = get_audio_encoder_decoder(device="cpu")
+assert adec(enc(torch.zeros(1, 735, 2))).shape == (1, 735, 2)
+root = {str(tmp_path)!r}
+torch.save(torch.randn(3000, 2) * 0.1, os.path.join(root, "a_wf.pt"))
+cfg = Config.from_dict({{"model": dict(model_id="audio_vae", channels=64),
+    "train": dict(trainer_id="audio_vae", data_id="local_waveform",
+    data_kwargs=dict(window_length=2940, root_dir=root), batch_size=1,
+    target_batch_size=1, save_interval=100,
+    checkpoint_dir=os.path.join(root, "ckpt"))}})
+state = get_trainer_cls("audio_vae")(cfg, device="cpu").train(max_steps=1)
+assert state.step == 1
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "flax", "owl_audio_exps_tpu")]
+print("FORBIDDEN", bad)
+"""
+    res = _run(code)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "FORBIDDEN []" in res.stdout
+
+
 def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
@@ -227,6 +263,23 @@ def test_entry_points_default_to_the_card():
                               d_model=16, channels=4, tokens_per_frame=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         AudioRFTCore(acfg)
+    # the VAEs, their bridge, the VAE trainer and the game loop
+    from owl_audio_exps_tpu_torch.inference.game_cv import main as game_main
+    from owl_audio_exps_tpu_torch.nn.audio_vae import AudioVAE
+    from owl_audio_exps_tpu_torch.nn.dcae import DCAEDecoder
+    from owl_audio_exps_tpu_torch.utils.owl_vae_bridge import (
+        DCAEVideoDecoder, PixelShuffleVideoDecoder, get_audio_encoder_decoder,
+        get_decoder_only)
+    for make in (AudioVAE, DCAEDecoder, DCAEVideoDecoder,
+                 PixelShuffleVideoDecoder, get_audio_encoder_decoder,
+                 lambda: get_decoder_only("dcae")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_trainer_cls("audio_vae")(Config.from_dict(
+            {"model": {"model_id": "audio_vae"}}))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        game_main(["--config_path", "configs/causvid.yml", "--headless"])
 
 
 def test_bench_torch_fails_without_a_card():

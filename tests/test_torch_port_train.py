@@ -481,8 +481,10 @@ def test_train_entry_point_runs_on_the_cpu_when_asked(tmp_path):
     path = tmp_path / "cfg.yml"
     path.write_text(yaml.safe_dump(cfg.to_dict()))
     main(["--config_path", str(path), "--max_steps", "1", "--device", "cpu"])
+    from owl_audio_exps_tpu_torch.models import get_model_cls
+    assert get_trainer_cls("audio_vae").__name__ == "AudioVAETrainer"
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_trainer_cls("audio_vae")
+        get_model_cls("game_mft_audio")
     with pytest.raises(NotImplementedError, match="Muon"):
         get_trainer_cls("rft")(_train_config(
             tmp_path, scheduler="cosine",
