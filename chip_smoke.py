@@ -4,6 +4,9 @@ Usage (from the repository root, on a machine with one NVIDIA GPU):
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --packed-fit`` runs only the probe that shows
+why phase 14 trains configs/dit_v4.yml with group remat: ``packed_fit_phase``.)
+
 Phases, each of which exits non-zero on any failure:
 
 1. environment: card name and power limit, torch version, nvcc build of
@@ -120,7 +123,32 @@ Phases, each of which exits non-zero on any failure:
    (s/step, audio-seconds a second, peak memory, params and EMA changed);
    and one AV clip sampled by configs/av_v5_8x8_weak.yml's eval sampler,
    decoded through the AV trainer's decoders (vae_id dcae) and written as
-   a WAV.
+   a WAV;
+14. the latent data loaders and MeanFlow: (a) an npy table of 80
+   documents of 200-2,000 frames (seeded float16 128 x 8 x 8 latents,
+   mouse, buttons) written with the port's NpyTable, and
+   configs/dit_v4.yml as written (``sequence_packing``, a 1,536-frame
+   window: L = 98,304, batch 1, Muon, 16 x d 1536) trained 3 steps from
+   it through ``RFTTrainer`` and the prefetcher, with the cuts printed
+   (the table, accumulation 1, the eval past the run, group remat):
+   exact K1 launches per step (a doc_id sends every layer to K1, no
+   band), s/step, tokens/s, MFU, peak memory, one traced step by class,
+   the loader's time per batch and the share of the step spent waiting
+   on the prefetch queue; (b) K1 with the documents of a 256-frame packed
+   window (L 16,384) forward and backward against its plain version at
+   every head, global and local, with its bound and SDPA's time; at the
+   full window (L 98,304) forward and backward at every head against the
+   plain version taken 4,096 queries at a time, and the packed output
+   against K1 run on each document's span alone; the native gather
+   against its plain version byte for byte, both timed on a warm page
+   cache at the windows of two cod configs and the packed one;
+   (c) ``game_mft_audio`` under ``AVRFTTrainer`` at the width of
+   configs/av_v5_8x8_weak.yml (24 x d 1536, tpf 65) at 15 frames (975
+   tokens, dense attention; cuts printed), 3 steps with 0 port-kernel
+   launches, the loss and its parts, the parameters moved; then one
+   forward of the objective at 16 frames (1,040 tokens), whose jvp reaches
+   K1 and raises (the kernels refuse a torch.func transform), as the
+   reference's jvp raises at the splash kernel's custom_vjp.
 
 The last lines are the kernels' JSON record, the card line, and
 {"ok": true, "device": {...}}.
@@ -290,66 +318,79 @@ def sdpa_mask(dev, L, tpf, window, causal, doc):
     return mask[None, None] if mask.ndim == 2 else mask[:, None]
 
 
-def kernel_phase(dev):
+def n_docs(doc) -> int:
+    return 1 if doc is None else len(set(doc[0].tolist()))
+
+
+def fwd_case(dev, gen, name, L, tpf, causal, window, doc, B, H=24, Dh=64,
+             plain=None, library=True):
+    """K1's forward at one geometry (``doc`` per-frame [B, n_frames] or
+    None) against its plain version (``plain``, by default the port's
+    splash_attention_plain) at every head, with its time, bound, plain
+    and SDPA times (``library`` False where SDPA's [L, L] mask does not
+    fit): the row of the kernels' record."""
     import torch.nn.functional as F
     from owl_audio_exps_tpu_torch.ops import splash
 
-    H, Dh = 24, 64
+    plain_fn = plain or splash.splash_attention_plain
+    q, k, v = (torch.randn(B, H, L, Dh, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    args = (tpf, window, causal, doc)
+    long = B * L >= LONG_L
+    out = splash.splash_attention(q, k, v, *args)
+    if not torch.isfinite(out).all():
+        fail(f"{name}: kernel output not finite")
+    # every head against the plain version in f32, CHECK_HEADS at a time
+    stats = by_heads(lambda o, *t: abs_err(
+        o, plain_fn(*(x.float() for x in t), *args)), out, q, k, v)
+    max_abs = max(m for m, _ in stats)
+    mean_abs = sum(a for _, a in stats) / out.numel()
+
+    iters = 5 if long else 20
+    ms = cuda_ms(lambda: splash.splash_attention(q, k, v, *args), iters)
+    # the training path's forward also writes the logsumexp
+    ms_lse = cuda_ms(lambda: splash.frame_attention_cuda(
+        q, k, v, *args, return_lse=True), iters)
+    plain = (lambda: by_heads(lambda *t: plain_fn(*t, *args), q, k, v)) \
+        if long else (lambda: plain_fn(q, k, v, *args))
+    plain_ms = cuda_ms(plain, 1 if long else 3, 1)
+    mask = sdpa_mask(dev, L, tpf, window, causal, doc) if library else None
+    lib_ms = library_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=Dh ** -0.5), iters) \
+        if library else None
+
+    pairs = pairs_of(L, tpf, window, causal, doc, B)
+    row = dict(max_abs_err=max_abs, mean_abs_err=mean_abs, ms=ms,
+               ms_with_lse=ms_lse, plain_ms=plain_ms, library_ms=lib_ms,
+               checked_heads=H,
+               **bound_row(4.0 * Dh * pairs * H, 4.0 * B * H * L * Dh * 2))
+    row["tflops"] = row["gflop"] / ms
+    row["share_of_bound"] = row["bound_ms"] / ms
+    lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+    print(f"[kernel] frame_attention_fwd {name}: B={B} H={H} L={L} "
+          f"Dh={Dh} tpf={tpf} causal={causal} window={window} "
+          f"docs={n_docs(doc)} | checked at H={H}: "
+          f"max|d|={max_abs:.3e} mean|d|={mean_abs:.3e} | kernel "
+          f"{ms:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
+          f"{100 * row['share_of_bound']:.1f}% of bound), with lse "
+          f"{ms_lse:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib}, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
+          f"{row['gflop']:.2f} GFLOP)", flush=True)
+    if max_abs > KERNEL_MAX_ABS or mean_abs > KERNEL_MEAN_ABS:
+        fail(f"{name}: kernel disagrees with its plain version "
+             f"(max {max_abs:.3e} > {KERNEL_MAX_ABS} or mean "
+             f"{mean_abs:.3e} > {KERNEL_MEAN_ABS})")
+    del q, k, v, out, mask
+    torch.cuda.empty_cache()
+    return row
+
+
+def kernel_phase(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = {}
     for name, L, tpf, causal, window, two_docs, B in KERNEL_CASES:
-        q, k, v = (torch.randn(B, H, L, Dh, generator=gen, device=dev)
-                   .to(torch.bfloat16) for _ in range(3))
         doc = two_doc_ids(dev, L, tpf) if two_docs else None
-        args = (tpf, window, causal, doc)
-        long = B * L >= LONG_L
-        out = splash.splash_attention(q, k, v, *args)
-        if not torch.isfinite(out).all():
-            fail(f"{name}: kernel output not finite")
-        # every head against the plain version in f32, CHECK_HEADS at a time
-        stats = by_heads(lambda o, *t: abs_err(
-            o, splash.splash_attention_plain(*(x.float() for x in t), *args)),
-            out, q, k, v)
-        max_abs = max(m for m, _ in stats)
-        mean_abs = sum(a for _, a in stats) / out.numel()
-
-        iters = 5 if long else 20
-        ms = cuda_ms(lambda: splash.splash_attention(q, k, v, *args), iters)
-        # the training path's forward also writes the logsumexp
-        ms_lse = cuda_ms(lambda: splash.frame_attention_cuda(
-            q, k, v, *args, return_lse=True), iters)
-        plain = (lambda: by_heads(lambda *t: splash.splash_attention_plain(
-            *t, *args), q, k, v)) if long else \
-            (lambda: splash.splash_attention_plain(q, k, v, *args))
-        plain_ms = cuda_ms(plain, 1 if long else 3, 1)
-        mask = sdpa_mask(dev, L, tpf, window, causal, doc)
-        lib_ms = library_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, scale=Dh ** -0.5), iters)
-
-        pairs = pairs_of(L, tpf, window, causal, doc, B)
-        row = dict(max_abs_err=max_abs, mean_abs_err=mean_abs, ms=ms,
-                   ms_with_lse=ms_lse, plain_ms=plain_ms, library_ms=lib_ms,
-                   checked_heads=H,
-                   **bound_row(4.0 * Dh * pairs * H, 4.0 * B * H * L * Dh * 2))
-        row["tflops"] = row["gflop"] / ms
-        row["share_of_bound"] = row["bound_ms"] / ms
-        rows[name] = row
-        lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
-        print(f"[kernel] frame_attention_fwd {name}: B={B} H={H} L={L} "
-              f"Dh={Dh} tpf={tpf} causal={causal} window={window} "
-              f"docs={2 if two_docs else 1} | checked at H={H}: "
-              f"max|d|={max_abs:.3e} mean|d|={mean_abs:.3e} | kernel "
-              f"{ms:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
-              f"{100 * row['share_of_bound']:.1f}% of bound), with lse "
-              f"{ms_lse:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib}, bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
-              f"{row['gflop']:.2f} GFLOP)", flush=True)
-        if max_abs > KERNEL_MAX_ABS or mean_abs > KERNEL_MEAN_ABS:
-            fail(f"{name}: kernel disagrees with its plain version "
-                 f"(max {max_abs:.3e} > {KERNEL_MAX_ABS} or mean "
-                 f"{mean_abs:.3e} > {KERNEL_MEAN_ABS})")
-        del q, k, v, out, mask
-        torch.cuda.empty_cache()
+        rows[name] = fwd_case(dev, gen, name, L, tpf, causal, window, doc, B)
     return rows
 
 
@@ -396,116 +437,130 @@ def fwd_bwd_ms(fwd, q, k, v, dout, iters):
     return f_ms, cuda_ms(both, iters, 1)
 
 
-def grad_kernel_phase(dev):
+def grad_case(dev, gen, name, kind, L, tpf, causal, window, doc, bound, B,
+              H=24, Dh=64, plain=None, library=True):
+    """The backward kernels of K1 (``kind`` "frame"; ``doc`` per-frame
+    [B, n_frames] or None) or of the band (K2/K3) at one geometry: output
+    and gradients against autograd of the plain version (K1's ``plain``
+    as in fwd_case) at every head, times, bounds, plain and SDPA times
+    (``library`` as in fwd_case); {(kernel, case): row}."""
     import torch.nn.functional as F
     from owl_audio_exps_tpu_torch.ops import band, splash
 
-    H, Dh = 24, 64
+    rows = {}
+    q, k, v, dout = (torch.randn(B, H, L, Dh, generator=gen, device=dev)
+                     .to(torch.bfloat16) for _ in range(4))
+    if kind == "band":   # unit-RMS q, k as QK rms-norm gives them
+        q, k = rms_normed(q), rms_normed(k)
+    iters = 5 if B * L >= LONG_L else 20
+    if kind == "frame":
+        margs = (tpf, window, causal, doc)
+        kern = lambda *t: splash.splash_attention(*t, *margs)
+        plain_fn = plain or splash.splash_attention_plain
+        plain = lambda *t: plain_fn(*t, *margs)
+    else:
+        margs = (tpf, window, bound)
+        kern = lambda *t: band.band_attention(*t, tpf, window,
+                                              logit_bound=bound)
+        plain = lambda *t: band.band_attention_plain(*t, *margs)
+    got = grads_of(kern, q, k, v, dout)
+    errs, plain_fwd, plain_bwd = chunked_grad_errors(got, plain, q, k, v,
+                                                     dout)
+    del got
+    torch.cuda.empty_cache()
+
+    pairs = pairs_of(L, tpf, window, causal, doc, B)
+    elems, stats = B * H * L * Dh, B * H * L
+    if kind == "frame":
+        out, lse = splash.frame_attention_cuda(q, k, v, *margs,
+                                               return_lse=True)
+        dq_ms = cuda_ms(lambda: splash.frame_attention_bwd_dq_cuda(
+            q, k, v, out, lse, dout, *margs), iters)
+        _, delta = splash.frame_attention_bwd_dq_cuda(q, k, v, out, lse,
+                                                      dout, *margs)
+        dkv_ms = cuda_ms(lambda: splash.frame_attention_bwd_dkv_cuda(
+            q, k, v, out, lse, delta, dout, *margs), iters)
+        timed = {"dq": (dq_ms, bound_row(6.0 * Dh * pairs * H,
+                                         12.0 * elems + 8.0 * stats)),
+                 "dkv": (dkv_ms, bound_row(8.0 * Dh * pairs * H,
+                                           12.0 * elems + 8.0 * stats))}
+    else:
+        fwd_ms = cuda_ms(lambda: band.band_attention_cuda(q, k, v, *margs),
+                         iters)
+        out, lse = band.band_attention_cuda(q, k, v, *margs)
+        bwd_ms = cuda_ms(lambda: band.band_attention_bwd_cuda(
+            q, k, v, out, lse, dout, *margs), iters)
+        timed = {"fwd": (fwd_ms, bound_row(4.0 * Dh * pairs * H,
+                                           8.0 * elems + 4.0 * stats)),
+                 "bwd": (bwd_ms, bound_row(10.0 * Dh * pairs * H,
+                                           16.0 * elems + 4.0 * stats))}
+    del out, lse
+    mask = sdpa_mask(dev, L, tpf, window, causal, doc) if library else None
+    sdpa = lambda *t: F.scaled_dot_product_attention(
+        *t, attn_mask=mask, scale=Dh ** -0.5)
+    lib_fwd = lib_bwd = None
+    try:
+        if library:
+            lf, lt = fwd_bwd_ms(sdpa, q, k, v, dout, iters)
+            lib_fwd, lib_bwd = lf, lt - lf
+    except (RuntimeError, torch.OutOfMemoryError) as e:
+        print(f"[kernel]   library call unavailable: {str(e)[:120]}",
+              flush=True)
+    del mask
+    torch.cuda.empty_cache()
+
+    pair_bound = bound_row(10.0 * Dh * pairs * H,
+                           16.0 * elems + 4.0 * stats)
+    for part, (ms, bnd) in timed.items():
+        is_fwd = part == "fwd"
+        kname = (f"band_attention_{part}" if kind == "band"
+                 else f"frame_attention_bwd_{part}")
+        keys = (("out",) if is_fwd else
+                (("dq",) if part == "dq" else ("dk", "dv"))
+                if kind == "frame" else ("dq", "dk", "dv"))
+        rows[(kname, name)] = dict(
+            ms=ms, plain_ms=plain_fwd if is_fwd else plain_bwd,
+            library_ms=lib_fwd if is_fwd else lib_bwd,
+            max_abs_err=max(errs[n][1] for n in keys),
+            mean_abs_err=max(errs[n][2] for n in keys),
+            rel_l2=max(errs[n][0] for n in keys), checked_heads=H,
+            tflops=bnd["gflop"] / ms, share_of_bound=bnd["bound_ms"] / ms,
+            **bnd)
+    lib = ("n/a" if lib_bwd is None else
+           f"fwd {lib_fwd:.4f} ms bwd {lib_bwd:.4f} ms")
+    print(f"[kernel] {kind} {name}: B={B} H={H} L={L} Dh={Dh} tpf={tpf} "
+          f"causal={causal} window={window} docs={n_docs(doc)} "
+          f"bound={bound} | checked at H={H}: " + " ".join(
+              f"{n} rel={e[0]:.2e} max|d|={e[1]:.2e} mean|d|={e[2]:.2e}"
+              for n, e in errs.items()), flush=True)
+    print(f"[kernel]   " + " ".join(
+        f"{part} {ms:.4f} ms ({bnd['gflop'] / ms:.1f} TFLOP/s, "
+        f"{100 * bnd['bound_ms'] / ms:.1f}% of bound "
+        f"{bnd['bound_ms']:.4f} ms {bnd['bound_by']})"
+        for part, (ms, bnd) in timed.items())
+        + f" | plain fwd {plain_fwd:.3f} ms bwd {plain_bwd:.3f} ms | "
+        f"sdpa {lib} | backward bound (10 Dh flops/pair) "
+        f"{pair_bound['bound_ms']:.4f} ms ({pair_bound['bound_by']})",
+        flush=True)
+    worst = max(e[0] for e in errs.values())
+    if worst > GRAD_REL_L2:
+        fail(f"{kind} {name}: kernel disagrees with its plain version "
+             f"(relative L2 {worst:.3e} > {GRAD_REL_L2})")
+    if errs["out"][1] > KERNEL_MAX_ABS or errs["out"][2] > KERNEL_MEAN_ABS:
+        fail(f"{kind} {name}: forward disagrees with its plain version")
+    del q, k, v, dout
+    torch.cuda.empty_cache()
+    return rows
+
+
+def grad_kernel_phase(dev):
     gen = torch.Generator(device=dev).manual_seed(10)
     rows = {}
     for name, kind, L, tpf, causal, window, two_docs, bound, B in \
             GRAD_CASES:
-        q, k, v, dout = (torch.randn(B, H, L, Dh, generator=gen, device=dev)
-                         .to(torch.bfloat16) for _ in range(4))
-        if kind == "band":   # unit-RMS q, k as QK rms-norm gives them
-            q, k = rms_normed(q), rms_normed(k)
         doc = two_doc_ids(dev, L, tpf) if two_docs else None
-        iters = 5 if B * L >= LONG_L else 20
-        if kind == "frame":
-            margs = (tpf, window, causal, doc)
-            kern = lambda *t: splash.splash_attention(*t, *margs)
-            plain = lambda *t: splash.splash_attention_plain(*t, *margs)
-        else:
-            margs = (tpf, window, bound)
-            kern = lambda *t: band.band_attention(*t, tpf, window,
-                                                  logit_bound=bound)
-            plain = lambda *t: band.band_attention_plain(*t, *margs)
-        got = grads_of(kern, q, k, v, dout)
-        errs, plain_fwd, plain_bwd = chunked_grad_errors(got, plain, q, k, v,
-                                                         dout)
-        del got
-        torch.cuda.empty_cache()
-
-        pairs = pairs_of(L, tpf, window, causal, doc, B)
-        elems, stats = B * H * L * Dh, B * H * L
-        if kind == "frame":
-            out, lse = splash.frame_attention_cuda(q, k, v, *margs,
-                                                   return_lse=True)
-            dq_ms = cuda_ms(lambda: splash.frame_attention_bwd_dq_cuda(
-                q, k, v, out, lse, dout, *margs), iters)
-            _, delta = splash.frame_attention_bwd_dq_cuda(q, k, v, out, lse,
-                                                          dout, *margs)
-            dkv_ms = cuda_ms(lambda: splash.frame_attention_bwd_dkv_cuda(
-                q, k, v, out, lse, delta, dout, *margs), iters)
-            timed = {"dq": (dq_ms, bound_row(6.0 * Dh * pairs * H,
-                                             12.0 * elems + 8.0 * stats)),
-                     "dkv": (dkv_ms, bound_row(8.0 * Dh * pairs * H,
-                                               12.0 * elems + 8.0 * stats))}
-        else:
-            fwd_ms = cuda_ms(lambda: band.band_attention_cuda(q, k, v, *margs),
-                             iters)
-            out, lse = band.band_attention_cuda(q, k, v, *margs)
-            bwd_ms = cuda_ms(lambda: band.band_attention_bwd_cuda(
-                q, k, v, out, lse, dout, *margs), iters)
-            timed = {"fwd": (fwd_ms, bound_row(4.0 * Dh * pairs * H,
-                                               8.0 * elems + 4.0 * stats)),
-                     "bwd": (bwd_ms, bound_row(10.0 * Dh * pairs * H,
-                                               16.0 * elems + 4.0 * stats))}
-        del out, lse
-        mask = sdpa_mask(dev, L, tpf, window, causal, doc)
-        sdpa = lambda *t: F.scaled_dot_product_attention(
-            *t, attn_mask=mask, scale=Dh ** -0.5)
-        try:
-            lf, lt = fwd_bwd_ms(sdpa, q, k, v, dout, iters)
-            lib_fwd, lib_bwd = lf, lt - lf
-        except (RuntimeError, torch.OutOfMemoryError) as e:
-            print(f"[kernel]   library call unavailable: {str(e)[:120]}",
-                  flush=True)
-            lib_fwd = lib_bwd = None
-        del mask
-        torch.cuda.empty_cache()
-
-        pair_bound = bound_row(10.0 * Dh * pairs * H,
-                               16.0 * elems + 4.0 * stats)
-        for part, (ms, bnd) in timed.items():
-            is_fwd = part == "fwd"
-            kname = (f"band_attention_{part}" if kind == "band"
-                     else f"frame_attention_bwd_{part}")
-            keys = (("out",) if is_fwd else
-                    (("dq",) if part == "dq" else ("dk", "dv"))
-                    if kind == "frame" else ("dq", "dk", "dv"))
-            rows[(kname, name)] = dict(
-                ms=ms, plain_ms=plain_fwd if is_fwd else plain_bwd,
-                library_ms=lib_fwd if is_fwd else lib_bwd,
-                max_abs_err=max(errs[n][1] for n in keys),
-                mean_abs_err=max(errs[n][2] for n in keys),
-                rel_l2=max(errs[n][0] for n in keys), checked_heads=H,
-                tflops=bnd["gflop"] / ms, share_of_bound=bnd["bound_ms"] / ms,
-                **bnd)
-        lib = ("n/a" if lib_bwd is None else
-               f"fwd {lib_fwd:.4f} ms bwd {lib_bwd:.4f} ms")
-        print(f"[kernel] {kind} {name}: B={B} H={H} L={L} Dh={Dh} tpf={tpf} "
-              f"causal={causal} window={window} docs={2 if two_docs else 1} "
-              f"bound={bound} | checked at H={H}: " + " ".join(
-                  f"{n} rel={e[0]:.2e} max|d|={e[1]:.2e} mean|d|={e[2]:.2e}"
-                  for n, e in errs.items()), flush=True)
-        print(f"[kernel]   " + " ".join(
-            f"{part} {ms:.4f} ms ({bnd['gflop'] / ms:.1f} TFLOP/s, "
-            f"{100 * bnd['bound_ms'] / ms:.1f}% of bound "
-            f"{bnd['bound_ms']:.4f} ms {bnd['bound_by']})"
-            for part, (ms, bnd) in timed.items())
-            + f" | plain fwd {plain_fwd:.3f} ms bwd {plain_bwd:.3f} ms | "
-            f"sdpa {lib} | backward bound (10 Dh flops/pair) "
-            f"{pair_bound['bound_ms']:.4f} ms ({pair_bound['bound_by']})",
-            flush=True)
-        worst = max(e[0] for e in errs.values())
-        if worst > GRAD_REL_L2:
-            fail(f"{kind} {name}: kernel disagrees with its plain version "
-                 f"(relative L2 {worst:.3e} > {GRAD_REL_L2})")
-        if errs["out"][1] > KERNEL_MAX_ABS or errs["out"][2] > KERNEL_MEAN_ABS:
-            fail(f"{kind} {name}: forward disagrees with its plain version")
-        del q, k, v, dout
-        torch.cuda.empty_cache()
+        rows.update(grad_case(dev, gen, name, kind, L, tpf, causal, window,
+                              doc, bound, B))
     return rows
 
 
@@ -892,7 +947,7 @@ def expected_counts(cfg, L: int):
 def counted_trainer(base):
     """A subclass of the trainer class ``base`` that sets every kernel
     count to 0 before each step and appends the counts, the step's wall
-    time and its loss to ``steps`` after it."""
+    time, its loss and its metrics to ``steps`` after it."""
 
     class CountedTrainer(base):
         def __init__(self, *a, **kw):
@@ -905,7 +960,9 @@ def counted_trainer(base):
             metrics = super().train_step(state, micro, gen, **kw)
             loss = float(metrics["diffusion_loss"])   # waits for the step
             self.steps.append(dict(s=time.perf_counter() - t0, loss=loss,
-                                   counts=kernel_counts()))
+                                   counts=kernel_counts(),
+                                   metrics={k: float(v) for k, v in
+                                            metrics.items()}))
             return metrics
 
     return CountedTrainer
@@ -3030,6 +3087,593 @@ def vae_phase(dev):
     return out
 
 
+# --------------------------------------------------------------- phase 14
+PACKED_DIR = os.path.join(ROOT, "build", "chip_smoke_packed")
+# the table: documents of 128-channel 8 x 8 video latents (float16), mouse
+# and buttons, their lengths drawn from a seed in [200, 2000] frames, so a
+# 1,536-frame window holds several documents and cuts some
+PACKED_DOCS, PACKED_DOC_FRAMES, PACKED_SEED = 80, (200, 2000), 14
+PACKED_STEPS = 3
+# K1 with the loader's documents against its plain version: a 256-frame
+# packed window (L 16,384), the global and the local layers' masks
+PACKED_CHECK_FRAMES = 256
+# at the full window the plain version takes this many queries at a time
+# (2 heads x 4,096 queries x 98,304 keys of f32 scores: 3.2 GB)
+FULL_CHECK_QUERIES = 4096
+# MeanFlow at av_v5_8x8_weak.yml's width: 15 frames (975 tokens, below
+# K1's 1,024 threshold, as the reference's only on-chip MeanFlow run);
+# then one forward of the objective at 16 frames (1,040 tokens)
+MFT_FRAMES, MFT_BATCH, MFT_STEPS, MFT_K1_FRAMES = 15, 2, 3, 16
+# --packed-fit: dit_v4.yml without remat at its window and the offered cuts
+PACKED_FIT_WINDOWS = (1536, 1024, 768, 512)
+# the native gather against its plain version on a warm page cache:
+# (window frames, windows a batch) of the cod loaders of
+# configs/dit_v4_prune.yml (60 x 8) and configs/dit_v2.yml (1,000 x 1),
+# and 3 windows of the packed 1,536; each timed GATHER_REPS times, the two
+# read paths alternating which goes first
+GATHER_CASES = ((60, 8), (1000, 1), (1536, 3))
+GATHER_REPS = 10
+
+
+class TimedIter:
+    """An iterator that keeps the seconds each ``next`` took."""
+
+    def __init__(self, it):
+        self.it, self.times = it, []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t0 = time.perf_counter()
+        item = next(self.it)
+        self.times.append(time.perf_counter() - t0)
+        return item
+
+
+def write_packed_table(path: str, cfg):
+    """The phase's npy table, written with the port's NpyTable from
+    PACKED_SEED; returns the document lengths."""
+    import numpy as np
+    from owl_audio_exps_tpu_torch.data.npy_table import NpyTable
+
+    rng = np.random.default_rng(PACKED_SEED)
+    lens = rng.integers(PACKED_DOC_FRAMES[0], PACKED_DOC_FRAMES[1] + 1,
+                        PACKED_DOCS)
+    table = NpyTable(path, columns=[
+        "video", "mouse", "buttons", "tarball", "pt_idx", "missing",
+        "truncated", "seq_len"], array_columns=["video", "mouse", "buttons"])
+    p = cfg.sample_size
+    for i, n in enumerate(lens):
+        n = int(n)
+        table.append(
+            video=rng.standard_normal((n, cfg.channels, p, p),
+                                      dtype=np.float32).astype(np.float16),
+            mouse=rng.standard_normal((n, 2), dtype=np.float32),
+            buttons=(rng.random((n, cfg.n_buttons)) > 0.5).astype(
+                np.float32),
+            tarball=f"doc{i}", pt_idx=i, missing=False, truncated=False,
+            seq_len=n)
+    return [int(n) for n in lens]
+
+
+def print_cut(tag, name, node, key, value, why):
+    print(f"[{tag}] cut from configs/{name}: {key} {node.get(key)!r} -> "
+          f"{value!r} ({why})", flush=True)
+    node[key] = value
+
+
+def packed_config(table: str, remat: bool = True, tag: str = "packed"):
+    """configs/dit_v4.yml with the phase's cuts, each printed; group
+    remat unless ``remat`` is false."""
+    from owl_audio_exps_tpu_torch.configs import Config
+
+    conf = Config.from_yaml(os.path.join(ROOT, "configs", "dit_v4.yml"))
+    mc, tc = conf.model, conf.train
+    why_remat = ("without it one step runs out of the card's memory at "
+                 "the written 1,536-frame window and at the 1,024-frame "
+                 "cut (python3 chip_smoke.py --packed-fit); remat changes "
+                 "no value, and configs/dit_v4_98k_sp.yml sets it for "
+                 "this length")
+    cuts = [(tc.data_kwargs, "dataset_path", table, "the phase's table"),
+            (tc.sample_data_kwargs, "dataset_path", table,
+             "the phase's table; the eval never samples in this run"),
+            (tc, "target_batch_size", tc.batch_size,
+             "accumulation 16 -> 1"),
+            (tc, "sample_interval", PACKED_STEPS + 1, "past the run")]
+    if remat:
+        cuts += [(mc, "gradient_checkpointing", True, why_remat),
+                 (mc, "remat_granularity", "group", why_remat)]
+    for node, key, value, why in cuts:
+        print_cut(tag, "dit_v4.yml", node, key, value, why)
+    return conf
+
+
+def packed_fit_phase(dev):
+    """``python3 chip_smoke.py --packed-fit``: configs/dit_v4.yml from the
+    phase's packed table without remat, as written (a 1,536-frame window)
+    and at each window cut offered for a card the written window does not
+    fit (1,024 / 768 / 512 frames), two steps each: its step time and
+    peak memory, or the CUDA out-of-memory error it raised. This is why
+    phase 14 trains the written window with group remat."""
+    import shutil
+    from owl_audio_exps_tpu_torch.configs import Config
+    from owl_audio_exps_tpu_torch.trainers.rft_trainer import RFTTrainer
+
+    shutil.rmtree(PACKED_DIR, ignore_errors=True)
+    table = os.path.join(PACKED_DIR, "table")
+    write_packed_table(table, Config.from_yaml(
+        os.path.join(ROOT, "configs", "dit_v4.yml")).model)
+    results = {}
+    for frames in PACKED_FIT_WINDOWS:
+        conf = packed_config(table, remat=False, tag="fit")
+        if frames != conf.train.data_kwargs.window_length:
+            print_cut("fit", "dit_v4.yml", conf.train.data_kwargs,
+                      "window_length", frames, "the offered window cut")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = counted_trainer(RFTTrainer)(conf, device=dev)
+        try:
+            trainer.train(max_steps=2)
+            res = dict(fits=True, step_s=trainer.steps[-1]["s"])
+        except torch.OutOfMemoryError as e:
+            res = dict(fits=False, error=str(e).splitlines()[0])
+        res.update(frames=frames, L=frames * conf.model.tokens_per_frame,
+                   steps_done=len(trainer.steps),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        trainer = None
+        print(f"[fit] dit_v4.yml without remat, {frames} frames "
+              f"(L = {res['L']}): " + (
+                  f"fits, step 2 {res['step_s']:.3f} s" if res["fits"] else
+                  f"out of memory after {res['steps_done']} steps: "
+                  f"{res['error']}")
+              + f"; peak allocated {res['peak_gib']:.2f} GiB", flush=True)
+        results[frames] = res
+    shutil.rmtree(PACKED_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results
+
+
+def packed_train_phase(dev, table: str):
+    """(a) RFTTrainer on configs/dit_v4.yml from the packed table: exact
+    K1 launches per step (every layer on K1, no band), s/step, tokens/s,
+    MFU, peak memory, one traced step, the loader's time per batch and
+    the share of the step spent waiting on the prefetch queue."""
+    import gc
+    from owl_audio_exps_tpu_torch.nn.attn import (attention_forwards_per_step,
+                                                  attention_route,
+                                                  local_layer_flags)
+    from owl_audio_exps_tpu_torch.trainers import base as trainer_base
+    from owl_audio_exps_tpu_torch.trainers.rft_trainer import RFTTrainer
+    from owl_audio_exps_tpu_torch.utils.mfu import (H100_PEAK_TFLOPS,
+                                                    training_flops_per_token)
+
+    conf = packed_config(table)
+    cfg, tc = conf.model, conf.train
+    L = tc.data_kwargs.window_length * cfg.tokens_per_frame
+    expect = dict.fromkeys(kernel_counts(), 0)
+    expect.update(frame_attention_fwd=sum(attention_forwards_per_step(cfg)),
+                  frame_attention_bwd_dq=cfg.n_layers,
+                  frame_attention_bwd_dkv=cfg.n_layers)
+
+    loads = []
+    real_get_loader = trainer_base.get_loader
+
+    def timed_get_loader(*a, **kw):
+        loader = TimedIter(iter(real_get_loader(*a, **kw)))
+        loads.append(loader)
+        return loader
+
+    class PackedTrainer(counted_trainer(RFTTrainer)):
+        waits = None
+
+        def data_stream(self, *a, **kw):
+            stream = TimedIter(super().data_stream(*a, **kw))
+            self.waits = self.waits or stream
+            return stream
+
+    trainer_base.get_loader = timed_get_loader
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        trainer = PackedTrainer(conf, device=dev)
+        t0 = time.perf_counter()
+        state = trainer.train(max_steps=PACKED_STEPS)
+        wall = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        batch = next(trainer.data_stream(tc.data_id, tc.batch_size,
+                                         tc.data_kwargs))
+    finally:
+        trainer_base.get_loader = real_get_loader
+    doc = batch[3]
+    routes = {attention_route(cfg, local, L, doc)
+              for local in set(local_layer_flags(cfg))}
+    n_params = sum(p.numel() for p in state.model.parameters())
+    print(f"[packed] RFTTrainer {cfg.n_layers} layers x d {cfg.d_model}, "
+          f"{n_params / 1e6:.1f} M params fp32, data {tc.data_id} window "
+          f"{tc.data_kwargs.window_length} frames (L = {L}), batch "
+          f"{tc.batch_size}, opt {tc.opt}, remat {cfg.remat_granularity}: "
+          f"{PACKED_STEPS} steps in {wall:.1f} s; layer routes with the "
+          f"batch's doc_id {sorted(routes)}; documents in the first window "
+          f"{n_docs(doc)}; expected launches per step "
+          f"{ {k: n for k, n in expect.items() if n} }", flush=True)
+    if routes != {("splash", None)}:
+        fail(f"packed: a layer does not route to K1: {routes}")
+    if doc.dtype != torch.int32 or tuple(doc.shape) != (
+            1, tc.data_kwargs.window_length) or n_docs(doc) < 2:
+        fail(f"packed: doc_id {doc.dtype} {tuple(doc.shape)} with "
+             f"{n_docs(doc)} documents")
+    for i, st in enumerate(trainer.steps):
+        print(f"[packed]   step {i + 1}: {st['s']:.3f} s loss "
+              f"{st['loss']:.5f} launches "
+              f"{ {k: n for k, n in st['counts'].items() if n} }",
+              flush=True)
+        if not math.isfinite(st["loss"]):
+            fail(f"packed step {i + 1}: loss not finite")
+        if st["counts"] != expect:
+            fail(f"packed step {i + 1}: kernel launches {st['counts']}, "
+                 f"expected {expect}")
+    timed = [st["s"] for st in trainer.steps[1:]]
+    step_s = statistics.median(timed)
+    tokens = L * tc.batch_size * trainer.accum_steps()
+    mfu = training_flops_per_token(cfg, L) * tokens / step_s / \
+        (H100_PEAK_TFLOPS * 1e12)
+    load_s = loads[0].times
+    waits = trainer.waits.times
+    wait_share = sum(waits[1:]) / (sum(waits[1:]) + sum(timed))
+    print(f"[packed] s/step median {step_s:.4f} (steps 2-{PACKED_STEPS}, "
+          f"min {min(timed):.4f} max {max(timed):.4f}), "
+          f"{tokens / step_s:.0f} tokens/s, MFU {100 * mfu:.2f}% of "
+          f"{H100_PEAK_TFLOPS:.0f} TFLOP/s (the formula's causal FLOPs; the "
+          f"documents mask some away), peak memory {peak_gb:.2f} GiB "
+          f"(max_memory_allocated)", flush=True)
+    print(f"[packed] loader: {len(load_s)} batches read, "
+          f"{1e3 * statistics.median(load_s):.1f} ms a batch (median; "
+          f"first {1e3 * load_s[0]:.1f} ms); the trainer waited on the "
+          f"prefetch queue {1e3 * waits[0]:.1f} ms before step 1 and "
+          f"{[round(1e3 * w, 2) for w in waits[1:]]} ms before steps "
+          f"2-{PACKED_STEPS}: {100 * wait_share:.2f}% of those steps",
+          flush=True)
+    gen = torch.Generator(device=dev).manual_seed(97)
+    breakdown = profile_step(trainer, state, [batch], gen, step_s,
+                             tag="packed")
+    out = dict(window_frames=tc.data_kwargs.window_length, L=L,
+               step_s=step_s, tokens_per_s=tokens / step_s, mfu=mfu,
+               peak_gib=peak_gb, losses=[st["loss"] for st in trainer.steps],
+               loader_ms_per_batch=1e3 * statistics.median(load_s),
+               prefetch_wait_share=wait_share, device_ms=breakdown,
+               per_step=expect,
+               totals={k: sum(st["counts"][k] for st in trainer.steps)
+                       for k in expect})
+    del trainer, state, batch, doc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mask_name(window) -> str:
+    return "global" if window is None else f"w{window}"
+
+
+def doc_spans(doc):
+    """[(first frame, end frame)] of the runs of equal ids in a per-frame
+    doc_id row."""
+    ids = doc.tolist()
+    starts = [0] + [f for f in range(1, len(ids)) if ids[f] != ids[f - 1]]
+    return list(zip(starts, starts[1:] + [len(ids)]))
+
+
+def query_chunked_plain(L, tpf, window, doc, chunk):
+    """K1's plain version where its [L, L] f32 scores do not fit (the
+    packed window, L 98,304): the port's dense_mask and dot_attention on
+    ``chunk`` queries at a time, over the keys from the first frame those
+    queries see to their end (the mask is frame-causal), each chunk under
+    a checkpoint so that the backward recomputes it. The chunks' masks
+    are built once. Returns fn(q, k, v, *mask args) for fwd_case and
+    grad_case; it takes the causal mask and the per-frame ``doc`` given
+    here."""
+    from torch.utils.checkpoint import checkpoint
+    from owl_audio_exps_tpu_torch.ops.attention import dot_attention
+    from owl_audio_exps_tpu_torch.ops.masks import dense_mask
+
+    if chunk % tpf or L % tpf:
+        fail(f"plain: {chunk} queries or L {L} not whole frames of {tpf}")
+    nf = doc.shape[1]
+    f = torch.arange(nf, device=doc.device)
+    seen = (f[None] <= f[:, None]) & (doc[0][None] == doc[0][:, None])
+    if window is not None:
+        seen &= f[:, None] - f[None] < window
+    first = torch.where(seen, f[None], nf).amin(1).tolist()
+    parts = []
+    for a in range(0, L, chunk):
+        b = min(a + chunk, L)
+        lo = min(first[a // tpf:b // tpf]) * tpf
+        parts.append((a, b, lo, dense_mask(
+            b - lo, tpf, window, doc[:, lo // tpf:b // tpf].long(), a - lo,
+            True)))
+
+    def plain(q, k, v, *_):
+        scale = q.shape[-1] ** -0.5
+        return torch.cat([checkpoint(
+            dot_attention, q[:, :, a:b] * scale, k[:, :, lo:b],
+            v[:, :, lo:b], mask, 1.0, use_reentrant=False)
+            for a, b, lo, mask in parts], dim=2)
+    return plain
+
+
+def packed_kernel_phase(dev, table: str, cfg):
+    """(b) K1 with the documents of the loader's packed windows: at L
+    16,384 forward and backward against the plain version at every head
+    (global and local masks); at the full window (L 98,304) forward and
+    backward against the plain version taken a chunk of queries at a time
+    (query_chunked_plain), and the packed output against K1 run on each
+    document's span alone; and the native gather against its plain
+    version, byte for byte and timed on a warm page cache."""
+    from owl_audio_exps_tpu_torch.data.latent_seq_packing import \
+        PackedSequenceDataset
+    from owl_audio_exps_tpu_torch.ops import splash
+
+    tpf, W = cfg.tokens_per_frame, cfg.local_window
+    ds = PackedSequenceDataset(table, PACKED_CHECK_FRAMES)
+    ds.set_epoch(0)
+    item = next(ds[i] for i in range(len(ds))
+                if len(set(ds[i]["doc_id"].tolist())) > 1)
+    doc = torch.from_numpy(item["doc_id"])[None].to(dev)
+    L = PACKED_CHECK_FRAMES * tpf
+    fwd_rows, grad_rows = {}, {}
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for window in (None, W):
+        name = f"L{L}_tpf{tpf}_packed_{mask_name(window)}"
+        fwd_rows[name] = fwd_case(dev, gen, name, L, tpf, True, window, doc,
+                                  1)
+        grad_rows.update(grad_case(dev, gen, name, "frame", L, tpf, True,
+                                   window, doc, None, 1))
+
+    # the full window: out, dq, dk, dv at every head against the plain
+    # version taken a chunk of queries at a time, and the packed output
+    # against K1 run on each document's span alone
+    frames = cfg.n_frames
+    full = PackedSequenceDataset(table, frames)
+    full.set_epoch(0)
+    item = next(full[i] for i in range(len(full))
+                if len(set(full[i]["doc_id"].tolist())) > 1)
+    doc = torch.from_numpy(item["doc_id"])[None].to(dev)
+    spans = doc_spans(doc[0])
+    L = frames * tpf
+    H, Dh = cfg.n_heads, cfg.d_model // cfg.n_heads
+    full_rows = {}
+    for window in (None, W):
+        name = f"L{L}_tpf{tpf}_packed_{mask_name(window)}"
+        print(f"[packed] {name}: {len(spans)} document spans {spans}; the "
+              f"plain version runs {FULL_CHECK_QUERIES} queries at a time, "
+              f"SDPA's [L, L] mask does not fit", flush=True)
+        plain = query_chunked_plain(L, tpf, window, doc, FULL_CHECK_QUERIES)
+        fwd_rows[name] = fwd_case(dev, gen, name, L, tpf, True, window, doc,
+                                  1, plain=plain, library=False)
+        grad_rows.update(grad_case(dev, gen, name, "frame", L, tpf, True,
+                                   window, doc, None, 1, plain=plain,
+                                   library=False))
+        del plain
+        torch.cuda.empty_cache()
+        q, k, v = (torch.randn(1, H, L, Dh, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        with torch.no_grad():
+            out = splash.splash_attention(q, k, v, tpf, window, True, doc)
+            worst = 0.0
+            for f0, f1 in spans:
+                a, b = f0 * tpf, f1 * tpf
+                alone = splash.splash_attention(
+                    *(t[:, :, a:b].contiguous() for t in (q, k, v)), tpf,
+                    window, True, None)
+                worst = max(worst, (out[:, :, a:b].float()
+                                    - alone.float()).abs().max().item())
+        full_rows[name] = dict(max_abs_err_vs_spans=worst, spans=len(spans),
+                               checked_heads=H)
+        print(f"[packed] frame_attention_fwd {name}: packed vs each span "
+              f"alone max|d|={worst:.3e}", flush=True)
+        if not torch.isfinite(out).all() or worst > KERNEL_MAX_ABS:
+            fail(f"packed {name}: K1 with documents disagrees with K1 on "
+                 f"each span (max {worst:.3e} > {KERNEL_MAX_ABS})")
+        del q, k, v, out, alone
+        torch.cuda.empty_cache()
+
+    return fwd_rows, grad_rows, dict(full_window=full_rows,
+                                     gather=gather_phase(table))
+
+
+def gather_phase(table: str):
+    """The native gather against its plain version on the phase's table:
+    byte-equal, and both timed on the same warm page cache, alternating
+    which goes first (GATHER_CASES)."""
+    import numpy as np
+    from owl_audio_exps_tpu_torch.data import native_loader
+    from owl_audio_exps_tpu_torch.data.cod_latent import WindowedViewDataset
+
+    t0 = time.perf_counter()
+    native_loader.load_library()
+    build_s = time.perf_counter() - t0
+    gather = dict(build_s=build_s)
+    for frames, n in GATHER_CASES:
+        wds = WindowedViewDataset(table, frames)
+        if len(wds) < n:
+            fail(f"packed: {len(wds)} windows of {frames} frames < {n}")
+        idxs = np.random.default_rng(PACKED_SEED).choice(len(wds), n,
+                                                         replace=False)
+        got = {impl: wds.batch(idxs, impl=impl)
+               for impl in ("native", "plain")}
+        same = all(got["native"][c].tobytes() == got["plain"][c].tobytes()
+                   for c in got["plain"])
+        times = {"native": [], "plain": []}
+        for r in range(GATHER_REPS):
+            for impl in (("native", "plain") if r % 2 == 0
+                         else ("plain", "native")):
+                t0 = time.perf_counter()
+                wds.batch(idxs, impl=impl)
+                times[impl].append(1e3 * (time.perf_counter() - t0))
+        mib = sum(a.nbytes for a in got["plain"].values()) / 2 ** 20
+        med = {impl: statistics.median(t) for impl, t in times.items()}
+        gather[f"{frames}x{n}"] = dict(
+            native_ms=med["native"], plain_ms=med["plain"], mib=mib,
+            native_ms_all=times["native"], plain_ms_all=times["plain"])
+        print(f"[packed] gather of {n} windows of {frames} frames "
+              f"({mib:.1f} MiB, columns {sorted(got['plain'])}), warm page "
+              f"cache, {GATHER_REPS} reps alternating: native median "
+              f"{med['native']:.2f} ms (min {min(times['native']):.2f}), "
+              f"plain median {med['plain']:.2f} ms (min "
+              f"{min(times['plain']):.2f}), plain / native "
+              f"{med['plain'] / med['native']:.2f}; byte-equal {same}",
+              flush=True)
+        if not same:
+            fail("packed: the native gather differs from its plain version")
+    print(f"[packed] g++ build of csrc/owl_loader.cpp {build_s:.2f} s",
+          flush=True)
+    return gather
+
+
+def meanflow_phase(dev):
+    """(c) game_mft_audio under the av trainer at the width of
+    configs/av_v5_8x8_weak.yml, below K1's threshold: exact 0 port-kernel
+    launches, s/step, peak memory, the loss and its parts, the
+    parameters moved; then one forward of the objective at 16 frames,
+    where the jvp reaches K1, which refuses it as the reference's
+    custom_vjp does."""
+    import gc
+    from owl_audio_exps_tpu_torch.configs import Config
+    from owl_audio_exps_tpu_torch.data import get_loader
+    from owl_audio_exps_tpu_torch.nn.attn import use_splash_path
+    from owl_audio_exps_tpu_torch.train import port_cuts
+    from owl_audio_exps_tpu_torch.trainers.rft_trainer import AVRFTTrainer
+
+    name = "av_v5_8x8_weak.yml"
+    conf = Config.from_yaml(os.path.join(ROOT, "configs", name))
+    mc, tc = conf.model, conf.train
+    for node, key, value, why in (
+            (mc, "model_id", "game_mft_audio",
+             "the MeanFlow objective under the av trainer, as the "
+             "reference's only on-chip MeanFlow run"),
+            (tc.data_kwargs, "window_length", MFT_FRAMES,
+             "975 tokens, below K1's 1,024 threshold"),
+            (tc, "batch_size", MFT_BATCH, "the dense f32 logits of 24 "
+             "layers, with the autograd graph of the jvp's tangents, do not "
+             "fit one card at 4"),
+            (tc, "target_batch_size", MFT_BATCH, "accumulation 1"),
+            (tc, "sample_interval", MFT_STEPS + 1, "past the run")):
+        print_cut("mft", name, node, key, value, why)
+    for line in port_cuts(conf, 1):
+        print(f"[mft] cut from configs/{name}: {line}", flush=True)
+    L = MFT_FRAMES * mc.tokens_per_frame
+    if use_splash_path(mc, L, dev):
+        fail(f"mft: L {L} would take K1")
+
+    watched = ("core.r_embed.mlp.fc1.weight",
+               "core.transformer.blocks.0.attn.qkv.weight",
+               "core.audio_proj_out.proj.weight")
+
+    class MFTTrainer(counted_trainer(AVRFTTrainer)):
+        start = None
+
+        def init_state(self, *a, **kw):
+            state = super().init_state(*a, **kw)
+            named = dict(state.model.named_parameters())
+            self.start = {n: named[n].detach().clone() for n in watched}
+            return state
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer = MFTTrainer(conf, device=dev)
+    t0 = time.perf_counter()
+    state = trainer.train(max_steps=MFT_STEPS)
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    named = dict(state.model.named_parameters())
+    moved = {n: (named[n] - trainer.start[n]).abs().max().item()
+             for n in watched}
+    zero = dict.fromkeys(kernel_counts(), 0)
+    print(f"[mft] {type(state.model).__name__} under AVRFTTrainer, "
+          f"{mc.n_layers} layers x d {mc.d_model}, tpf {mc.tokens_per_frame}"
+          f", L = {L}, batch {tc.batch_size}, opt {tc.opt}: {MFT_STEPS} "
+          f"steps in {wall:.1f} s", flush=True)
+    for i, st in enumerate(trainer.steps):
+        m = st["metrics"]
+        print(f"[mft]   step {i + 1}: {st['s']:.3f} s loss {st['loss']:.5f} "
+              f"(video {m['video_loss']:.5f}, audio {m['audio_loss']:.5f}) "
+              f"launches {st['counts']}", flush=True)
+        if not all(math.isfinite(m[k]) for k in ("diffusion_loss",
+                                                 "video_loss",
+                                                 "audio_loss")):
+            fail(f"mft step {i + 1}: a loss is not finite")
+        if st["counts"] != zero:
+            fail(f"mft step {i + 1}: a port kernel launched")
+    timed = [st["s"] for st in trainer.steps[1:]]
+    step_s = statistics.median(timed)
+    print(f"[mft] s/step median {step_s:.4f} (steps 2-{MFT_STEPS}), "
+          f"{L * tc.batch_size / step_s:.0f} tokens/s, peak memory "
+          f"{peak_gb:.2f} GiB; max |param change| {moved}", flush=True)
+    if not all(0 < d < math.inf for d in moved.values()):
+        fail(f"mft: parameters did not move (or went non-finite): {moved}")
+
+    # the objective at 16 frames: the jvp meets K1's autograd Function
+    vid, audio, mouse, btn = (
+        torch.from_numpy(a).to(dev) for a in next(iter(get_loader(
+            "synthetic_av", 1, window_length=MFT_K1_FRAMES,
+            channels=mc.channels, audio_channels=mc.audio_channels,
+            sample_size=mc.sample_size, n_buttons=mc.n_buttons))))
+    L16 = MFT_K1_FRAMES * mc.tokens_per_frame
+    reset_counts()
+    try:
+        state.model(vid.to(torch.bfloat16), audio.to(torch.bfloat16), mouse,
+                    btn, generator=torch.Generator(device=dev).manual_seed(5))
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    counts = {k: n for k, n in kernel_counts().items() if n}
+    print(f"[mft] the objective at {MFT_K1_FRAMES} frames (L = {L16}, "
+          f"K1 route {use_splash_path(mc, L16, dev)}): K1 launches before "
+          f"the jvp {counts} (the two instant-velocity forwards, no "
+          f"gradient); the jvp raised: {raised!r}", flush=True)
+    if raised is None or "torch.func transform" not in raised:
+        fail("mft: the jvp through K1 did not raise as documented (the "
+             "port's kernels have no forward-mode rule, like the "
+             "reference's custom_vjp)")
+    reset_counts()
+    out = dict(L=L, batch=tc.batch_size, step_s=step_s, peak_gib=peak_gb,
+               losses=[st["metrics"] for st in trainer.steps],
+               param_change=moved, port_kernel_launches=0,
+               k1_frames_raises=raised.split("\n")[0])
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def packed_phase(dev):
+    """Phase 14: configs/dit_v4.yml trained from a packed table the phase
+    writes, K1 with the loader's documents, and MeanFlow at av_v5 width."""
+    import shutil
+    from owl_audio_exps_tpu_torch.configs import Config
+
+    shutil.rmtree(PACKED_DIR, ignore_errors=True)
+    table = os.path.join(PACKED_DIR, "table")
+    cfg = Config.from_yaml(os.path.join(ROOT, "configs", "dit_v4.yml")).model
+    t0 = time.perf_counter()
+    lens = write_packed_table(table, cfg)
+    print(f"[packed] wrote {len(lens)} documents of {min(lens)}-{max(lens)} "
+          f"frames ({sum(lens)} frames, float16 {cfg.channels} x "
+          f"{cfg.sample_size} x {cfg.sample_size} latents) in "
+          f"{time.perf_counter() - t0:.1f} s to "
+          f"{os.path.relpath(table, ROOT)}", flush=True)
+    reset_counts()
+    train = packed_train_phase(dev, table)
+    fwd_rows, grad_rows, kernels = packed_kernel_phase(dev, table, cfg)
+    reset_counts()
+    mft = meanflow_phase(dev)
+    shutil.rmtree(PACKED_DIR, ignore_errors=True)
+    print(f"[packed] still allocated after the phase: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB", flush=True)
+    return dict(train=train, kernels=kernels, meanflow=mft,
+                fwd_rows=fwd_rows, grad_rows=grad_rows)
+
+
 def grads_of(fn, q, k, v, g):
     """(out, dq, dk, dv) of fn under the cotangent g; where fn returns a
     tuple (K4's out and lse), g is a tuple too and the list starts with
@@ -3167,6 +3811,12 @@ def main():
     print(f"[env] built {sorted(libs)} in {time.perf_counter() - t0:.1f} s "
           f"into {_build.build_dir()}", flush=True)
     sass_check(libs)
+    if sys.argv[1:] == ["--packed-fit"]:
+        print(json.dumps({"packed_fit": packed_fit_phase(dev)}), flush=True)
+        return
+    if sys.argv[1:]:
+        fail(f"unknown arguments {sys.argv[1:]}; usage: chip_smoke.py "
+             f"[--packed-fit]")
 
     fwd_rows = kernel_phase(dev)
     grad_rows = grad_kernel_phase(dev)
@@ -3184,6 +3834,9 @@ def main():
     av = av_train_phase(dev)
     distill = distill_phase(dev)
     vae = vae_phase(dev)
+    packed = packed_phase(dev)
+    fwd_rows.update(packed.pop("fwd_rows"))
+    grad_rows.update(packed.pop("grad_rows"))
 
     launches = dict(train["totals"])
     launches["frame_attention_fwd"] += serve_launches + sampler_launches
@@ -3208,6 +3861,17 @@ def main():
     for name, n in av["AVRFTTrainer"]["per_step"].items():
         if n:
             extra.setdefault(name, {})["launches_per_av_train_step"] = n
+    for name, count in packed["train"]["totals"].items():
+        launches[name] += count
+        if count:
+            extra[name].setdefault("launches_by_path", {})[
+                "packed_train"] = count
+            extra[name]["launches_per_packed_train_step"] = \
+                packed["train"]["per_step"][name]
+        # phase 14's MeanFlow steps fail unless every kernel launched 0
+        # times there
+        extra[name]["launches_meanflow"] = \
+            packed["meanflow"]["port_kernel_launches"]
     for trainer in ("CausVidTrainer", "SelfForceTrainer",
                     "DistillODETrainer"):
         for name, count in distill[trainer]["totals"].items():
@@ -3228,7 +3892,11 @@ def main():
                                if n not in ("totals", "launches_per_step")}
                               if k.endswith("Trainer") else row)
                           for k, row in distill.items()},
-              "vae": vae}
+              "vae": vae,
+              "packed": {k: ({n: v for n, v in row.items()
+                              if n not in ("totals", "per_step")}
+                             if k == "train" else row)
+                         for k, row in packed.items()}}
     print(json.dumps(record), flush=True)
     print(f"[env] {card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,21 +1,37 @@
-"""Data registry (counterpart of owl_audio_exps_tpu/data/__init__.py).
+"""Data registry (counterpart of owl_audio_exps_tpu/data/__init__.py):
+every data id of the JAX registry.
 
-The synthetic sources and the local waveform loader are ported; the file,
-S3 and packing loaders of latents are not yet (ROADMAP.md Queue 1)."""
-
-_NOT_PORTED = ("cod", "sequence_packing", "cod_s3", "cod_s3_audio",
-               "cod_s3_mixed")
+``process_index`` and ``process_count`` default to this process's data
+rank and the number of data ranks of the port's mesh
+(parallel/mesh.py), where the JAX package takes the JAX process: data
+ranks read disjoint shards, and the seq ranks of one data rank, which
+split its frames between them, read the same one. ``cod_s3_audio`` maps
+to the plain S3 loader, as in the JAX package.
+"""
 
 
 def get_loader(data_id: str, batch_size: int, **kwargs):
-    if data_id and data_id.startswith("synthetic"):
-        from .synthetic import get_loader as fn
-        return fn(data_id, batch_size, **kwargs)
-    if data_id == "local_waveform":
+    from ..parallel.mesh import get_mesh
+    mesh = get_mesh()
+    kwargs.setdefault("process_index", mesh.data_index)
+    kwargs.setdefault("process_count", mesh.data)
+
+    if data_id == "cod":
+        from .cod_latent import get_loader as fn
+    elif data_id == "sequence_packing":
+        from .latent_seq_packing import get_loader as fn
+    elif data_id in ("cod_s3", "cod_s3_audio"):
+        from .s3_cod_latent import get_loader as fn
+        kwargs.pop("process_count", None)
+    elif data_id == "cod_s3_mixed":
+        from .s3_cod_latent_mixed import get_loader as fn
+        kwargs.pop("process_count", None)
+    elif data_id == "local_waveform":
         from .local_waveform import get_loader as fn
-        return fn(batch_size, **kwargs)
-    if data_id in _NOT_PORTED:
-        raise NotImplementedError(
-            f"data_id {data_id!r} is not ported yet: the file and S3 "
-            "loaders come with port slice 5 (ROADMAP.md Queue 1)")
-    raise ValueError(f"Invalid data id: {data_id}")
+    elif data_id and data_id.startswith("synthetic"):
+        from .synthetic import get_loader as syn
+        kwargs.pop("process_count", None)
+        return syn(data_id, batch_size, **kwargs)
+    else:
+        raise ValueError(f"Invalid data id: {data_id}")
+    return fn(batch_size=batch_size, **kwargs)

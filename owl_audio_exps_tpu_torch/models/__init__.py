@@ -3,8 +3,6 @@
 Each model is a Core/Wrapper pair: the Core is the pure denoiser used by
 samplers; the wrapper owns training-time noising + loss."""
 
-_NOT_PORTED = ("game_mft_audio",)
-
 
 def get_model_cls(model_id: str):
     """Training wrapper class for a model id."""
@@ -14,12 +12,12 @@ def get_model_cls(model_id: str):
     if model_id == "game_rft_audio":
         from .gamerft_audio import GameRFTAudio
         return GameRFTAudio
+    if model_id == "game_mft_audio":
+        from .gamemft_audio import GameMFTAudio
+        return GameMFTAudio
     if model_id == "audio_rft":
         from .audiorft import AudioRFT
         return AudioRFT
-    if model_id in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {model_id!r} is not ported yet (ROADMAP.md Queue 1)")
     raise ValueError(f"Invalid model id: {model_id}")
 
 
@@ -31,10 +29,10 @@ def get_core_cls(model_id: str):
     if model_id == "game_rft_audio":
         from .gamerft_audio import GameRFTAudioCore
         return GameRFTAudioCore
+    if model_id == "game_mft_audio":
+        from .gamemft_audio import GameMFTAudioCore
+        return GameMFTAudioCore
     if model_id == "audio_rft":
         from .audiorft import AudioRFTCore
         return AudioRFTCore
-    if model_id in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {model_id!r} is not ported yet (ROADMAP.md Queue 1)")
     raise ValueError(f"Invalid model id: {model_id}")

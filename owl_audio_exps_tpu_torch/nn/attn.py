@@ -42,10 +42,12 @@ Training: ``gradient_checkpointing`` recomputes each block in the
 backward (``torch.utils.checkpoint``, non-reentrant); with
 ``remat_granularity: group`` each local/global period of ``local_idx``
 blocks is checkpointed and each block inside it again, as the JAX
-package nests its remat (nn/attn.py:633-658). ``scan_layers`` (the JAX
-package's stacking of each period's parameters for ``nn.scan``, an XLA
-layout with no counterpart here) runs the same layer loop and remat:
-the function is unchanged. The XLA memory layouts ``remat_sequenced``,
+package nests its remat (nn/attn.py:633-658); inside a torch.func
+transform (the jvp of models/gamemft_audio.py) the blocks run without it,
+as the checkpoint's recompute cannot replay the transform's tensors.
+``scan_layers`` (the JAX package's stacking of each period's parameters
+for ``nn.scan``, an XLA layout with no counterpart here) runs the same
+layer loop and remat: the function is unchanged. The XLA memory layouts ``remat_sequenced``,
 ``fused_head_chunks`` and ``mlp_chunks`` > 1 raise.
 
 KV-cached forwards (``kv_cache`` not None, nn/kv_cache.py) follow
@@ -443,8 +445,12 @@ class DiT(nn.Module):
             local_mask, global_mask = build_masks(cfg, L, doc_id,
                                                   device=x.device)
         args = (cond, local_mask, global_mask, splash, doc_id, pos_offset)
+        # inside a torch.func transform (MeanFlow's jvp) the blocks run
+        # without checkpointing: the recompute in the backward does not
+        # see the transform's tensors, and remat changes no value
         remat = (cfg.get("gradient_checkpointing", False)
-                 and torch.is_grad_enabled())
+                 and torch.is_grad_enabled()
+                 and not torch._C._are_functorch_transforms_active())
         if remat and cfg.get("remat_granularity") == "group":
             # one checkpoint per local/global period, and one per block
             # inside it (the group's backward then holds one block's

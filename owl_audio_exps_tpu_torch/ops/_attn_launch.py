@@ -36,9 +36,24 @@ def entry(stem: str, name: str, n_floats: int):
     return fn
 
 
+def refuse_transforms():
+    """Raise inside a torch.func transform (MeanFlow's jvp): the kernels'
+    autograd Functions have no forward-mode or batching rule, as the JAX
+    package's kernels (custom_vjp) have none, and a raw launch would drop
+    the tangents."""
+    if torch._C._are_functorch_transforms_active():
+        raise RuntimeError(
+            "the port's attention kernels under a torch.func transform "
+            "(jvp, vmap): their autograd Functions have no forward-mode "
+            "rule, as the JAX package's splash and band kernels "
+            "(custom_vjp) have none")
+
+
 def check_operands(ref: torch.Tensor, **tensors: torch.Tensor):
     """Each tensor: bf16 [B, H, L, Dh] on ``ref``'s CUDA device, Dh 64 or
-    128. Raises on anything the kernels do not take."""
+    128. Raises on anything the kernels do not take, and inside a
+    torch.func transform (``refuse_transforms``)."""
+    refuse_transforms()
     for name, t in tensors.items():
         if t.device.type != "cuda" or t.device != ref.device:
             raise ValueError(f"{name} must lie on q's CUDA device")

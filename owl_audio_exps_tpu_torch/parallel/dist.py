@@ -52,6 +52,12 @@ def is_main() -> bool:
     return process_index() == 0
 
 
+def barrier():
+    """Wait for every process (a no-op for one)."""
+    if dist.is_initialized():
+        dist.barrier()
+
+
 def cleanup():
     """Leave the process group (if one was joined)."""
     if dist.is_initialized():

@@ -14,20 +14,24 @@ context-parallel dit_v4 at 98,304 tokens on four cards:
 
     torchrun --nproc_per_node 4 -m owl_audio_exps_tpu_torch.train --config_path configs/dit_v4_98k_sp.yml
 
-What the port does not have yet is cut, and each cut is printed
-(``port_cuts``): a data loader that is not ported becomes the synthetic
-source with the trainer's batch columns at the config's shapes
-(``synthetic_latent`` for ``rft``, ``synthetic_av`` for ``av``,
-``synthetic_mixed`` for ``mixed_av``, and for ``audio_rft``
-``synthetic_audio_latent`` of ``sample_size`` latents, the latent window
-the model trains on; the distillation trainers ``causvid_vid``,
-``sforce_vid`` and ``ode_distill_vid`` take ``synthetic_latent``), and so
-does an eval loader (``sample_data_id``, at its ``window_length``); the
-waveform loader ``local_waveform`` is ported and kept, except for an
-``audio_rft`` config that names no audio VAE (``vae_ckpt_path`` /
-``vae_cfg_path``, as configs/audio.yml), whose waveforms would reach the
-model unencoded, and which takes ``synthetic_audio_latent``; a mesh
-axis wider than the processes that were started shrinks to them; and an
+What cannot run as configured is cut, and each cut is printed
+(``port_cuts``): a
+data loader that cannot read its data becomes the synthetic source with
+the trainer's batch columns at the config's shapes (``synthetic_latent``
+for ``rft``, ``synthetic_av`` for ``av``, ``synthetic_mixed`` for
+``mixed_av``, and for ``audio_rft`` ``synthetic_audio_latent`` of
+``sample_size`` latents, the latent window the model trains on; the
+distillation trainers ``causvid_vid``, ``sforce_vid`` and
+``ode_distill_vid`` take ``synthetic_latent``), and so does an eval
+loader (``sample_data_id``, at its ``window_length``). Every loader is
+ported: ``cod`` and ``sequence_packing`` are kept where their
+``dataset_path`` exists, the S3 loaders (``cod_s3``, ``cod_s3_audio``,
+``cod_s3_mixed``) where boto3 is installed, and the waveform loader
+``local_waveform`` except for an ``audio_rft`` config that names no audio
+VAE (``vae_ckpt_path`` / ``vae_cfg_path``, as configs/audio.yml), whose
+waveforms would reach the model unencoded, and which takes
+``synthetic_audio_latent``; a mesh axis wider than the processes that
+were started shrinks to them; and an
 eval sampler that the trainer's eval does not run is dropped (``rft`` and
 the distillation trainers run the cached video samplers, ``av`` and
 ``mixed_av`` the window samplers, ``audio_rft`` ``audio_caching``). A
@@ -38,9 +42,12 @@ JAX trainer does.
 from __future__ import annotations
 
 import argparse
-from typing import List
+import os
+from typing import List, Optional
 
-_PORTED_DATA = ("synthetic", "local_waveform")
+# loaders of files read dataset_path; the S3 loaders need boto3
+_TABLE_DATA = ("cod", "sequence_packing")
+_S3_DATA = ("cod_s3", "cod_s3_audio", "cod_s3_mixed")
 # the synthetic source with the batch columns each trainer reads
 _SYNTHETIC_FOR = {"av": "synthetic_av", "mixed_av": "synthetic_mixed",
                   "audio_rft": "synthetic_audio_latent"}
@@ -68,6 +75,28 @@ def _synthetic_shapes(synthetic: str, mc, window_length: int):
     return shapes
 
 
+def _why_cut(tc, data_id: Optional[str], kw) -> Optional[str]:
+    """Why the loader ``data_id`` (with kwargs ``kw``) cannot read its
+    data, or None when it can."""
+    if data_id in _TABLE_DATA:
+        path = kw.get("dataset_path")
+        if path and os.path.isdir(path):
+            return None
+        return f"its dataset_path {path!r} does not exist"
+    if data_id in _S3_DATA:
+        try:
+            import boto3  # noqa: F401
+        except ImportError:
+            return "the S3 loaders need boto3, which is not installed"
+        return None
+    if data_id == "local_waveform" and tc.trainer_id == "audio_rft" \
+            and not (tc.get("vae_ckpt_path") or tc.get("vae_cfg_path")):
+        return ("the config names no audio VAE (vae_ckpt_path, "
+                "vae_cfg_path), so its waveforms would reach the model "
+                "unencoded")
+    return None
+
+
 def port_cuts(cfg, world_size: int) -> List[str]:
     """Apply the cuts this config needs to run on the port with
     ``world_size`` processes; returns one line per cut."""
@@ -76,16 +105,11 @@ def port_cuts(cfg, world_size: int) -> List[str]:
     synthetic = _SYNTHETIC_FOR.get(tc.trainer_id, "synthetic_latent")
     for key in ("data_id", "sample_data_id"):
         data_id = tc.get(key)
-        why = "the file and S3 loaders are not ported"
-        if data_id == "local_waveform" and tc.trainer_id == "audio_rft" \
-                and not (tc.get("vae_ckpt_path") or tc.get("vae_cfg_path")):
-            why = ("the config names no audio VAE (vae_ckpt_path, "
-                   "vae_cfg_path), so its waveforms would reach the model "
-                   "unencoded")
-        elif not data_id or data_id.startswith(_PORTED_DATA):
-            continue
         kw_key = key.replace("_id", "_kwargs")
         kw = dict((tc.get(kw_key) or {}).items())
+        why = _why_cut(tc, data_id, kw)
+        if why is None:
+            continue
         shapes = _synthetic_shapes(synthetic, mc, kw.get("window_length",
                                                          mc.n_frames))
         cuts.append(f"{key} {data_id!r} -> {synthetic!r} {shapes} ({why})")

@@ -97,9 +97,8 @@ class AudioVAETrainer(BaseTrainer):
 
     def train(self, max_steps: Optional[int] = None) -> TrainState:
         tc = self.train_cfg
-        loader = iter(get_loader(tc.data_id, tc.batch_size, **dict(
-            (tc.data_kwargs or {}).items(),
-            process_index=self.mesh.data_index)))
+        loader = iter(get_loader(tc.data_id, tc.batch_size,
+                                 **dict((tc.data_kwargs or {}).items())))
         state = self.init_state()
         total = max_steps if max_steps is not None else \
             tc.get("max_steps") or int(1e12)

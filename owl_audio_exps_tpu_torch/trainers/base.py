@@ -31,8 +31,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..data import get_loader
+from ..data.prefetch import device_prefetch
 from ..muon import AdamW, init_muon
-from ..parallel.dist import is_main, process_count
+from ..parallel.dist import barrier, is_main, process_count
 from ..parallel.mesh import MeshConfig, get_mesh, make_mesh
 from ..schedulers import get_scheduler_cls
 from ..utils.checkpoints import (load_checkpoint, save_checkpoint,
@@ -230,6 +232,20 @@ class BaseTrainer:
         return getattr(self, "_preempted", False)
 
     # ----------------------------------------------------------- helpers
+    def data_stream(self, data_id: str, batch_size: int, data_kwargs):
+        """The batches of ``data_id`` on the trainer's device: the loader
+        of this process's data shard (data/__init__.py), started (a
+        loader with ``sleep_until_queues_filled`` fills its queues, then
+        every rank meets), fed through ``device_prefetch`` with two
+        batches in flight. Arrays arrive as loaded, float32 not cast: the
+        losses cast, as the JAX package's stacked put does not."""
+        loader = get_loader(data_id, batch_size,
+                            **dict((data_kwargs or {}).items()))
+        if hasattr(loader, "sleep_until_queues_filled"):
+            loader.sleep_until_queues_filled()
+            barrier()
+        return device_prefetch(iter(loader), self.device, size=2)
+
     def to_device(self, batch):
         """A loader's numpy batch -> tensors on the trainer's device."""
         return [torch.from_numpy(np.asarray(x)).to(self.device)

@@ -20,7 +20,6 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..data import get_loader
 from ..utils.logging import DeferredMetrics
 from .distill_common import (DistillState, DistillTrainerBase,
                              clip_and_update, lerp_batched,
@@ -194,10 +193,9 @@ class CausVidTrainer(DistillTrainerBase):
         accum = self.accum_steps()
         state = self.init_distill_state()
         update_ratio = self.train_cfg.get("update_ratio", 5)
-        loader = iter(get_loader(self.train_cfg.data_id,
-                                 self.train_cfg.batch_size,
-                                 **dict((self.train_cfg.data_kwargs
-                                         or {}).items())))
+        batches = self.data_stream(self.train_cfg.data_id,
+                                   self.train_cfg.batch_size,
+                                   self.train_cfg.data_kwargs)
         pending = DeferredMetrics()
         log_interval = self.log_interval()
         total = self.total_steps(max_steps)
@@ -206,10 +204,10 @@ class CausVidTrainer(DistillTrainerBase):
         while self.total_step_counter < total:
             for _ in range(update_ratio):
                 m = self.critic_step(state,
-                                     self.next_micro_batches(loader, accum))
+                                     self.next_micro_batches(batches, accum))
                 pending.append(self.total_step_counter, m)
             m = self.student_step(state,
-                                  self.next_micro_batches(loader, accum))
+                                  self.next_micro_batches(batches, accum))
             pending.append(self.total_step_counter + 1, m)
 
             self.total_step_counter += 1

@@ -208,8 +208,8 @@ class DistillTrainerBase(BaseTrainer):
     def scaled_video(self, vid):
         return (vid / self.train_cfg.vae_scale).to(torch.bfloat16)
 
-    def next_micro_batches(self, loader, accum: int) -> List:
-        return [self.to_device(next(loader)) for _ in range(accum)]
+    def next_micro_batches(self, batches, accum: int) -> List:
+        return [next(batches) for _ in range(accum)]
 
     # --------------------------------------------------------- the steps
     def accumulate(self, core, loss_fn, micro_batches, draws=None):

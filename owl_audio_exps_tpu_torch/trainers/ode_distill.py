@@ -24,7 +24,6 @@ from typing import Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..data import get_loader
 from ..sampling.schedulers import get_sd3_euler
 from ..utils.logging import DeferredMetrics
 from .distill_common import (DistillState, DistillTrainerBase,
@@ -137,17 +136,16 @@ class DistillODETrainer(DistillTrainerBase):
     def train(self, max_steps: Optional[int] = None) -> DistillState:
         accum = self.accum_steps()
         state = self.init_distill_state()
-        loader = iter(get_loader(self.train_cfg.data_id,
-                                 self.train_cfg.batch_size,
-                                 **dict((self.train_cfg.data_kwargs
-                                         or {}).items())))
+        batches = self.data_stream(self.train_cfg.data_id,
+                                   self.train_cfg.batch_size,
+                                   self.train_cfg.data_kwargs)
         pending = DeferredMetrics()
         log_interval = self.log_interval()
         total = self.total_steps(max_steps)
         self.timer.reset()
 
         while self.total_step_counter < total:
-            m = self.step(state, self.next_micro_batches(loader, accum))
+            m = self.step(state, self.next_micro_batches(batches, accum))
             pending.append(self.total_step_counter + 1, m)
             self.total_step_counter += 1
             do_save = \

@@ -3,21 +3,23 @@ owl_audio_exps_tpu/trainers/rft_trainer.py ``RFTFamilyTrainer``,
 ``RFTTrainer``, ``AVRFTTrainer``, ``MixedAVRFTTrainer`` and
 ``AudioRFTTrainer``).
 
-The shared loop: epoch-free iteration over the loader, gradient
-accumulation, the optimizer step and EMA of trainers/base.py, metrics
-drained at the logging cadence (the only host sync of the loop), saves
-every ``save_interval`` steps, eval sampling every ``sample_interval``
-steps when the trainer's eval has what it reads (an eval loader, or for
-the audio trainer only the sampler): the eval samples from the EMA
-weights, the video trainer's with the cached video samplers, the AV
-trainers' with the window samplers; with ``eval_media_dir`` the AV
-trainers export the decoded clip and the audio trainer a decoded WAV
-through the VAE bridge (utils/owl_vae_bridge.py), which also encodes the
-audio trainer's waveforms when it names a VAE. The noise comes from one
-``torch.Generator`` on the device, seeded 1234 plus the data rank, so the
-seq ranks of one data rank draw alike. Under several processes every
-rank starts from rank 0's initial parameters, loads the batches of its
-data rank, and only rank 0 logs and saves (trainers/base.py).
+The shared loop: epoch-free iteration over the loader's batches, which
+the prefetcher moves to the device ahead of the step (trainers/base.py
+``data_stream``), gradient accumulation, the optimizer step and EMA of
+trainers/base.py, metrics drained at the logging cadence (the only host
+sync of the loop), saves every ``save_interval`` steps, eval sampling
+every ``sample_interval`` steps when the trainer's eval has what it
+reads (an eval loader, or for the audio trainer only the sampler): the
+eval samples from the EMA weights, the video trainer's with the cached
+video samplers, the AV trainers' with the window samplers; with
+``eval_media_dir`` the AV trainers export the decoded clip and the audio
+trainer a decoded WAV through the VAE bridge (utils/owl_vae_bridge.py),
+which also encodes the audio trainer's waveforms when it names a VAE.
+The noise comes from one ``torch.Generator`` on the device, seeded 1234
+plus the data rank, so the seq ranks of one data rank draw alike. Under
+several processes every rank starts from rank 0's initial parameters,
+loads the shard of its data rank (data/__init__.py), and only rank 0
+logs and saves (trainers/base.py).
 """
 
 from __future__ import annotations
@@ -83,9 +85,9 @@ class RFTFamilyTrainer(BaseTrainer):
             state = self.load(self.train_cfg.resume_ckpt, state)
             self.total_step_counter = state.step
 
-        loader = get_loader(self.train_cfg.data_id, self.train_cfg.batch_size,
-                            **dict((self.train_cfg.data_kwargs or {}).items(),
-                                   process_index=self.mesh.data_index))
+        batches = self.data_stream(self.train_cfg.data_id,
+                                   self.train_cfg.batch_size,
+                                   self.train_cfg.data_kwargs)
         sampler = sample_loader = None
         has_loader = bool(self.train_cfg.get("sample_data_id"))
         if self.train_cfg.sampler_id and (has_loader
@@ -111,16 +113,16 @@ class RFTFamilyTrainer(BaseTrainer):
         self.timer.reset()
         self.install_preemption_handler()
         try:
-            return self._train_loop(state, max_steps, accum, loader, sampler,
-                                    sample_loader, profiler, generator)
+            return self._train_loop(state, max_steps, accum, batches,
+                                    sampler, sample_loader, profiler,
+                                    generator)
         finally:
             self.restore_preemption_handler()
 
-    def _train_loop(self, state, max_steps, accum, loader, sampler,
+    def _train_loop(self, state, max_steps, accum, batches, sampler,
                     sample_loader, profiler, generator):
         total = max_steps if max_steps is not None else \
             self.train_cfg.get("max_steps") or int(1e12)
-        data_iter = iter(loader)
         pending = DeferredMetrics()
         log_interval = self.log_interval()
         clip = self.grad_clip_norm()
@@ -133,7 +135,7 @@ class RFTFamilyTrainer(BaseTrainer):
                 if self.is_main:
                     self.save(state)
                 break
-            micro = [self.to_device(next(data_iter)) for _ in range(accum)]
+            micro = [next(batches) for _ in range(accum)]
             metrics = self.train_step(state, micro, generator, clip_norm=clip)
             pending.append(self.total_step_counter + 1, metrics)
             self.total_step_counter += 1

@@ -9,8 +9,10 @@ the heads-major [H, 3, Dh] rows of every QKV projection are permuted back
 to the torch reference's [3, H, Dh]. The port's modules load the result
 with ``load_state_dict`` directly: ``GameRFTAudioCore`` and ``GameRFTCore``
 from their own trees, the ``GameRFT`` training wrapper from its tree,
-whose ``core`` subtree becomes the ``core.`` prefix, and ``AudioRFTCore``
-from its tree (``t_embed``, ``proj_in``, ``transformer``, ``proj_out``).
+whose ``core`` subtree becomes the ``core.`` prefix (``GameMFTAudio`` the
+same way, its interval embedding ``r_embed`` beside ``t_embed``), and
+``AudioRFTCore`` from its tree (``t_embed``, ``proj_in``, ``transformer``,
+``proj_out``).
 The mapping is linear, so a tree of gradients maps the same way. Trees are
 float: a tree quantized by the JAX package's ``quantize_params_int8`` is
 refused; carry the float tree and quantize the port's module after

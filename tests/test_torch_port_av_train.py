@@ -306,8 +306,6 @@ def test_av_entry_point_and_port_cuts(tmp_path):
         path.write_text(yaml.safe_dump(raw))
         main(["--config_path", str(path), "--max_steps", "1", "--device",
               "cpu"])
-    # the audio VAE trainer is ported; a model id still waiting
-    # raises, naming ROADMAP.md
+    # the audio VAE trainer and the MeanFlow model are ported
     assert get_trainer_cls("audio_vae").__name__ == "AudioVAETrainer"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model_cls("game_mft_audio")
+    assert get_model_cls("game_mft_audio").__name__ == "GameMFTAudio"

@@ -129,8 +129,7 @@ def test_registry():
     assert get_trainer_cls("audio_vae").__name__ == \
         jax_trainer_cls("audio_vae").__name__ == "AudioVAETrainer"
     from owl_audio_exps_tpu_torch.models import get_model_cls
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        get_model_cls("game_mft_audio")
+    assert get_model_cls("game_mft_audio").__name__ == "GameMFTAudio"
     with pytest.raises(ValueError, match="Invalid trainer id"):
         get_trainer_cls("causvid")
 

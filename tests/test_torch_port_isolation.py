@@ -9,6 +9,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -41,7 +42,7 @@ def test_port_file_imports_no_jax(path):
 
 def test_port_package_has_its_kernel_source():
     for src in ("frame_attention.cu", "band_attention.cu",
-                "hopper_attention.cuh"):
+                "hopper_attention.cuh", "owl_loader.cpp"):
         assert os.path.exists(os.path.join(
             REPO, "owl_audio_exps_tpu_torch", "csrc", src)), src
     for module in ("ops/band.py", "ops/band2.py", "models/gamerft.py",
@@ -57,7 +58,11 @@ def test_port_package_has_its_kernel_source():
                    "utils/owl_vae_bridge.py", "utils/media.py",
                    "utils/vis.py", "data/local_waveform.py",
                    "trainers/audio_vae_trainer.py",
-                   "inference/game_cv.py"):
+                   "inference/game_cv.py", "data/npy_table.py",
+                   "data/native_loader.py", "data/cod_latent.py",
+                   "data/latent_seq_packing.py", "data/prefetch.py",
+                   "data/s3_cod_latent.py", "data/s3_cod_latent_mixed.py",
+                   "models/gamemft_audio.py"):
         assert os.path.join("owl_audio_exps_tpu_torch", module) in PORT_FILES
     assert len(PORT_FILES) > 30
 
@@ -182,6 +187,51 @@ print("FORBIDDEN", bad)
     assert "FORBIDDEN []" in res.stdout
 
 
+def test_table_trainers_run_without_importing_jax(tmp_path):
+    """The rft trainer reads a packed table it wrote (the native gather
+    built and read too), and the av trainer takes a MeanFlow step."""
+    code = f"""
+import os, sys, numpy as np, torch
+from owl_audio_exps_tpu_torch.configs import Config
+from owl_audio_exps_tpu_torch.data import get_loader
+from owl_audio_exps_tpu_torch.data.npy_table import NpyTable
+from owl_audio_exps_tpu_torch.trainers import get_trainer_cls
+root = {str(tmp_path)!r}
+table = NpyTable(os.path.join(root, "tbl"), columns=["video", "mouse",
+    "buttons", "tarball", "pt_idx", "missing", "truncated", "seq_len"],
+    array_columns=["video", "mouse", "buttons"])
+rs = np.random.RandomState(0)
+for i, n in enumerate((9, 6, 11)):
+    table.append(video=rs.randn(n, 4, 2, 2).astype(np.float16),
+        mouse=rs.randn(n, 2).astype(np.float32),
+        buttons=np.zeros((n, 3), np.float32), tarball="t", pt_idx=i,
+        missing=False, truncated=False, seq_len=n)
+kw = dict(window_length=8, dataset_path=os.path.join(root, "tbl"),
+    batch_columns=["video", "mouse", "buttons"])
+vid, = next(iter(get_loader("cod", 2, **dict(kw, batch_columns=["video"]))))
+assert vid.shape == (2, 8, 4, 2, 2) and vid.dtype == np.float32
+model = dict(model_id="game_rft", n_layers=2, n_heads=2, d_model=32,
+    channels=4, sample_size=2, tokens_per_frame=4, n_buttons=3,
+    causal=True, local_window=2, audio_channels=4, has_audio=True)
+train = dict(trainer_id="rft", data_id="sequence_packing", data_kwargs=kw,
+    target_batch_size=1, batch_size=1, opt="AdamW", save_interval=100,
+    checkpoint_dir=os.path.join(root, "ckpt"), log_interval=1)
+cfg = Config.from_dict({{"model": model, "train": train}})
+assert get_trainer_cls("rft")(cfg, device="cpu").train(max_steps=2).step == 2
+cfg = Config.from_dict({{"model": dict(model, model_id="game_mft_audio",
+    tokens_per_frame=5), "train": dict(train, trainer_id="av",
+    data_id="synthetic_av", data_kwargs=dict(window_length=4, channels=4,
+    audio_channels=4, sample_size=2, n_buttons=3))}})
+assert get_trainer_cls("av")(cfg, device="cpu").train(max_steps=1).step == 1
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "flax", "owl_audio_exps_tpu")]
+print("FORBIDDEN", bad)
+"""
+    res = _run(code)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "FORBIDDEN []" in res.stdout
+
+
 def test_vaes_and_their_trainer_run_without_importing_jax(tmp_path):
     code = f"""
 import os, sys, numpy as np, torch
@@ -280,6 +330,17 @@ def test_entry_points_default_to_the_card():
             {"model": {"model_id": "audio_vae"}}))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         game_main(["--config_path", "configs/causvid.yml", "--headless"])
+    # the loaders' batches go to the card, and the MeanFlow model's there
+    from owl_audio_exps_tpu_torch.data.prefetch import device_prefetch
+    from owl_audio_exps_tpu_torch.models.gamemft_audio import GameMFTAudio
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        next(device_prefetch(iter([[np.zeros(2, np.float32)]])))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GameMFTAudio(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_trainer_cls("rft")(Config.from_dict(
+            {"model": {"model_id": "game_rft"},
+             "train": {"data_id": "sequence_packing"}}))
 
 
 def test_bench_torch_fails_without_a_card():

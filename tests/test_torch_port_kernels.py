@@ -98,6 +98,55 @@ def test_kernel_backward_matches_plain_on_card(L, tpf, window, causal, docs):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("window", [16, None])
+def test_kernel_with_packed_documents_matches_plain_on_card(window,
+                                                             tmp_path):
+    """K1 forward and backward with the per-frame doc_id the
+    sequence-packing loader yields for a 64-frame window (tpf 64, L
+    4,096) of a table of five documents, against the plain version."""
+    _need_card()
+    import numpy as np
+    from owl_audio_exps_tpu_torch.data.latent_seq_packing import \
+        PackedSequenceDataset
+    from owl_audio_exps_tpu_torch.data.npy_table import NpyTable
+    table = NpyTable(str(tmp_path / "tbl"), columns=[
+        "video", "tarball", "pt_idx", "missing", "truncated", "seq_len"],
+        array_columns=["video"])
+    for i, n in enumerate((30, 21, 45, 9, 40)):
+        table.append(video=np.zeros((n, 1), np.float16), tarball="t",
+                     pt_idx=i, missing=False, truncated=False, seq_len=n)
+    ds = PackedSequenceDataset(str(tmp_path / "tbl"), 64)
+    ds.set_epoch(1)
+    doc = torch.from_numpy(ds[1]["doc_id"])[None].cuda()
+    assert doc.dtype == torch.int32 and len(set(doc[0].tolist())) > 2
+    q, k, v = _qkv(4096, seed=3)
+    dout = _qkv(4096, seed=4)[0]
+    out, got = _grads(lambda *a: splash.splash_attention(
+        *a, 64, window, True, doc), q, k, v, dout)
+    torch.cuda.synchronize()
+    want_out, want = _grads(lambda *a: splash.splash_attention_plain(
+        *a, 64, window, True, doc), q.float(), k.float(), v.float(),
+        dout.float())
+    assert (out.float() - want_out).abs().max().item() < 2e-2
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a).all(), name
+        assert _rel_l2(a, b) < GRAD_REL_L2, name
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_a_jvp_on_card():
+    """Under torch.func.jvp (MeanFlow's objective at L >= 1024) K1 and the
+    band kernels raise instead of launching without the tangents."""
+    _need_card()
+    q, k, v = _qkv(1024, seed=5)
+    ones = torch.ones_like(q)
+    for fn in (lambda a: splash.splash_attention(a, k, v, 64, None, True),
+               lambda a: band.band_attention(a, k, v, 64, 4)):
+        with pytest.raises(RuntimeError, match="torch.func transform"):
+            torch.func.jvp(fn, (q,), (ones,))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,window", [(2, 16), (2, None), (8, 16)])
 def test_kernel_at_the_distill_geometry_matches_plain_on_card(B, window):
     """K1 forward, dq and dkv at the distillation window (60 frames x 64
