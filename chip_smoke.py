@@ -5,7 +5,9 @@ Usage (from the repository root, on a machine with one NVIDIA GPU):
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --packed-fit`` runs only the probe that shows
-why phase 14 trains configs/dit_v4.yml with group remat: ``packed_fit_phase``.)
+why phase 14 trains configs/dit_v4.yml with group remat:
+``packed_fit_phase``; ``--mmdit-fit`` the one that shows why phase 15
+trains configs/mmdit_v2.yml with block remat: ``mmdit_fit_phase``.)
 
 Phases, each of which exits non-zero on any failure:
 
@@ -150,6 +152,32 @@ Phases, each of which exits non-zero on any failure:
    K1 and raises (the kernels refuse a torch.func transform), as the
    reference's jvp raises at the splash kernel's custom_vjp.
 
+15. the dual-stream MMDiT, the UViT and the memory knobs: (a) a cod AV
+   table of seeded documents of 1,000-1,400 frames (float16 video 128 x 8
+   x 8, audio 64, mouse, buttons), and configs/mmdit_v2.yml (16 x d 1536,
+   a 1,000-frame window: L 65,000, Muon, batch 1) trained 3 steps from it
+   through ``AVRFTTrainer``, the port's cod loader and the prefetcher,
+   with the cuts printed (the table, the batch columns in the AV
+   trainer's order, accumulation 1, block remat: without it one step runs
+   out of memory, ``python3 chip_smoke.py --mmdit-fit``): exact K1
+   launches per step (every layer: the local span 1,040 does not divide
+   65,000), s/step, tokens/s, MFU, peak memory, the loader's share, one
+   traced step; (b) K1 at that geometry (tpf 65, windows 16 and 256)
+   forward and backward at every head against the plain version taken
+   4,095 queries at a time, with its bound and SDPA on the same chunks;
+   (c) configs/mmdit_v1.yml's av_causal sampler with the config's kwargs
+   on a seeded 24 x d 1536 core (cached forwards, no port kernel), the
+   window's uncached forward through K1 against dense attention, and
+   ``AVRFTTrainer`` on synthetic_av at the written batch 32 (remat, then
+   the batch, cut where it does not fit, printed); (d) mmdit_v2's cached
+   serve through ``AVCachedStreamingPipeline`` (its av_caching sampler
+   refuses an AV core, as the JAX package's fails on one), graphed
+   against eager, no port kernel; (e) a 4-layer UViT step at
+   av_v4_8x8.yml's widths through K1 against dense attention, and
+   dit_v4_tpu_e2e.yml's 4-layer step with ``remat_sequenced``,
+   ``fused_head_chunks`` and ``mlp_chunks`` each against the step
+   without it (phase 6's limits).
+
 The last lines are the kernels' JSON record, the card line, and
 {"ok": true, "device": {...}}.
 """
@@ -213,11 +241,18 @@ AUDIO_GRAPH_MAX_ABS = 1e-2
 # the bf16-ring sampler on the same draws (tests/test_kv_quant.py)
 INT8_FORWARD_COS, INT8_RING_DECODE, INT8_RING_SAMPLER = 0.995, 0.05, 0.25
 AUDIO_PROFILE_TOKENS = 16
+# the eager step against the graph, and the eager RTF, over the first
+# tokens of the serve's 240 (the host-bound eager loop takes ~0.14 s a
+# token)
+AUDIO_EAGER_TOKENS = 60
 # phase 11: the cached video and AV serve. Graph replays against the eager
 # loop max |diff| (identical expected; cuBLAS may pick other algorithms
 # under capture); the causal window sampler's frames (cut for time); the
 # AV pipeline's ring, steps, sessions, context and tick counts
 CACHED_GRAPH_MAX_ABS = 1e-2
+# the dit_v4 sampler's eager loop, held against the graph over the first
+# frames of the clip's 30 (the eager 16-step loop takes ~0.75 s a frame)
+CACHED_EAGER_FRAMES = 10
 CAUSAL_FRAMES = 3
 PIPE_WINDOW, PIPE_STEPS, PIPE_SESSIONS = 120, 2, (1, 8)
 PIPE_PRIME, PIPE_COMPARE_TICKS, PIPE_TICKS, PIPE_EAGER_TICKS = 8, 8, 30, 8
@@ -327,8 +362,9 @@ def fwd_case(dev, gen, name, L, tpf, causal, window, doc, B, H=24, Dh=64,
     """K1's forward at one geometry (``doc`` per-frame [B, n_frames] or
     None) against its plain version (``plain``, by default the port's
     splash_attention_plain) at every head, with its time, bound, plain
-    and SDPA times (``library`` False where SDPA's [L, L] mask does not
-    fit): the row of the kernels' record."""
+    and SDPA times (``library``: one SDPA call with the dense mask, False
+    for none, or a callable on (q, k, v) such as query_chunked_sdpa's):
+    the row of the kernels' record."""
     import torch.nn.functional as F
     from owl_audio_exps_tpu_torch.ops import splash
 
@@ -353,11 +389,20 @@ def fwd_case(dev, gen, name, L, tpf, causal, window, doc, B, H=24, Dh=64,
         q, k, v, *args, return_lse=True), iters)
     plain = (lambda: by_heads(lambda *t: plain_fn(*t, *args), q, k, v)) \
         if long else (lambda: plain_fn(q, k, v, *args))
-    plain_ms = cuda_ms(plain, 1 if long else 3, 1)
-    mask = sdpa_mask(dev, L, tpf, window, causal, doc) if library else None
-    lib_ms = library_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, scale=Dh ** -0.5), iters) \
-        if library else None
+    if long:
+        # warm up on one head chunk, then time every chunk once
+        plain_fn(*(t[:, :CHECK_HEADS] for t in (q, k, v)), *args)
+        plain_ms = cuda_ms(plain, 1, 0)
+    else:
+        plain_ms = cuda_ms(plain, 3, 1)
+    mask = sdpa_mask(dev, L, tpf, window, causal, doc) \
+        if library is True else None
+    if callable(library):
+        lib_ms = library_ms(lambda: library(q, k, v), iters)
+    else:
+        lib_ms = library_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=Dh ** -0.5), iters) \
+            if library else None
 
     pairs = pairs_of(L, tpf, window, causal, doc, B)
     row = dict(max_abs_err=max_abs, mean_abs_err=mean_abs, ms=ms,
@@ -424,17 +469,18 @@ def rms_normed(t):
             ).to(torch.bfloat16)
 
 
-def fwd_bwd_ms(fwd, q, k, v, dout, iters):
+def fwd_bwd_ms(fwd, q, k, v, dout, iters, warmup: int = 1):
     """(forward ms, forward + backward ms) of autograd over ``fwd``
-    (``dout`` a tuple of cotangents where ``fwd`` returns a tuple)."""
+    (``dout`` a tuple of cotangents where ``fwd`` returns a tuple), each
+    after ``warmup`` untimed calls."""
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
 
     def both():
         torch.autograd.grad(fwd(*leaves), leaves, dout)
 
     with torch.no_grad():
-        f_ms = cuda_ms(lambda: fwd(*leaves), iters, 1)
-    return f_ms, cuda_ms(both, iters, 1)
+        f_ms = cuda_ms(lambda: fwd(*leaves), iters, warmup)
+    return f_ms, cuda_ms(both, iters, warmup)
 
 
 def grad_case(dev, gen, name, kind, L, tpf, causal, window, doc, bound, B,
@@ -495,9 +541,11 @@ def grad_case(dev, gen, name, kind, L, tpf, causal, window, doc, bound, B,
                  "bwd": (bwd_ms, bound_row(10.0 * Dh * pairs * H,
                                            16.0 * elems + 4.0 * stats))}
     del out, lse
-    mask = sdpa_mask(dev, L, tpf, window, causal, doc) if library else None
-    sdpa = lambda *t: F.scaled_dot_product_attention(
-        *t, attn_mask=mask, scale=Dh ** -0.5)
+    mask = sdpa_mask(dev, L, tpf, window, causal, doc) \
+        if library is True else None
+    sdpa = library if callable(library) else (
+        lambda *t: F.scaled_dot_product_attention(
+            *t, attn_mask=mask, scale=Dh ** -0.5))
     lib_fwd = lib_bwd = None
     try:
         if library:
@@ -604,7 +652,8 @@ def chunked_grad_errors(got, plain, q, k, v, dout,
             acc[n][2] = max(acc[n][2], d.abs().max().item())
             acc[n][3] += d.abs().sum().item()
         del want, d
-        f_ms, t_ms = fwd_bwd_ms(plain, *part, g, 1)
+        # the first chunk warms up the plain version's shapes for all
+        f_ms, t_ms = fwd_bwd_ms(plain, *part, g, 1, warmup=int(h == 0))
         plain_fwd, plain_all = plain_fwd + f_ms, plain_all + t_ms
         torch.cuda.empty_cache()
     errs = {n: ((e[0] / e[1]) ** 0.5, e[2], e[3] / a.numel())
@@ -1573,6 +1622,7 @@ def audio_serve_phase(dev):
     from owl_audio_exps_tpu_torch.nn.wquant import (quantize_params_int8,
                                                     quantized_names)
     from owl_audio_exps_tpu_torch.sampling.audio_caching import draw_noise
+    from owl_audio_exps_tpu_torch.sampling.common import SamplerNoise
 
     reset_counts()
     bf = torch.bfloat16
@@ -1631,22 +1681,29 @@ def audio_serve_phase(dev):
                        bench.NUM_TOKENS, dev)
     graph_out = sampler(core, x, noise=noise)
     torch.cuda.synchronize()
+    # the eager step takes ~0.14 s a token on the host: one eager run of
+    # the first AUDIO_EAGER_TOKENS tokens on the same draws (a token
+    # depends on the earlier draws only), timed as bench_torch.py times a
+    # run, held against the graph run's first tokens
+    eager = bench.make_sampler()
+    eager.num_tokens = k_eager = AUDIO_EAGER_TOKENS
     t0 = time.perf_counter()
-    eager_out = sampler.sample_eager(core, x, noise=noise)
+    eager_out = eager.sample_eager(core, x, noise=SamplerNoise(
+        noise.ctx, noise.init[:k_eager], noise.renoise[:k_eager]))
     eager_out.cpu()
-    # one eager run (the host-bound eager loop takes seconds a run), timed
-    # as bench_torch.py times a run
-    eager_rtf = bench.NUM_TOKENS / bench.LATENTS_PER_SECOND / (
+    eager_rtf = k_eager / bench.LATENTS_PER_SECOND / (
         time.perf_counter() - t0)
     shape = (1, bench.INIT_LEN + bench.NUM_TOKENS, cfg.channels)
     if tuple(graph_out.shape) != shape or \
             not torch.isfinite(graph_out).all():
         fail(f"serve output {tuple(graph_out.shape)} (want {shape}) or not "
              "finite")
-    d = (graph_out.float() - eager_out.float()).abs().max().item()
-    same = torch.equal(graph_out, eager_out)
-    print(f"[audio] CUDA-graph loop vs eager step over "
-          f"{bench.NUM_TOKENS} tokens: identical {same}, max |diff| {d:.3e}"
+    graph_head = graph_out[:, :bench.INIT_LEN + k_eager]
+    d = (graph_head.float() - eager_out.float()).abs().max().item()
+    same = torch.equal(graph_head, eager_out)
+    print(f"[audio] CUDA-graph loop vs eager step over the first "
+          f"{k_eager} of {bench.NUM_TOKENS} tokens: identical {same}, max "
+          f"|diff| {d:.3e}"
           + ("" if same else " (cuBLAS picks other algorithms under "
              f"capture; tolerance {AUDIO_GRAPH_MAX_ABS})"), flush=True)
     if d > AUDIO_GRAPH_MAX_ABS:
@@ -1705,7 +1762,8 @@ def audio_serve_phase(dev):
     x32 = torch.from_numpy(rs.randn(32, bench.INIT_LEN, 64)).to(dev, bf)
     rtf["int8_32stream_agg"] = bench.measure(serve(core32), x32)
     print(f"[audio] RTF (audio s per s, {bench.NUM_TOKENS} tokens, median of "
-          f"3 after a warm-up; eager: one run): bf16 {rtf['bf16']:.4f} (eager "
+          f"3 after a warm-up; eager: one run of {AUDIO_EAGER_TOKENS} "
+          f"tokens): bf16 {rtf['bf16']:.4f} (eager "
           f"{rtf['bf16_eager']:.4f}, graph / eager "
           f"{rtf['bf16'] / rtf['bf16_eager']:.3f}x), int8 "
           f"{rtf['int8']:.4f}, 32 int8 streams (int8 ring) aggregate "
@@ -1811,7 +1869,8 @@ def cached_sampler_phase(dev):
     the 2-step schedule; graph vs eager; cached vs uncached forwards."""
     from owl_audio_exps_tpu_torch.nn.kv_cache import KVCache
     from owl_audio_exps_tpu_torch.sampling import get_sampler_cls
-    from owl_audio_exps_tpu_torch.sampling.common import draw_noise
+    from owl_audio_exps_tpu_torch.sampling.common import (SamplerNoise,
+                                                          draw_noise)
 
     conf = phase11_config("dit_v4.yml")
     cfg, tc = conf.model, conf.train
@@ -1847,8 +1906,16 @@ def cached_sampler_phase(dev):
         again = sampler(core, x, mouse, btn, noise=noise)
         again.cpu()
         graph_s = time.perf_counter() - t0
+        # the eager loop over the first CACHED_EAGER_FRAMES frames on the
+        # same draws and the same ring capacity (a frame depends on the
+        # earlier draws only), held against the graph's
+        k = CACHED_EAGER_FRAMES
+        short = get_sampler_cls(tc.sampler_id)(**dict(
+            skw, max_window=sampler.window(x, n)[1]))
         t0 = time.perf_counter()
-        eager = sampler.sample_eager(core, x, mouse, btn, noise=noise)
+        eager = short.sample_eager(
+            core, x, mouse[:, :ctx + k], btn[:, :ctx + k],
+            noise=SamplerNoise(noise.ctx, noise.init[:k], noise.renoise[:k]))
         eager.cpu()
         eager_s = time.perf_counter() - t0
         check_no_port_kernels(f"AVCachingSamplerV2 ({tag})")
@@ -1860,13 +1927,17 @@ def cached_sampler_phase(dev):
                 not torch.isfinite(graphed).all():
             fail(f"sampler ({tag}): output {tuple(graphed.shape)} (want "
                  f"{shape}) or not finite")
-        d = max(max_abs(graphed, eager), max_abs(again, eager))
-        same = torch.equal(graphed, eager) and torch.equal(again, eager)
+        head = ctx + k
+        d = max(max_abs(graphed[:, :head], eager),
+                max_abs(again[:, :head], eager), max_abs(graphed, again))
+        same = torch.equal(graphed[:, :head], eager) and \
+            torch.equal(again, graphed)
         print(f"[cached]   {tag} (n_steps {skw['n_steps']}, schedule "
               f"{skw.get('custom_schedule') or 'sd3'}, cfg_scale "
               f"{skw['cfg_scale']}): {n} frames, graph {n / graph_s:.2f} "
               f"frames/s ({1e3 * graph_s / n:.2f} ms a frame), eager "
-              f"{n / eager_s:.2f} frames/s; graph vs eager identical {same}, "
+              f"{k / eager_s:.2f} frames/s (the first {k}); graph vs eager "
+              f"identical {same}, "
               f"max |diff| {d:.3e} (tolerance {CACHED_GRAPH_MAX_ABS}); no "
               f"port kernel launched", flush=True)
         if d > CACHED_GRAPH_MAX_ABS:
@@ -1874,7 +1945,7 @@ def cached_sampler_phase(dev):
                  "loop")
         out[tag] = dict(n_steps=skw["n_steps"], cfg_scale=skw["cfg_scale"],
                         frames=n, graph_fps=n / graph_s,
-                        eager_fps=n / eager_s, graph_identical=same,
+                        eager_fps=k / eager_s, graph_identical=same,
                         graph_max_abs=d)
         del sampler, loop
         gc.collect()
@@ -3364,24 +3435,22 @@ def doc_spans(doc):
     return list(zip(starts, starts[1:] + [len(ids)]))
 
 
-def query_chunked_plain(L, tpf, window, doc, chunk):
-    """K1's plain version where its [L, L] f32 scores do not fit (the
-    packed window, L 98,304): the port's dense_mask and dot_attention on
-    ``chunk`` queries at a time, over the keys from the first frame those
-    queries see to their end (the mask is frame-causal), each chunk under
-    a checkpoint so that the backward recomputes it. The chunks' masks
-    are built once. Returns fn(q, k, v, *mask args) for fwd_case and
-    grad_case; it takes the causal mask and the per-frame ``doc`` given
-    here."""
-    from torch.utils.checkpoint import checkpoint
-    from owl_audio_exps_tpu_torch.ops.attention import dot_attention
+def query_chunks(L, tpf, window, doc, chunk, device=None):
+    """The query chunks of K1's frame-causal mask where its [L, L] f32
+    scores do not fit (the packed window, L 98,304; the MMDiT's, L
+    65,000): [(first query, end query, first key, the chunk's mask)],
+    ``chunk`` queries at a time over the keys from the first frame those
+    queries see to their end; ``doc`` per-frame [1, n_frames] or None."""
     from owl_audio_exps_tpu_torch.ops.masks import dense_mask
 
     if chunk % tpf or L % tpf:
         fail(f"plain: {chunk} queries or L {L} not whole frames of {tpf}")
-    nf = doc.shape[1]
-    f = torch.arange(nf, device=doc.device)
-    seen = (f[None] <= f[:, None]) & (doc[0][None] == doc[0][:, None])
+    nf = L // tpf
+    device = doc.device if doc is not None else device
+    f = torch.arange(nf, device=device)
+    seen = f[None] <= f[:, None]
+    if doc is not None:
+        seen &= doc[0][None] == doc[0][:, None]
     if window is not None:
         seen &= f[:, None] - f[None] < window
     first = torch.where(seen, f[None], nf).amin(1).tolist()
@@ -3390,8 +3459,20 @@ def query_chunked_plain(L, tpf, window, doc, chunk):
         b = min(a + chunk, L)
         lo = min(first[a // tpf:b // tpf]) * tpf
         parts.append((a, b, lo, dense_mask(
-            b - lo, tpf, window, doc[:, lo // tpf:b // tpf].long(), a - lo,
-            True)))
+            b - lo, tpf, window,
+            None if doc is None else doc[:, lo // tpf:b // tpf].long(),
+            a - lo, True, device=device)))
+    return parts
+
+
+def query_chunked_plain(parts):
+    """K1's plain version a chunk of queries at a time (the ``parts`` of
+    ``query_chunks``): the port's dot_attention on each chunk under a
+    checkpoint, so that the backward recomputes it. Returns fn(q, k, v,
+    *mask args) for fwd_case and grad_case; it takes the mask the parts
+    were made with."""
+    from torch.utils.checkpoint import checkpoint
+    from owl_audio_exps_tpu_torch.ops.attention import dot_attention
 
     def plain(q, k, v, *_):
         scale = q.shape[-1] ** -0.5
@@ -3400,6 +3481,22 @@ def query_chunked_plain(L, tpf, window, doc, chunk):
             v[:, :, lo:b], mask, 1.0, use_reentrant=False)
             for a, b, lo, mask in parts], dim=2)
     return plain
+
+
+def query_chunked_sdpa(parts):
+    """The library yardstick where one SDPA call's [L, L] mask does not
+    fit: ``F.scaled_dot_product_attention`` with the same mask on the
+    ``parts`` of ``query_chunks``, one call a chunk (its time is the sum
+    of the chunks' calls). Returns fn(q, k, v) for fwd_case and
+    grad_case."""
+    import torch.nn.functional as F
+
+    def sdpa(q, k, v):
+        return torch.cat([F.scaled_dot_product_attention(
+            q[:, :, a:b], k[:, :, lo:b], v[:, :, lo:b],
+            attn_mask=mask[None, None] if mask.ndim == 2 else mask[:, None])
+            for a, b, lo, mask in parts], dim=2)
+    return sdpa
 
 
 def packed_kernel_phase(dev, table: str, cfg):
@@ -3446,15 +3543,17 @@ def packed_kernel_phase(dev, table: str, cfg):
     for window in (None, W):
         name = f"L{L}_tpf{tpf}_packed_{mask_name(window)}"
         print(f"[packed] {name}: {len(spans)} document spans {spans}; the "
-              f"plain version runs {FULL_CHECK_QUERIES} queries at a time, "
-              f"SDPA's [L, L] mask does not fit", flush=True)
-        plain = query_chunked_plain(L, tpf, window, doc, FULL_CHECK_QUERIES)
+              f"plain version and SDPA (the library yardstick, the sum of "
+              f"its calls) run {FULL_CHECK_QUERIES} queries at a time with "
+              f"the same mask", flush=True)
+        parts = query_chunks(L, tpf, window, doc, FULL_CHECK_QUERIES)
+        plain, sdpa = query_chunked_plain(parts), query_chunked_sdpa(parts)
         fwd_rows[name] = fwd_case(dev, gen, name, L, tpf, True, window, doc,
-                                  1, plain=plain, library=False)
+                                  1, plain=plain, library=sdpa)
         grad_rows.update(grad_case(dev, gen, name, "frame", L, tpf, True,
                                    window, doc, None, 1, plain=plain,
-                                   library=False))
-        del plain
+                                   library=sdpa))
+        del plain, sdpa, parts
         torch.cuda.empty_cache()
         q, k, v = (torch.randn(1, H, L, Dh, generator=gen, device=dev)
                    .to(torch.bfloat16) for _ in range(3))
@@ -3674,6 +3773,666 @@ def packed_phase(dev):
                 fwd_rows=fwd_rows, grad_rows=grad_rows)
 
 
+# --------------------------------------------------------------- phase 15
+MMDIT_DIR = os.path.join(ROOT, "build", "chip_smoke_mmdit")
+# the cod AV table: seeded documents of 1,000-1,400 frames, so that each
+# holds one 1,000-frame window of configs/mmdit_v2.yml (non-overlapping
+# windows inside a document); video float16 128 x 8 x 8, audio 64, mouse
+# 2, buttons 11
+MMDIT_DOCS, MMDIT_DOC_FRAMES, MMDIT_SEED = 6, (1000, 1400), 15
+MMDIT_STEPS = 3
+# K1 at mmdit_v2's geometry (L 65,000, tpf 65): the plain version and the
+# SDPA yardstick take 63 whole frames of queries (4,095) at a time
+MMDIT_CHECK_QUERIES = 63 * 65
+MMDIT_KERNEL_FRAMES = 1000
+# mmdit_v1's trainer: the written batch, then these cuts where it does
+# not fit (after turning on remat)
+V1_BATCH_CUTS = (16, 8)
+V1_STEPS = 3
+# mmdit_v2's cached serve: the context primed, the ticks (num_frames 900
+# cut), the ring, and graph against eager over the first ticks
+SERVE_CTX, SERVE_TICKS_V2, SERVE_RING, SERVE_COMPARE = 8, 24, 32, 6
+# the UViT and the knob checks: 4 layers at full width
+KNOB_LAYERS, UVIT_FRAMES, KNOB_FRAMES = 4, 32, 64
+
+
+def write_cod_table(path: str, cfg):
+    """The phase's cod AV table, written with the port's NpyTable from
+    MMDIT_SEED; returns the document lengths."""
+    import numpy as np
+    from owl_audio_exps_tpu_torch.data.npy_table import NpyTable
+
+    rng = np.random.default_rng(MMDIT_SEED)
+    lens = rng.integers(MMDIT_DOC_FRAMES[0], MMDIT_DOC_FRAMES[1] + 1,
+                        MMDIT_DOCS)
+    table = NpyTable(path, columns=[
+        "video", "audio", "mouse", "buttons", "tarball", "pt_idx",
+        "missing", "truncated", "seq_len"],
+        array_columns=["video", "audio", "mouse", "buttons"])
+    p = cfg.sample_size
+    for i, n in enumerate(lens):
+        n = int(n)
+        table.append(
+            video=rng.standard_normal((n, cfg.channels, p, p),
+                                      dtype=np.float32).astype(np.float16),
+            audio=rng.standard_normal((n, cfg.audio_channels),
+                                      dtype=np.float32),
+            mouse=rng.standard_normal((n, 2), dtype=np.float32),
+            buttons=(rng.random((n, cfg.n_buttons)) > 0.5).astype(
+                np.float32),
+            tarball=f"doc{i}", pt_idx=i, missing=False, truncated=False,
+            seq_len=n)
+    return [int(n) for n in lens]
+
+
+def mmdit_v2_config(table: str, remat: bool = True, tag: str = "mmdit"):
+    """configs/mmdit_v2.yml with the phase's cuts, each printed; block
+    remat unless ``remat`` is false."""
+    from owl_audio_exps_tpu_torch.configs import Config
+    from owl_audio_exps_tpu_torch.train import port_cuts
+
+    conf = Config.from_yaml(os.path.join(ROOT, "configs", "mmdit_v2.yml"))
+    mc, tc = conf.model, conf.train
+    order = ["video", "audio", "mouse", "buttons"]
+    why_cols = ("the AV trainer reads [video, audio, mouse, buttons]; as "
+                "written the cod loader hands it mouse as audio, and both "
+                "packages fail (ROADMAP.md Queue 3)")
+    cuts = [(tc.data_kwargs, "dataset_path", table, "the phase's table"),
+            (tc.data_kwargs, "batch_columns", order, why_cols),
+            (tc.sample_data_kwargs, "dataset_path", table,
+             "the phase's table; the eval never samples in this run"),
+            (tc.sample_data_kwargs, "batch_columns", order, why_cols),
+            (tc, "target_batch_size", tc.batch_size,
+             "accumulation 8 -> 1"),
+            (tc, "checkpoint_dir", os.path.join(MMDIT_DIR, "ckpt"),
+             "under build/; save_interval 10,000 is past the run")]
+    if remat:
+        cuts.append((mc, "gradient_checkpointing", True,
+                     "without it one step runs out of the card's memory at "
+                     "the written 1,000-frame window (python3 chip_smoke.py "
+                     "--mmdit-fit); block remat is the JAX MMDiT's own "
+                     "(nn/mmattn.py:160-162) and changes no value"))
+    for node, key, value, why in cuts:
+        print_cut(tag, "mmdit_v2.yml", node, key, value, why)
+    for line in port_cuts(conf, 1):
+        print(f"[{tag}] cut from configs/mmdit_v2.yml: {line}", flush=True)
+    return conf
+
+
+def mmdit_fit_phase(dev):
+    """``python3 chip_smoke.py --mmdit-fit``: configs/mmdit_v2.yml from the
+    phase's cod table without remat, as written (a 1,000-frame window, L
+    65,000), one step: its time and peak memory, or the CUDA
+    out-of-memory error it raised. This is why phase 15 trains it with
+    block remat."""
+    import shutil
+    from owl_audio_exps_tpu_torch.configs import Config
+    from owl_audio_exps_tpu_torch.trainers.rft_trainer import AVRFTTrainer
+
+    shutil.rmtree(MMDIT_DIR, ignore_errors=True)
+    table = os.path.join(MMDIT_DIR, "table")
+    write_cod_table(table, Config.from_yaml(
+        os.path.join(ROOT, "configs", "mmdit_v2.yml")).model)
+    conf = mmdit_v2_config(table, remat=False, tag="fit")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = counted_trainer(AVRFTTrainer)(conf, device=dev)
+    try:
+        trainer.train(max_steps=1)
+        res = dict(fits=True, step_s=trainer.steps[-1]["s"])
+    except torch.OutOfMemoryError as e:
+        res = dict(fits=False, error=str(e).splitlines()[0])
+    L = conf.train.data_kwargs.window_length * conf.model.tokens_per_frame
+    res.update(L=L, steps_done=len(trainer.steps),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    trainer = None
+    print(f"[fit] mmdit_v2.yml without remat (L = {L}): " + (
+        f"fits, step 1 {res['step_s']:.3f} s" if res["fits"] else
+        f"out of memory after {res['steps_done']} steps: {res['error']}")
+        + f"; peak allocated {res['peak_gib']:.2f} GiB", flush=True)
+    shutil.rmtree(MMDIT_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def per_block_launches(cfg):
+    """K1's launches per training step where every layer takes K1."""
+    from owl_audio_exps_tpu_torch.nn.attn import attention_forwards_per_step
+    expect = dict.fromkeys(kernel_counts(), 0)
+    expect.update(frame_attention_fwd=sum(attention_forwards_per_step(cfg)),
+                  frame_attention_bwd_dq=cfg.n_layers,
+                  frame_attention_bwd_dkv=cfg.n_layers)
+    return expect
+
+
+def check_steps(tag, trainer, expect):
+    for i, st in enumerate(trainer.steps):
+        print(f"[{tag}]   step {i + 1}: {st['s']:.3f} s loss "
+              f"{st['loss']:.5f} launches "
+              f"{ {k: n for k, n in st['counts'].items() if n} }",
+              flush=True)
+        if not math.isfinite(st["loss"]):
+            fail(f"{tag} step {i + 1}: loss not finite")
+        if st["counts"] != expect:
+            fail(f"{tag} step {i + 1}: kernel launches {st['counts']}, "
+                 f"expected {expect}")
+
+
+def check_k1_routes(tag, cfg, L):
+    from owl_audio_exps_tpu_torch.nn.attn import (attention_route,
+                                                  local_layer_flags)
+    routes = {attention_route(cfg, local, L)
+              for local in set(local_layer_flags(cfg))}
+    if routes != {("splash", None)}:
+        fail(f"{tag}: a layer does not route to K1 at L {L}: {routes}")
+    return routes
+
+
+def mmdit_v2_train_phase(dev, table: str):
+    """(1) AVRFTTrainer on configs/mmdit_v2.yml from the cod table at the
+    written 1,000-frame window (L 65,000), block remat: exact K1 launches
+    per step (no band: the local span 1,040 does not divide 65,000),
+    s/step, tokens/s, MFU, peak memory, the loader's share, one traced
+    step."""
+    from owl_audio_exps_tpu_torch.trainers import base as trainer_base
+    from owl_audio_exps_tpu_torch.trainers.rft_trainer import AVRFTTrainer
+    from owl_audio_exps_tpu_torch.utils.mfu import (H100_PEAK_TFLOPS,
+                                                    training_flops_per_token)
+
+    conf = mmdit_v2_config(table)
+    cfg, tc = conf.model, conf.train
+    L = tc.data_kwargs.window_length * cfg.tokens_per_frame
+    routes = check_k1_routes("mmdit_v2", cfg, L)
+    expect = per_block_launches(cfg)
+    loads = []
+    real_get_loader = trainer_base.get_loader
+
+    def timed_get_loader(*a, **kw):
+        loader = TimedIter(iter(real_get_loader(*a, **kw)))
+        loads.append(loader)
+        return loader
+
+    class MMDiTTrainer(counted_trainer(AVRFTTrainer)):
+        waits = None
+
+        def data_stream(self, *a, **kw):
+            stream = TimedIter(super().data_stream(*a, **kw))
+            self.waits = self.waits or stream
+            return stream
+
+    trainer_base.get_loader = timed_get_loader
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        trainer = MMDiTTrainer(conf, device=dev)
+        t0 = time.perf_counter()
+        state = trainer.train(max_steps=MMDIT_STEPS)
+        wall = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        batch = next(trainer.data_stream(tc.data_id, tc.batch_size,
+                                         tc.data_kwargs))
+    finally:
+        trainer_base.get_loader = real_get_loader
+    n_params = sum(p.numel() for p in state.model.parameters())
+    print(f"[mmdit] AVRFTTrainer configs/mmdit_v2.yml: MMDiT {cfg.n_layers} "
+          f"layers x d {cfg.d_model}, {n_params / 1e6:.1f} M params fp32 "
+          f"(two streams; each token passes one), data {tc.data_id} window "
+          f"{tc.data_kwargs.window_length} frames (L = {L}: "
+          f"{L - tc.data_kwargs.window_length} video + "
+          f"{tc.data_kwargs.window_length} audio tokens), batch "
+          f"{tc.batch_size}, opt {tc.opt}, block remat: {MMDIT_STEPS} steps "
+          f"in {wall:.1f} s; routes {sorted(routes)}; expected launches per "
+          f"step { {k: n for k, n in expect.items() if n} }", flush=True)
+    check_steps("mmdit", trainer, expect)
+    if tuple(batch[1].shape) != (1, tc.data_kwargs.window_length,
+                                 cfg.audio_channels):
+        fail(f"mmdit: the audio batch has shape {tuple(batch[1].shape)}")
+    timed = [st["s"] for st in trainer.steps[1:]]
+    step_s = statistics.median(timed)
+    tokens = L * tc.batch_size * trainer.accum_steps()
+    mfu = training_flops_per_token(cfg, L) * tokens / step_s / \
+        (H100_PEAK_TFLOPS * 1e12)
+    load_s = loads[0].times
+    waits = trainer.waits.times
+    wait_share = sum(waits[1:]) / (sum(waits[1:]) + sum(timed))
+    print(f"[mmdit] s/step median {step_s:.4f} (steps 2-{MMDIT_STEPS}, "
+          f"min {min(timed):.4f} max {max(timed):.4f}), "
+          f"{tokens / step_s:.0f} tokens/s, MFU {100 * mfu:.2f}% of "
+          f"{H100_PEAK_TFLOPS:.0f} TFLOP/s (utils/mfu.py: each token through "
+          f"one stream's weights; the formula's window FLOPs), peak memory "
+          f"{peak_gb:.2f} GiB (max_memory_allocated)", flush=True)
+    print(f"[mmdit] loader: {len(load_s)} batches read, "
+          f"{1e3 * statistics.median(load_s):.1f} ms a batch (median); the "
+          f"trainer waited on the prefetch queue {1e3 * waits[0]:.1f} ms "
+          f"before step 1 and {[round(1e3 * w, 2) for w in waits[1:]]} ms "
+          f"before steps 2-{MMDIT_STEPS}: {100 * wait_share:.2f}% of those "
+          f"steps", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(99)
+    breakdown = profile_step(trainer, state, [batch], gen, step_s,
+                             tag="mmdit")
+    out = dict(window_frames=tc.data_kwargs.window_length, L=L,
+               params=n_params, step_s=step_s, tokens_per_s=tokens / step_s,
+               mfu=mfu, peak_gib=peak_gb,
+               losses=[st["loss"] for st in trainer.steps],
+               loader_ms_per_batch=1e3 * statistics.median(load_s),
+               prefetch_wait_share=wait_share, device_ms=breakdown,
+               per_step=expect,
+               totals={k: sum(st["counts"][k] for st in trainer.steps)
+                       for k in expect})
+    del trainer, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mmdit_kernel_phase(dev):
+    """(2) K1 at mmdit_v2's geometry, L 65,000, tpf 65, causal, windows
+    16 and 256 frames: forward, dq and dkv at all 24 heads against the
+    plain version taken MMDIT_CHECK_QUERIES queries at a time, with its
+    bound and the SDPA yardstick on the same chunks."""
+    fwd_rows, grad_rows = {}, {}
+    gen = torch.Generator(device=dev).manual_seed(15)
+    L, tpf = MMDIT_KERNEL_FRAMES * 65, 65
+    for window in (16, 256):
+        name = f"L{L}_tpf{tpf}_causal_w{window}"
+        print(f"[mmdit] {name}: the plain version and SDPA (the sum of its "
+              f"calls) run {MMDIT_CHECK_QUERIES} queries at a time with the "
+              f"same mask", flush=True)
+        parts = query_chunks(L, tpf, window, None, MMDIT_CHECK_QUERIES, dev)
+        plain, sdpa = query_chunked_plain(parts), query_chunked_sdpa(parts)
+        fwd_rows[name] = fwd_case(dev, gen, name, L, tpf, True, window, None,
+                                  1, plain=plain, library=sdpa)
+        grad_rows.update(grad_case(dev, gen, name, "frame", L, tpf, True,
+                                   window, None, None, 1, plain=plain,
+                                   library=sdpa))
+        del plain, sdpa, parts
+        torch.cuda.empty_cache()
+    return fwd_rows, grad_rows
+
+
+def av_window(cfg, W, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bf, p = torch.bfloat16, cfg.sample_size
+    return (torch.randn(1, W, cfg.channels, p, p, generator=gen,
+                        device=dev).to(bf),
+            torch.randn(1, W, cfg.audio_channels, generator=gen,
+                        device=dev).to(bf),
+            torch.randn(1, W, 2, generator=gen, device=dev).to(bf),
+            (torch.rand(1, W, cfg.n_buttons, generator=gen, device=dev)
+             > 0.5).to(bf), gen)
+
+
+def mmdit_v1_phase(dev):
+    """(3) configs/mmdit_v1.yml: its av_causal sampler with the config's
+    kwargs on a seeded core (cached forwards: no port kernel), one
+    uncached forward of its window through K1 against the dense route,
+    then AVRFTTrainer on synthetic_av at the written batch 32 (remat, then
+    the batch, cut where it does not fit; each cut printed)."""
+    from owl_audio_exps_tpu_torch.configs import Config
+    from owl_audio_exps_tpu_torch.sampling import get_sampler_cls
+    from owl_audio_exps_tpu_torch.train import port_cuts
+    from owl_audio_exps_tpu_torch.trainers.rft_trainer import AVRFTTrainer
+    from owl_audio_exps_tpu_torch.utils.mfu import (H100_PEAK_TFLOPS,
+                                                    training_flops_per_token)
+
+    conf = Config.from_yaml(os.path.join(ROOT, "configs", "mmdit_v1.yml"))
+    cfg, tc = conf.model, conf.train
+    kw = tc.sampler_kwargs.to_dict()
+    core = make_core(cfg, dev, seed=16)
+    sampler = get_sampler_cls(tc.sampler_id)(**kw)
+    W = sampler.window_length
+    L = W * cfg.tokens_per_frame
+    x, a, m, b, gen = av_window(cfg, W, dev, 51)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, x_out, a_out, _, _ = sampler(core, x, a, m, b, generator=gen)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check_no_port_kernels("the av_causal sampler over the MMDiT")
+    n_out = W + kw["num_frames"]
+    if tuple(x_out.shape) != (1, n_out, cfg.channels, 8, 8) or \
+            tuple(a_out.shape) != (1, n_out, cfg.audio_channels) or \
+            not (torch.isfinite(x_out).all() and torch.isfinite(a_out).all()):
+        fail(f"av_causal over the MMDiT: output {tuple(x_out.shape)} "
+             f"{tuple(a_out.shape)} or not finite")
+    print(f"[mmdit_v1] {tc.sampler_id} with the config's kwargs {kw} over "
+          f"the MMDiT ({cfg.n_layers} layers x d {cfg.d_model}, seeded bf16): "
+          f"{kw['num_frames']} frames in {secs:.2f} s, "
+          f"{1e3 * secs / kw['num_frames']:.1f} ms a frame; 0 port-kernel "
+          f"launches (step 0 writes the window into a fresh ring and every "
+          f"forward is cached: dense attention over the ring, as in the JAX "
+          f"package)", flush=True)
+
+    # the window's uncached forward: K1 on every layer, against dense
+    wt = torch.full((1, W), sampler.noise_prev, dtype=torch.bfloat16,
+                    device=dev)
+    wt[:, -1] = 1.0
+    check_k1_routes("mmdit_v1", cfg, L)
+    reset_counts()
+    with torch.no_grad():
+        kv, ka = core(x, a, wt, m, b)
+        k1 = splash_count()
+        cfg.attn_impl = "dense"
+        dv, da = core(x, a, wt, m, b)
+        cfg.attn_impl = "auto"
+    if k1 != cfg.n_layers or splash_count() != k1:
+        fail(f"mmdit_v1: the window's forward launched K1 {k1} times, "
+             f"expected {cfg.n_layers}")
+    errs = dict(video=rel_l2(kv, dv), audio=rel_l2(ka, da))
+    print(f"[mmdit_v1] the window's uncached forward (L {L}): K1 {k1} "
+          f"launches (one a layer) against the dense route: rel L2 "
+          f"{ {k: f'{v:.3e}' for k, v in errs.items()} } (tolerance "
+          f"{FORWARD_REL_L2})", flush=True)
+    if not all(e <= FORWARD_REL_L2 for e in errs.values()):
+        fail("mmdit_v1: the K1 forward disagrees with the dense route")
+    del core, sampler
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the trainer at the written batch, cut only where it does not fit
+    for line in port_cuts(conf, 1):
+        print(f"[mmdit_v1] cut from configs/mmdit_v1.yml: {line}",
+              flush=True)
+    print_cut("mmdit_v1", "mmdit_v1.yml", tc, "target_batch_size",
+              tc.batch_size, "accumulation 8 -> 1")
+    print_cut("mmdit_v1", "mmdit_v1.yml", tc, "checkpoint_dir",
+              os.path.join(MMDIT_DIR, "ckpt_v1"),
+              "under build/; save_interval 1,000 is past the run")
+    tries = [(False, tc.batch_size), (True, tc.batch_size)] + \
+        [(True, bs) for bs in V1_BATCH_CUTS]
+    trainer = None
+    for remat, bs in tries:
+        if remat and not cfg.get("gradient_checkpointing"):
+            print_cut("mmdit_v1", "mmdit_v1.yml", cfg,
+                      "gradient_checkpointing", True,
+                      "the written batch does not fit without it; block "
+                      "remat changes no value")
+        if bs != tc.batch_size:
+            print_cut("mmdit_v1", "mmdit_v1.yml", tc, "batch_size", bs,
+                      "it does not fit with remat")
+            print_cut("mmdit_v1", "mmdit_v1.yml", tc, "target_batch_size",
+                      bs, "accumulation 1")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = counted_trainer(AVRFTTrainer)(conf, device=dev)
+        try:
+            state = trainer.train(max_steps=V1_STEPS)
+            break
+        except torch.OutOfMemoryError as e:
+            print(f"[mmdit_v1] remat {remat}, batch {bs}: out of memory "
+                  f"after {len(trainer.steps)} steps: "
+                  f"{str(e).splitlines()[0][:160]}", flush=True)
+            trainer = None
+    else:
+        fail("mmdit_v1: no batch fits")
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    expect = per_block_launches(cfg)
+    check_steps("mmdit_v1", trainer, expect)
+    timed = [st["s"] for st in trainer.steps[1:]]
+    step_s = statistics.median(timed)
+    tokens = L * tc.batch_size
+    mfu = training_flops_per_token(cfg, L) * tokens / step_s / \
+        (H100_PEAK_TFLOPS * 1e12)
+    print(f"[mmdit_v1] AVRFTTrainer {cfg.n_layers} layers x d {cfg.d_model}, "
+          f"L {L}, batch {tc.batch_size}, opt {tc.opt}, remat "
+          f"{bool(cfg.get('gradient_checkpointing'))}: s/step median "
+          f"{step_s:.4f} (steps 2-{V1_STEPS}), {tokens / step_s:.0f} "
+          f"tokens/s, MFU {100 * mfu:.2f}%, peak memory {peak_gb:.2f} GiB",
+          flush=True)
+    out = dict(sampler_ms_per_frame=1e3 * secs / kw["num_frames"],
+               sampler_frames=kw["num_frames"], forward_vs_dense=errs,
+               forward_k1_launches=k1, batch=tc.batch_size,
+               remat=bool(cfg.get("gradient_checkpointing")), L=L,
+               step_s=step_s, tokens_per_s=tokens / step_s, mfu=mfu,
+               peak_gib=peak_gb, per_step=expect,
+               totals={k: sum(st["counts"][k] for st in trainer.steps)
+                       for k in expect})
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def splash_count() -> int:
+    return kernel_counts()["frame_attention_fwd"]
+
+
+def mmdit_v2_serve_phase(dev):
+    """(4) configs/mmdit_v2.yml's cached serve on a seeded MMDiT core: the
+    config's av_caching sampler refuses an AV core (as the JAX package's
+    fails on one), so the cached AV serve runs through
+    AVCachedStreamingPipeline with the sampler's settings (16 steps,
+    noise_prev 0.2, fused write), graphed against eager, ms a frame; no
+    port kernel (cached attention is dense over the ring)."""
+    import numpy as np
+    from owl_audio_exps_tpu_torch.configs import Config
+    from owl_audio_exps_tpu_torch.inference.pipeline import (
+        AVCachedStreamingPipeline)
+    from owl_audio_exps_tpu_torch.sampling import get_sampler_cls
+
+    conf = Config.from_yaml(os.path.join(ROOT, "configs", "mmdit_v2.yml"))
+    cfg, tc = conf.model, conf.train
+    kw = tc.sampler_kwargs.to_dict()
+    core = make_core(cfg, dev, seed=17)
+    x, a, m, b, gen = av_window(cfg, SERVE_CTX, dev, 52)
+    try:
+        get_sampler_cls(tc.sampler_id)(**kw)(core, x, m, b)
+        fail("av_caching accepted an AV core")
+    except TypeError as e:
+        print(f"[serve15] {tc.sampler_id} on the MMDiT core raises, as the "
+              f"JAX package's sampler fails on an AV core: {e}", flush=True)
+    print(f"[serve15] AVCachedStreamingPipeline over the MMDiT "
+          f"({cfg.n_layers} layers x d {cfg.d_model}, tpf "
+          f"{cfg.tokens_per_frame}, local window {cfg.local_window}, global "
+          f"{cfg.global_window}) with the sampler's n_steps {kw['n_steps']}, "
+          f"noise_prev {kw['noise_prev']}, cfg_scale {kw['cfg_scale']}; cut: "
+          f"num_frames {kw['num_frames']} -> {SERVE_TICKS_V2} ticks after "
+          f"{SERVE_CTX} context frames, a {SERVE_RING}-frame ring, for time",
+          flush=True)
+    rs = np.random.RandomState(15)
+
+    def pipe_of(graphed):
+        pipe = AVCachedStreamingPipeline(
+            core, cfg, window_frames=SERVE_RING, sampling_steps=kw["n_steps"],
+            noise_prev=kw["noise_prev"], seed=19, fused_write=True,
+            device=dev, graphed=graphed)
+        pipe.prime(x, a, m, b)
+        return pipe
+
+    def controls():
+        return (rs.randn(2).astype(np.float32),
+                (rs.rand(cfg.n_buttons) > 0.5).astype(np.float32))
+
+    reset_counts()
+    graphed, eager = pipe_of(True), pipe_of(False)
+    d, same = 0.0, True
+    for _ in range(SERVE_COMPARE):
+        ctrl = controls()
+        (fg, ag, _), (fe, ae, _) = graphed(*ctrl), eager(*ctrl)
+        d = max(d, max_abs(fg, fe), max_abs(ag, ae))
+        same = same and torch.equal(fg, fe) and torch.equal(ag, ae)
+    if not graphed.loop.graphs:
+        fail("mmdit_v2 serve: no CUDA graph was captured")
+    if d > CACHED_GRAPH_MAX_ABS:
+        fail(f"mmdit_v2 serve: graphed tick disagrees with eager ({d:.3e})")
+    ms = []
+    for _ in range(SERVE_TICKS_V2 - SERVE_COMPARE):
+        frame, audio, s = graphed(*controls())
+        if not (torch.isfinite(frame.float()).all()
+                and torch.isfinite(audio.float()).all()):
+            fail("mmdit_v2 serve: a tick is not finite")
+        ms.append(1e3 * s)
+    e_ms = [1e3 * eager(*controls())[2] for _ in range(4)]
+    check_no_port_kernels("the MMDiT's cached serve")
+    tpf = cfg.tokens_per_frame
+    print(f"[serve15] graph vs eager over {SERVE_COMPARE} ticks identical "
+          f"{same}, max |diff| {d:.3e} (tolerance {CACHED_GRAPH_MAX_ABS}); "
+          f"ms a frame median graphed {statistics.median(ms):.2f} (min "
+          f"{min(ms):.2f} max {max(ms):.2f}), eager "
+          f"{statistics.median(e_ms):.2f}; ring after {SERVE_TICKS_V2} ticks: "
+          f"{int(graphed.cache.length) // tpf} frames of {SERVE_RING}, RoPE "
+          f"offset {int(graphed.cache.rope_offset) // tpf} frames (the MMDiT "
+          f"commits both frames of each fused forward, as the JAX package's "
+          f"does); 0 port-kernel launches", flush=True)
+    out = dict(ticks=SERVE_TICKS_V2, graph_identical=same, graph_max_abs=d,
+               ms_per_frame=dict(graphed=statistics.median(ms),
+                                 eager=statistics.median(e_ms)),
+               rope_offset_frames=int(graphed.cache.rope_offset) // tpf,
+               port_kernel_launches=0)
+    del graphed, eager, core
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def step_grads(model, batch, gen_seed):
+    """(loss, {name: f32 grad}) of one training step of ``model``."""
+    gen = torch.Generator(device=batch[0].device).manual_seed(gen_seed)
+    loss = model(*batch, generator=gen)
+    loss = loss[0] if isinstance(loss, tuple) else loss
+    loss.backward()
+    return loss.item(), {n: p.grad.float() for n, p in
+                         model.named_parameters()}
+
+
+def compare_steps(tag, a, b):
+    """Phase 6's 4-layer step limits on two (loss, grads) results."""
+    (la, ga), (lb, gb) = a, b
+    loss_rel = abs(la - lb) / abs(lb)
+    num = sum((ga[n] - gb[n]).pow(2).sum() for n in gb)
+    den = sum(gb[n].pow(2).sum() for n in gb)
+    total = (num / den).sqrt().item()
+    per = {n: rel_l2(ga[n], gb[n]) for n in gb if gb[n].norm() > 0}
+    worst = max(per, key=per.get)
+    print(f"[knobs] {tag}: loss {la:.6f} vs {lb:.6f} (rel {loss_rel:.2e}, "
+          f"tolerance {ROUTE_LOSS_REL}); gradient rel L2 {total:.3e} "
+          f"(tolerance {ROUTE_GRAD_REL_L2}), worst {per[worst]:.3e} "
+          f"({worst}; tolerance {ROUTE_PARAM_REL_L2})", flush=True)
+    if loss_rel > ROUTE_LOSS_REL or total > ROUTE_GRAD_REL_L2 or \
+            per[worst] > ROUTE_PARAM_REL_L2:
+        fail(f"{tag}: the steps disagree")
+    return dict(loss_rel=loss_rel, grad_rel_l2=total, worst_param=per[worst])
+
+
+def uvit_knob_phase(dev):
+    """(5) a GameRFTAudio step with backbone uvit at configs/av_v4_8x8.yml's
+    widths, 4 layers (no config uses the UViT), K1 on every block, against
+    dense attention; then configs/dit_v4_tpu_e2e.yml's 4-layer step with
+    each memory knob against the same step without it."""
+    from owl_audio_exps_tpu_torch.configs import Config
+    from owl_audio_exps_tpu_torch.data import get_loader
+    from owl_audio_exps_tpu_torch.models.gamerft import GameRFT
+    from owl_audio_exps_tpu_torch.models.gamerft_audio import GameRFTAudio
+
+    out = {}
+    conf = Config.from_yaml(os.path.join(ROOT, "configs", "av_v4_8x8.yml"))
+    cfg = conf.model
+    print_cut("knobs", "av_v4_8x8.yml", cfg, "backbone", "uvit",
+              "no config uses the UViT; the AV model's widths")
+    print_cut("knobs", "av_v4_8x8.yml", cfg, "n_layers", KNOB_LAYERS,
+              "phase 6's 4-layer step")
+    x, a, m, b, _ = av_window(cfg, UVIT_FRAMES, dev, 53)
+    batch = (x, a, m, b)
+    results = {}
+    for impl in ("auto", "dense"):
+        c = cfg.copy()
+        c.attn_impl = impl
+        reset_counts()
+        model = GameRFTAudio(c, dtype=torch.bfloat16, device=dev, seed=0)
+        results[impl] = step_grads(model, batch, 5)
+        counts = {k: n for k, n in kernel_counts().items() if n}
+        if impl == "auto":
+            uvit_counts = counts
+        del model
+    want = dict(frame_attention_fwd=KNOB_LAYERS,
+                frame_attention_bwd_dq=KNOB_LAYERS,
+                frame_attention_bwd_dkv=KNOB_LAYERS)
+    if uvit_counts != want:
+        fail(f"uvit: kernel launches {uvit_counts}, expected {want}")
+    out["uvit"] = dict(compare_steps(
+        f"UViT {KNOB_LAYERS} x d {cfg.d_model}, L "
+        f"{UVIT_FRAMES * cfg.tokens_per_frame}, kernels {uvit_counts} vs "
+        f"dense", results["auto"], results["dense"]), launches=uvit_counts)
+
+    conf = Config.from_yaml(os.path.join(ROOT, "configs",
+                                         "dit_v4_tpu_e2e.yml"))
+    base = conf.model
+    base.n_layers = KNOB_LAYERS
+    dk = dict(conf.train.data_kwargs.items(), window_length=KNOB_FRAMES)
+    vid, mouse, btn = [torch.from_numpy(t).to(dev) for t in next(iter(
+        get_loader(conf.train.data_id, 1, **dk)))]
+    batch = (vid.to(torch.bfloat16), mouse, btn)
+    knobs = {"remat_sequenced": (dict(gradient_checkpointing=True,
+                                      remat_granularity="group"),
+                                 dict(remat_sequenced=True)),
+             "fused_head_chunks": ({}, dict(splash_head_chunks=2,
+                                            fused_head_chunks=True)),
+             "mlp_chunks": ({}, dict(mlp_chunks=4))}
+    for knob, (common, on) in knobs.items():
+        steps = {}
+        for tag, over in (("off", common), ("on", dict(common, **on))):
+            c = base.copy()
+            for k, v in over.items():
+                c[k] = v
+            reset_counts()
+            model = GameRFT(c, dtype=torch.bfloat16, device=dev, seed=0)
+            steps[tag] = step_grads(model, batch, 5)
+            steps[tag + "_counts"] = {k: n for k, n in
+                                      kernel_counts().items() if n}
+            del model
+        print(f"[knobs] dit_v4 {KNOB_LAYERS} layers, L "
+              f"{KNOB_FRAMES * base.tokens_per_frame}, {knob} {on}: "
+              f"launches on {steps['on_counts']}, off {steps['off_counts']}",
+              flush=True)
+        out[knob] = dict(compare_steps(f"{knob} on vs off", steps["on"],
+                                       steps["off"]),
+                         launches_on=steps["on_counts"],
+                         launches_off=steps["off_counts"])
+    reset_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mmdit_phase(dev):
+    """Phase 15: the MMDiT (mmdit_v2 trained from a cod table the phase
+    writes, K1 at its geometry, mmdit_v1's sampler and trainer, mmdit_v2's
+    cached serve), the UViT and the memory knobs."""
+    import shutil
+    from owl_audio_exps_tpu_torch.configs import Config
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(MMDIT_DIR, ignore_errors=True)
+    table = os.path.join(MMDIT_DIR, "table")
+    cfg = Config.from_yaml(os.path.join(ROOT, "configs",
+                                        "mmdit_v2.yml")).model
+    t0 = time.perf_counter()
+    lens = write_cod_table(table, cfg)
+    print(f"[mmdit] wrote {len(lens)} documents of {min(lens)}-{max(lens)} "
+          f"frames (float16 video {cfg.channels} x {cfg.sample_size} x "
+          f"{cfg.sample_size}, audio {cfg.audio_channels}, mouse, buttons) "
+          f"in {time.perf_counter() - t0:.1f} s to "
+          f"{os.path.relpath(table, ROOT)}", flush=True)
+    reset_counts()
+    train = mmdit_v2_train_phase(dev, table)
+    fwd_rows, grad_rows = mmdit_kernel_phase(dev)
+    reset_counts()
+    v1 = mmdit_v1_phase(dev)
+    reset_counts()
+    serve = mmdit_v2_serve_phase(dev)
+    knobs = uvit_knob_phase(dev)
+    shutil.rmtree(MMDIT_DIR, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    print(f"[mmdit] phase 15 took {secs:.1f} s; still allocated "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB", flush=True)
+    return dict(mmdit_v2_train=train, mmdit_v1=v1, mmdit_v2_serve=serve,
+                uvit_knobs=knobs, seconds=secs, fwd_rows=fwd_rows,
+                grad_rows=grad_rows)
+
+
 def grads_of(fn, q, k, v, g):
     """(out, dq, dk, dv) of fn under the cotangent g; where fn returns a
     tuple (K4's out and lse), g is a tuple too and the list starts with
@@ -3814,29 +4573,46 @@ def main():
     if sys.argv[1:] == ["--packed-fit"]:
         print(json.dumps({"packed_fit": packed_fit_phase(dev)}), flush=True)
         return
+    if sys.argv[1:] == ["--mmdit-fit"]:
+        print(json.dumps({"mmdit_fit": mmdit_fit_phase(dev)}), flush=True)
+        return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}; usage: chip_smoke.py "
-             f"[--packed-fit]")
+             f"[--packed-fit | --mmdit-fit]")
 
-    fwd_rows = kernel_phase(dev)
-    grad_rows = grad_kernel_phase(dev)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        """fn(*args), its wall seconds kept under ``name`` and printed."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        print(f"[env] {name} took {seconds[name]:.1f} s", flush=True)
+        return out
+
+    fwd_rows = timed("kernel_phase", kernel_phase, dev)
+    grad_rows = timed("grad_kernel_phase", grad_kernel_phase, dev)
     reset_counts()
-    serve_launches, tick_ms, breakdown = pipeline_phase(dev, SERVE_TICKS)
+    serve_launches, tick_ms, breakdown = timed(
+        "pipeline_phase", pipeline_phase, dev, SERVE_TICKS)
     reset_counts()
-    sampler_launches = sampler_phase(dev)
-    audio = audio_serve_phase(dev)
-    cached = cached_serve_phase(dev, tick_ms)
-    train = train_phase(dev)
-    route = route_phase(dev)
-    grad_rows.update(k4_phase(dev))
-    context = context_phase(dev)
-    grad_rows.update(band2_phase(dev))
-    av = av_train_phase(dev)
-    distill = distill_phase(dev)
-    vae = vae_phase(dev)
-    packed = packed_phase(dev)
+    sampler_launches = timed("sampler_phase", sampler_phase, dev)
+    audio = timed("audio_serve_phase", audio_serve_phase, dev)
+    cached = timed("cached_serve_phase", cached_serve_phase, dev, tick_ms)
+    train = timed("train_phase", train_phase, dev)
+    route = timed("route_phase", route_phase, dev)
+    grad_rows.update(timed("k4_phase", k4_phase, dev))
+    context = timed("context_phase", context_phase, dev)
+    grad_rows.update(timed("band2_phase", band2_phase, dev))
+    av = timed("av_train_phase", av_train_phase, dev)
+    distill = timed("distill_phase", distill_phase, dev)
+    vae = timed("vae_phase", vae_phase, dev)
+    packed = timed("packed_phase", packed_phase, dev)
     fwd_rows.update(packed.pop("fwd_rows"))
     grad_rows.update(packed.pop("grad_rows"))
+    mmdit = timed("mmdit_phase", mmdit_phase, dev)
+    fwd_rows.update(mmdit.pop("fwd_rows"))
+    grad_rows.update(mmdit.pop("grad_rows"))
 
     launches = dict(train["totals"])
     launches["frame_attention_fwd"] += serve_launches + sampler_launches
@@ -3872,6 +4648,21 @@ def main():
         # times there
         extra[name]["launches_meanflow"] = \
             packed["meanflow"]["port_kernel_launches"]
+    # phase 15: the MMDiT's training steps and the UViT's step
+    for path, row in (("mmdit_v2_train", mmdit["mmdit_v2_train"]),
+                      ("mmdit_v1_train", mmdit["mmdit_v1"])):
+        for name, count in row["totals"].items():
+            launches[name] += count
+            if count:
+                extra[name].setdefault("launches_by_path", {})[path] = count
+                extra[name][f"launches_per_{path}_step"] = \
+                    row["per_step"][name]
+    for name, count in mmdit["uvit_knobs"]["uvit"]["launches"].items():
+        launches[name] += count
+        extra[name].setdefault("launches_by_path", {})["uvit_step"] = count
+    for name in kernel_counts():
+        # phase 15's serves fail unless every kernel launched 0 times
+        extra[name]["launches_mmdit_serves"] = 0
     for trainer in ("CausVidTrainer", "SelfForceTrainer",
                     "DistillODETrainer"):
         for name, count in distill[trainer]["totals"].items():
@@ -3896,7 +4687,12 @@ def main():
               "packed": {k: ({n: v for n, v in row.items()
                               if n not in ("totals", "per_step")}
                              if k == "train" else row)
-                         for k, row in packed.items()}}
+                         for k, row in packed.items()},
+              "phase_seconds": seconds,
+              "mmdit": {k: ({n: v for n, v in row.items()
+                             if n not in ("totals", "per_step")}
+                            if isinstance(row, dict) else row)
+                        for k, row in mmdit.items()}}
     print(json.dumps(record), flush=True)
     print(f"[env] {card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,8 +21,8 @@ the gradient to the parameters flows through that primal as through an
 ordinary forward. Two things meet the jvp that JAX composes freely:
 
 * group remat (``torch.utils.checkpoint``): its recompute in the
-  backward does not see the forward-mode tensors of the jvp, so the DiT
-  runs its blocks without checkpointing inside a torch.func transform
+  backward does not see the forward-mode tensors of the jvp, so the
+  backbones run their blocks without checkpointing inside a torch.func transform
   (nn/attn.py); remat changes no value.
 * the frame-mask kernel (K1, ops/splash.py), which an uncached forward
   of at least 1024 tokens takes on the card. The port's kernels have no
@@ -44,12 +44,12 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..nn.attn import DiT
 from ..nn.embeddings import ControlEmbedding, TimestepEmbedding
 from ..nn.layers import FinalLayer, Linear, reset_parameters
 from ..parallel.mesh import seq_parallel_active
 from ..utils.device import resolve_device
 from .gamerft import handle_cfg
+from .gamerft_audio import backbone_cls, run_backbone
 
 
 class GameMFTAudioCore(nn.Module):
@@ -67,11 +67,7 @@ class GameMFTAudioCore(nn.Module):
                  seed: Optional[int] = 0):
         super().__init__()
         device = resolve_device(device)
-        backbone = config.get("backbone", "dit")
-        if backbone != "dit":
-            raise NotImplementedError(
-                f"backbone {backbone!r}: only 'dit' is ported (uvit and "
-                "mmdit wait for a later slice)")
+        backbone = backbone_cls(config)
         self.config = config
         self.dtype = dtype
         d = config.d_model
@@ -82,7 +78,7 @@ class GameMFTAudioCore(nn.Module):
             self.control_embed = ControlEmbedding(config.n_buttons, d, **kw)
         self.proj_in = Linear(config.channels, d, bias=False, **kw)
         self.audio_proj_in = Linear(config.audio_channels, d, bias=False, **kw)
-        self.transformer = DiT(config, **kw)
+        self.transformer = backbone(config, **kw)
         self.proj_out = FinalLayer(d, config.channels, **kw)
         self.audio_proj_out = FinalLayer(d, config.audio_channels, **kw)
         if seed is not None:
@@ -114,17 +110,11 @@ class GameMFTAudioCore(nn.Module):
         vid = x.permute(0, 1, 3, 4, 2).reshape(b, n * h * w, c)
         vid = self.proj_in(vid.to(self.dtype))
         aud = self.audio_proj_in(audio.to(self.dtype))
-        stream = torch.cat([vid.reshape(b, n, h * w, cfg.d_model),
-                            aud[:, :, None, :]], dim=2)
-        stream = stream.reshape(b, n * (h * w + 1), cfg.d_model)
-        stream = self.transformer(
-            stream, cond, None, kv_cache, write=write, decoding=decoding,
-            write_len=None if write_len is None else write_len * (h * w + 1))
-        stream = stream.reshape(b, n, h * w + 1, cfg.d_model)
-        video = stream[:, :, :-1].reshape(b, n * h * w, cfg.d_model)
+        video, aud_out = run_backbone(self.transformer, vid, aud, cond,
+                                      kv_cache, write, decoding, write_len)
         video = self.proj_out(video, cond)
         video = video.reshape(b, n, h, w, c).permute(0, 1, 4, 2, 3)
-        return video, self.audio_proj_out(stream[:, :, -1], cond)
+        return video, self.audio_proj_out(aud_out, cond)
 
 
 class GameMFTAudio(nn.Module):

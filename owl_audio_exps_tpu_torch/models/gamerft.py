@@ -72,8 +72,10 @@ class GameRFTCore(nn.Module):
         backbone = config.get("backbone", "dit")
         if backbone != "dit":
             raise NotImplementedError(
-                f"backbone {backbone!r}: only 'dit' is ported (uvit and "
-                "mmdit wait for a later slice)")
+                f"backbone {backbone!r}: the video model takes the 'dit' "
+                "backbone only, as the JAX package's asserts "
+                "(owl_audio_exps_tpu/models/gamerft.py:56); uvit and mmdit "
+                "run in the AV model (models/gamerft_audio.py)")
         if config.tokens_per_frame != config.sample_size ** 2:
             raise ValueError("tokens_per_frame must be sample_size ** 2")
         self.config = config
@@ -138,14 +140,18 @@ class GameRFT(nn.Module):
 
     def forward(self, x, mouse=None, btn=None, doc_id=None,
                 has_controls=None, generator: Optional[torch.Generator] = None,
-                ts=None, z=None):
+                ts=None, z=None, return_dict: bool = False,
+                cfg_prob: Optional[float] = None):
         """x: [b, n, c, h, w] latents -> the f32 MSE loss (under context
-        parallelism, this rank's share of it; see the module docstring).
-        The draws come
-        from ``generator`` in the JAX package's order (cfg dropout,
-        timesteps, noise) unless ``ts`` [b, n] and ``z`` (x's shape) are
-        given; a caller that hands them in also hands in the post-dropout
-        ``has_controls`` (the dropout is then not applied)."""
+        parallelism, this rank's share of it; see the module docstring),
+        or with ``return_dict`` the JAX package's dict of the loss, the
+        noised input, the prediction, the draws and the CFG mask (this
+        rank's frames under context parallelism). The draws come from
+        ``generator`` in the JAX package's order (cfg dropout at
+        ``cfg_prob``, by default the config's, timesteps, noise) unless
+        ``ts`` [b, n] and ``z`` (x's shape) are given; a caller that hands
+        them in also hands in the post-dropout ``has_controls`` (the
+        dropout is then not applied)."""
         b, n = x.shape[0], x.shape[1]
         dev = x.device
         if has_controls is None:
@@ -157,8 +163,9 @@ class GameRFT(nn.Module):
             btn = torch.zeros(b, n, self.config.n_buttons, dtype=x.dtype,
                               device=dev)
         if ts is None:
-            has_controls = handle_cfg(generator, has_controls,
-                                      self.config.cfg_prob)
+            has_controls = handle_cfg(
+                generator, has_controls,
+                self.config.cfg_prob if cfg_prob is None else cfg_prob)
             ts = torch.sigmoid(torch.randn(b, n, generator=generator,
                                            device=dev))
             z = torch.randn(x.shape, generator=generator, device=dev)
@@ -176,4 +183,9 @@ class GameRFT(nn.Module):
 
         pred = self.core(lerpd.to(x.dtype), ts.to(x.dtype), mouse, btn,
                          doc_id, has_controls, frame_offset=f0)
-        return torch.sum(torch.square(pred.float() - target)) / count
+        loss = torch.sum(torch.square(pred.float() - target)) / count
+        if not return_dict:
+            return loss
+        return {"diffusion_loss": loss, "video_loss": loss,
+                "lerpd_video": lerpd, "pred_video": pred, "ts": ts,
+                "z_video": z, "cfg_mask": has_controls}

@@ -2,9 +2,11 @@
 owl_audio_exps_tpu/models/gamerft_audio.py ``GameRFTAudioCore`` and
 ``GameRFTAudio``).
 
-Per frame, 64 video tokens and 1 audio token are interleaved into one
-stream [b, n * (h*w + 1), d]; the per-frame cond is the timestep
-embedding plus, unless ``uncond``, the control embedding. The training
+The backbone is ``config.backbone``: the DiT or the UViT (nn/attn.py)
+over one stream [b, n * (h*w + 1), d] in which, per frame, 64 video
+tokens and 1 audio token are interleaved, or the dual-stream MMDiT
+(nn/mmattn.py), which interleaves them for attention only. The per-frame
+cond is the timestep embedding plus, unless ``uncond``, the control embedding. The training
 wrapper noises video and audio with one per-frame timestep and returns
 (video MSE + audio MSE, video MSE, audio MSE), all f32. The noise comes
 from a ``torch.Generator``, which gives other numbers than the JAX
@@ -21,7 +23,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..nn.attn import DiT
+from ..nn.attn import DiT, UViT
 from ..nn.embeddings import ControlEmbedding, TimestepEmbedding
 from ..nn.layers import FinalLayer, Linear, reset_parameters
 from ..ops.norms import layer_norm
@@ -43,11 +45,7 @@ class GameRFTAudioCore(nn.Module):
                  seed: Optional[int] = 0):
         super().__init__()
         device = resolve_device(device)
-        backbone = config.get("backbone", "dit")
-        if backbone != "dit":
-            raise NotImplementedError(
-                f"backbone {backbone!r}: only 'dit' is ported (uvit and "
-                "mmdit wait for a later slice)")
+        backbone = backbone_cls(config)
         self.config = config
         self.dtype = dtype
         d = config.d_model
@@ -57,7 +55,7 @@ class GameRFTAudioCore(nn.Module):
             self.control_embed = ControlEmbedding(config.n_buttons, d, **kw)
         self.proj_in = Linear(config.channels, d, bias=False, **kw)
         self.audio_proj_in = Linear(config.audio_channels, d, bias=False, **kw)
-        self.transformer = DiT(config, **kw)
+        self.transformer = backbone(config, **kw)
         self.proj_out = FinalLayer(d, config.channels, **kw)
         self.audio_proj_out = FinalLayer(d, config.audio_channels, **kw)
         if seed is not None:
@@ -71,7 +69,8 @@ class GameRFTAudioCore(nn.Module):
         v_audio). With ``kv_cache`` the forward attends over the ring
         (updated in place) and, with ``write``, commits its leading
         ``write_len`` frames (all by default) to it: each frame's 64 video
-        tokens and then its audio token, in stream order."""
+        tokens and then its audio token, in stream order (the MMDiT
+        commits every frame, see ``run_backbone``)."""
         cfg = self.config
         if seq_parallel_active(cfg):
             raise NotImplementedError(
@@ -98,21 +97,51 @@ class GameRFTAudioCore(nn.Module):
         vid = x.permute(0, 1, 3, 4, 2).reshape(b, n * h * w, c)
         vid = edge(self.proj_in, vid.to(self.dtype))
         aud = edge(self.audio_proj_in, audio.to(self.dtype))
-
-        stream = torch.cat([vid.reshape(b, n, h * w, cfg.d_model),
-                            aud[:, :, None, :]], dim=2)
-        stream = stream.reshape(b, n * (h * w + 1), cfg.d_model)
-        stream = self.transformer(
-            stream, cond, None, kv_cache, write=write, decoding=decoding,
-            write_len=None if write_len is None else write_len * (h * w + 1))
-        stream = stream.reshape(b, n, h * w + 1, cfg.d_model)
-        video = stream[:, :, :-1].reshape(b, n * h * w, cfg.d_model)
-        aud_out = stream[:, :, -1]
+        video, aud_out = run_backbone(self.transformer, vid, aud, cond,
+                                      kv_cache, write, decoding, write_len)
 
         video = edge(self.proj_out, layer_norm(video), layer_norm(cond))
         video = video.reshape(b, n, h, w, c).permute(0, 1, 4, 2, 3)
         aud_out = edge(self.audio_proj_out, aud_out, cond)
         return video, aud_out
+
+
+def backbone_cls(config):
+    """The backbone class of ``config.backbone``: ``dit``, ``uvit`` or
+    ``mmdit``."""
+    backbone = config.get("backbone", "dit")
+    if backbone == "dit":
+        return DiT
+    if backbone == "uvit":
+        return UViT
+    if backbone == "mmdit":
+        from ..nn.mmattn import MMDiT
+        return MMDiT
+    raise ValueError(f"Invalid backbone: {backbone}")
+
+
+def run_backbone(transformer, vid, aud, cond, kv_cache=None,
+                 write: bool = False, decoding: bool = False,
+                 write_len: Optional[int] = None):
+    """The AV backbone on video tokens [b, n V, d] and audio tokens [b, n,
+    d] -> the same two streams. The DiT and the UViT run the per-frame
+    interleave [V video tokens | 1 audio token] as one stream and commit
+    the leading ``write_len`` frames (all by default); the MMDiT keeps the
+    streams apart and, as the JAX package's, takes no ``write_len``: a
+    write commits every frame of the forward."""
+    from ..nn.mmattn import MMDiT
+    if isinstance(transformer, MMDiT):
+        return transformer(vid, aud, cond, kv_cache, write=write,
+                           decoding=decoding)
+    b, n, d = aud.shape
+    V = vid.shape[1] // n
+    stream = torch.cat([vid.reshape(b, n, V, d), aud[:, :, None, :]], dim=2)
+    stream = transformer(stream.reshape(b, n * (V + 1), d), cond, None,
+                         kv_cache, write=write, decoding=decoding,
+                         write_len=None if write_len is None
+                         else write_len * (V + 1))
+    stream = stream.reshape(b, n, V + 1, d)
+    return stream[:, :, :-1].reshape(b, n * V, d), stream[:, :, -1]
 
 
 class GameRFTAudio(nn.Module):
@@ -127,21 +156,25 @@ class GameRFTAudio(nn.Module):
 
     def forward(self, x, audio, mouse=None, btn=None, has_controls=None,
                 generator: Optional[torch.Generator] = None, ts=None,
-                z_video=None, z_audio=None):
+                z_video=None, z_audio=None, return_dict: bool = False,
+                cfg_prob: Optional[float] = None):
         """x: [b, n, c, h, w] and audio [b, n, c_a] latents -> (loss,
-        video_loss, audio_loss), f32. The draws come from ``generator`` in
-        the JAX package's order (cfg dropout, timesteps, video noise,
-        audio noise) unless ``ts`` [b, n], ``z_video`` (x's shape) and
-        ``z_audio`` (audio's shape) are given; a caller that hands them in
-        also hands in the post-dropout ``has_controls`` (the dropout is
-        then not applied)."""
+        video_loss, audio_loss), f32, or with ``return_dict`` the JAX
+        package's dict of the losses, the noised inputs, the predictions,
+        the draws and the CFG mask. The draws come from ``generator`` in
+        the JAX package's order (cfg dropout at ``cfg_prob``, by default
+        the config's, timesteps, video noise, audio noise) unless ``ts``
+        [b, n], ``z_video`` (x's shape) and ``z_audio`` (audio's shape) are
+        given; a caller that hands them in also hands in the post-dropout
+        ``has_controls`` (the dropout is then not applied)."""
         b, n = x.shape[0], x.shape[1]
         dev = x.device
         if has_controls is None:
             has_controls = torch.ones(b, dtype=torch.bool, device=dev)
         if ts is None:
-            has_controls = handle_cfg(generator, has_controls,
-                                      self.config.cfg_prob)
+            has_controls = handle_cfg(
+                generator, has_controls,
+                self.config.cfg_prob if cfg_prob is None else cfg_prob)
             ts = torch.sigmoid(torch.randn(b, n, generator=generator,
                                            device=dev))
             z_video = torch.randn(x.shape, generator=generator, device=dev)
@@ -159,4 +192,11 @@ class GameRFTAudio(nn.Module):
                                    ts.to(x.dtype), mouse, btn, has_controls)
         video_loss = torch.mean(torch.square(pred_v.float() - (z_video - xf)))
         audio_loss = torch.mean(torch.square(pred_a.float() - (z_audio - af)))
-        return video_loss + audio_loss, video_loss, audio_loss
+        loss = video_loss + audio_loss
+        if not return_dict:
+            return loss, video_loss, audio_loss
+        return {"diffusion_loss": loss, "video_loss": video_loss,
+                "audio_loss": audio_loss, "lerpd_video": lerpd_v,
+                "lerpd_audio": lerpd_a, "pred_video": pred_v,
+                "pred_audio": pred_a, "ts": ts, "z_video": z_video,
+                "z_audio": z_audio, "cfg_mask": has_controls}

@@ -47,8 +47,22 @@ transform (the jvp of models/gamemft_audio.py) the blocks run without it,
 as the checkpoint's recompute cannot replay the transform's tensors.
 ``scan_layers`` (the JAX package's stacking of each period's parameters
 for ``nn.scan``, an XLA layout with no counterpart here) runs the same
-layer loop and remat: the function is unchanged. The XLA memory layouts ``remat_sequenced``,
-``fused_head_chunks`` and ``mlp_chunks`` > 1 raise.
+layer loop and remat: the function is unchanged. The memory knobs, each
+with the values of the plain run (owl_audio_exps_tpu/nn/attn.py:436-485,
+:690-731, nn/layers.py:101-137):
+
+* ``remat_sequenced`` (with ``gradient_checkpointing``, on the kernel
+  path without documents, as the JAX package takes it): one checkpoint
+  per block, whatever ``remat_granularity`` says; the backward
+  recomputes one block at a time, after the next block's backward;
+* ``fused_head_chunks`` with ``splash_head_chunks`` n > 1 (uncached, on
+  the kernel path, not under context parallelism): QK-norm, RoPE and the
+  kernel run per slice of H / n heads;
+* ``mlp_chunks``: every uncached block's MLP runs over that many chunks
+  of the sequence (nn/layers.py ``MLP``).
+
+``UViT`` is the DiT with U-Net skips: every block global, block i of the
+second half fed ``SkipConnection``(its input, the output of block n-1-i).
 
 KV-cached forwards (``kv_cache`` not None, nn/kv_cache.py) follow
 owl_audio_exps_tpu/nn/attn.py:68-139 and :221-309. The masks come from
@@ -228,16 +242,19 @@ def attention_route(cfg, local: bool, L: int, doc_id=None):
     return "splash", None
 
 
-def train_attention(cfg, local: bool, q, k, v, doc_id=None):
+def train_attention(cfg, local: bool, q, k, v, doc_id=None,
+                    head_chunks: Optional[int] = None):
     """Uncached attention dispatch to the band2, band or frame-mask kernel
-    (see the module docstring for the precedence)."""
+    (see the module docstring for the precedence); ``head_chunks``
+    defaults to ``splash_head_chunks``."""
     from ..ops.band import band_attention
     from ..ops.band2 import band2_attention
     from ..ops.local import chunked_local_attention
     from ..ops.splash import splash_attention
     tpf = cfg.tokens_per_frame
     window = cfg.get("local_window") if local else cfg.get("global_window")
-    head_chunks = cfg.get("splash_head_chunks", 1)
+    if head_chunks is None:
+        head_chunks = cfg.get("splash_head_chunks", 1)
     route, plan = attention_route(cfg, local, q.shape[2], doc_id)
     if route == "band2":
         return band2_attention(q, k, v, tpf, window, *plan,
@@ -311,14 +328,33 @@ class Attn(nn.Module):
         H = cfg.n_heads
         Dh = cfg.d_model // H
         qkv = self.qkv(x).view(B, L, 3, H, Dh)
-        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        q, k = rms_norm(q), rms_norm(k)
         rope = rope_table_for(cfg)
         if kv_cache is not None:
             positions = kv_cache.write_positions(L)
         else:
             positions = torch.arange(pos_offset, pos_offset + L,
                                      device=x.device)
+        hc = cfg.get("splash_head_chunks", 1) or 1
+        if (splash and kv_cache is None and hc > 1
+                and cfg.get("fused_head_chunks", False)
+                and not seq_parallel_active(cfg)
+                and H % hc == 0 and H > hc):
+            # QK-norm, RoPE and the kernel per slice of H / hc heads;
+            # context parallelism takes precedence, as in the JAX package
+            Hc = H // hc
+            outs = []
+            for c in range(hc):
+                q, k, v = (qkv[:, :, i, c * Hc:(c + 1) * Hc].transpose(1, 2)
+                           for i in range(3))
+                q, k = rms_norm(q), rms_norm(k)
+                q, k = rope(q, positions), rope(k, positions)
+                o = train_attention(cfg, self.local, q.to(self.dtype),
+                                    k.to(self.dtype), v.to(self.dtype),
+                                    doc_id, head_chunks=1)
+                outs.append(o.transpose(1, 2).reshape(B, L, Hc * Dh))
+            return self.out(torch.cat(outs, dim=-1))
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        q, k = rms_norm(q), rms_norm(k)
         q, k = rope(q, positions), rope(k, positions)
         q, k, v = (t.to(self.dtype) for t in (q, k, v))
         if kv_cache is not None:
@@ -343,6 +379,7 @@ class DiTBlock(nn.Module):
     def __init__(self, config, layer_idx: int, local: bool = False,
                  dtype=torch.bfloat16, device=None):
         super().__init__()
+        self.config = config
         d = config.d_model
         kw = dict(dtype=dtype, device=device)
         self.attn = Attn(config, layer_idx, local, **kw)
@@ -358,7 +395,10 @@ class DiTBlock(nn.Module):
         x = x + self.gate1(self.attn(self.adaln1(x, cond), mask, splash,
                                      doc_id, pos_offset, kv_cache,
                                      write_len), cond)
-        return x + self.gate2(self.mlp(self.adaln2(x, cond)), cond)
+        # the chunked MLP in uncached forwards only
+        chunks = (self.config.get("mlp_chunks", 1) or 1
+                  if kv_cache is None else 1)
+        return x + self.gate2(self.mlp(self.adaln2(x, cond), chunks), cond)
 
 
 def local_layer_flags(config):
@@ -376,20 +416,28 @@ def attention_forwards_per_step(config):
     except for the last block of each group: the group's recompute does
     not need that block's output, and non-reentrant checkpointing stops a
     recompute once it has what the backward asked for, so that block runs
-    twice. Each layer's attention backward runs once."""
+    twice. The MMDiT, the UViT and ``remat_sequenced`` on the kernel path
+    take per-block remat: 2. Each layer's attention backward runs once."""
     n = config.n_layers
     if not config.get("gradient_checkpointing", False):
         return [1] * n
-    if config.get("remat_granularity") != "group":
+    # the MMDiT and the UViT checkpoint each block; sequenced remat too
+    if (config.get("remat_granularity") != "group"
+            or config.get("backbone", "dit") != "dit"
+            or config.get("remat_sequenced", False)):
         return [2] * n
     K = config.get("local_idx", 4) or 4
     return [2 if (i % K == K - 1 or i == n - 1) else 3 for i in range(n)]
 
 
-_XLA_LAYOUTS = {
-    "remat_sequenced": "a sequenced custom-vjp remat",
-    "fused_head_chunks": "per-head-chunk fused attention",
-}
+def remat_active(config, kv_cache=None) -> bool:
+    """Whether an uncached forward checkpoints its blocks: with
+    ``gradient_checkpointing``, under autograd, and outside a torch.func
+    transform (MeanFlow's jvp), whose tensors the checkpoint's recompute
+    in the backward would not see; remat changes no value."""
+    return (config.get("gradient_checkpointing", False)
+            and kv_cache is None and torch.is_grad_enabled()
+            and not torch._C._are_functorch_transforms_active())
 
 
 class DiT(nn.Module):
@@ -397,16 +445,6 @@ class DiT(nn.Module):
 
     def __init__(self, config, dtype=torch.bfloat16, device=None):
         super().__init__()
-        for key, what in _XLA_LAYOUTS.items():
-            if config.get(key, False):
-                raise NotImplementedError(
-                    f"{key} ({what}) is an XLA memory layout of the JAX "
-                    "package; the port keeps unrolled blocks with "
-                    "torch.utils.checkpoint (ROADMAP.md Queue 1)")
-        if (config.get("mlp_chunks", 1) or 1) > 1:
-            raise NotImplementedError(
-                "mlp_chunks > 1 is an XLA memory layout of the JAX package; "
-                "the port runs the MLP whole (ROADMAP.md Queue 1)")
         self.config = config
         self.blocks = nn.ModuleList(
             DiTBlock(config, i, local, dtype=dtype, device=device)
@@ -445,12 +483,12 @@ class DiT(nn.Module):
             local_mask, global_mask = build_masks(cfg, L, doc_id,
                                                   device=x.device)
         args = (cond, local_mask, global_mask, splash, doc_id, pos_offset)
-        # inside a torch.func transform (MeanFlow's jvp) the blocks run
-        # without checkpointing: the recompute in the backward does not
-        # see the transform's tensors, and remat changes no value
-        remat = (cfg.get("gradient_checkpointing", False)
-                 and torch.is_grad_enabled()
-                 and not torch._C._are_functorch_transforms_active())
+        remat = remat_active(cfg)
+        if (remat and cfg.get("remat_sequenced", False)
+                and local_mask is None and doc_id is None):
+            # sequenced remat: one checkpoint per block, recomputed in the
+            # backward one block at a time
+            return self._run_blocks(0, n, x, *args, True)
         if remat and cfg.get("remat_granularity") == "group":
             # one checkpoint per local/global period, and one per block
             # inside it (the group's backward then holds one block's
@@ -472,6 +510,74 @@ class DiT(nn.Module):
         for idx, local in enumerate(local_layer_flags(cfg)):
             x = self.blocks[idx](x, cond, local_mask if local else global_mask,
                                  False, doc_id, 0, kv_cache, wl)
+        if write:
+            kv_cache.advance(wl)
+        return x
+
+
+class SkipConnection(nn.Module):
+    """U-Net skip join: add, AdaLN, project."""
+
+    def __init__(self, config, dtype=torch.bfloat16, device=None):
+        super().__init__()
+        d = config.d_model
+        self.norm = AdaLN(d, dtype=dtype, device=device)
+        self.proj = Linear(d, d, dtype=dtype, device=device)
+
+    def forward(self, x, prev, cond):
+        return self.proj(self.norm(x + prev, cond))
+
+
+class UViT(nn.Module):
+    """DiT blocks, all on the global window, with U-Net skips: the outputs
+    of the first n // 2 blocks are joined (``skip_projs``) to the inputs
+    of the blocks after the middle one, in reverse order."""
+
+    def __init__(self, config, dtype=torch.bfloat16, device=None):
+        super().__init__()
+        self.config = config
+        n = config.n_layers
+        kw = dict(dtype=dtype, device=device)
+        self.blocks = nn.ModuleList(DiTBlock(config, i, False, **kw)
+                                    for i in range(n))
+        self.skip_projs = nn.ModuleList(SkipConnection(config, **kw)
+                                        for _ in range(n - n // 2 - 1))
+
+    def forward(self, x, cond, doc_id=None, kv_cache=None,
+                pos_offset: int = 0, write: bool = False,
+                decoding: bool = False, write_len: Optional[int] = None):
+        """As ``DiT.forward``: with ``kv_cache`` every block attends over
+        its ring, and ``write`` commits the leading ``write_len`` tokens
+        (all by default)."""
+        cfg = self.config
+        L = x.shape[1]
+        splash = kv_cache is None and use_splash_path(cfg, L, x.device)
+        mask = None
+        if kv_cache is not None:
+            mask = build_masks(cfg, L, doc_id, kv_cache=kv_cache,
+                               decoding=decoding,
+                               write_len=write_len if write else None)[1]
+        elif not splash and not seq_parallel_active(cfg):
+            mask = build_masks(cfg, L, doc_id, device=x.device)[1]
+        wl = ((L if write_len is None else write_len) if write else None)
+        remat = remat_active(cfg, kv_cache)
+
+        def run(i, x):
+            args = (x, cond, mask, splash, doc_id, pos_offset, kv_cache, wl)
+            if remat:
+                return checkpoint(self.blocks[i], *args, use_reentrant=False)
+            return self.blocks[i](*args)
+
+        n = cfg.n_layers
+        mid = n // 2
+        early = []
+        for i in range(mid):
+            x = run(i, x)
+            early.append(x)
+        x = run(mid, x)
+        for i in range(mid + 1, n):
+            x = self.skip_projs[i - mid - 1](x, early[n - 1 - i], cond)
+            x = run(i, x)
         if write:
             kv_cache.advance(wl)
         return x

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.norms import rms_norm
 
@@ -83,11 +84,31 @@ class MLPCustom(nn.Module):
 
 
 class MLP(MLPCustom):
-    """Transformer MLP: d -> 4d -> d, SiLU (params ``mlp.fc1``, ``mlp.fc2``)."""
+    """Transformer MLP: d -> 4d -> d, SiLU (params ``mlp.fc1``, ``mlp.fc2``).
+
+    ``chunks`` > 1 runs the MLP over that many equal chunks of the
+    sequence (dim 1 of a [b, L, d] input whose L it divides; otherwise
+    whole), with the same values: under autograd each chunk is a
+    checkpoint, so the backward keeps only the chunks' inputs and one
+    chunk's 4d-wide hidden lives at a time (the JAX package's
+    ``model.mlp_chunks``)."""
 
     def __init__(self, d_model: int, dtype=torch.bfloat16, device=None):
         super().__init__(d_model, 4 * d_model, d_model, dtype=dtype,
                          device=device)
+
+    def forward(self, x, chunks: int = 1):
+        L = x.shape[1] if x.ndim == 3 else 0
+        if chunks <= 1 or x.ndim != 3 or L % chunks:
+            return super().forward(x)
+        c = L // chunks
+        remat = (torch.is_grad_enabled()
+                 and not torch._C._are_functorch_transforms_active())
+        run = super().forward
+        return torch.cat([
+            checkpoint(run, x[:, i * c:(i + 1) * c], use_reentrant=False)
+            if remat else run(x[:, i * c:(i + 1) * c])
+            for i in range(chunks)], dim=1)
 
 
 def broadcast_cond(cond: torch.Tensor, n_tokens: int) -> torch.Tensor:
@@ -111,6 +132,18 @@ def gate_tokens(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     b, nm, d = x.shape
     n = c.shape[1]
     return (x.reshape(b, n, nm // n, d) * c[:, :, None, :]).reshape(b, nm, d)
+
+
+def cond_adaln(x: torch.Tensor, scale: torch.Tensor,
+               bias: torch.Tensor) -> torch.Tensor:
+    """Functional AdaLN of the MMDiT's shared cond: rms_norm(x) modulated
+    by per-frame ``scale`` and ``bias``."""
+    return modulate_tokens(rms_norm(x), scale, bias)
+
+
+def cond_gate(x: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """Functional gate of the MMDiT's shared cond."""
+    return gate_tokens(x, gate)
 
 
 class AdaLN(nn.Module):

@@ -214,7 +214,11 @@ class AVCachingSamplerV2:
         """The loop of this (core, shape), reset to a new run: controls and
         draws copied in, the context written into the ring at
         ``noise_prev`` (with ``fused_write`` all but its last frame, which
-        becomes the pending write); ``x`` is cut to its window first."""
+        becomes the pending write); ``x`` is cut to its window first. An
+        AV core (one with an audio stream) raises TypeError: the sampler
+        calls a video core, and the JAX package's fails on an AV core
+        too."""
+        self.check_core(core)
         n = self.frames_to_generate(x, mouse)
         x, capacity = self.window(x, n)
         b, init_len = x.shape[:2]
@@ -249,6 +253,17 @@ class AVCachingSamplerV2:
             self._prefill(core, loop, noisy, t_ctx, mouse, btn, capacity)
         return loop
 
+    def check_core(self, core):
+        """Raise TypeError for an AV core (one with an audio stream)."""
+        if hasattr(core, "audio_proj_in"):
+            raise TypeError(
+                f"{type(self).__name__} samples a video core (x, t, mouse, "
+                f"btn); {type(core).__name__} also takes an audio stream. "
+                "The JAX package's sampler fails on an AV core as well; the "
+                "AV cores serve through the window samplers "
+                "(sampling/av_window.py) and AVCachedStreamingPipeline "
+                "(inference/pipeline.py)")
+
     def _prefill(self, core, loop, noisy, t_ctx, mouse, btn, capacity):
         """Write the noised context into the ring: one forward, or frame by
         frame through the decoding path for giant rings."""
@@ -264,6 +279,7 @@ class AVCachingSamplerV2:
 
     @torch.no_grad()
     def _sample(self, core, x, mouse, btn, generator, noise, graphed: bool):
+        self.check_core(core)
         n = self.frames_to_generate(x, mouse)
         x, capacity = self.window(x, n)
         b, init_len = x.shape[:2]

@@ -124,8 +124,13 @@ def port_cuts(cfg, world_size: int) -> List[str]:
         tc.mesh = mesh
     if tc.get("sampler_id") and \
             tc.sampler_id not in _PORTED_EVAL.get(tc.trainer_id, ()):
-        cuts.append(f"sampler_id {tc.sampler_id!r} -> None (this "
-                    f"trainer's eval with it is not ported)")
+        why = "this trainer's eval with it is not ported"
+        if tc.trainer_id in ("av", "mixed_av") and \
+                tc.sampler_id in _VIDEO_SAMPLERS:
+            why = (f"the {tc.trainer_id} trainer's eval hands the video "
+                   f"sampler the AV batch, and fails so in the JAX package "
+                   f"too")
+        cuts.append(f"sampler_id {tc.sampler_id!r} -> None ({why})")
         tc.sampler_id = None
     return cuts
 

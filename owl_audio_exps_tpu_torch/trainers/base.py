@@ -7,7 +7,10 @@ copy (float32 unless ``ema_dtype``), the optimizer and the step count. A
 step accumulates gradients over ``target_batch_size // batch_size``
 micro-batches, clips the global norm to 10 for every optimizer but Muon,
 updates, and moves the EMA towards the parameters with beta 0.999, as the
-JAX package's one jitted step does. Parameters and optimizer state are
+JAX package's one jitted step does. With ``train.watch`` the step also
+returns the per-module parameter and gradient norms (and, under
+``full``, histograms of ``watch_bins`` bins) of the clipped gradients
+before the update (utils/telemetry.py). Parameters and optimizer state are
 updated in place.
 
 Several processes (one per device, under ``torchrun``; parallel/dist.py)
@@ -41,6 +44,7 @@ from ..utils.checkpoints import (load_checkpoint, save_checkpoint,
                                  save_clean_export)
 from ..utils.device import resolve_device
 from ..utils.logging import ExperimentLogger, LogHelper, Timer
+from ..utils.telemetry import watch_metrics
 
 
 @dataclasses.dataclass
@@ -148,6 +152,11 @@ class BaseTrainer:
         with torch.no_grad():
             if clip_norm is not None:
                 metrics["grad_norm"] = clip_grad_norm(params, clip_norm)
+            watch = self.train_cfg.get("watch")
+            if watch:
+                metrics.update(watch_metrics(
+                    model.named_parameters(), watch,
+                    bins=int(self.train_cfg.get("watch_bins") or 64)))
             opt.step()
             metrics["param_norm"] = global_norm(params)
             for name, p in model.named_parameters():

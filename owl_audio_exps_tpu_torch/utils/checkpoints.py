@@ -9,7 +9,8 @@ a torn checkpoint under the final name. ``versatile_load`` reads the
 inference weights of either kind of file, or of a clean export's
 directory, and ``unwrap_core`` takes a training wrapper's core out of
 them. ``load_torch_file`` reads a state_dict in the torch reference's
-layout (the port's own) from either, or from an owl_wms checkpoint.
+layout (the port's own) from either, from an owl_wms checkpoint, or
+from a reference golden's ``.npz``.
 """
 
 from __future__ import annotations
@@ -67,13 +68,25 @@ def unwrap_core(state_dict: Dict[str, torch.Tensor]
     return state_dict
 
 
+# the state_dict entries of a reference golden (.npz)
+_NPZ_PREFIX = "sd::"
+
+
 def load_torch_file(path: str) -> Dict[str, torch.Tensor]:
     """A state_dict in the torch reference's layout (the port's own) from
     a port checkpoint or export (``versatile_load``) or a torch file: the
     EMA, else the model, of an owl_wms {"model", "ema"} checkpoint, with
     the DDP, torch.compile and EMA-wrapper prefixes (``module.``,
     ``_orig_mod.``, ``ema_model.``) stripped, as the JAX package's
-    ``load_torch_file`` and ``normalize_torch_keys`` read it."""
+    ``load_torch_file`` and ``normalize_torch_keys`` read it. A ``.npz``
+    holds the reference's state_dict under ``sd::<name>`` keys beside
+    other arrays (the layout of the reference goldens, tests/goldens/
+    *.npz); its names are the port's, so it loads directly."""
+    if path.endswith(".npz"):
+        import numpy as np
+        with np.load(path) as z:
+            return {k[len(_NPZ_PREFIX):]: torch.from_numpy(np.array(z[k]))
+                    for k in z.files if k.startswith(_NPZ_PREFIX)}
     sd = versatile_load(path, map_location="cpu")
     if isinstance(sd, dict) and isinstance(sd.get("model"), dict):
         sd = sd.get("ema", sd["model"])

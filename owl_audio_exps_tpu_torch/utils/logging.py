@@ -1,8 +1,9 @@
 """Metric accumulation and experiment logging (counterpart of
 owl_audio_exps_tpu/utils/logging.py).
 
-``LogHelper`` averages scalar metrics per key; ``DeferredMetrics`` holds
-the device scalars of the steps since the last drain, so the host waits
+``LogHelper`` averages scalar metrics per key and keeps the last value of
+an array metric (the ``watch`` histograms); ``DeferredMetrics`` holds the
+device values of the steps since the last drain, so the host waits
 for the device once per logging window; ``ExperimentLogger`` prints one
 line per log call to stdout (the port has no wandb sink).
 """
@@ -12,6 +13,8 @@ from __future__ import annotations
 import time
 from typing import Dict, Optional
 
+import numpy as np
+
 
 class LogHelper:
     """Accumulate scalar metrics; pop() returns the per-key means."""
@@ -19,8 +22,12 @@ class LogHelper:
     def __init__(self):
         self._sums: Dict[str, float] = {}
         self._counts: Dict[str, int] = {}
+        self._arrays: Dict[str, np.ndarray] = {}
 
     def log(self, key: str, value):
+        if getattr(value, "ndim", 0) > 0:   # histograms: the last one wins
+            self._arrays[key] = value
+            return
         v = float(value)
         self._sums[key] = self._sums.get(key, 0.0) + v
         self._counts[key] = self._counts.get(key, 0) + 1
@@ -31,8 +38,10 @@ class LogHelper:
 
     def pop(self) -> Dict[str, float]:
         out = {k: self._sums[k] / max(self._counts[k], 1) for k in self._sums}
+        out.update(self._arrays)
         self._sums.clear()
         self._counts.clear()
+        self._arrays = {}
         return out
 
 
@@ -51,9 +60,14 @@ class DeferredMetrics:
         return len(self._pending)
 
     def drain(self):
-        """Waits for the buffered values; returns [(step_idx, {key:
-        float})] and clears the buffer."""
-        out = [(s, {k: float(v) for k, v in m.items()})
+        """Waits for the buffered values; returns [(step_idx, {key: float
+        or numpy array})] and clears the buffer."""
+        def host(v):
+            if getattr(v, "ndim", 0) > 0:
+                return v.detach().cpu().numpy()
+            return float(v)
+
+        out = [(s, {k: host(v) for k, v in m.items()})
                for s, m in self._pending]
         self._pending.clear()
         return out

@@ -16,7 +16,9 @@ H100_PEAK_TFLOPS = 989.0
 
 
 def transformer_flops_per_token(config, seq_len: int) -> float:
-    """Forward FLOPs per token for the DiT stack (matmul terms only)."""
+    """Forward FLOPs per token for the DiT stack (matmul terms only). The
+    MMDiT's and the UViT's count the same: each MMDiT token passes one
+    stream's projections and MLP."""
     d = config.d_model
     L = config.n_layers
     # attention projections: qkv (3d^2) + out (d^2); mlp: 2 * 4d^2

@@ -111,8 +111,11 @@ def _cases():
 CASES = _cases()
 
 
-def _run(kind, case):
+def _run(kind, case, **model):
+    """Both pipelines through ``case``, tick against tick and ring against
+    ring; ``model`` overrides the core's config (e.g. the backbone)."""
     over, pkw, B, n_prime, n_ticks = CASES[case]
+    over = dict(over, **model)
     if kind == "video":
         jcfg, pcfg, jcore, params, port = video_cores(**over)
         jcls, pcls = "CachedStreamingPipeline", CachedStreamingPipeline

@@ -178,6 +178,69 @@ def test_kernel_at_the_distill_geometry_matches_plain_on_card(B, window):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("window", [16, 256])
+def test_kernel_at_the_mmdit_geometry_matches_plain_on_card(window):
+    """K1 forward, dq and dkv at the MMDiT's token layout (tpf 65: 64
+    video tokens and 1 audio token a frame) with configs/mmdit_v2.yml's
+    frame windows, causal, at 300 frames: L 19,500, which the 128-row
+    tile does not divide (the ragged tail of L 65,000 too) and which the
+    256-frame window cuts."""
+    _need_card()
+    L, tpf = 300 * 65, 65
+    q, k, v = _qkv(L, H=2, seed=6, normed=True)
+    dout = _qkv(L, H=2, seed=7)[0]
+    counts = (splash.launches, splash.dq_launches, splash.dkv_launches)
+    out, got = _grads(lambda *a: splash.splash_attention(
+        *a, tpf, window, True), q, k, v, dout)
+    torch.cuda.synchronize()
+    assert (splash.launches, splash.dq_launches, splash.dkv_launches) == \
+        tuple(c + 1 for c in counts)
+    ref, want = _grads(lambda *a: splash.splash_attention_plain(
+        *a, tpf, window, True), q.float(), k.float(), v.float(),
+        dout.float())
+    err = (out.float() - ref).abs()
+    assert err.max().item() < 2e-2 and err.mean().item() < 2e-3
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a).all(), name
+        assert _rel_l2(a, b) < GRAD_REL_L2, name
+
+
+@pytest.mark.cuda
+def test_mmdit_core_through_k1_matches_dense_on_card():
+    """A 2-layer MMDiT core at 16 frames x tpf 65 (L 1,040, the K1 route)
+    launches K1 once a layer and agrees with its dense route (relative
+    L2 5e-2, chip_smoke.py's forward limit)."""
+    _need_card()
+    from owl_audio_exps_tpu_torch.configs import transformer_config
+    from owl_audio_exps_tpu_torch.models.gamerft_audio import \
+        GameRFTAudioCore
+    kw = dict(model_id="game_rft_audio", n_layers=2, n_heads=4,
+              d_model=256, channels=16, audio_channels=8, sample_size=8,
+              tokens_per_frame=65, n_frames=16, n_buttons=3, causal=True,
+              uncond=False, has_audio=True, rope_impl="ortho",
+              local_window=4, global_window=None, cfg_prob=0.0,
+              backbone="mmdit")
+    cfg = transformer_config(**kw)
+    core = GameRFTAudioCore(cfg, device="cuda", seed=0).to(torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    bf = torch.bfloat16
+    args = (torch.randn(1, 16, 16, 8, 8, generator=gen, device="cuda"),
+            torch.randn(1, 16, 8, generator=gen, device="cuda"),
+            torch.rand(1, 16, generator=gen, device="cuda"),
+            torch.randn(1, 16, 2, generator=gen, device="cuda"),
+            torch.zeros(1, 16, 3, device="cuda"))
+    args = tuple(a.to(bf) for a in args)
+    before = splash.launches
+    with torch.no_grad():
+        kv, ka = core(*args)
+        assert splash.launches == before + 2
+        cfg.attn_impl = "dense"
+        dv, da = core(*args)
+    assert splash.launches == before + 2
+    assert _rel_l2(kv, dv) < 5e-2 and _rel_l2(ka, da) < 5e-2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("tpf,window,n_chunks,bound", [
     (64, 2, 3, None), (64, 2, 3, 8.0), (65, 8, 2, 8.0), (65, 16, 2, None),
     (128, 1, 4, 8.0)])

@@ -180,9 +180,19 @@ def test_routing_and_unported_paths_raise():
     with pytest.raises(ValueError, match="decode_impl"):
         core(*inputs, kv_cache=cache)
     pcfg.decode_impl = "auto"
-    _, mm = configs(backbone="mmdit")
-    with pytest.raises(NotImplementedError, match="mmdit"):
-        GameRFTAudioCore(mm, device="cpu")
+    # the dual-stream MMDiT and the UViT build (held against the JAX
+    # package in tests/test_torch_port_{mmdit,uvit}.py); the video model
+    # takes the DiT only, as the JAX package's asserts
+    from owl_audio_exps_tpu_torch.models.gamerft import GameRFTCore
+    from owl_audio_exps_tpu_torch.nn.attn import UViT
+    from owl_audio_exps_tpu_torch.nn.mmattn import MMDiT
+    for backbone, cls in (("mmdit", MMDiT), ("uvit", UViT)):
+        _, cfg = configs(backbone=backbone)
+        assert isinstance(GameRFTAudioCore(cfg, device="cpu").transformer,
+                          cls)
+        cfg.model_id = "game_rft"
+        with pytest.raises(NotImplementedError, match="JAX package"):
+            GameRFTCore(cfg, device="cpu")
     assert get_core_cls("game_rft_audio") is GameRFTAudioCore
     assert get_core_cls("game_mft_audio").__name__ == "GameMFTAudioCore"
     with pytest.raises(ValueError):

@@ -400,14 +400,97 @@ def test_attention_forwards_per_step_count_the_remat(mode):
                          "group": [3, 3, 3, 2] * 2}[mode]
 
 
-def test_xla_memory_layouts_raise():
-    for key, value in (("remat_sequenced", True),
-                       ("fused_head_chunks", True), ("mlp_chunks", 2)):
-        _, pcfg = _configs(**{key: value})
-        with pytest.raises(NotImplementedError, match=key.split("_")[0]):
-            GameRFT(pcfg, device="cpu")
-    # scan_layers stacks parameters for XLA's scan: the port runs the same
-    # layer loop, so the model is the unrolled one, key for key
+# the memory knobs, each on the port's kernel route (attn_impl splash: the
+# plain versions on the CPU), where the JAX package takes it on the card
+KNOBS = {
+    "remat_sequenced": dict(gradient_checkpointing=True,
+                            remat_granularity="group", remat_sequenced=True),
+    "fused_head_chunks": dict(splash_head_chunks=2, fused_head_chunks=True),
+    "mlp_chunks": dict(mlp_chunks=4),
+}
+
+
+@pytest.mark.parametrize("knob", list(KNOBS))
+def test_memory_knobs_keep_the_loss_and_gradients(knob, monkeypatch):
+    """Each knob on (tests/test_sequenced_remat.py's contract: the values
+    of the plain run) against the same step with the knob off and against
+    the JAX package with the knob (on the CPU its dense path, where the
+    fused and sequenced forms do not engage), on the JAX model's weights
+    and draws: loss rtol 1e-5 of JAX and 1e-6 of the plain port, gradients
+    atol 1e-5 / rtol 1e-3 of JAX and atol 1e-6 / rtol 1e-5 of the plain
+    port. The knob must engage: per-head-slice kernel calls, MLP chunks,
+    per-block checkpoints (2 attention forwards a layer, not group's)."""
+    from owl_audio_exps_tpu_torch.nn import layers
+
+    over = dict(n_layers=4, n_heads=4, d_model=64, **KNOBS[knob])
+    jcfg, pcfg = _configs(**over)
+    pcfg.attn_impl = "splash"
+    rs = np.random.RandomState(12)
+    inputs = _video_inputs(rs, 2, 4, jcfg)
+    model, params = _jax_model(jcfg, inputs)
+    jin = [jnp.asarray(a) for a in inputs]
+
+    def loss_and_draw(p):
+        out = model.apply(p, *jin, return_dict=True,
+                          rngs={"noise": jax.random.key(6)})
+        return out["diffusion_loss"], out
+
+    (loss_j, draw), grads_j = jax.jit(jax.value_and_grad(
+        loss_and_draw, has_aux=True))(params)
+    draws = dict(ts=_t(draw["ts"]), z=_t(draw["z_video"]),
+                 has_controls=_t(draw["cfg_mask"]))
+
+    calls = {"heads": [], "mlp": 0}
+    orig = splash.splash_attention, band.band_attention, \
+        layers.MLPCustom.forward
+
+    def kernel(fn):
+        def wrapped(q, *a, **kw):
+            calls["heads"].append(q.shape[1])
+            return fn(q, *a, **kw)
+        return wrapped
+
+    def mlp(self, x):
+        calls["mlp"] += id(self) in block_mlps
+        return orig[2](self, x)
+
+    monkeypatch.setattr(splash, "splash_attention", kernel(orig[0]))
+    monkeypatch.setattr(band, "band_attention", kernel(orig[1]))
+    monkeypatch.setattr(layers.MLPCustom, "forward", mlp)
+    port = _port_model(pcfg, params)
+    block_mlps = {id(b.mlp) for b in port.core.transformer.blocks}
+    loss_p = port(*(_t(a) for a in inputs), **draws)
+    loss_p.backward()
+    np.testing.assert_allclose(loss_p.item(), float(loss_j), rtol=1e-5)
+    want = params_from_jax(numpy_params(grads_j), jcfg.n_heads)
+    for name, p in port.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(),
+                                   atol=1e-5, rtol=1e-3, err_msg=name)
+    n = pcfg.n_layers
+    if knob == "fused_head_chunks":
+        assert calls["heads"] == [2] * (2 * n)
+    elif knob == "mlp_chunks":
+        # 4 chunks a block, each recomputed by its checkpoint
+        assert calls["mlp"] == 2 * 4 * n and calls["heads"] == [4] * n
+    else:
+        assert attention_forwards_per_step(pcfg) == [2] * n
+        assert len(calls["heads"]) == 2 * n
+
+    plain_cfg = port_config(**dict(TINY_VIDEO, n_layers=4, n_heads=4,
+                                   d_model=64, attn_impl="splash"))
+    plain = _port_model(plain_cfg, params)
+    loss_0 = plain(*(_t(a) for a in inputs), **draws)
+    loss_0.backward()
+    assert loss_p.item() == pytest.approx(loss_0.item(), rel=1e-6, abs=0)
+    grads_0 = dict(plain.named_parameters())
+    for name, p in port.named_parameters():
+        torch.testing.assert_close(p.grad, grads_0[name].grad, atol=1e-6,
+                                   rtol=1e-5)
+
+
+def test_scan_layers_is_the_unrolled_model():
+    """scan_layers stacks parameters for XLA's scan: the port runs the same
+    layer loop, so the model is the unrolled one, key for key."""
     _, pcfg = _configs(scan_layers=True)
     _, plain = _configs()
     scanned = GameRFT(pcfg, device="cpu", seed=0).state_dict()
@@ -415,6 +498,35 @@ def test_xla_memory_layouts_raise():
     assert set(scanned) == set(unrolled)
     for k in unrolled:
         torch.testing.assert_close(scanned[k], unrolled[k], atol=0, rtol=0)
+
+
+def test_return_dict_and_cfg_prob_match_jax():
+    """GameRFT(return_dict=True) against the JAX package's dict on its
+    draws (every entry: rtol 1e-5, atol 1e-5), and cfg_prob overriding the
+    config's in the dropout drawn from the generator."""
+    jcfg, pcfg = _configs()
+    rs = np.random.RandomState(13)
+    inputs = _video_inputs(rs, 4, 4, jcfg)
+    model, params = _jax_model(jcfg, inputs)
+    out = jax.jit(lambda p: model.apply(
+        p, *(jnp.asarray(a) for a in inputs), return_dict=True,
+        cfg_prob=0.5, rngs={"noise": jax.random.key(8)}))(params)
+    port = _port_model(pcfg, params)
+    with torch.no_grad():
+        got = port(*(_t(a) for a in inputs), ts=_t(out["ts"]),
+                   z=_t(out["z_video"]), has_controls=_t(out["cfg_mask"]),
+                   return_dict=True)
+    assert set(got) == set(out)
+    for key, value in out.items():
+        np.testing.assert_allclose(got[key].float().numpy(),
+                                   np.asarray(value, np.float32), rtol=1e-5,
+                                   atol=1e-5, err_msg=key)
+    # cfg_prob 1.0 drops every row's controls, 0.0 none
+    x, mouse, btn = (_t(a) for a in inputs)
+    for cp, kept in ((1.0, 0), (0.0, 4)):
+        d = port(x, mouse, btn, generator=torch.Generator().manual_seed(1),
+                 return_dict=True, cfg_prob=cp)
+        assert int(d["cfg_mask"].sum()) == kept
 
 
 # --------------------------------------------------------------- trainer
