@@ -178,6 +178,23 @@ Phases, each of which exits non-zero on any failure:
    ``fused_head_chunks`` and ``mlp_chunks`` each against the step
    without it (phase 6's limits).
 
+16. the fsdp and tensor axes of configs/dit_v4_5B.yml (36 x d 2560, 40
+   heads, 4,304,919,680 seeded parameters) as far as one card holds them
+   (the 4-card training and serve are mesh_smoke.py's): (a) the parameter
+   tree split by the port's rules (parallel/sharding.py) for every rank
+   of {fsdp 4}, {tensor 4} and {fsdp 2, tensor 2}, every rank's shard
+   shapes printed, and put together again bit for bit; (b) a global and
+   a local block split 4 ways over tensor by the port's own shard
+   function, each rank's slice (10 heads, a quarter of the MLP) run in
+   turn, the row-parallel partials summed where the all-reduce would,
+   forward and backward at L 16,384 with the documents of a packed
+   window of a seeded table, against the whole block (rel L2 of the
+   output 5e-2, of every gradient 3e-2), with exactly one K1 forward, dq
+   and dkv a rank and layer; (c) K1 with those documents at H 40 and H
+   10 (the per-rank heads under fsdp and at tensor 4), tpf 64, global
+   and window 16, against its plain version at every head, with its
+   bound and SDPA's time.
+
 The last lines are the kernels' JSON record, the card line, and
 {"ok": true, "device": {...}}.
 """
@@ -3202,15 +3219,16 @@ class TimedIter:
         return item
 
 
-def write_packed_table(path: str, cfg):
-    """The phase's npy table, written with the port's NpyTable from
-    PACKED_SEED; returns the document lengths."""
+def write_packed_table(path: str, cfg, docs: int = PACKED_DOCS,
+                       doc_frames=PACKED_DOC_FRAMES):
+    """The phase's npy table (``docs`` documents of ``doc_frames`` frames),
+    written with the port's NpyTable from PACKED_SEED; returns the
+    document lengths."""
     import numpy as np
     from owl_audio_exps_tpu_torch.data.npy_table import NpyTable
 
     rng = np.random.default_rng(PACKED_SEED)
-    lens = rng.integers(PACKED_DOC_FRAMES[0], PACKED_DOC_FRAMES[1] + 1,
-                        PACKED_DOCS)
+    lens = rng.integers(doc_frames[0], doc_frames[1] + 1, docs)
     table = NpyTable(path, columns=[
         "video", "mouse", "buttons", "tarball", "pt_idx", "missing",
         "truncated", "seq_len"], array_columns=["video", "mouse", "buttons"])
@@ -4433,6 +4451,242 @@ def mmdit_phase(dev):
                 grad_rows=grad_rows)
 
 
+# ---------------------------------------------------------------- phase 16
+SHARD_DIR = os.path.join(ROOT, "build", "chip_smoke_shard")
+# (a) the meshes the 5B's parameter tree is split over
+SHARD_MESHES = {"fsdp4": dict(fsdp=4), "tensor4": dict(tensor=4),
+                "fsdp2_tensor2": dict(fsdp=2, tensor=2)}
+# (b), (c): a 256-frame packed window (L 16,384) of a small seeded table
+SHARD_FRAMES, SHARD_DOCS, SHARD_DOC_FRAMES = 256, 8, (40, 200)
+SHARD_T = 4
+SHARD_BLOCKS = (0, 1)         # a global and a local (window 16) layer
+# (c) K1 at the per-rank head counts of the 5B's meshes
+SHARD_HEADS = (40, 10)
+# (b) the split block against the whole one: phase 6's limits
+SHARD_OUT_REL, SHARD_GRAD_REL = 5e-2, 3e-2
+
+
+def mesh_views(sizes):
+    """Every rank's Mesh of ``sizes`` ({axis: n}) as one process holds
+    them: sizes and indices, no process groups (so the port's collectives
+    are identities)."""
+    from owl_audio_exps_tpu_torch.parallel.mesh import Mesh, mesh_coords
+    shape = dict(dict(data=1, fsdp=1, tensor=1, seq=1), **sizes)
+    n = shape["data"] * shape["fsdp"] * shape["tensor"] * shape["seq"]
+    return [Mesh(**shape, **{f"{a}_index": i for a, i in
+                             mesh_coords(shape, r).items()})
+            for r in range(n)]
+
+
+def shard_round_trip(core, meshes=SHARD_MESHES, tag="shard16"):
+    """(a) ``core``'s parameters split by the port's rules (parallel/
+    sharding.py) for every rank of each mesh and put together again,
+    which must give the tree bit for bit; every rank's shard shapes are
+    printed (the blocks alike, so block N stands for each)."""
+    import re
+    from owl_audio_exps_tpu_torch.parallel.sharding import (mesh_coords_of,
+                                                            param_specs)
+    out = {}
+    for mname, sizes in meshes.items():
+        views = mesh_views(sizes)
+        specs = param_specs(core, views[0])
+        shapes, equal, per_rank = {}, True, 0
+        with torch.no_grad():
+            for name, p in core.named_parameters():
+                spec = specs[name]
+                parts = [(mesh_coords_of(v), spec.shard(p, mesh_coords_of(v)))
+                         for v in views]
+                equal &= torch.equal(spec.assemble(parts), p)
+                per_rank += parts[0][1].numel()
+                key = re.sub(r"blocks\.\d+\.", "blocks.N.", name)
+                shapes.setdefault(key, (spec.axes, [tuple(t.shape)
+                                                    for _, t in parts]))
+                del parts
+        total = sum(p.numel() for p in core.parameters())
+        print(f"[{tag}] (a) {mname}: {len(views)} ranks, {per_rank:,} of "
+              f"{total:,} parameters a rank; the gathered tree bit-equal to "
+              f"the full tree: {equal}", flush=True)
+        for key, (axes, rank_shapes) in shapes.items():
+            print(f"[{tag}]   {key} {list(axes)}: " + " ".join(
+                f"r{r} {tuple(sh)}" for r, sh in enumerate(rank_shapes)),
+                flush=True)
+        if not equal:
+            fail(f"{tag} (a) {mname}: the gathered parameters differ from "
+                 "the tree")
+        out[mname] = dict(ranks=len(views), params_per_rank=per_rank,
+                          params=total, bit_equal=bool(equal))
+    return out
+
+
+def split_block_forward(blocks, x, cond, doc):
+    """A DiT block whose rank copies ``blocks`` (rank r's slice kept by
+    shard_params on its Mesh view) run in turn in one process: the
+    replicated modules are rank 0's, each rank's attention and MLP run on
+    its heads and hidden units, and their row-parallel partials are summed
+    where the all-reduce would sum them (the other ranks' row-parallel
+    biases were taken away, so the bias is added once)."""
+    b0 = blocks[0]
+    h = b0.adaln1(x, cond)
+    attn = sum(blk.attn(h, None, True, doc) for blk in blocks)
+    x = x + b0.gate1(attn, cond)
+    h = b0.adaln2(x, cond)
+    return x + b0.gate2(sum(blk.mlp(h) for blk in blocks), cond)
+
+
+def split_blocks(block, T: int):
+    """T copies of ``block`` sharded for the tensor ranks of {tensor T}."""
+    import copy
+    from owl_audio_exps_tpu_torch.parallel.sharding import shard_params
+    ranks = []
+    for r, view in enumerate(mesh_views(dict(tensor=T))):
+        blk = shard_params(copy.deepcopy(block), view,
+                           n_heads=block.config.n_heads)
+        if r:
+            blk.attn.out.bias = None
+            blk.mlp.fc2.bias = None
+        ranks.append(blk)
+    return ranks
+
+
+def split_block_errors(block, T, x, cond, doc, gen):
+    """(b) ``block`` split T ways against itself whole, forward and
+    backward: relative L2 of the output and of every gradient (each
+    rank's slice against the same slice of the whole block's), and the
+    K1 launches of the split run."""
+    from owl_audio_exps_tpu_torch.parallel.sharding import (mesh_coords_of,
+                                                            spec_of)
+    ranks = split_blocks(block, T)
+    g = torch.randn(x.shape, generator=gen, device=x.device).to(x.dtype)
+
+    def run(fn, params):
+        xs = x.detach().requires_grad_()
+        out = fn(xs)
+        grads = torch.autograd.grad(out, [xs] + params, g)
+        return out.detach().float(), [t.float() for t in grads]
+
+    full_params = list(block.parameters())
+    want, want_g = run(lambda t: block(t, cond, None, True, doc),
+                       full_params)
+    reset_counts()
+    named = [(r, n, p) for r, blk in enumerate(ranks)
+             for n, p in blk.named_parameters()
+             if r == 0 or spec_of(p) is not None]
+    got, got_g = run(lambda t: split_block_forward(ranks, t, cond, doc),
+                     [p for _, _, p in named])
+    counts = kernel_counts()
+    full = dict(block.named_parameters())
+    views = mesh_views(dict(tensor=T))
+    errs = {"out": rel_l2(got, want), "dx": rel_l2(got_g[0], want_g[0])}
+    grads = dict(zip([n for n in full], want_g[1:]))
+    for (r, name, p), gr in zip(named, got_g[1:]):
+        spec = spec_of(p)
+        ref = grads[name] if spec is None else \
+            spec.shard(grads[name], mesh_coords_of(views[r]))
+        errs[f"r{r}.{name}"] = rel_l2(gr, ref)
+    del ranks
+    return errs, counts
+
+
+def sharding_phase(dev):
+    """Phase 16: the fsdp and tensor axes of configs/dit_v4_5B.yml as far
+    as one card holds them (the 4-card run is mesh_smoke.py): (a) the
+    full-width parameter tree split and put together again for {fsdp 4},
+    {tensor 4} and {fsdp 2, tensor 2}; (b) a global and a local block of
+    it split 4 ways over tensor, each rank's slice run in turn, forward
+    and backward at L 16,384 with the documents of a packed window,
+    against the whole block; (c) K1 at the per-rank head counts (H 40
+    under fsdp, 10 at tensor 4) with those documents against its plain
+    version at every head."""
+    import shutil
+    from owl_audio_exps_tpu_torch.configs import Config
+    from owl_audio_exps_tpu_torch.data.latent_seq_packing import \
+        PackedSequenceDataset
+    from owl_audio_exps_tpu_torch.models.gamerft import GameRFTCore
+
+    conf = Config.from_yaml(os.path.join(ROOT, "configs", "dit_v4_5B.yml"))
+    cfg = conf.model
+    out = {}
+    t0 = time.perf_counter()
+    core = GameRFTCore(cfg, dtype=torch.bfloat16, device=dev, seed=0)
+    total = sum(p.numel() for p in core.parameters())
+    print(f"[shard16] configs/dit_v4_5B.yml core: {cfg.n_layers} layers x d "
+          f"{cfg.d_model}, {cfg.n_heads} heads x {cfg.d_model // cfg.n_heads}"
+          f", {total:,} float32 parameters from seed 0 in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    out["round_trip"] = shard_round_trip(core)
+    blocks = [core.transformer.blocks[i] for i in SHARD_BLOCKS]
+    del core
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the documents of a packed window of a small seeded table
+    os.makedirs(SHARD_DIR, exist_ok=True)
+    table = os.path.join(SHARD_DIR, "table")
+    shutil.rmtree(table, ignore_errors=True)
+    lens = write_packed_table(table, cfg, SHARD_DOCS, SHARD_DOC_FRAMES)
+    ds = PackedSequenceDataset(table, SHARD_FRAMES)
+    ds.set_epoch(0)
+    item = next(ds[i] for i in range(len(ds))
+                if len(set(ds[i]["doc_id"].tolist())) > 1)
+    doc = torch.from_numpy(item["doc_id"])[None].to(dev)
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    tpf, W = cfg.tokens_per_frame, cfg.local_window
+    L = SHARD_FRAMES * tpf
+    print(f"[shard16] a {SHARD_FRAMES}-frame window (L {L}) of a seeded "
+          f"table of {SHARD_DOCS} documents {lens}: {len(doc_spans(doc[0]))}"
+          f" document spans {doc_spans(doc[0])}", flush=True)
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    d = cfg.d_model
+    x = torch.randn(1, L, d, generator=gen, device=dev).to(torch.bfloat16)
+    cond = torch.randn(1, SHARD_FRAMES, d, generator=gen,
+                       device=dev).to(torch.bfloat16)
+    block_rows, counts = {}, {}
+    for i, block in zip(SHARD_BLOCKS, blocks):
+        errs, c = split_block_errors(block, SHARD_T, x, cond, doc, gen)
+        layer = "local (window 16)" if block.attn.local else "global"
+        worst = max(v for k, v in errs.items() if k != "out")
+        print(f"[shard16] (b) block {i} ({layer}) split over tensor "
+              f"{SHARD_T}, {cfg.n_heads // SHARD_T} heads a rank, against "
+              f"the whole block: out rel L2 {errs['out']:.3e} (limit "
+              f"{SHARD_OUT_REL}), worst gradient {worst:.3e} (limit "
+              f"{SHARD_GRAD_REL}) of {len(errs) - 1}; K1 launches of the "
+              f"split run {c}", flush=True)
+        for name in ("frame_attention_fwd", "frame_attention_bwd_dq",
+                     "frame_attention_bwd_dkv"):
+            if c[name] != SHARD_T:
+                fail(f"shard16 (b) block {i}: {c[name]} {name} launches, "
+                     f"{SHARD_T} expected (one a rank)")
+        if any(v for k, v in c.items() if not k.startswith("frame")):
+            fail(f"shard16 (b) block {i}: kernels other than K1 launched "
+                 f"{c}")
+        if errs["out"] > SHARD_OUT_REL or worst > SHARD_GRAD_REL:
+            fail(f"shard16 (b) block {i}: the split block disagrees with "
+                 f"the whole one")
+        block_rows[f"block{i}"] = dict(out_rel_l2=errs["out"],
+                                       worst_grad_rel_l2=worst,
+                                       grads_checked=len(errs) - 1,
+                                       launches=c)
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    out["split_block"] = block_rows
+    del blocks, x, cond
+    torch.cuda.empty_cache()
+
+    fwd_rows, grad_rows = {}, {}
+    Dh = cfg.d_model // cfg.n_heads
+    for H in SHARD_HEADS:
+        for window in (None, W):
+            name = f"L{L}_tpf{tpf}_packed_{mask_name(window)}_H{H}"
+            fwd_rows[name] = fwd_case(dev, gen, name, L, tpf, True, window,
+                                      doc, 1, H=H, Dh=Dh)
+            grad_rows.update(grad_case(dev, gen, name, "frame", L, tpf,
+                                       True, window, doc, None, 1, H=H,
+                                       Dh=Dh))
+    out["launches"] = counts
+    return dict(out, fwd_rows=fwd_rows, grad_rows=grad_rows)
+
+
 def grads_of(fn, q, k, v, g):
     """(out, dq, dk, dv) of fn under the cotangent g; where fn returns a
     tuple (K4's out and lse), g is a tuple too and the list starts with
@@ -4613,6 +4867,9 @@ def main():
     mmdit = timed("mmdit_phase", mmdit_phase, dev)
     fwd_rows.update(mmdit.pop("fwd_rows"))
     grad_rows.update(mmdit.pop("grad_rows"))
+    shard = timed("sharding_phase", sharding_phase, dev)
+    fwd_rows.update(shard.pop("fwd_rows"))
+    grad_rows.update(shard.pop("grad_rows"))
 
     launches = dict(train["totals"])
     launches["frame_attention_fwd"] += serve_launches + sampler_launches
@@ -4663,6 +4920,14 @@ def main():
     for name in kernel_counts():
         # phase 15's serves fail unless every kernel launched 0 times
         extra[name]["launches_mmdit_serves"] = 0
+    # phase 16: the 5B blocks split over tensor 4, one K1 launch of each
+    # kind a rank and layer (checked)
+    for name, count in shard["launches"].items():
+        launches[name] += count
+        if count:
+            extra[name].setdefault("launches_by_path", {})[
+                "sharded_blocks"] = count
+            extra[name]["launches_per_rank_and_layer_sharded_block"] = 1
     for trainer in ("CausVidTrainer", "SelfForceTrainer",
                     "DistillODETrainer"):
         for name, count in distill[trainer]["totals"].items():
@@ -4692,7 +4957,8 @@ def main():
               "mmdit": {k: ({n: v for n, v in row.items()
                              if n not in ("totals", "per_step")}
                             if isinstance(row, dict) else row)
-                        for k, row in mmdit.items()}}
+                        for k, row in mmdit.items()},
+              "sharding": shard}
     print(json.dumps(record), flush=True)
     print(f"[env] {card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,511 @@
+"""Sharded training and serving of the port across four cards (or CPU
+processes): configs/dit_v4_5B.yml through the port's trainer at its
+written mesh {fsdp 4} and at {fsdp 2, tensor 2}, and its cached serve
+with the KV ring sharded over heads at {tensor 4}.
+
+Usage (from the repository root, one process per card):
+
+    torchrun --nproc_per_node 4 mesh_smoke.py [--config_path configs/dit_v4_5B.yml] [--max_steps 2] [--serve_ticks 8]
+
+and on the CPU (gloo), with a small config:
+
+    torchrun --nproc_per_node 4 mesh_smoke.py --config_path <cfg> --device cpu
+
+Every process builds the trainer as ``python -m
+owl_audio_exps_tpu_torch.train`` does (the same cuts, printed, and these:
+the data is a seeded packed table written under build/mesh_smoke/ at the
+config's window, read by its ``sequence_packing`` loader; accumulation
+is cut to one micro-batch a batch rank; the mesh is the case's). Each
+mesh takes ``--max_steps`` steps; each rank reports its seconds a step,
+its peak device memory and its exact K1 launches (every layer takes K1:
+the packed batch carries documents), and traces one more micro-batch
+(device time by kernel class, NCCL's all-gather, reduce-scatter and
+all-reduce apart). Then a 2-layer copy at full width takes the same
+steps on each mesh and its parameters are gathered. The serve primes a
+ring of ``SERVE_WINDOW`` frames through ``CachedStreamingPipeline`` (the
+config's sampler's 16 steps) and runs ``--serve_ticks`` steady ticks at
+{tensor 4}: ms a tick, graph or eager (as the pipeline decides from the
+mesh), the ring's heads a rank. After the process group is left, rank 0
+alone runs the references on its card: the 2-layer copy's steps unsharded
+(the batch ranks' micro-batches accumulated, each with its rank's
+generator), held to the port's limits (loss 1e-2 relative, parameters
+3e-2 relative L2), and the same ticks from the whole bf16 model (5e-2
+relative L2). Rank 0 prints one JSON line last; every process exits
+non-zero on any failure.
+"""
+
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import math
+import os
+import shutil
+import statistics
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+import chip_smoke
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(ROOT, "build", "mesh_smoke")
+TRAIN_MESHES = ({"fsdp": 4}, {"fsdp": 2, "tensor": 2})
+SERVE_MESH = {"tensor": 4}
+CHECK_LAYERS = 2
+LOSS_REL, PARAM_REL, SERVE_REL = 1e-2, 3e-2, 5e-2
+SERVE_WINDOW, SERVE_PRIME = 32, 8
+
+
+def say(msg: str):
+    print(f"[mesh] {msg}", flush=True)
+
+
+def mesh_name(mesh) -> str:
+    return " x ".join(f"{k} {v}" for k, v in mesh.items())
+
+
+def train_config(args, mesh, table, n_layers=None, tag="mesh"):
+    """The config with the entry point's cuts and the run's, printed by
+    rank 0; ``n_layers`` cuts the depth (the parity copy)."""
+    from owl_audio_exps_tpu_torch.configs import Config
+    from owl_audio_exps_tpu_torch.train import port_cuts
+    cfg = Config.from_yaml(args.config_path)
+    tc = cfg.train
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    cuts = []
+
+    def cut(node, key, value, why):
+        cuts.append(f"{key} {node.get(key)!r} -> {value!r} ({why})")
+        node[key] = value
+
+    batch_ranks = world // (mesh.get("tensor", 1) * mesh.get("seq", 1))
+    kw = dict(tc.data_kwargs.items())
+    kw["dataset_path"] = table
+    cut(tc, "data_kwargs", kw, "the run's seeded packed table")
+    cut(tc, "mesh", dict(mesh), "the case")
+    cut(tc, "target_batch_size", tc.batch_size * batch_ranks,
+        f"accumulation {max(1, tc.target_batch_size // tc.batch_size // batch_ranks)}"
+        " -> 1 a batch rank")
+    for key, value in dict(log_interval=1, save_interval=10 ** 9,
+                           checkpoint_dir=os.path.join(WORK, "ckpt"),
+                           output_path=None).items():
+        cut(tc, key, value, "no checkpoint in this run")
+    if n_layers is not None:
+        cut(cfg.model, "n_layers", n_layers,
+            "the parity copy, which one card takes unsharded")
+    cuts += port_cuts(cfg, world)
+    if int(os.environ.get("RANK", 0)) == 0:
+        for line in cuts:
+            print(f"[{tag}] cut: {line}", flush=True)
+    return cfg
+
+
+def write_table(args, world_rank):
+    """Rank 0 writes the seeded packed table at the config's shapes
+    (documents of an eighth to four thirds of the window); every rank
+    waits for it."""
+    from owl_audio_exps_tpu_torch.configs import Config
+    cfg = Config.from_yaml(args.config_path)
+    W = cfg.train.data_kwargs["window_length"]
+    table = os.path.join(WORK, "table")
+    if world_rank == 0:
+        shutil.rmtree(WORK, ignore_errors=True)
+        os.makedirs(WORK, exist_ok=True)
+        t0 = time.perf_counter()
+        lens = chip_smoke.write_packed_table(table, cfg.model,
+                                             doc_frames=(max(2, W // 8),
+                                                         W * 4 // 3))
+        say(f"wrote a packed table of {len(lens)} documents, "
+            f"{sum(lens)} frames, in {time.perf_counter() - t0:.1f} s")
+    if dist.is_initialized():
+        dist.barrier()
+    return table
+
+
+def expected_k1(cfg, accum: int, on_card: bool):
+    """K1 launches per step on every rank: each layer's attention forwards
+    under the config's remat, and one dq and one dkv a layer."""
+    from owl_audio_exps_tpu_torch.nn.attn import attention_forwards_per_step
+    n = cfg.n_layers
+    per = {"frame_attention_fwd": sum(attention_forwards_per_step(cfg)),
+           "frame_attention_bwd_dq": n, "frame_attention_bwd_dkv": n}
+    return {k: per.get(k, 0) * accum * on_card
+            for k in chip_smoke.kernel_counts()}
+
+
+def trace_micro(trainer, state, micro, gen):
+    """Device ms by kernel class of one traced micro-batch step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from owl_audio_exps_tpu_torch.trainers.base import BaseTrainer
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        BaseTrainer.train_step(trainer, state, [micro], gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    classes = dict.fromkeys(("K1 fwd", "K1 bwd", "nccl all-gather",
+                             "nccl reduce-scatter", "nccl all-reduce",
+                             "nccl other", "matmul", "other"), 0.0)
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or \
+                getattr(e, "is_user_annotation", False):
+            continue
+        n, us = e.name.lower(), e.time_range.elapsed_us()
+        if "frame_attn_fwd" in n:
+            classes["K1 fwd"] += us
+        elif "frame_attn_bwd" in n:
+            classes["K1 bwd"] += us
+        elif "nccl" in n:
+            kind = ("all-gather" if "allgather" in n else
+                    "reduce-scatter" if "reducescatter" in n else
+                    "all-reduce" if "allreduce" in n else "other")
+            classes[f"nccl {kind}"] += us
+        elif any(t in n for t in ("gemm", "nvjet", "cutlass", "sm90_xmma")):
+            classes["matmul"] += us
+        else:
+            classes["other"] += us
+    return dict(wall_ms=1e3 * wall,
+                device_ms={k: v / 1e3 for k, v in classes.items()},
+                busy_ms=sum(classes.values()) / 1e3)
+
+
+def train_case(args, mesh, table, device, on_card):
+    """``--max_steps`` steps of the config at ``mesh``, counted, with one
+    traced micro-batch on the card; this rank's report."""
+    from owl_audio_exps_tpu_torch.data import get_loader
+    from owl_audio_exps_tpu_torch.trainers import get_trainer_cls
+    cfg = train_config(args, mesh, table)
+    tc = cfg.train
+    base = get_trainer_cls(tc.trainer_id)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    trainer = chip_smoke.counted_trainer(base)(cfg, device=device)
+    m = trainer.mesh
+    accum = trainer.accum_steps()
+    t0 = time.perf_counter()
+    state = trainer.train(max_steps=args.max_steps)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30 \
+        if on_card else None
+    expect = expected_k1(cfg.model, accum, on_card)
+    failures = []
+    for i, st in enumerate(trainer.steps):
+        if not math.isfinite(st["loss"]):
+            failures.append(f"{mesh_name(mesh)} step {i + 1}: loss not "
+                            "finite")
+        if st["counts"] != expect:
+            failures.append(f"{mesh_name(mesh)} step {i + 1}: launches "
+                            f"{st['counts']}, expected {expect}")
+    heads = state.model.core.transformer.blocks[0].attn.qkv.weight.shape[0] \
+        // (3 * (cfg.model.d_model // cfg.model.n_heads))
+    trace = None
+    if on_card:
+        loader = iter(get_loader(tc.data_id, tc.batch_size,
+                                 **dict(tc.data_kwargs.items())))
+        micro = trainer.to_device(next(loader))
+        gen = torch.Generator(device=device).manual_seed(99)
+        trace = trace_micro(trainer, state, micro, gen)
+    local = sum(p.numel() for p in state.model.parameters())
+    report = dict(mesh=dict(mesh), batch_rank=m.batch_rank,
+                  tensor_index=m.tensor_index, heads=heads,
+                  local_params=local, steps_s=[st["s"] for st in
+                                               trainer.steps],
+                  losses=[st["loss"] for st in trainer.steps],
+                  launches_per_step=trainer.steps[-1]["counts"],
+                  expected_launches=expect, peak_gib=peak, wall_s=wall,
+                  trace=trace, failures=failures,
+                  tokens_per_step=tc.data_kwargs["window_length"]
+                  * cfg.model.tokens_per_frame * tc.batch_size * accum
+                  * m.batch_ranks)
+    del state, trainer
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return report
+
+
+def parity_run(args, mesh, table, device):
+    """The 2-layer copy's steps at ``mesh``; its parameters gathered
+    (every rank takes part), kept on rank 0's host."""
+    from owl_audio_exps_tpu_torch.parallel.sharding import gather_params
+    from owl_audio_exps_tpu_torch.trainers import get_trainer_cls
+    cfg = train_config(args, mesh, table, n_layers=CHECK_LAYERS,
+                       tag="parity")
+    trainer = get_trainer_cls(cfg.train.trainer_id)(cfg, device=device)
+    batch_ranks = trainer.mesh.batch_ranks
+    state = trainer.train(max_steps=args.max_steps)
+    params = {k: v.cpu() for k, v in gather_params(state.model).items()}
+    losses = [h["diffusion_loss"] for h in trainer.logger.history]
+    del state, trainer
+    gc.collect()
+    return dict(params=params, losses=losses, batch_ranks=batch_ranks,
+                mesh=dict(mesh))
+
+
+def parity_reference(args, run, table, device):
+    """Rank 0 alone: the same steps of the 2-layer copy unsharded, the
+    batch ranks' micro-batches accumulated, each drawn with its rank's
+    generator (seeded 1234 + batch rank, as the trainer seeds it)."""
+    from owl_audio_exps_tpu_torch.data import get_loader
+    from owl_audio_exps_tpu_torch.trainers import get_trainer_cls
+    B = run["batch_ranks"]
+    cfg = train_config(args, {}, table, n_layers=CHECK_LAYERS, tag="parity")
+    tc = cfg.train
+    tc.target_batch_size = tc.batch_size * B
+    base = get_trainer_cls(tc.trainer_id)
+
+    class PerRankDraws(base):
+        def loss_fn(self, model, batch, generator):
+            gen = self.gens[self.mb % B]
+            self.mb += 1
+            return super().loss_fn(model, batch, gen)
+
+    trainer = PerRankDraws(cfg, device=device)
+    trainer.mb = 0
+    trainer.gens = [torch.Generator(device=device).manual_seed(1234 + b)
+                    for b in range(B)]
+    loaders = [iter(get_loader(tc.data_id, tc.batch_size,
+                               **dict(tc.data_kwargs.items()),
+                               process_index=b, process_count=B))
+               for b in range(B)]
+    state = trainer.init_state()
+    init = {k: v.detach().cpu().clone()
+            for k, v in state.model.named_parameters()}
+    losses = []
+    for _ in range(args.max_steps):
+        micro = [trainer.to_device(next(it)) for it in loaders]
+        metrics = trainer.train_step(state, micro, None,
+                                     clip_norm=trainer.grad_clip_norm())
+        losses.append(float(metrics["diffusion_loss"]))
+    ref = {k: v.detach().cpu() for k, v in state.model.named_parameters()}
+    got = run["params"]
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    p_rel = max(rel(got[k], ref[k]) for k in ref)
+    upd_rel = max(rel(got[k] - init[k], ref[k] - init[k]) for k in ref
+                  if (ref[k] - init[k]).norm() > 0)
+    l_rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], losses))
+    del state, trainer
+    gc.collect()
+    return dict(loss_rel=l_rel, param_rel_l2=p_rel, update_rel_l2=upd_rel,
+                losses=run["losses"], ref_losses=losses)
+
+
+def serve_core(cfg, device):
+    from owl_audio_exps_tpu_torch.models.gamerft import GameRFTCore
+    return GameRFTCore(cfg, dtype=torch.bfloat16, device=device,
+                       seed=0).to(torch.bfloat16).eval()
+
+
+def serve_run(args, conf, device, on_card, sharded: bool):
+    """Prime the ring, then ``--serve_ticks`` steady ticks (one first
+    tick before them) of the config ``conf``'s model with its sampler's
+    steps; the tick outputs, their ms and the ring's heads."""
+    from owl_audio_exps_tpu_torch.inference.pipeline import \
+        CachedStreamingPipeline
+    from owl_audio_exps_tpu_torch.parallel.mesh import get_mesh
+    from owl_audio_exps_tpu_torch.parallel.sharding import shard_params
+    cfg, skw = conf.model, conf.train.sampler_kwargs
+    core = serve_core(cfg, device)
+    if sharded:
+        shard_params(core, get_mesh())
+    steps = int(skw.get("n_steps", 16))
+    pipe = CachedStreamingPipeline(
+        core, cfg, window_frames=SERVE_WINDOW, sampling_steps=steps,
+        noise_prev=float(skw.get("noise_prev", 0.2)), seed=0, device=device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    p = cfg.sample_size
+    ctx = (torch.randn(1, SERVE_PRIME, cfg.channels, p, p, generator=gen,
+                       device=device),
+           torch.randn(1, SERVE_PRIME, 2, generator=gen, device=device),
+           (torch.rand(1, SERVE_PRIME, cfg.n_buttons, generator=gen,
+                       device=device) > 0.5).float())
+    pipe.prime(*ctx)
+    rs = np.random.RandomState(6)
+    outs, ms = [], []
+    for i in range(args.serve_ticks + 1):
+        frame, _, secs = pipe(rs.randn(2).astype(np.float32),
+                              (rs.rand(cfg.n_buttons) > 0.5).astype(
+                                  np.float32))
+        outs.append(frame.float().cpu())
+        if i:
+            ms.append(1e3 * secs)
+    trace = None
+    if on_card:
+        # one more steady tick traced: device busy, NCCL and kernels
+        per_name, wall = chip_smoke.trace_call(lambda: pipe(
+            rs.randn(2).astype(np.float32),
+            (rs.rand(cfg.n_buttons) > 0.5).astype(np.float32)))
+        busy = sum(us for us, _ in per_name.values()) / 1e3
+        nccl = sum(us for n, (us, _) in per_name.items()
+                   if "nccl" in n.lower()) / 1e3
+        trace = dict(wall_ms=wall, busy_ms=busy, nccl_ms=nccl,
+                     kernels=sum(c for _, c in per_name.values()))
+    heads = pipe.cache.k.shape[2]
+    graphed = bool(pipe.graphed)
+    del pipe, core
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return dict(outs=outs, tick_ms=ms, ring_heads=heads, graphed=graphed,
+                steps=steps, trace=trace)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config_path",
+                        default=os.path.join("configs", "dit_v4_5B.yml"))
+    parser.add_argument("--max_steps", type=int, default=2)
+    parser.add_argument("--serve_ticks", type=int, default=8)
+    parser.add_argument("--device", default="cuda", help="cuda or cpu")
+    args = parser.parse_args(argv)
+    sys.path.insert(0, ROOT)
+    from owl_audio_exps_tpu_torch.configs import Config
+    from owl_audio_exps_tpu_torch.parallel import dist as pdist
+    from owl_audio_exps_tpu_torch.parallel import mesh as pmesh
+
+    on_card = args.device == "cuda"
+    if on_card and not torch.cuda.is_available():
+        print("FAILED: no CUDA device", flush=True)
+        sys.exit(2)
+    if on_card:
+        from owl_audio_exps_tpu_torch.ops import _build
+        t0 = time.perf_counter()
+        _build.build_all()
+        build_s = time.perf_counter() - t0
+    local_rank = pdist.init_distributed(args.device)
+    world, rank = pdist.process_count(), pdist.process_index()
+    device = torch.device(f"cuda:{local_rank}" if on_card else "cpu")
+    if world != 4:
+        print(f"FAILED: {world} processes; the meshes need 4", flush=True)
+        sys.exit(2)
+    main_rank = rank == 0
+    if main_rank:
+        say(f"{world} processes on {args.device}")
+        if on_card:
+            import subprocess
+            cards = subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                check=True).stdout.strip().replace("\n", " | ")
+            say(f"kernels built in {build_s:.1f} s; cards: {cards}")
+    table = write_table(args, rank)
+
+    reports = {}
+    for mesh in TRAIN_MESHES:
+        t0 = time.perf_counter()
+        rep = reports[mesh_name(mesh)] = train_case(args, mesh, table,
+                                                    device, on_card)
+        # each rank's line at once, so that a later failure keeps it
+        print(f"[mesh] {mesh_name(mesh)} rank {rank}: steps "
+              + " ".join(f"{x:.3f}" for x in rep["steps_s"]) + " s, peak "
+              + (f"{rep['peak_gib']:.2f} GiB" if on_card else "n/a")
+              + f", {rep['heads']} heads, launches {rep['launches_per_step']}"
+              + (f", traced micro-batch {rep['trace']}" if rep["trace"]
+                 else "") + f", failures {rep['failures']}", flush=True)
+        if main_rank:
+            say(f"{mesh_name(mesh)}: {args.max_steps} steps and a traced "
+                f"micro-batch in {time.perf_counter() - t0:.1f} s")
+    runs = [parity_run(args, mesh, table, device) for mesh in TRAIN_MESHES]
+
+    cfg = Config.from_yaml(args.config_path)
+    pmesh.make_mesh(pmesh.MeshConfig(**SERVE_MESH), device_type=device.type)
+    served = serve_run(args, cfg, device, on_card, sharded=True)
+
+    gathered = [None] * world
+    dist.all_gather_object(gathered, reports)
+    pdist.cleanup()
+    pmesh.make_mesh()        # one process from here on
+    bad = [f for rep in gathered for r in rep.values()
+           for f in r["failures"]]
+    if not main_rank:
+        sys.exit(1 if bad else 0)
+
+    # ------------------------------------------- rank 0 alone: references
+    for name in reports:
+        for r, rep in enumerate(gathered):
+            x = rep[name]
+            t = x["trace"]
+            say(f"{name} rank {r} (batch rank {x['batch_rank']}, tensor "
+                f"{x['tensor_index']}, {x['heads']} heads, "
+                f"{x['local_params']:,} parameters): steps "
+                + " ".join(f"{s:.3f}" for s in x["steps_s"]) + " s, losses "
+                + " ".join(f"{v:.5f}" for v in x["losses"])
+                + (f", peak {x['peak_gib']:.2f} GiB" if on_card else "")
+                + f", launches per step {x['launches_per_step']}")
+            if t:
+                say(f"  traced micro-batch: wall {t['wall_ms']:.1f} ms, "
+                    f"device busy {t['busy_ms']:.1f} ms: " + ", ".join(
+                        f"{k} {v:.1f}" for k, v in t["device_ms"].items()))
+    parity = {}
+    for run in runs:
+        name = mesh_name(run["mesh"])
+        res = parity_reference(args, run, table, device)
+        parity[name] = res
+        say(f"parity {name}: {CHECK_LAYERS}-layer copy, {args.max_steps} "
+            f"steps: losses {res['losses']} vs one card {res['ref_losses']}"
+            f" (worst rel {res['loss_rel']:.3e}, limit {LOSS_REL}); "
+            f"parameters rel L2 {res['param_rel_l2']:.3e} (limit "
+            f"{PARAM_REL}); their updates rel L2 {res['update_rel_l2']:.3e}")
+        if res["loss_rel"] > LOSS_REL or res["param_rel_l2"] > PARAM_REL:
+            bad.append(f"parity {name}: the sharded steps disagree with one "
+                       "card")
+    ref = serve_run(args, cfg, device, on_card, sharded=False)
+    serve_rel = max(chip_smoke.rel_l2(a, b)
+                    for a, b in zip(served["outs"], ref["outs"]))
+    serve = dict(tick_ms=statistics.median(served["tick_ms"]),
+                 ticks_ms=served["tick_ms"], graphed=served["graphed"],
+                 ring_heads_per_rank=served["ring_heads"],
+                 one_card_tick_ms=statistics.median(ref["tick_ms"]),
+                 one_card_graphed=ref["graphed"], steps=served["steps"],
+                 rel_l2_vs_one_card=serve_rel, ticks=args.serve_ticks,
+                 traced_tick=served["trace"],
+                 one_card_traced_tick=ref["trace"])
+    say(f"serve {mesh_name(SERVE_MESH)}: {args.serve_ticks} steady ticks of "
+        f"{served['steps']} steps, median {serve['tick_ms']:.2f} ms a tick "
+        f"({'graphed' if served['graphed'] else 'eager'}), ring heads a "
+        f"rank {served['ring_heads']}; one card "
+        f"{serve['one_card_tick_ms']:.2f} ms "
+        f"({'graphed' if ref['graphed'] else 'eager'}); worst tick rel L2 "
+        f"{serve_rel:.3e} (limit {SERVE_REL}); a traced tick at tensor 4 "
+        f"{served['trace']}, on one card {ref['trace']}")
+    if serve_rel > SERVE_REL or not all(
+            torch.isfinite(o).all() for o in served["outs"]):
+        bad.append("serve: the head-sharded ticks disagree with one card")
+    shutil.rmtree(WORK, ignore_errors=True)
+
+    summary = {}
+    for name in reports:
+        times = [statistics.median(rep[name]["steps_s"][1:]
+                                   or rep[name]["steps_s"])
+                 for rep in gathered]
+        step_s = max(times)
+        summary[name] = dict(
+            step_s=step_s,
+            tokens_per_s=gathered[0][name]["tokens_per_step"] / step_s,
+            peak_gib=[rep[name]["peak_gib"] for rep in gathered],
+            launches_per_step=[rep[name]["launches_per_step"]
+                               for rep in gathered],
+            nccl_ms=[{k: v for k, v in rep[name]["trace"]["device_ms"]
+                      .items() if k.startswith("nccl")}
+                     if rep[name]["trace"] else None for rep in gathered],
+            reports=[rep[name] for rep in gathered])
+        say(f"{name}: step {step_s:.3f} s (slowest rank's median), "
+            f"{summary[name]['tokens_per_s']:.0f} tokens/s")
+    for f in bad:
+        print(f"FAILED: {f}", flush=True)
+    print(json.dumps(dict(ok=not bad, world=world, train=summary,
+                          parity=parity, serve=serve)), flush=True)
+    sys.exit(1 if bad else 0)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,11 +1,12 @@
 """Data registry (counterpart of owl_audio_exps_tpu/data/__init__.py):
 every data id of the JAX registry.
 
-``process_index`` and ``process_count`` default to this process's data
-rank and the number of data ranks of the port's mesh
-(parallel/mesh.py), where the JAX package takes the JAX process: data
-ranks read disjoint shards, and the seq ranks of one data rank, which
-split its frames between them, read the same one. ``cod_s3_audio`` maps
+``process_index`` and ``process_count`` default to this process's batch
+rank and the number of batch ranks (data x fsdp) of the port's mesh
+(parallel/mesh.py), where the JAX package takes the JAX process and
+shards the batch over data x fsdp (``batch_sharding``): batch ranks read
+disjoint shards, and the tensor and seq ranks of one batch rank, which
+split its heads or its frames between them, read the same one. ``cod_s3_audio`` maps
 to the plain S3 loader, as in the JAX package.
 """
 
@@ -13,8 +14,8 @@ to the plain S3 loader, as in the JAX package.
 def get_loader(data_id: str, batch_size: int, **kwargs):
     from ..parallel.mesh import get_mesh
     mesh = get_mesh()
-    kwargs.setdefault("process_index", mesh.data_index)
-    kwargs.setdefault("process_count", mesh.data)
+    kwargs.setdefault("process_index", mesh.batch_rank)
+    kwargs.setdefault("process_count", mesh.batch_ranks)
 
     if data_id == "cod":
         from .cod_latent import get_loader as fn

@@ -5,8 +5,8 @@ owl_wms/data/cod_latent.py, WindowedViewDataset + DataLoader).
 Each process takes a strided slice of the shuffled index, reshuffled
 every epoch from ``np.random.RandomState(seed + epoch)`` as the JAX
 package does, so both packages yield the same batches in the same order.
-The trainers pass the data rank and the number of data ranks (the seq
-ranks of one data rank share its shard). Whole batches are read through
+The trainers pass the batch rank and the number of batch ranks (data x
+fsdp; the tensor and seq ranks of one batch rank share its shard). Whole batches are read through
 the native gather (data/native_loader.py). Float arrays are served
 float32; the trainer casts on the device.
 """

@@ -8,7 +8,7 @@ Tars hold ``.latent.pt`` / ``.mouse.pt`` / ``.buttons.pt`` members (and
 ``torch.load(weights_only=True)``; up to ``file_share_max`` random
 windows are drawn per file and buffered in a bounded randomized queue.
 Each process draws from its own random stream, seeded by its
-``process_index`` (the data rank) as in the JAX package, so both
+``process_index`` (the batch rank) as in the JAX package, so both
 packages cut the same windows from the same tar.
 
 Requires boto3; building a loader without it raises ImportError.

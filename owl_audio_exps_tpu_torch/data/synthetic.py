@@ -83,10 +83,11 @@ def get_loader(data_id, batch_size, window_length=16, channels=128,
                audio_channels=64, sample_size=8, n_buttons=11,
                n_mouse_axes=2, n_samples=88200,
                process_index: int = 0, **_):
-    """``process_index`` is the data rank (trainers pass
-    ``mesh.data_index``): the stream is seeded 1000 + it, so data ranks
-    draw distinct batches and the seq ranks of one data rank, which split
-    its frames between them, the same batch."""
+    """``process_index`` is the batch rank (trainers pass
+    ``mesh.batch_rank``, the index over data x fsdp): the stream is seeded
+    1000 + it, so batch ranks draw distinct batches and the tensor and seq
+    ranks of one batch rank, which split its heads or frames between
+    them, the same batch."""
     seed = 1000 + process_index
     if data_id == "synthetic_latent":
         spec = [((window_length, channels, sample_size, sample_size), "normal"),

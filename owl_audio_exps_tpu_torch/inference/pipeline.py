@@ -56,7 +56,8 @@ import numpy as np
 import torch
 
 from ..nn.kv_cache import KVCache, rope_rebase_plan
-from ..sampling.common import StepLoop, randn, zlerp
+from ..parallel.mesh import get_mesh
+from ..sampling.common import StepLoop, graphs_allowed, randn, zlerp
 from ..sampling.schedulers import resolve_schedule
 from ..utils.device import resolve_device
 
@@ -298,7 +299,9 @@ class CachedStreamingPipeline:
 
     ``device`` defaults to "cuda", which raises without a card; pass
     ``device="cpu"`` for CPU runs. ``graphed`` (default: on a CUDA
-    device) replays the ``steady`` tick from a CUDA graph."""
+    device, unless the mesh shards the weights: ``graphs_allowed``)
+    replays the ``steady`` tick from a CUDA graph. Under the tensor axis
+    the ring holds this rank's heads (nn/kv_cache.py)."""
 
     def __init__(self, core, config, window_frames: int = 120,
                  noise_prev: float = 0.2, sampling_steps: int = 1,
@@ -315,9 +318,12 @@ class CachedStreamingPipeline:
         self.image_scale = image_scale
         self.fused_write = fused_write
         self.n_sessions = n_sessions
-        self.graphed = (self.device.type == "cuda" if graphed is None
+        self.graphed = (graphs_allowed(self.device) if graphed is None
                         else graphed)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # seeded by batch rank: the tensor ranks of one batch rank, which
+        # compute shares of the same tick, draw alike
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            seed + get_mesh().batch_rank)
         self.loop = ServeLoop(config, self.latent_items(), n_sessions,
                               window_frames, noise_prev, self.device)
         # whether a fused session has a frame pending (the first tick of a

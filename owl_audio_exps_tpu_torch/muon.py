@@ -19,6 +19,13 @@ the same parameters:
 
 NS5's products are plain ``torch.matmul`` (the JAX package leaves them to
 XLA). The optimizers update in place, with ``torch.no_grad``.
+
+Under the fsdp and tensor axes (parallel/sharding.py) a parameter, its
+gradient and its moments are this rank's slice. AdamW is elementwise and
+runs on the slices; Muon gathers the momentum-updated gradient over the
+axes that shard it, runs NS5 on the whole matrix as one process does,
+and keeps this rank's slice of the result (every rank orthogonalizes
+every matrix; the JAX package's GSPMD runs NS5 on the logical matrix).
 """
 
 from __future__ import annotations
@@ -26,6 +33,9 @@ from __future__ import annotations
 from typing import Callable, Dict, Iterable, Optional, Tuple, Union
 
 import torch
+
+from .parallel.mesh import get_mesh
+from .parallel.sharding import gather_tensor, mesh_coords_of, spec_of
 
 
 def as_dtype(dtype) -> Optional[torch.dtype]:
@@ -90,9 +100,15 @@ class Muon(torch.optim.Optimizer):
                     new_buf = new_buf.to(self.momentum_dtype)
                 buf_g = new_buf.to(g.dtype)
                 gm = g + mom * (buf_g - g) if group["nesterov"] else buf_g
+                spec = spec_of(p)
                 o = zeropower_via_newtonschulz5(
-                    gm.mT, group["ns_steps"]).to(p.dtype).mT
-                scale = max(1.0, p.shape[1] / p.shape[0]) ** 0.5
+                    gather_tensor(gm, spec).mT,
+                    group["ns_steps"]).to(p.dtype).mT
+                shape = p.shape
+                if spec is not None and spec.sharded:
+                    o = spec.shard(o, mesh_coords_of(get_mesh()))
+                    shape = spec.shape
+                scale = max(1.0, shape[1] / shape[0]) ** 0.5
                 p.add_(-(lr * wd) * p - (lr * scale) * o)
                 state["momentum"] = new_buf
 

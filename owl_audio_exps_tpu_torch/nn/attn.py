@@ -304,7 +304,9 @@ class Attn(nn.Module):
     ``qkv.weight`` rows are in the torch reference order [3, H, Dh];
     q, k, v leave the projection as [B, H, L, Dh] views of its
     [B, L, 3, H, Dh] output (no copy), which the kernel reads through
-    their strides."""
+    their strides. Under the tensor axis (parallel/sharding.py) ``qkv``
+    is column-parallel and ``out`` row-parallel: H is this rank's H / T
+    heads, and its ring (``kv_cache``) holds those heads alone."""
 
     def __init__(self, config, layer_idx: int, local: bool = False,
                  dtype=torch.bfloat16, device=None):
@@ -325,9 +327,11 @@ class Attn(nn.Module):
         K and V into it."""
         cfg = self.config
         B, L, _ = x.shape
-        H = cfg.n_heads
-        Dh = cfg.d_model // H
-        qkv = self.qkv(x).view(B, L, 3, H, Dh)
+        Dh = cfg.d_model // cfg.n_heads
+        qkv = self.qkv(x)
+        # this rank's heads: all of them, or H / T under the tensor axis
+        H = qkv.shape[-1] // (3 * Dh)
+        qkv = qkv.view(B, L, 3, H, Dh)
         rope = rope_table_for(cfg)
         if kv_cache is not None:
             positions = kv_cache.write_positions(L)
@@ -369,7 +373,7 @@ class Attn(nn.Module):
             out = train_attention(cfg, self.local, q, k, v, doc_id)
         else:
             out = dot_attention(q, k, v, mask)
-        return self.out(out.transpose(1, 2).reshape(B, L, cfg.d_model))
+        return self.out(out.transpose(1, 2).reshape(B, L, H * Dh))
 
 
 class DiTBlock(nn.Module):

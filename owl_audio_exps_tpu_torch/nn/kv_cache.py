@@ -173,8 +173,15 @@ class KVCache:
 
     @classmethod
     def from_config(cls, config, batch_size: int, capacity_frames: int = None,
-                    dtype=torch.bfloat16, device=None) -> "KVCache":
+                    dtype=torch.bfloat16, device=None,
+                    mesh=None) -> "KVCache":
         """The cache of a model config, as the JAX package sizes it.
+
+        ``batch_size`` is this process's sessions. Under a mesh whose
+        tensor axis divides the heads (``mesh``, by default the installed
+        one; parallel/sharding.py ``cache_shardings``) the rings hold this
+        rank's H / T heads only, the ones its column-parallel QKV
+        computes.
 
         With a ``local_window`` and a dit/mmdit backbone the local layers
         take the split ring when ``split_local_cache`` is true, or under
@@ -188,6 +195,12 @@ class KVCache:
         capacity = frames * tpf
         local_w = config.get("local_window")
         head_dim = config.d_model // config.n_heads
+        if mesh is None:
+            from ..parallel.mesh import get_mesh
+            mesh = get_mesh()
+        n_heads = config.n_heads
+        if n_heads % mesh.tensor == 0:
+            n_heads //= mesh.tensor
 
         local_flags = None
         local_capacity = 0
@@ -209,7 +222,7 @@ class KVCache:
             shadow = local_w * tpf
         return cls.create(
             n_layers=config.n_layers, batch_size=batch_size,
-            capacity=capacity, n_heads=config.n_heads, head_dim=head_dim,
+            capacity=capacity, n_heads=n_heads, head_dim=head_dim,
             tokens_per_frame=tpf, dtype=dtype, shadow=shadow,
             local_flags=local_flags, local_capacity=local_capacity,
             quant=config.get("kv_quant") in ("int8", True), device=device)

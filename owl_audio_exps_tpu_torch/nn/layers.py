@@ -7,7 +7,10 @@ draws the reference's initial distributions from an explicit generator:
 torch's default ``nn.Linear`` init, U(±1/sqrt(fan_in)), or for the
 MLPs' layers N(0, 2 / fan_in^2) with zero bias. A ``Linear`` quantized
 for serving (nn/wquant.py) holds ``weight_q`` int8 and ``weight_s`` per
-output channel in place of ``weight`` and dequantizes on read.
+output channel in place of ``weight`` and dequantizes on read. A
+``Linear`` whose weight parallel/sharding.py ``shard_params`` sharded over
+the fsdp and tensor axes runs ``sharded_linear`` (fsdp gather, column- or
+row-parallel by its rule).
 """
 
 from __future__ import annotations
@@ -60,6 +63,9 @@ class Linear(nn.Module):
         self.register_buffer("weight_s", s)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if getattr(self.weight, "shard_spec", None) is not None:
+            from ..parallel.sharding import sharded_linear
+            return sharded_linear(self, x)
         bias = None if self.bias is None else self.bias.to(self.dtype)
         if self.weight is None:
             from .wquant import dequantize_kernel

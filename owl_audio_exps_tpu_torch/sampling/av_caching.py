@@ -42,7 +42,8 @@ from typing import Optional
 import torch
 
 from ..nn.kv_cache import KVCache, rope_rebase_plan, rope_rebase_segments
-from .common import SamplerNoise, StepLoop, check_noise, draw_noise, zlerp
+from .common import (SamplerNoise, StepLoop, check_noise, draw_noise,
+                     graphs_allowed, zlerp)
 from .schedulers import resolve_schedule, scan_or_unroll
 
 LOOP_MODES = ("auto", "scan", "host")
@@ -190,9 +191,10 @@ class AVCachingSamplerV2:
         mouse / btn cover init_len + num_frames frames. Returns
         [b, min(init_len, window) + num_frames, c, h, w] (the new frames
         alone with ``only_return_generated``). On a CUDA device the frames
-        come from CUDA-graph replays of one frame's step."""
+        come from CUDA-graph replays of one frame's step (eager steps
+        under a mesh that shards the weights: ``graphs_allowed``)."""
         return self._sample(core, x, mouse, btn, generator, noise,
-                            graphed=x.is_cuda)
+                            graphed=graphs_allowed(x.device))
 
     def sample_eager(self, core, x, mouse, btn,
                      generator: Optional[torch.Generator] = None,

@@ -86,6 +86,30 @@ def check_noise(noise: SamplerNoise, **want):
                              f"{tuple(shape)}")
 
 
+_GRAPH_DECISION_PRINTED = []
+
+
+def graphs_allowed(device) -> bool:
+    """Whether a loop on ``device`` replays its step from a CUDA graph:
+    on a CUDA device, unless the installed mesh shards the weights (fsdp
+    or tensor above 1, parallel/sharding.py). Each step of such a mesh
+    runs NCCL collectives (the fsdp gathers, the row-parallel sums), which
+    the port does not capture, so it runs eagerly; that decision is
+    printed once a process."""
+    if torch.device(device).type != "cuda":
+        return False
+    from ..parallel.mesh import get_mesh
+    mesh = get_mesh()
+    if mesh.fsdp * mesh.tensor == 1:
+        return True
+    if not _GRAPH_DECISION_PRINTED:
+        _GRAPH_DECISION_PRINTED.append(True)
+        print(f"[serve] eager steps: the mesh (fsdp {mesh.fsdp}, tensor "
+              f"{mesh.tensor}) puts NCCL collectives in every step, which "
+              "are not captured as CUDA graphs", flush=True)
+    return False
+
+
 class StepLoop:
     """Static buffers and one step on them (``step(core, *args)``), run
     eagerly or replayed from a CUDA graph; see the module docstring. Each

@@ -14,6 +14,11 @@ context-parallel dit_v4 at 98,304 tokens on four cards:
 
     torchrun --nproc_per_node 4 -m owl_audio_exps_tpu_torch.train --config_path configs/dit_v4_98k_sp.yml
 
+and the 5B at its written fsdp 4 (parameters, EMA and optimizer state
+sharded over the four cards; parallel/sharding.py):
+
+    torchrun --nproc_per_node 4 -m owl_audio_exps_tpu_torch.train --config_path configs/dit_v4_5B.yml
+
 What cannot run as configured is cut, and each cut is printed
 (``port_cuts``): a
 data loader that cannot read its data becomes the synthetic source with
@@ -30,8 +35,8 @@ ported: ``cod`` and ``sequence_packing`` are kept where their
 ``local_waveform`` except for an ``audio_rft`` config that names no audio
 VAE (``vae_ckpt_path`` / ``vae_cfg_path``, as configs/audio.yml), whose
 waveforms would reach the model unencoded, and which takes
-``synthetic_audio_latent``; a mesh axis wider than the processes that
-were started shrinks to them; and an
+``synthetic_audio_latent``; a mesh axis (fsdp, tensor, seq) wider than
+the processes that were started shrinks to what divides them; and an
 eval sampler that the trainer's eval does not run is dropped (``rft`` and
 the distillation trainers run the cached video samplers, ``av`` and
 ``mixed_av`` the window samplers, ``audio_rft`` ``audio_caching``). A
@@ -42,6 +47,7 @@ JAX trainer does.
 from __future__ import annotations
 
 import argparse
+import math
 import os
 from typing import List, Optional
 
@@ -115,13 +121,18 @@ def port_cuts(cfg, world_size: int) -> List[str]:
         cuts.append(f"{key} {data_id!r} -> {synthetic!r} {shapes} ({why})")
         tc[key], tc[kw_key] = synthetic, shapes
     mesh = dict((tc.get("mesh") or {}).items())
-    if mesh.get("seq", 1) > 1 and mesh.get("seq", 1) * max(
-            mesh.get("data", 1), 1) != world_size:
-        new = max(world_size // max(mesh.get("data", 1), 1), 1)
-        cuts.append(f"mesh seq {mesh['seq']} -> {new} (the processes "
-                    f"started: {world_size})")
-        mesh["seq"] = new
-        tc.mesh = mesh
+    # the fsdp, tensor and seq axes (in that order) keep what divides the
+    # processes the data axis leaves them
+    budget = max(world_size // max(mesh.get("data", 1), 1), 1)
+    for axis in ("fsdp", "tensor", "seq"):
+        size = mesh.get(axis, 1)
+        new = math.gcd(size, budget)
+        budget //= new
+        if new != size:
+            cuts.append(f"mesh {axis} {size} -> {new} (the processes "
+                        f"started: {world_size})")
+            mesh[axis] = new
+            tc.mesh = mesh
     if tc.get("sampler_id") and \
             tc.sampler_id not in _PORTED_EVAL.get(tc.trainer_id, ()):
         why = "this trainer's eval with it is not ported"

@@ -14,13 +14,26 @@ before the update (utils/telemetry.py). Parameters and optimizer state are
 updated in place.
 
 Several processes (one per device, under ``torchrun``; parallel/dist.py)
-form the mesh of ``train.mesh`` (parallel/mesh.py): data ranks draw
-distinct batches, the seq ranks of one data rank the same batch, of
-which each computes its slice of the frames (context parallelism). The
-gradients and metrics are summed over every rank and divided by the
-number of data ranks before the clip and the optimizer, so every rank
-takes the same step: seq ranks hold shares of one loss, data ranks
-average theirs. Rank 0 alone logs and saves; every rank resumes.
+form the mesh of ``train.mesh`` (parallel/mesh.py): the batch ranks (data
+x fsdp) draw distinct batches, the tensor and seq ranks of one batch rank
+the same batch; a seq rank computes its slice of the frames (context
+parallelism), a tensor rank its share of the heads and MLP hidden.
+Under the fsdp and tensor axes ``make_state`` keeps each rank's slice of
+the parameters, the EMA and (as the optimizer creates them) every
+moment, by the rules of parallel/sharding.py, as the JAX package's
+``_opt_shardings`` lays an optax state like its params; every rank first
+builds the same full weights from the seed. The gradients and metrics
+are summed over the ranks that hold the same elements and divided by
+the number of batch ranks before the clip and the optimizer, so every
+rank takes the same step: seq ranks hold shares of one loss, batch ranks
+average theirs, and an fsdp shard's gradient arrives summed over fsdp
+from the reduce-scatter of its gather (parallel/dist.py). Tensor ranks
+hold the same gradient of every parameter they share: the column-
+parallel layers' replicated input sums its gradient over tensor in the
+backward, so no shared parameter's gradient is partial there and none is
+summed over tensor. Global norms count each logical element once. Rank 0
+alone logs and writes the full logical state (gathered from every rank);
+every rank resumes, re-slicing it onto the live mesh.
 """
 
 from __future__ import annotations
@@ -39,6 +52,8 @@ from ..data.prefetch import device_prefetch
 from ..muon import AdamW, init_muon
 from ..parallel.dist import barrier, is_main, process_count
 from ..parallel.mesh import MeshConfig, get_mesh, make_mesh
+from ..parallel.sharding import (gather_tensor, mesh_coords_of,
+                                 shard_params, spec_of)
 from ..schedulers import get_scheduler_cls
 from ..utils.checkpoints import (load_checkpoint, save_checkpoint,
                                  save_clean_export)
@@ -77,20 +92,60 @@ def build_optimizer(train_cfg, named_params):
                  weight_decay=kwargs.pop("weight_decay", 0.01))
 
 
-def global_norm(tensors) -> torch.Tensor:
-    return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
+def global_norm(tensors, specs=None) -> torch.Tensor:
+    """The L2 norm of ``tensors``. With ``specs`` (one ShardSpec or None
+    each) that shard any, the tensors are this rank's slices: each
+    slice's squares are weighted by its shard count over the world size
+    and summed over every rank, so each logical element counts once."""
+    tensors = list(tensors)
+    specs = list(specs) if specs is not None else [None] * len(tensors)
+    if not any(s is not None and s.sharded for s in specs):
+        return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
+    world = process_count()
+    total = sum(t.float().pow(2).sum() * ((s.n_shards if s else 1) / world)
+                for t, s in zip(tensors, specs))
+    dist.all_reduce(total)
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
 def clip_grad_norm(params, max_norm: float) -> torch.Tensor:
     """Scale the gradients by min(1, max_norm / (norm + 1e-6)), as the
     JAX package's step does; returns the norm before clipping."""
-    grads = [p.grad for p in params if p.grad is not None]
-    gnorm = global_norm(grads)
+    params = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in params]
+    gnorm = global_norm(grads, [spec_of(p) for p in params])
     scale = torch.clamp(max_norm / (gnorm + 1e-6), max=1.0)
     for g in grads:
         g.mul_(scale)
     return gnorm
+
+
+def _opt_parts(optimizer):
+    """[(name, torch optimizer)] of the port's optimizers (a
+    CombinedOptimizer's Muon and AdamW, or one optimizer)."""
+    if hasattr(optimizer, "muon") and hasattr(optimizer, "adamw"):
+        return [(k, o) for k, o in (("muon", optimizer.muon),
+                                    ("adamw", optimizer.adamw))
+                if o is not None]
+    return [(None, optimizer)]
+
+
+def _map_opt_state(optimizer, fn, state_dict=None):
+    """``optimizer``'s state_dict (or ``state_dict``, in place) with
+    ``fn(tensor, param)`` applied to every per-parameter tensor of the
+    parameter's shape (the moments), keyed as torch numbers them."""
+    sd = optimizer.state_dict() if state_dict is None else state_dict
+    for key, opt in _opt_parts(optimizer):
+        part = sd if key is None else sd[key]
+        params = [p for g in opt.param_groups for p in g["params"]]
+        # new entry dicts: torch's state_dict shares the live ones
+        part["state"] = {
+            idx: {k: fn(v, params[idx]) if torch.is_tensor(v)
+                  and v.ndim and v.ndim == params[idx].ndim else v
+                  for k, v in entry.items()}
+            for idx, entry in part["state"].items()}
+    return sd
 
 
 class BaseTrainer:
@@ -117,7 +172,17 @@ class BaseTrainer:
         self.total_step_counter = 0
 
     # ------------------------------------------------------------- state
+    @property
+    def sharded(self) -> bool:
+        """Whether the mesh shards the parameters (fsdp or tensor > 1)."""
+        return self.mesh.fsdp * self.mesh.tensor > 1
+
     def make_state(self, model: torch.nn.Module) -> TrainState:
+        """The state of ``model`` (the full weights, alike on every rank):
+        sharded by the rules under the fsdp and tensor axes, then the EMA
+        and the optimizer over the slices."""
+        if self.sharded:
+            shard_params(model, self.mesh)
         ema_dtype = self.train_cfg.get("ema_dtype")
         dt = getattr(torch, ema_dtype) if ema_dtype else None
         ema = {n: p.detach().clone().to(dt or p.dtype)
@@ -153,12 +218,17 @@ class BaseTrainer:
             if clip_norm is not None:
                 metrics["grad_norm"] = clip_grad_norm(params, clip_norm)
             watch = self.train_cfg.get("watch")
+            if watch and self.sharded:
+                raise NotImplementedError(
+                    "train.watch over parameters sharded by the fsdp and "
+                    "tensor axes is not ported (ROADMAP.md Queue 1)")
             if watch:
                 metrics.update(watch_metrics(
                     model.named_parameters(), watch,
                     bins=int(self.train_cfg.get("watch_bins") or 64)))
             opt.step()
-            metrics["param_norm"] = global_norm(params)
+            metrics["param_norm"] = global_norm(
+                params, [spec_of(p) for p in params])
             for name, p in model.named_parameters():
                 e = state.ema[name]
                 e.mul_(beta).add_(p.to(e.dtype) * (1.0 - beta))
@@ -168,46 +238,87 @@ class BaseTrainer:
 
     @torch.no_grad()
     def reduce_across_ranks(self, params, metrics: Dict):
-        """Sum the gradients and the metrics over every rank and divide
-        by the number of data ranks (a no-op for one process)."""
+        """Sum the gradients and the metrics over the ranks that hold the
+        same elements (every rank of this tensor index; for an fsdp shard,
+        whose gradient the reduce-scatter summed over fsdp already, the
+        data x seq ranks of this fsdp and tensor index) and divide by the
+        number of batch ranks (a no-op for one process)."""
         if process_count() <= 1:
             return
-        n_data = self.mesh.data
+        mesh = self.mesh
+        n_batch = mesh.batch_ranks
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-            dist.all_reduce(p.grad)
-            p.grad.div_(n_data)
+            spec = spec_of(p)
+            group = (mesh.shard_replica_group
+                     if spec is not None and "fsdp" in spec.axes
+                     else mesh.replica_group)
+            if group is not None:
+                dist.all_reduce(p.grad, group=group)
+            p.grad.div_(n_batch)
         for k, v in metrics.items():
             v = torch.as_tensor(v, dtype=torch.float32,
                                 device=self.device).clone()
-            dist.all_reduce(v)
-            metrics[k] = v / n_data
+            if mesh.replica_group is not None:
+                dist.all_reduce(v, group=mesh.replica_group)
+            metrics[k] = v / n_batch
 
     # ------------------------------------------------------ checkpoints
     def ckpt_path(self, step: int) -> str:
         return os.path.join(self.train_cfg.checkpoint_dir, f"step_{step}.pt")
 
+    def logical_state(self, state: TrainState) -> Dict:
+        """The checkpoint payload with every sharded tensor gathered to
+        its full shape (a collective under the fsdp and tensor axes, on
+        the CPU there; every rank must call it)."""
+        specs = {n: spec_of(p) for n, p in state.model.named_parameters()}
+        cpu = "cpu" if self.sharded else None
+
+        def full(t, spec):
+            t = gather_tensor(t, spec, self.mesh)
+            return t if cpu is None else t.to(cpu)
+
+        params = {n: full(t, specs.get(n))
+                  for n, t in state.model.state_dict().items()}
+        ema = {n: full(e, specs[n]) for n, e in state.ema.items()}
+        opt = _map_opt_state(state.optimizer,
+                             lambda t, p: full(t, spec_of(p)))
+        return {"params": params, "ema_params": ema, "opt_state": opt,
+                "step": state.step}
+
     def save(self, state: TrainState):
-        """Write step_N.pt, plus the EMA export when output_path is set."""
-        payload = {
-            "params": state.model.state_dict(),
-            "ema_params": state.ema,
-            "opt_state": state.optimizer.state_dict(),
-            "step": state.step,
-        }
+        """Write step_N.pt (the full logical state, from rank 0), plus the
+        EMA export when output_path is set. Every rank calls it."""
+        payload = self.logical_state(state)
+        if not self.is_main:
+            return
         save_checkpoint(self.ckpt_path(state.step), payload)
         out = self.train_cfg.get("output_path")
         if out:
-            save_clean_export(out, state.ema)
+            save_clean_export(out, payload["ema_params"])
 
     def load(self, path: str, state: TrainState) -> TrainState:
+        """Restore a checkpoint written on any mesh: each full tensor is
+        sliced onto this rank's place on the live one."""
         restored = load_checkpoint(path, map_location=self.device)
-        state.model.load_state_dict(restored["params"], strict=True)
+        coords = mesh_coords_of(self.mesh)
+        specs = {n: spec_of(p) for n, p in state.model.named_parameters()}
+
+        def local(t, spec):
+            return t if spec is None else spec.shard(t, coords)
+
+        state.model.load_state_dict(
+            {n: local(t, specs.get(n))
+             for n, t in restored["params"].items()}, strict=True)
         with torch.no_grad():
             for name, e in state.ema.items():
-                e.copy_(restored["ema_params"][name])
-        state.optimizer.load_state_dict(restored["opt_state"])
+                e.copy_(local(restored["ema_params"][name], specs[name]))
+        opt = state.optimizer
+        state_dict = restored["opt_state"]
+        _map_opt_state(opt, lambda t, p: local(t, spec_of(p)),
+                       state_dict=state_dict)
+        opt.load_state_dict(state_dict)
         state.step = int(restored["step"])
         return state
 
@@ -265,10 +376,10 @@ class BaseTrainer:
         return int(self.train_cfg.get("log_interval") or 10)
 
     def accum_steps(self) -> int:
-        """target_batch_size // batch_size // data ranks (the seq ranks
-        of one data rank share its batch)."""
+        """target_batch_size // batch_size // batch ranks (data x fsdp;
+        the tensor and seq ranks of one batch rank share its batch)."""
         return max(1, self.train_cfg.target_batch_size
-                   // self.train_cfg.batch_size // self.mesh.data)
+                   // self.train_cfg.batch_size // self.mesh.batch_ranks)
 
     def grad_clip_norm(self) -> Optional[float]:
         """clip 10.0 for non-Muon."""

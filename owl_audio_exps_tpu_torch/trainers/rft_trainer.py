@@ -16,10 +16,11 @@ video samplers, the AV trainers' with the window samplers; with
 trainer a decoded WAV through the VAE bridge (utils/owl_vae_bridge.py),
 which also encodes the audio trainer's waveforms when it names a VAE.
 The noise comes from one ``torch.Generator`` on the device, seeded 1234
-plus the data rank, so the seq ranks of one data rank draw alike. Under
-several processes every rank starts from rank 0's initial parameters,
-loads the shard of its data rank (data/__init__.py), and only rank 0
-logs and saves (trainers/base.py).
+plus the batch rank (data x fsdp), so the tensor and seq ranks of one
+batch rank draw alike. Under several processes every rank starts from
+rank 0's initial parameters (sliced by the sharding rules under the fsdp
+and tensor axes), loads the shard of its batch rank (data/__init__.py),
+and only rank 0 logs and writes checkpoints (trainers/base.py).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from ..models import get_model_cls
 from ..parallel.dist import broadcast_from_main
 from ..utils.logging import DeferredMetrics
 from ..utils.mfu import MFUProfiler
+from ..parallel.sharding import shard_params
 from .base import BaseTrainer, TrainState
 
 
@@ -62,6 +64,8 @@ class RFTFamilyTrainer(BaseTrainer):
             self._eval_core = get_core_cls(self.model_id)(
                 self.model_cfg, dtype=torch.bfloat16, device=self.device,
                 seed=None)
+            if self.sharded:
+                shard_params(self._eval_core, self.mesh)
         with torch.no_grad():
             for name, p in self._eval_core.named_parameters():
                 p.copy_(state.ema["core." + name])
@@ -109,7 +113,7 @@ class RFTFamilyTrainer(BaseTrainer):
             batch_tokens=accum * self.train_cfg.batch_size * seq_tokens,
             seq_len=seq_tokens)
         generator = torch.Generator(device=self.device).manual_seed(
-            1234 + self.mesh.data_index)
+            1234 + self.mesh.batch_rank)
         self.timer.reset()
         self.install_preemption_handler()
         try:
@@ -132,8 +136,7 @@ class RFTFamilyTrainer(BaseTrainer):
             if self.should_stop():
                 for _, m in pending.drain():
                     self.metrics.log_dict(m)
-                if self.is_main:
-                    self.save(state)
+                self.save(state)
                 break
             micro = [next(batches) for _ in range(accum)]
             metrics = self.train_step(state, micro, generator, clip_norm=clip)
@@ -162,8 +165,8 @@ class RFTFamilyTrainer(BaseTrainer):
                 log.update(self.eval_step(state, sample_loader, sampler))
             if self.is_main:
                 self.logger.log(log, step=self.total_step_counter)
-                if do_save:
-                    self.save(state)
+            if do_save:
+                self.save(state)
             # eval/save time is excluded from the next window's step timing
             self.timer.reset()
             profiler.start()

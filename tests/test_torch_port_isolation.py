@@ -18,7 +18,7 @@ PORT_FILES = sorted(
     os.path.relpath(p, REPO) for p in
     glob.glob(os.path.join(REPO, "owl_audio_exps_tpu_torch", "**", "*.py"),
               recursive=True)) + ["chip_smoke.py", "sp_smoke.py",
-                                  "bench_torch.py"]
+                                  "mesh_smoke.py", "bench_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "owl_audio_exps_tpu")
 
 
@@ -49,7 +49,7 @@ def test_port_package_has_its_kernel_source():
                    "models/gamerft_audio.py", "muon.py",
                    "trainers/rft_trainer.py", "train.py", "ops/local.py",
                    "parallel/dist.py", "parallel/mesh.py",
-                   "parallel/context.py", "nn/kv_cache.py", "nn/wquant.py",
+                   "parallel/context.py", "parallel/sharding.py", "nn/kv_cache.py", "nn/wquant.py",
                    "models/audiorft.py", "sampling/audio_caching.py",
                    "sampling/av_caching.py", "sampling/av_window.py",
                    "inference/pipeline.py", "trainers/distill_common.py",
