@@ -195,6 +195,29 @@ Phases, each of which exits non-zero on any failure:
    and window 16, against its plain version at every head, with its
    bound and SDPA's time.
 
+17. the pipe axis, AV context parallelism and distillation over several
+   processes as far as one card holds them (the multi-card runs are
+   mesh_smoke.py's ``--case pipe`` and ``--case distill`` and
+   sp_smoke.py's): (a) configs/dit_v4_tpu_e2e.yml's DiT (16 x d 1536, 4
+   groups) at L 16,384 without documents, batch 2, split by
+   parallel/pipeline.py's ``stage_blocks`` into 2 and 4 stages, 2
+   micro-batches run in GPipe order with the activations handed over in
+   memory, each block checkpointed as in a stage: the output (rel L2 5e-2)
+   and every gradient (3e-2) against the whole stack, K1 and the band
+   counted exactly per stage and micro-batch and in the backward (the
+   stage split and the kernels a stage runs; not parallel/pipeline.py's
+   schedule, its transfers or its broadcast, which run across processes
+   only: the gloo tests and mesh_smoke.py hold those); (b) one
+   global and one local AV layer (tpf 65, H 24) at configs/
+   av_v5_8x8_weak.yml's 1,536 frames (L 99,840) split 4 ways, each slice
+   in turn through parallel/context.py's ring and halo step functions
+   (K4 28 / 16 / 16, the halo band K5 4 / 4), against the unsplit layer
+   (K1; K5 at plan (520, 2)) in the same limits; (c) K4 at tpf 65, L_loc
+   24,960, causal and unmasked, and the halo band (K5 over 26,000 tokens)
+   against their plain versions at every head, with times, bounds and
+   SDPA's; (d) configs/dit_v4_dmd.yml's student, critic and teacher split
+   for {fsdp 2, tensor 2} and put together again bit for bit.
+
 The last lines are the kernels' JSON record, the card line, and
 {"ok": true, "device": {...}}.
 """
@@ -678,7 +701,7 @@ def chunked_grad_errors(got, plain, q, k, v, dout,
     return errs, plain_fwd, plain_all - plain_fwd
 
 
-def band2_phase(dev):
+def band2_phase(dev, cases=BAND2_CASES):
     """K5 against its plain version at every head: the kernel's output and
     gradients through autograd at H = 24, against f32 autograd of the plain
     version chunk by chunk; with its time, the plain version's over the
@@ -689,7 +712,7 @@ def band2_phase(dev):
     B, H, Dh = 1, 24, 64
     gen = torch.Generator(device=dev).manual_seed(30)
     rows = {}
-    for name, L, tpf, window, plan, bound in BAND2_CASES:
+    for name, L, tpf, window, plan, bound in cases:
         q, k, v, dout = (torch.randn(B, H, L, Dh, generator=gen, device=dev)
                          .to(torch.bfloat16) for _ in range(4))
         q, k = rms_normed(q), rms_normed(k)
@@ -1260,18 +1283,19 @@ def route_phase(dev):
 K4_CASES = [("L24576_causal", True), ("L24576_full", False)]
 
 
-def k4_phase(dev):
+def k4_phase(dev, L=SP_TOKENS // SP_SHARDS, tpf=SP_TPF, cases=K4_CASES,
+              tag="k4"):
     """K4 at the per-rank geometry of configs/dit_v4_98k_sp.yml on 4 seq
-    ranks: q rms-normed and pre-scaled as the ring hands it, k
-    rms-normed; random cotangents on out (f32) and lse."""
+    ranks (or at L tokens a rank, tpf ``tpf``): q rms-normed and
+    pre-scaled as the ring hands it, k rms-normed; random cotangents on
+    out (f32) and lse."""
     import torch.nn.functional as F
     from owl_audio_exps_tpu_torch.ops import splash
 
-    B, H, Dh, tpf = 1, 24, 64, SP_TPF
-    L = SP_TOKENS // SP_SHARDS
+    B, H, Dh = 1, 24, 64
     gen = torch.Generator(device=dev).manual_seed(20)
     rows = {}
-    for name, causal in K4_CASES:
+    for name, causal in cases:
         q, k, v = (torch.randn(B, H, L, Dh, generator=gen, device=dev)
                    .to(torch.bfloat16) for _ in range(3))
         q = (rms_normed(q) * Dh ** -0.5).to(torch.bfloat16)
@@ -1310,7 +1334,7 @@ def k4_phase(dev):
             lf, lt = fwd_bwd_ms(sdpa, q, k, v, g_bf, iters)
             lib_fwd, lib_bwd = lf, lt - lf
         except (RuntimeError, torch.OutOfMemoryError) as e:
-            print(f"[k4]   library call unavailable: {str(e)[:120]}",
+            print(f"[{tag}]   library call unavailable: {str(e)[:120]}",
                   flush=True)
             lib_fwd = lib_bwd = None
         del mask, g_bf
@@ -1342,11 +1366,11 @@ def k4_phase(dev):
                 rows[(f"ring_partial_{part}", name)]["delta_ms"] = delta_ms
         lib = ("n/a" if lib_bwd is None else
                f"fwd {lib_fwd:.4f} ms bwd {lib_bwd:.4f} ms")
-        print(f"[k4] ring partial {name}: B={B} H={H} L={L} Dh={Dh} "
+        print(f"[{tag}] ring partial {name}: B={B} H={H} L={L} Dh={Dh} "
               f"tpf={tpf} causal={causal} | checked at H={H}: " + " ".join(
                   f"{n} rel={e[0]:.2e} max|d|={e[1]:.2e} mean|d|={e[2]:.2e}"
                   for n, e in errs.items()), flush=True)
-        print("[k4]   " + " ".join(
+        print(f"[{tag}]   " + " ".join(
             f"{part} {ms:.4f} ms ({bnd['gflop'] / ms:.1f} TFLOP/s, "
             f"{100 * bnd['bound_ms'] / ms:.1f}% of bound "
             f"{bnd['bound_ms']:.4f} ms {bnd['bound_by']})"
@@ -4687,6 +4711,437 @@ def sharding_phase(dev):
     return dict(out, fwd_rows=fwd_rows, grad_rows=grad_rows)
 
 
+# --------------------------------------------------------------- phase 17
+# (a) the pipe schedule in one process: dit_v4's full width (16 x d 1536,
+# 4 groups) at L 16,384, split into K stages of whole groups, M
+# micro-batches handed from stage to stage in memory
+PIPE_SPLITS, PIPE_MICRO, PIPE_FRAMES = (2, 4), 2, 256
+# (b) the AV model's attention at tpf 65 split 4 ways: configs/
+# av_v5_8x8_weak.yml at 1,536 frames (L 99,840), a slice 24,960 tokens
+AV_SP_FRAMES, AV_SP_SHARDS, AV_SP_TPF, AV_SP_WINDOW = 1536, 4, 65, 16
+# (c) K4 at the AV slice, and the band over [halo | slice] (26,000 tokens,
+# the route halo_band_route takes there: K5 at plan (520, 2))
+AV_K4_CASES = [("L24960_tpf65_causal", True), ("L24960_tpf65_full", False)]
+AV_HALO_BAND_CASES = [("L26000_tpf65_520x2_bound8", 26000, 65, 16, (520, 2),
+                       8.0)]
+# (a) and (b) against the unsplit computation: PERF.md section 2's limits
+SPLIT_OUT_REL, SPLIT_GRAD_REL = 5e-2, 3e-2
+
+
+class Cuts(list):
+    """The cuts a smoke run makes to a config (mesh_smoke.py,
+    sp_smoke.py), one line each."""
+
+    def cut(self, node, key, value, why):
+        self.append(f"{key} {node.get(key)!r} -> {value!r} ({why})")
+        node[key] = value
+
+    def no_checkpoint(self, tc, work, why="no checkpoint in this run",
+                      **extra):
+        """Log every step; write no checkpoint, export or (``extra``)
+        eval."""
+        for key, value in dict(log_interval=1, save_interval=10 ** 9,
+                               **extra,
+                               checkpoint_dir=os.path.join(work, "ckpt"),
+                               output_path=None).items():
+            self.cut(tc, key, value, why)
+
+    def show(self, head: str):
+        """Print every line after ``head`` on the first process only."""
+        if int(os.environ.get("RANK", 0)) == 0:
+            for line in self:
+                print(f"{head}: {line}", flush=True)
+
+
+# A multi-card copy's steps against one card's (mesh_smoke.py --case pipe
+# and --case distill, sp_smoke.py --check_layers). Every parameter's first
+# gradient (after the sums over ranks, before the optimizer) is held to
+# 0.1 relative L2: the sound copies read about 1e-2 (bf16 sums over ranks
+# in another order), a stage's or a rank's gradient lost, unsummed or
+# scaled reads 0.5 or more. The whole model's update after the steps is
+# held to 0.25: the sound copies read 9e-3 to 9.1e-2 (AdamW at eps 1e-15
+# and Muon turn the signs of updates whose gradient is at rounding level),
+# one stage's update lost of three ~0.58. Muon and AdamW are scale-blind,
+# so only the gradient sees a factor.
+PARITY_LOSS_REL, PARITY_GRAD_REL, PARITY_UPDATE_REL = 1e-2, 0.1, 0.25
+
+
+def recording_grads(base):
+    """A subclass of the trainer class ``base`` that keeps the first
+    gradient it reduces for each list of parameters (``first``: {id of
+    the list's first parameter: [whole gradient, ...]}), gathered over
+    fsdp and tensor, float32 on the host. Every rank must record (the
+    gather is a collective)."""
+    from owl_audio_exps_tpu_torch.parallel.sharding import (gather_tensor,
+                                                            spec_of)
+
+    class RecordingGrads(base):
+        def reduce_across_ranks(self, params, metrics):
+            super().reduce_across_ranks(params, metrics)
+            first = self.__dict__.setdefault("first", {})
+            if params and id(params[0]) not in first:
+                first[id(params[0])] = [
+                    gather_tensor(p.grad if p.grad is not None
+                                  else torch.zeros_like(p), spec_of(p),
+                                  self.mesh).float().cpu() for p in params]
+
+    return RecordingGrads
+
+
+def first_grads(trainer, module):
+    """{name: first gradient} of ``module``'s parameters from a
+    ``recording_grads`` trainer; under the pipe axis every stage's merged
+    on the first rank of the pipe group (None on the others; a collective
+    over the pipe group)."""
+    from owl_audio_exps_tpu_torch.parallel.sharding import collect_stage_list
+    named = list(module.named_parameters())
+    grads = dict(zip((n for n, _ in named), trainer.first[id(named[0][1])]))
+    parts = collect_stage_list(grads, trainer.mesh)
+    if parts is None:
+        return None
+    return {n: g for part in parts for n, g in part.items()}
+
+
+def parity_verdict(loss_rel, got, ref, init, got_grads, ref_grads):
+    """The parity of a multi-card run against one card: ``got`` / ``ref``
+    / ``init`` {name: parameter} after and before the same steps,
+    ``got_grads`` / ``ref_grads`` {name: first gradient}. Returns the
+    readings and ``failures`` (the limits above): the worst parameter's
+    gradient relative L2 with its name, the parameters skipped (one
+    card's gradient exactly 0, no relative error; the other's norm
+    given), the whole model's update and parameters relative L2 and the
+    worst single parameter's (printed only)."""
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    def whole(a, b):
+        num = sum((a[k].float() - b[k].float()).pow(2).sum() for k in b)
+        return (num / sum(b[k].float().pow(2).sum() for k in b)).sqrt()
+
+    failures = []
+    if set(got) != set(ref) or set(got_grads) != set(ref_grads):
+        failures.append("the parameters' names differ from one card's")
+    grad = {k: rel(got_grads[k], g) for k, g in ref_grads.items()
+            if g.norm() > 0 and k in got_grads}
+    skipped = {k: got_grads[k].norm().item() for k, g in ref_grads.items()
+               if g.norm() == 0 and k in got_grads}
+    worst_grad = max(grad, key=grad.get)
+    per = {k: rel(got[k], ref[k]) for k in ref if ref[k].norm() > 0}
+    worst = max(per, key=per.get)
+    moved = [k for k in ref if (ref[k] - init[k]).norm() > 0]
+    upd = whole({k: got[k] - init[k] for k in moved},
+                {k: ref[k] - init[k] for k in moved}).item()
+    if loss_rel > PARITY_LOSS_REL:
+        failures.append(f"losses rel {loss_rel:.3e} > {PARITY_LOSS_REL}")
+    if grad[worst_grad] > PARITY_GRAD_REL:
+        failures.append(f"gradient of {worst_grad} rel L2 "
+                        f"{grad[worst_grad]:.3e} > {PARITY_GRAD_REL}")
+    if upd > PARITY_UPDATE_REL:
+        failures.append(f"the update rel L2 {upd:.3e} > {PARITY_UPDATE_REL}")
+    return dict(loss_rel=loss_rel, grad_rel_l2=grad[worst_grad],
+                worst_grad=worst_grad, grads_held=len(grad),
+                grads_skipped=skipped, update_rel_l2=upd,
+                param_rel_l2=whole(got, ref).item(), worst_param=worst,
+                worst_param_rel_l2=per[worst], failures=failures)
+
+
+def pipe_stage_run(dit, K: int, M: int, x, cond, remat: bool = True):
+    """``dit``'s blocks split into K stages of whole groups (parallel/
+    pipeline.py ``stage_blocks``), M micro-batches run in GPipe order in
+    one process: micro-batch m's activation leaves stage s for stage
+    s + 1 in memory. Returns the output and the launches of each
+    (stage, micro-batch) forward. This holds the stage split and what
+    each stage runs; parallel/pipeline.py's ``pipeline_apply`` (the
+    transfers, the broadcast, the sums over pipe) needs several
+    processes and is not run here."""
+    from owl_audio_exps_tpu_torch.parallel.pipeline import stage_blocks
+    cfg = dit.config
+    bm = x.shape[0] // M
+    outs, counts = [], {}
+    for m in range(M):
+        h, c = x[m * bm:(m + 1) * bm], cond[m * bm:(m + 1) * bm]
+        for st in range(K):
+            blocks = stage_blocks(cfg, K, st)
+            reset_counts()
+            h = dit._run_blocks(blocks.start, blocks.stop, h, c, None, None,
+                                True, None, 0, remat)
+            counts[(st, m)] = {k: v for k, v in kernel_counts().items()
+                               if v}
+        outs.append(h)
+    return torch.cat(outs), counts
+
+
+def stage_expect(cfg, K: int, st: int, L: int):
+    """The kernels a stage's forward of one micro-batch launches: its
+    global layers K1, its local layers the band route's kernel."""
+    from owl_audio_exps_tpu_torch.nn.attn import (attention_route,
+                                                  local_layer_flags)
+    from owl_audio_exps_tpu_torch.parallel.pipeline import stage_blocks
+    flags = local_layer_flags(cfg)
+    out = {}
+    for i in stage_blocks(cfg, K, st):
+        name = ("frame_attention" if not flags[i] else
+                attention_route(cfg, True, L)[0] + "_attention")
+        out[f"{name}_fwd"] = out.get(f"{name}_fwd", 0) + 1
+    return out
+
+
+def grads_rel(got, want):
+    return {n: rel_l2(got[n], want[n]) for n in want
+            if want[n] is not None and want[n].float().norm() > 0}
+
+
+def pipe_one_process_phase(dev, cfg=None, x=None, cond=None,
+                           dtype=torch.bfloat16):
+    """(a) configs/dit_v4_tpu_e2e.yml's DiT at full width, L 16,384, no
+    documents, split into 2 and 4 stages with M 2: output and every
+    gradient (the blocks', x's, cond's) against the unsplit stack, exact
+    launches per stage and micro-batch, and the backward's."""
+    from owl_audio_exps_tpu_torch.configs import Config
+    from owl_audio_exps_tpu_torch.nn.attn import DiT
+    if cfg is None:
+        cfg = Config.from_yaml(os.path.join(
+            ROOT, "configs", "dit_v4_tpu_e2e.yml")).model
+    dit = DiT(cfg, dtype=dtype, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(170)
+    with torch.no_grad():
+        for p in dit.parameters():
+            p.normal_(0.0, 0.02, generator=gen)
+    n_frames = PIPE_FRAMES if x is None else x.shape[1] // \
+        cfg.tokens_per_frame
+    L = n_frames * cfg.tokens_per_frame
+    B = PIPE_MICRO
+    if x is None:
+        x = torch.randn(B, L, cfg.d_model, generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        cond = torch.randn(B, n_frames, cfg.d_model, generator=gen,
+                           device=dev).to(torch.bfloat16)
+    g = torch.randn(x.shape, generator=gen, device=x.device)
+
+    def run(fn):
+        dit.zero_grad(set_to_none=True)
+        xl, cl = (t.detach().requires_grad_() for t in (x, cond))
+        out = fn(xl, cl)
+        (out.float() * g).sum().backward()
+        grads = {n: p.grad.detach().clone()
+                 for n, p in dit.named_parameters()}
+        grads["x"], grads["cond"] = xl.grad, cl.grad
+        return out.detach(), grads
+
+    reset_counts()
+    want_out, want = run(lambda xl, cl: dit._run_blocks(
+        0, cfg.n_layers, xl, cl, None, None, True, None, 0, True))
+    reset_counts()
+    out = {}
+    for K in PIPE_SPLITS:
+        fwd_counts = {}
+
+        def split(xl, cl):
+            y, c = pipe_stage_run(dit, K, PIPE_MICRO, xl, cl)
+            fwd_counts.update(c)
+            reset_counts()
+            return y
+
+        t0 = time.perf_counter()
+        got_out, got = run(split)
+        sync(dev)
+        secs = time.perf_counter() - t0
+        bwd = {k: v for k, v in kernel_counts().items() if v}
+        reset_counts()
+        for (st, m), c in fwd_counts.items():
+            if c != stage_expect(cfg, K, st, L) and torch.device(dev).type == "cuda":
+                fail(f"pipe K {K} stage {st} micro-batch {m}: launches {c}, "
+                     f"expected {stage_expect(cfg, K, st, L)}")
+        # the backward: each block's recompute (remat) and its backward,
+        # every micro-batch
+        exp_bwd = {}
+        for st in range(K):
+            for k, v in stage_expect(cfg, K, st, L).items():
+                exp_bwd[k] = exp_bwd.get(k, 0) + v * PIPE_MICRO
+                stem = k[:-len("_fwd")]
+                if stem == "frame_attention":
+                    for b in ("bwd_dq", "bwd_dkv"):
+                        exp_bwd[f"{stem}_{b}"] = \
+                            exp_bwd.get(f"{stem}_{b}", 0) + v * PIPE_MICRO
+                else:
+                    exp_bwd[f"{stem}_bwd"] = \
+                        exp_bwd.get(f"{stem}_bwd", 0) + v * PIPE_MICRO
+        if torch.device(dev).type == "cuda" and bwd != exp_bwd:
+            fail(f"pipe K {K}: backward launches {bwd}, expected {exp_bwd}")
+        out_rel = rel_l2(got_out, want_out)
+        g_rel = grads_rel(got, want)
+        worst = max(g_rel, key=g_rel.get)
+        print(f"[pipe1] K {K} stages x M {PIPE_MICRO} micro-batches of "
+              f"{cfg.n_layers} x d {cfg.d_model} at L {L}: {secs:.2f} s "
+              f"(forward + backward); out rel L2 {out_rel:.3e} (limit "
+              f"{SPLIT_OUT_REL}), worst of {len(g_rel)} gradients "
+              f"{g_rel[worst]:.3e} ({worst}; limit {SPLIT_GRAD_REL}); "
+              f"launches a stage and micro-batch "
+              f"{ {f'{st}/{m}': c for (st, m), c in fwd_counts.items()} }, "
+              f"backward {bwd}", flush=True)
+        if out_rel > SPLIT_OUT_REL or g_rel[worst] > SPLIT_GRAD_REL:
+            fail(f"pipe K {K}: the split stack disagrees with the whole")
+        total = dict(bwd)
+        for c in fwd_counts.values():
+            for k, v in c.items():
+                total[k] = total.get(k, 0) + v
+        out[f"K{K}"] = dict(seconds=secs, out_rel_l2=out_rel,
+                            worst_grad_rel_l2=g_rel[worst],
+                            launches_per_stage_and_micro_batch={
+                                f"{st}/{m}": c
+                                for (st, m), c in fwd_counts.items()},
+                            backward_launches=bwd, launches=total)
+    del dit, want, got
+    gc.collect()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def av_split_phase(dev, L=None, n=AV_SP_SHARDS, tpf=AV_SP_TPF,
+                   window=AV_SP_WINDOW, H=24, Dh=64, dtype=torch.bfloat16):
+    """(b) one global and one local layer of the AV model at tpf 65 split
+    n ways, every slice run in turn through parallel/context.py's ring
+    and halo step functions (counted), against the unsplit layer: K1 for
+    the global one, the band route (K5 at plan (520, 2)) for the local one
+    (not counted). Forward and gradients within SPLIT_OUT_REL /
+    SPLIT_GRAD_REL."""
+    from owl_audio_exps_tpu_torch.nn.attn import attention_route
+    from owl_audio_exps_tpu_torch.configs import Config
+    from owl_audio_exps_tpu_torch.ops import band, band2, splash
+    from owl_audio_exps_tpu_torch.parallel.context import halo_band_route
+    L = L or AV_SP_FRAMES * tpf
+    cfg = Config.from_dict({"model": dict(
+        tokens_per_frame=tpf, local_window=window, global_window=None,
+        causal=True)}).model
+    bound = float(Dh) ** 0.5
+    gen = torch.Generator(device=dev).manual_seed(171)
+    q, k, v, g = (torch.randn(1, H, L, Dh, generator=gen, device=dev)
+                  .to(dtype) for _ in range(4))
+    q, k = rms_normed(q).to(dtype), rms_normed(k).to(dtype)
+    route, plan = attention_route(cfg, True, L)
+    C = window * tpf
+    halo_route = halo_band_route(L // n + C, tpf, window)
+
+    def whole_local(*t):
+        if route == "band2":
+            return band2.band2_attention(*t, tpf, window, *plan,
+                                         logit_bound=bound)
+        if route == "band":
+            return band.band_attention(*t, tpf, window, logit_bound=bound)
+        return splash.splash_attention(*t, tpf, window, True)
+
+    paths = {
+        "ring": (lambda *t: ring_one_process(*t, tpf, n),
+                 lambda *t: splash.splash_attention(*t, tpf, None, True)),
+        "halo": (lambda *t: halo_one_process(*t, tpf, window, n, bound),
+                 whole_local)}
+    got, secs = {}, {}
+    reset_counts()
+    for name, (fn, _) in paths.items():
+        t0 = time.perf_counter()
+        got[name] = grads_of(fn, q, k, v, g)
+        sync(dev)
+        secs[name] = time.perf_counter() - t0
+    counts = kernel_counts()
+    reset_counts()
+    band = f"{halo_route[0]}_attention"
+    expect = dict.fromkeys(counts, 0)
+    expect.update(ring_partial_fwd=n * n + n * (n - 1),
+                  ring_partial_bwd_dq=n * n, ring_partial_bwd_dkv=n * n)
+    expect[f"{band}_fwd"], expect[f"{band}_bwd"] = n, n
+    print(f"[av-split] {n} slices x {L // n} tokens of L {L} (tpf {tpf}, "
+          f"H {H}, local window {window}: halo C {C}, the halo band "
+          f"{halo_route} over {L // n + C} tokens, the unsplit local layer "
+          f"{(route, plan)}) in one process: ring {secs['ring']:.2f} s, "
+          f"halo {secs['halo']:.2f} s (forward + backward); launches "
+          f"{ {k: c for k, c in counts.items() if c} }", flush=True)
+    if torch.device(dev).type == "cuda" and counts != expect:
+        fail(f"av split: launches {counts}, expected {expect}")
+    errs = {}
+    for name, (_, full) in paths.items():
+        want = grads_of(full, q, k, v, g)
+        e = {t: rel_l2(a, b) for t, a, b in
+             zip(("out", "dq", "dk", "dv"), got[name], want)}
+        errs[name] = e
+        print(f"[av-split] {name} vs the unsplit "
+              f"{'K1' if name == 'ring' else route}: relative L2 "
+              + " ".join(f"{t} {x:.3e}" for t, x in e.items())
+              + f" (limits out {SPLIT_OUT_REL}, gradients {SPLIT_GRAD_REL})",
+              flush=True)
+        if e["out"] > SPLIT_OUT_REL or max(e["dq"], e["dk"], e["dv"]) > \
+                SPLIT_GRAD_REL:
+            fail(f"av split: the {name} disagrees with the unsplit layer")
+        del want
+    reset_counts()
+    del got, q, k, v, g
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(counts={k: c for k, c in counts.items() if c},
+                rel_l2=errs, seconds=secs, halo_route=list(halo_route),
+                unsplit_local_route=[route, plan])
+
+
+def distill_triple_phase(dev, student_cfg=None, teacher_cfg=None,
+                         meshes=None):
+    """(d) configs/dit_v4_dmd.yml's student, critic (a copy of the
+    student) and teacher (configs/dit_v4.yml), seeded, split by the rules
+    for {fsdp 2, tensor 2} and put together again, bit for bit."""
+    import copy
+    from owl_audio_exps_tpu_torch.configs import Config
+    from owl_audio_exps_tpu_torch.models.gamerft import GameRFTCore
+    meshes = meshes or {"fsdp2_tensor2": dict(fsdp=2, tensor=2)}
+    if student_cfg is None:
+        dmd = Config.from_yaml(os.path.join(ROOT, "configs",
+                                            "dit_v4_dmd.yml"))
+        student_cfg = dmd.model
+        teacher_cfg = Config.from_yaml(os.path.join(
+            ROOT, dmd.train.teacher_cfg)).model
+    student = GameRFTCore(student_cfg, dtype=torch.bfloat16, device=dev,
+                          seed=0)
+    out = {}
+    for name, core in (("student", student),
+                       ("critic", copy.deepcopy(student)),
+                       ("teacher", GameRFTCore(teacher_cfg,
+                                               dtype=torch.bfloat16,
+                                               device=dev, seed=1))):
+        out[name] = shard_round_trip(core, meshes, tag=f"distill-{name}")
+        if not all(r["bit_equal"] for r in out[name].values()):
+            fail(f"distill triple: the {name} is not bit-equal after the "
+                 "round trip")
+        del core
+    del student
+    gc.collect()
+    return out
+
+
+def slice14_phase(dev):
+    """Phase 17: the pipe schedule in one process (a), the AV attention at
+    tpf 65 split 4 ways (b), K4 at tpf 65 and the halo band against their
+    plain versions with times, bounds and SDPA's (c), the distillation
+    triple split and gathered for {fsdp 2, tensor 2} (d)."""
+    out = {"pipe": pipe_one_process_phase(dev)}
+    out["av_split"] = av_split_phase(dev)
+    grad_rows = dict(k4_phase(dev, L=AV_SP_FRAMES * AV_SP_TPF // AV_SP_SHARDS,
+                              tpf=AV_SP_TPF, cases=AV_K4_CASES, tag="k4-av"))
+    grad_rows.update(band2_phase(dev, AV_HALO_BAND_CASES))
+    out["distill_triple"] = distill_triple_phase(dev)
+    launches = dict.fromkeys(kernel_counts(), 0)
+    for row in out["pipe"].values():
+        for k, v in row["launches"].items():
+            launches[k] += v
+    for k, v in out["av_split"]["counts"].items():
+        launches[k] += v
+    out["launches"] = launches
+    out["grad_rows"] = grad_rows
+    return out
+
+
 def grads_of(fn, q, k, v, g):
     """(out, dq, dk, dv) of fn under the cotangent g; where fn returns a
     tuple (K4's out and lse), g is a tuple too and the list starts with
@@ -4870,6 +5325,8 @@ def main():
     shard = timed("sharding_phase", sharding_phase, dev)
     fwd_rows.update(shard.pop("fwd_rows"))
     grad_rows.update(shard.pop("grad_rows"))
+    s14 = timed("slice14_phase", slice14_phase, dev)
+    grad_rows.update(s14.pop("grad_rows"))
 
     launches = dict(train["totals"])
     launches["frame_attention_fwd"] += serve_launches + sampler_launches
@@ -4928,6 +5385,18 @@ def main():
             extra[name].setdefault("launches_by_path", {})[
                 "sharded_blocks"] = count
             extra[name]["launches_per_rank_and_layer_sharded_block"] = 1
+    # phase 17: the pipe stages in one process (K1, the band) and the AV
+    # split at tpf 65 (K4, K5), each launch checked
+    s14_launches = s14.pop("launches")
+    for name, count in s14_launches.items():
+        launches[name] += count
+    for path, counts in (
+            [(f"pipe_one_process_{k}", row["launches"])
+             for k, row in s14["pipe"].items()]
+            + [("av_split_tpf65", s14["av_split"]["counts"])]):
+        for name, count in counts.items():
+            if count:
+                extra[name].setdefault("launches_by_path", {})[path] = count
     for trainer in ("CausVidTrainer", "SelfForceTrainer",
                     "DistillODETrainer"):
         for name, count in distill[trainer]["totals"].items():
@@ -4958,7 +5427,7 @@ def main():
                              if n not in ("totals", "per_step")}
                             if isinstance(row, dict) else row)
                         for k, row in mmdit.items()},
-              "sharding": shard}
+              "sharding": shard, "slice14": s14}
     print(json.dumps(record), flush=True)
     print(f"[env] {card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

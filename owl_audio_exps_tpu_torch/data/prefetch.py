@@ -11,11 +11,13 @@ arrays become tensors. Arrays arrive as loaded, with no cast: the
 trainers' losses cast, as the JAX package's trainers, whose ``put_fn``
 (the stacked batch put) does not cast either. An error of the host
 iterator reaches the consumer, and the stream ends when the iterator is
-exhausted.
+exhausted. Closing the stream, or the interpreter's exit, stops the
+worker and waits for the batch it holds.
 """
 
 from __future__ import annotations
 
+import atexit
 import queue
 import threading
 from typing import Iterator, Optional
@@ -75,8 +77,16 @@ def device_prefetch(iterator: Iterator, device="cuda", size: int = 2):
         except Exception as e:   # the consumer raises it
             offer(e)
 
+    def halt():
+        """Stop the worker and wait for its batch in hand: the interpreter
+        would stop a daemon thread at exit inside a torch call, which
+        aborts the process."""
+        stop.set()
+        thread.join(timeout=30)
+
     thread = threading.Thread(target=worker, daemon=True)
     thread.start()
+    atexit.register(halt)
     try:
         while True:
             item = q.get()
@@ -93,4 +103,5 @@ def device_prefetch(iterator: Iterator, device="cuda", size: int = 2):
                     t.record_stream(consumer)
             yield batch
     finally:
-        stop.set()
+        atexit.unregister(halt)
+        halt()

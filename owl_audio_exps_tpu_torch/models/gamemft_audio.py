@@ -46,7 +46,7 @@ from torch import nn
 
 from ..nn.embeddings import ControlEmbedding, TimestepEmbedding
 from ..nn.layers import FinalLayer, Linear, reset_parameters
-from ..parallel.mesh import seq_parallel_active
+from ..parallel.mesh import get_mesh, seq_parallel_active
 from ..utils.device import resolve_device
 from .gamerft import handle_cfg
 from .gamerft_audio import backbone_cls, run_backbone
@@ -87,15 +87,12 @@ class GameMFTAudioCore(nn.Module):
 
     def forward(self, x, audio, t, mouse=None, btn=None, has_controls=None,
                 kv_cache=None, r=None, write: bool = False,
-                decoding: bool = False, write_len: Optional[int] = None):
+                decoding: bool = False, write_len: Optional[int] = None,
+                frame_offset: int = 0):
         """x [b, n, c, h, w], audio [b, n, c_a], t and r [b, n] ->
-        (u_video, u_audio). ``kv_cache``, ``write``, ``decoding`` and
-        ``write_len`` as in ``GameRFTAudioCore``."""
+        (u_video, u_audio). ``kv_cache``, ``write``, ``decoding``,
+        ``write_len`` and ``frame_offset`` as in ``GameRFTAudioCore``."""
         cfg = self.config
-        if seq_parallel_active(cfg):
-            raise NotImplementedError(
-                "sequence_parallel for the AV model: the port splits the "
-                "frames of game_rft (models/gamerft.py) only")
         b, n, c, h, w = x.shape
         if r is None:
             r = torch.zeros_like(t)
@@ -111,7 +108,8 @@ class GameMFTAudioCore(nn.Module):
         vid = self.proj_in(vid.to(self.dtype))
         aud = self.audio_proj_in(audio.to(self.dtype))
         video, aud_out = run_backbone(self.transformer, vid, aud, cond,
-                                      kv_cache, write, decoding, write_len)
+                                      kv_cache, write, decoding, write_len,
+                                      frame_offset)
         video = self.proj_out(video, cond)
         video = video.reshape(b, n, h, w, c).permute(0, 1, 4, 2, 3)
         return video, self.audio_proj_out(aud_out, cond)
@@ -169,6 +167,19 @@ class GameMFTAudio(nn.Module):
             z_video = torch.randn(x.shape, generator=generator, device=dev)
             z_audio = torch.randn(audio.shape, generator=generator,
                                   device=dev)
+        # rows with enough frames of t in [0.3, 0.8] take the CFG tangent
+        # (over all the frames, before a seq rank keeps its own)
+        in_window = (ts.float() >= self.cfg_in_lo) & \
+            (ts.float() <= self.cfg_in_hi)
+        cfg_rows = has_controls & (in_window.float().mean(1)
+                                   >= self.cfg_in_proportion)
+        f0 = 0
+        if seq_parallel_active(self.config):
+            f0, f1 = get_mesh().seq_frames(n)
+            x, audio, ts, rs, z_video, z_audio = (
+                a[:, f0:f1] for a in (x, audio, ts, rs, z_video, z_audio))
+            mouse, btn = (None if a is None else a[:, f0:f1]
+                          for a in (mouse, btn))
         ts, rs = ts.float(), rs.float()
         xf, af = x.float(), audio.float()
         z_video, z_audio = z_video.float(), z_audio.float()
@@ -177,15 +188,10 @@ class GameMFTAudio(nn.Module):
         noisy_a = af * (1.0 - te_a) + z_audio * te_a
         v_vid, v_aud = z_video - xf, z_audio - af
 
-        # rows with enough frames of t in [0.3, 0.8] take the CFG tangent
-        in_window = (ts >= self.cfg_in_lo) & (ts <= self.cfg_in_hi)
-        cfg_rows = has_controls & (in_window.float().mean(1)
-                                   >= self.cfg_in_proportion)
-
         def u_of(zv, za, r, t, hc):
             uv, ua = self.core(zv.to(x.dtype), za.to(audio.dtype),
                                t.to(x.dtype), mouse, btn, has_controls=hc,
-                               r=r.to(x.dtype))
+                               r=r.to(x.dtype), frame_offset=f0)
             return uv.float(), ua.float()
 
         # the CFG-corrected tangent: instant velocities (r = t) with and

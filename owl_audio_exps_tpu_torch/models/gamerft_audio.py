@@ -13,6 +13,20 @@ from a ``torch.Generator``, which gives other numbers than the JAX
 package's keys from the same seed: ``GameRFTAudio.forward`` therefore also
 takes the draws (``ts``, ``z_video``, ``z_audio``, ``has_controls``) from
 the caller, as the tests do with the JAX model's own draw.
+
+Context parallelism (``sequence_parallel`` on a mesh whose seq axis holds
+n > 1 ranks), as models/gamerft.py runs it for the video model: the
+wrapper draws at full size (every seq rank alike) and keeps this rank's
+frames [s F / n, (s + 1) F / n) of the latents, draws and controls; the
+core takes ``frame_offset`` and places each stream's tokens at their
+global RoPE positions (frame f's V + 1 tokens at (f V + f) .. in the
+per-frame interleave, which every backbone's attention runs on); the
+attention of every backbone goes through parallel/context.py (the JAX
+package shards any model's uncached attention over ``seq``,
+owl_audio_exps_tpu/nn/attn.py:311-330, the MMDiT's through the same
+function, nn/mmattn.py:80-82). The video and audio losses are this
+rank's squared-error sums over the whole batch's element counts, so
+summed over the seq axis they are the global means.
 """
 
 from __future__ import annotations
@@ -27,7 +41,7 @@ from ..nn.attn import DiT, UViT
 from ..nn.embeddings import ControlEmbedding, TimestepEmbedding
 from ..nn.layers import FinalLayer, Linear, reset_parameters
 from ..ops.norms import layer_norm
-from ..parallel.mesh import seq_parallel_active
+from ..parallel.mesh import get_mesh, seq_parallel_active
 from ..utils.device import resolve_device
 from .gamerft import handle_cfg
 
@@ -64,18 +78,16 @@ class GameRFTAudioCore(nn.Module):
 
     def forward(self, x, audio, t, mouse=None, btn=None, has_controls=None,
                 kv_cache=None, write: bool = False, decoding: bool = False,
-                write_len: Optional[int] = None):
+                write_len: Optional[int] = None, frame_offset: int = 0):
         """x [b, n, c, h, w], audio [b, n, c_a], t [b, n] -> (v_video,
-        v_audio). With ``kv_cache`` the forward attends over the ring
-        (updated in place) and, with ``write``, commits its leading
-        ``write_len`` frames (all by default) to it: each frame's 64 video
-        tokens and then its audio token, in stream order (the MMDiT
-        commits every frame, see ``run_backbone``)."""
+        v_audio). Under context parallelism x and audio hold this rank's
+        frames, the first of them frame ``frame_offset``. With
+        ``kv_cache`` the forward attends over the ring (updated in place)
+        and, with ``write``, commits its leading ``write_len`` frames (all
+        by default) to it: each frame's 64 video tokens and then its audio
+        token, in stream order (the MMDiT commits every frame, see
+        ``run_backbone``)."""
         cfg = self.config
-        if seq_parallel_active(cfg):
-            raise NotImplementedError(
-                "sequence_parallel for the AV model: the port splits the "
-                "frames of game_rft (models/gamerft.py) only")
         b, n, c, h, w = x.shape
         cond = self.t_embed(t)
         if not cfg.uncond:
@@ -98,7 +110,8 @@ class GameRFTAudioCore(nn.Module):
         vid = edge(self.proj_in, vid.to(self.dtype))
         aud = edge(self.audio_proj_in, audio.to(self.dtype))
         video, aud_out = run_backbone(self.transformer, vid, aud, cond,
-                                      kv_cache, write, decoding, write_len)
+                                      kv_cache, write, decoding, write_len,
+                                      frame_offset)
 
         video = edge(self.proj_out, layer_norm(video), layer_norm(cond))
         video = video.reshape(b, n, h, w, c).permute(0, 1, 4, 2, 3)
@@ -122,22 +135,25 @@ def backbone_cls(config):
 
 def run_backbone(transformer, vid, aud, cond, kv_cache=None,
                  write: bool = False, decoding: bool = False,
-                 write_len: Optional[int] = None):
+                 write_len: Optional[int] = None, frame_offset: int = 0):
     """The AV backbone on video tokens [b, n V, d] and audio tokens [b, n,
     d] -> the same two streams. The DiT and the UViT run the per-frame
     interleave [V video tokens | 1 audio token] as one stream and commit
     the leading ``write_len`` frames (all by default); the MMDiT keeps the
     streams apart and, as the JAX package's, takes no ``write_len``: a
-    write commits every frame of the forward."""
+    write commits every frame of the forward. The interleave's first
+    token is at position ``frame_offset`` (V + 1)."""
     from ..nn.mmattn import MMDiT
-    if isinstance(transformer, MMDiT):
-        return transformer(vid, aud, cond, kv_cache, write=write,
-                           decoding=decoding)
     b, n, d = aud.shape
     V = vid.shape[1] // n
+    if isinstance(transformer, MMDiT):
+        return transformer(vid, aud, cond, kv_cache, write=write,
+                           decoding=decoding,
+                           pos_offset=frame_offset * (V + 1))
     stream = torch.cat([vid.reshape(b, n, V, d), aud[:, :, None, :]], dim=2)
     stream = transformer(stream.reshape(b, n * (V + 1), d), cond, None,
-                         kv_cache, write=write, decoding=decoding,
+                         kv_cache, pos_offset=frame_offset * (V + 1),
+                         write=write, decoding=decoding,
                          write_len=None if write_len is None
                          else write_len * (V + 1))
     stream = stream.reshape(b, n, V + 1, d)
@@ -166,7 +182,9 @@ class GameRFTAudio(nn.Module):
         the config's, timesteps, video noise, audio noise) unless ``ts``
         [b, n], ``z_video`` (x's shape) and ``z_audio`` (audio's shape) are
         given; a caller that hands them in also hands in the post-dropout
-        ``has_controls`` (the dropout is then not applied)."""
+        ``has_controls`` (the dropout is then not applied). Under context
+        parallelism the losses are this rank's shares and the dict's
+        tensors this rank's frames (see the module docstring)."""
         b, n = x.shape[0], x.shape[1]
         dev = x.device
         if has_controls is None:
@@ -180,6 +198,14 @@ class GameRFTAudio(nn.Module):
             z_video = torch.randn(x.shape, generator=generator, device=dev)
             z_audio = torch.randn(audio.shape, generator=generator,
                                   device=dev)
+        count_v, count_a = x.numel(), audio.numel()
+        sp, f0 = seq_parallel_active(self.config), 0
+        if sp:
+            f0, f1 = get_mesh().seq_frames(n)
+            x, audio, ts, z_video, z_audio = (
+                a[:, f0:f1] for a in (x, audio, ts, z_video, z_audio))
+            mouse, btn = (None if a is None else a[:, f0:f1]
+                          for a in (mouse, btn))
         ts = ts.float()
         xf, af = x.float(), audio.float()
         z_video, z_audio = z_video.float(), z_audio.float()
@@ -189,9 +215,14 @@ class GameRFTAudio(nn.Module):
         lerpd_a = af * (1.0 - te_a) + z_audio * te_a
 
         pred_v, pred_a = self.core(lerpd_v.to(x.dtype), lerpd_a.to(audio.dtype),
-                                   ts.to(x.dtype), mouse, btn, has_controls)
-        video_loss = torch.mean(torch.square(pred_v.float() - (z_video - xf)))
-        audio_loss = torch.mean(torch.square(pred_a.float() - (z_audio - af)))
+                                   ts.to(x.dtype), mouse, btn, has_controls,
+                                   frame_offset=f0)
+        sq_v = torch.square(pred_v.float() - (z_video - xf))
+        sq_a = torch.square(pred_a.float() - (z_audio - af))
+        if sp:   # this rank's share of the global means
+            video_loss, audio_loss = sq_v.sum() / count_v, sq_a.sum() / count_a
+        else:
+            video_loss, audio_loss = torch.mean(sq_v), torch.mean(sq_a)
         loss = video_loss + audio_loss
         if not return_dict:
             return loss, video_loss, audio_loss

@@ -38,6 +38,15 @@ precedence of owl_audio_exps_tpu/nn/attn.py:155-218):
   owl_audio_exps_tpu/nn/attn.py:311-330. It needs a causal model and no
   document packing.
 
+* ``pipeline_parallel`` (parallel/pipeline.py): on a mesh with an
+  engaged pipe axis, with ``scan_layers`` and ``n_layers`` a multiple of
+  ``local_idx``, an uncached forward runs this rank's stage of the blocks
+  (whole groups) in a GPipe schedule of ``pipeline_microbatches``
+  micro-batches, each block checkpointed under
+  ``gradient_checkpointing``, as at owl_audio_exps_tpu/nn/attn.py:
+  565-590; document packing is refused there. Without those conditions
+  every pipe rank runs the whole stack.
+
 Training: ``gradient_checkpointing`` recomputes each block in the
 backward (``torch.utils.checkpoint``, non-reentrant); with
 ``remat_granularity: group`` each local/global period of ``local_idx``
@@ -93,7 +102,8 @@ from ..ops.attention import cached_dot_attention, dot_attention
 from ..ops.masks import decode_mask_from_cache, dense_mask
 from ..ops.norms import rms_norm
 from ..ops.rope import rope_table_for
-from ..parallel.mesh import seq_parallel_active
+from ..parallel.mesh import get_mesh, seq_parallel_active
+from ..parallel.pipeline import pipeline_active, stage_blocks
 from .layers import MLP, AdaLN, Gate, Linear
 
 
@@ -450,9 +460,22 @@ class DiT(nn.Module):
     def __init__(self, config, dtype=torch.bfloat16, device=None):
         super().__init__()
         self.config = config
+        # under the pipeline a rank allocates its stage's blocks only: the
+        # others are built on the meta device (nn/layers.py
+        # ``reset_parameters`` still draws their weights from the
+        # generator, so the kept ones are one process's, and drops them;
+        # parallel/sharding.py ``split_stages`` removes them)
+        keep = None
+        if pipeline_active(config):
+            mesh = get_mesh()
+            keep = stage_blocks(config, mesh.pipe, mesh.pipe_index)
         self.blocks = nn.ModuleList(
-            DiTBlock(config, i, local, dtype=dtype, device=device)
+            DiTBlock(config, i, local, dtype=dtype,
+                     device=device if keep is None or i in keep else "meta")
             for i, local in enumerate(local_layer_flags(config)))
+        for i in keep or ():
+            for p in self.blocks[i].parameters():
+                p.pipe_stage = mesh.pipe_index
 
     def _run_blocks(self, start, stop, x, cond, local_mask, global_mask,
                     splash, doc_id, pos_offset, remat):
@@ -488,6 +511,8 @@ class DiT(nn.Module):
                                                   device=x.device)
         args = (cond, local_mask, global_mask, splash, doc_id, pos_offset)
         remat = remat_active(cfg)
+        if pipeline_active(cfg):
+            return self._pipelined(x, *args, remat)
         if (remat and cfg.get("remat_sequenced", False)
                 and local_mask is None and doc_id is None):
             # sequenced remat: one checkpoint per block, recomputed in the
@@ -504,8 +529,36 @@ class DiT(nn.Module):
             return x
         return self._run_blocks(0, n, x, *args, remat)
 
+    def _pipelined(self, x, cond, local_mask, global_mask, splash, doc_id,
+                   pos_offset, remat):
+        """This rank's stage of the blocks in the pipeline's GPipe
+        schedule (parallel/pipeline.py), each block checkpointed under
+        remat, as the JAX package's scanned group runs them."""
+        from ..parallel.mesh import get_mesh
+        from ..parallel.pipeline import pipeline_apply, stage_blocks
+        cfg = self.config
+        if doc_id is not None:
+            raise ValueError(
+                "pipeline_parallel + document packing unsupported")
+        mesh = get_mesh()
+        stage = stage_blocks(cfg, mesh.pipe, mesh.pipe_index)
+
+        def run_stage(h, c):
+            return self._run_blocks(stage.start, stage.stop, h, c,
+                                    local_mask, global_mask, splash, None,
+                                    pos_offset, remat)
+
+        return pipeline_apply(
+            mesh, run_stage, x, cond,
+            int(cfg.get("pipeline_microbatches") or mesh.pipe))
+
     def _cached(self, x, cond, doc_id, kv_cache, write, decoding, write_len):
         cfg = self.config
+        if any(b is None for b in self.blocks):
+            raise NotImplementedError(
+                "a cached forward of a DiT whose blocks are split over "
+                "pipeline stages: the port runs the pipe axis on uncached "
+                "forwards only, as the JAX package's pipeline")
         L = x.shape[1]
         local_mask, global_mask = build_masks(
             cfg, L, doc_id, kv_cache=kv_cache, decoding=decoding,

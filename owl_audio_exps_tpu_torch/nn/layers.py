@@ -192,7 +192,16 @@ class FinalLayer(nn.Module):
 
 
 def reset_parameters(module: nn.Module, generator: torch.Generator):
-    """Draw every Linear's initial weights from ``generator``."""
+    """Draw every Linear's initial weights from ``generator``. A Linear
+    on the meta device (a block another pipeline stage holds) is drawn on
+    the generator's device and dropped again, so the generator's stream
+    reaches the next layer as in one process."""
     for m in module.modules():
-        if isinstance(m, Linear):
+        if not isinstance(m, Linear):
+            continue
+        if m.weight is not None and m.weight.is_meta:
+            m.to_empty(device=generator.device)
+            m.reset_parameters(generator)
+            m.to("meta")
+        else:
             m.reset_parameters(generator)

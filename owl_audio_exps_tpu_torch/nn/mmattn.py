@@ -15,6 +15,12 @@ split back. The conditioning follows DiT-Air: one shared projection
 index 1) gives each stream's (scale, bias, gate) of its attention and its
 MLP.
 
+Under context parallelism (``sequence_parallel``, parallel/mesh.py) the
+streams hold this rank's frames and the interleave runs
+parallel/context.py's halo and ring attention at tpf V + 1, as the JAX
+package routes the MMDiT's uncached attention (nn/mmattn.py:80-82 through
+nn/attn.py:311-330).
+
 ``gradient_checkpointing`` recomputes each block in the backward (one
 checkpoint per block, whatever ``remat_granularity`` says, as in the JAX
 package). A cached forward writes every layer's K and V of all its
@@ -33,8 +39,10 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import dot_attention
 from ..ops.norms import rms_norm
 from ..ops.rope import rope_table_for
+from ..parallel.mesh import seq_parallel_active
 from .attn import (build_masks, cached_attention, local_layer_flags,
-                   remat_active, train_attention, use_splash_path)
+                   remat_active, sp_train_attention, train_attention,
+                   use_splash_path)
 from .layers import MLP, Linear, cond_adaln, cond_gate
 
 
@@ -55,10 +63,12 @@ class MMAttn(nn.Module):
         self.out_projs = nn.ModuleList(Linear(d, d, **kw) for _ in range(2))
 
     def forward(self, x0, x1, mask, splash: bool = False, kv_cache=None,
-                write: bool = False):
-        """x0 [B, n V, d] video, x1 [B, n, d] audio -> (y0, y1). With
-        ``kv_cache`` attends over this layer's ring and, with ``write``,
-        writes all the new tokens' K and V into it."""
+                write: bool = False, pos_offset: int = 0):
+        """x0 [B, n V, d] video, x1 [B, n, d] audio -> (y0, y1), the
+        interleave's first token at position ``pos_offset`` (this rank's
+        under context parallelism). With ``kv_cache`` attends over this
+        layer's ring and, with ``write``, writes all the new tokens' K and
+        V into it."""
         cfg = self.config
         B, n = x1.shape[0], x1.shape[1]
         H = cfg.n_heads
@@ -75,7 +85,8 @@ class MMAttn(nn.Module):
         q, k = rms_norm(q), rms_norm(k)
         rope = rope_table_for(cfg)
         positions = (kv_cache.write_positions(L) if kv_cache is not None
-                     else torch.arange(L, device=x0.device))
+                     else torch.arange(pos_offset, pos_offset + L,
+                                       device=x0.device))
         q, k = rope(q, positions), rope(k, positions)
         q, k, v = (t.to(self.dtype) for t in (q, k, v))
         if kv_cache is not None:
@@ -83,6 +94,8 @@ class MMAttn(nn.Module):
                                    mask, kv_cache)
             if write:
                 kv_cache.write_layer(self.layer_idx, k, v)
+        elif seq_parallel_active(cfg):
+            out = sp_train_attention(cfg, self.local, q, k, v)
         elif splash:
             out = train_attention(cfg, self.local, q, k, v)
         else:
@@ -105,12 +118,12 @@ class MMDiTBlock(nn.Module):
                                   for _ in range(2))
 
     def forward(self, x0, x1, cond0, cond1, mask, splash: bool = False,
-                kv_cache=None, write: bool = False):
+                kv_cache=None, write: bool = False, pos_offset: int = 0):
         a_s0, a_b0, a_g0, m_s0, m_b0, m_g0 = cond0.chunk(6, dim=-1)
         a_s1, a_b1, a_g1, m_s1, m_b1, m_g1 = cond1.chunk(6, dim=-1)
         h0, h1 = self.attn(cond_adaln(x0, a_s0, a_b0),
                            cond_adaln(x1, a_s1, a_b1), mask, splash,
-                           kv_cache, write)
+                           kv_cache, write, pos_offset)
         x0 = x0 + cond_gate(h0, a_g0)
         x1 = x1 + cond_gate(h1, a_g1)
         # the chunked MLP in uncached forwards only
@@ -140,10 +153,12 @@ class MMDiT(nn.Module):
             for i, local in enumerate(local_layer_flags(config)))
 
     def forward(self, x0, x1, cond, kv_cache=None, write: bool = False,
-                decoding: bool = False):
+                decoding: bool = False, pos_offset: int = 0):
         """x0 [b, n V, d], x1 [b, n, d], cond [b, n, d] -> (x0, x1). With
         ``kv_cache`` every block attends over its ring; ``write`` commits
-        every new token (see the module docstring)."""
+        every new token (see the module docstring). Under context
+        parallelism the streams hold this rank's frames, the interleave's
+        first token at ``pos_offset``."""
         cfg = self.config
         L = x0.shape[1] + x1.shape[1]
         splash = kv_cache is None and use_splash_path(cfg, L, x0.device)
@@ -151,7 +166,7 @@ class MMDiT(nn.Module):
         if kv_cache is not None:
             local_mask, global_mask = build_masks(
                 cfg, L, None, kv_cache=kv_cache, decoding=decoding)
-        elif not splash:
+        elif not splash and not seq_parallel_active(cfg):
             local_mask, global_mask = build_masks(cfg, L, None,
                                                   device=x0.device)
         y = self.cond_proj[1](F.silu(cond.to(self.dtype)))
@@ -160,7 +175,7 @@ class MMDiT(nn.Module):
         for idx, local in enumerate(local_layer_flags(cfg)):
             args = (x0, x1, cond0, cond1,
                     local_mask if local else global_mask, splash, kv_cache,
-                    write)
+                    write, pos_offset)
             if remat:
                 x0, x1 = checkpoint(self.blocks[idx], *args,
                                     use_reentrant=False)

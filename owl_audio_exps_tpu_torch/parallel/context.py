@@ -10,10 +10,12 @@ Attention is the only part that looks across slices:
   needs exactly one chunk (C = window * tokens_per_frame tokens) of its
   predecessor's K/V: a halo sent from rank idx to idx + 1, whose
   gradient the backward returns to its owner. On a CUDA tensor the layer
-  runs the band kernel (K2's port) over [halo | slice] with C zero query
-  rows in front, and drops their output (1 / (L_loc / C) more work than
-  the slice alone); the first slice, which has no halo, runs the band
-  over its own tokens. On a CPU tensor it runs ops/local.py
+  runs a band kernel over [halo | slice] with C zero query rows in front,
+  and drops their output (1 / (L_loc / C) more work than the slice
+  alone); the first slice, which has no halo, runs the band over its own
+  tokens. The band is the one the unsplit layer takes (``halo_band_route``):
+  K2's port where the span is frame-exact (dit_v4), K5's with its plan
+  elsewhere (the AV model's tpf 65). On a CPU tensor it runs ops/local.py
   ``chunked_local_attention`` with the halo.
 * **Global causal layers** run ring attention. Step 0 attends the
   slice's own K/V under the frame-causal mask; each of the n - 1 further
@@ -42,29 +44,16 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.band import band_attention
 from ..ops.local import chunked_local_attention
 from ..ops.splash import splash_attention_lse
+from .dist import exchange as _exchange
 from .mesh import Mesh, get_mesh
 
 
 # ------------------------------------------------------------ exchanges
-
-def _exchange(sends, recvs):
-    """One batch of point-to-point transfers: ``sends`` and ``recvs`` are
-    [(tensor, global rank)]; the i-th tensor to or from a peer carries tag
-    i. Waits for all of them."""
-    ops = [dist.P2POp(dist.isend, t, peer, tag=i)
-           for i, (t, peer) in enumerate(sends)]
-    ops += [dist.P2POp(dist.irecv, t, peer, tag=i)
-            for i, (t, peer) in enumerate(recvs)]
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-
 
 def _shift(tensors, mesh: Mesh, step: int):
     """Send each tensor to seq rank idx + step and return what arrives
@@ -77,18 +66,42 @@ def _shift(tensors, mesh: Mesh, step: int):
     return out
 
 
+def _tangents(tangents, meta):
+    """Forward-mode tangents, zeros where an input carries none."""
+    return [torch.zeros(shape, dtype=dtype, device=dev) if g is None else g
+            for g, (shape, dtype, dev) in zip(tangents, meta)]
+
+
 class _Rotate(torch.autograd.Function):
     """Ring rotation: every rank's tensors move to the next seq rank; the
-    backward moves their gradients back."""
+    backward moves their gradients back, and a forward-mode tangent
+    (MeanFlow's jvp, models/gamemft_audio.py) moves with its tensor."""
 
     @staticmethod
-    def forward(ctx, mesh, *tensors):
-        ctx.mesh = mesh
+    def forward(mesh, *tensors):
         return tuple(_shift(tensors, mesh, +1))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh = inputs[0]
+        ctx.meta = [(t.shape, t.dtype, t.device) for t in inputs[1:]]
 
     @staticmethod
     def backward(ctx, *grads):
         return (None, *_shift(grads, ctx.mesh, -1))
+
+    @staticmethod
+    def jvp(ctx, _, *tangents):
+        return tuple(_shift(_tangents(tangents, ctx.meta), ctx.mesh, +1))
+
+
+def _halo_exchange(mesh, C, k, v):
+    n, i, ranks = mesh.seq, mesh.seq_index, mesh.seq_ranks
+    tails = [t[:, :, -C:].contiguous() for t in (k, v)]
+    halos = [torch.zeros_like(t) for t in tails]
+    _exchange([(t, ranks[i + 1]) for t in tails] if i < n - 1 else [],
+              [(h, ranks[i - 1]) for h in halos] if i > 0 else [])
+    return halos
 
 
 class _Halo(torch.autograd.Function):
@@ -96,23 +109,30 @@ class _Halo(torch.autograd.Function):
     them to idx + 1 and receives idx - 1's (zeros on the first rank).
     Returns (k, v, k_halo, v_halo): k and v pass through, so the node is
     on every rank's graph and its backward, which returns the halo's
-    gradient to its owner, runs on every rank."""
+    gradient to its owner, runs on every rank; a forward-mode tangent
+    takes the same exchange."""
 
     @staticmethod
-    def forward(ctx, mesh, C, k, v):
-        ctx.mesh, ctx.C = mesh, C
-        n, i, ranks = mesh.seq, mesh.seq_index, mesh.seq_ranks
-        tails = [t[:, :, -C:].contiguous() for t in (k, v)]
-        halos = [torch.zeros_like(t) for t in tails]
-        _exchange([(t, ranks[i + 1]) for t in tails] if i < n - 1 else [],
-                  [(h, ranks[i - 1]) for h in halos] if i > 0 else [])
-        return k, v, halos[0], halos[1]
+    def forward(mesh, C, k, v):
+        kh, vh = _halo_exchange(mesh, C, k, v)
+        return k.view_as(k), v.view_as(v), kh, vh
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh, ctx.C = inputs[0], inputs[1]
+        ctx.meta = [(t.shape, t.dtype, t.device) for t in inputs[2:]]
+
+    @staticmethod
+    def jvp(ctx, _, __, tk, tv):
+        tk, tv = _tangents((tk, tv), ctx.meta)
+        kh, vh = _halo_exchange(ctx.mesh, ctx.C, tk, tv)
+        return tk.view_as(tk), tv.view_as(tv), kh, vh
 
     @staticmethod
     def backward(ctx, gk, gv, gkh, gvh):
         mesh, C = ctx.mesh, ctx.C
         n, i, ranks = mesh.seq, mesh.seq_index, mesh.seq_ranks
-        tail_grads = [torch.zeros_like(g[:, :, -C:]) for g in (gk, gv)]
+        tail_grads = [g.new_zeros(g[:, :, -C:].shape) for g in (gk, gv)]
         halo_grads = [torch.zeros_like(t) if g is None else g.contiguous()
                       for g, t in zip((gkh, gvh), tail_grads)]
         _exchange([(g, ranks[i - 1]) for g in halo_grads] if i > 0 else [],
@@ -140,13 +160,42 @@ def local_attention_with_halo(q, k, v, k_halo, v_halo, tokens_per_frame: int,
                                        halo_kv=(k_halo, v_halo),
                                        halo_valid=halo_valid)
     if not halo_valid:
-        return band_attention(q, k, v, tokens_per_frame, window,
-                              logit_bound=logit_bound)
+        return halo_band(q, k, v, tokens_per_frame, window, logit_bound)
     q2 = torch.cat([torch.zeros_like(q[:, :, :C]), q], 2)
     k2 = torch.cat([k_halo.to(k.dtype), k], 2)
     v2 = torch.cat([v_halo.to(v.dtype), v], 2)
-    return band_attention(q2, k2, v2, tokens_per_frame, window,
-                          logit_bound=logit_bound)[:, :, C:]
+    return halo_band(q2, k2, v2, tokens_per_frame, window,
+                     logit_bound)[:, :, C:]
+
+
+def halo_band_route(n_tokens: int, tokens_per_frame: int, window: int):
+    """The band kernel a slice's local layer takes over ``n_tokens``
+    ([halo | slice] or the first slice), as the unsplit layer routes its
+    ``auto`` band (nn/attn.py ``attention_route``): K2's port (ops/band.py)
+    where the span is frame-exact (dit_v4's tpf 64), K5's (ops/band2.py)
+    with ``best_plan``'s plan elsewhere (the AV model's tpf 65: (520, 2)
+    at 26,000 and 24,960 tokens). Returns ("band", None) or ("band2",
+    plan)."""
+    from ..ops.band import use_frame_exact
+    from ..ops.band2 import best_plan
+    if not use_frame_exact(window * tokens_per_frame, tokens_per_frame):
+        plan = best_plan(n_tokens, tokens_per_frame, window)
+        if plan is not None:
+            return "band2", plan
+    return "band", None
+
+
+def halo_band(q, k, v, tokens_per_frame: int, window: int,
+              logit_bound: Optional[float] = None):
+    """The causal band of ``window`` frames over q, k, v through the kernel
+    ``halo_band_route`` names."""
+    route, plan = halo_band_route(q.shape[2], tokens_per_frame, window)
+    if route == "band2":
+        from ..ops.band2 import band2_attention
+        return band2_attention(q, k, v, tokens_per_frame, window, *plan,
+                               logit_bound=logit_bound)
+    return band_attention(q, k, v, tokens_per_frame, window,
+                          logit_bound=logit_bound)
 
 
 def sp_local_attention(q, k, v, tokens_per_frame: int, window: int,
@@ -196,8 +245,11 @@ def _ring_step(qs, kr, vr, out, lse, tokens_per_frame, valid):
 def ring_step(qs, kr, vr, out, lse, tokens_per_frame: int, valid: bool):
     """Ring step r >= 1: the unmasked partial over the K/V that arrived,
     merged into (out, lse). Checkpointed when autograd records: its
-    backward recomputes the partial (one more K4 forward)."""
-    if torch.is_grad_enabled():
+    backward recomputes the partial (one more K4 forward); not inside a
+    torch.func transform (MeanFlow's jvp), whose tensors the recompute
+    would not see."""
+    if torch.is_grad_enabled() and \
+            not torch._C._are_functorch_transforms_active():
         return checkpoint(_ring_step, qs, kr, vr, out, lse, tokens_per_frame,
                           valid, use_reentrant=False)
     return _ring_step(qs, kr, vr, out, lse, tokens_per_frame, valid)

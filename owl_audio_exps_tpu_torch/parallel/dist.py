@@ -66,11 +66,27 @@ def cleanup():
 
 @torch.no_grad()
 def broadcast_from_main(module: torch.nn.Module):
-    """Put every rank on rank 0's parameters and buffers."""
+    """Put every rank on rank 0's parameters and buffers, except a
+    pipeline stage's blocks (each rank draws its own from the same seed;
+    the others it does not hold)."""
     if process_count() <= 1:
         return
     for t in list(module.parameters()) + list(module.buffers()):
-        dist.broadcast(t.data, src=0)
+        if not (t.is_meta or hasattr(t, "pipe_stage")):
+            dist.broadcast(t.data, src=0)
+
+
+def exchange(sends, recvs):
+    """One batch of point-to-point transfers: ``sends`` and ``recvs`` are
+    [(tensor, global rank)]; the i-th tensor to or from a peer carries tag
+    i. Waits for all of them."""
+    ops = [dist.P2POp(dist.isend, t, peer, tag=i)
+           for i, (t, peer) in enumerate(sends)]
+    ops += [dist.P2POp(dist.irecv, t, peer, tag=i)
+            for i, (t, peer) in enumerate(recvs)]
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
 
 
 # ------------------------------------------------ differentiable collectives
@@ -190,3 +206,84 @@ def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
     """The identity, whose backward sums the gradient over the group (the
     replicated input of a column-parallel layer)."""
     return x if group is None else _CopyToGroup.apply(x, group)
+
+
+# ------------------------------------------------- the pipe axis's transfers
+#
+# A pipeline stage hands its activation to the next stage and takes the
+# previous stage's: the transfer of the JAX package's per-tick
+# ``ppermute`` (parallel/pipeline.py), whose transpose, the reverse
+# transfer, carries the backward. Each is one ``batch_isend_irecv``.
+
+
+class _SendNext(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, peer):
+        ctx.peer, ctx.shape, ctx.dtype = peer, h.shape, h.dtype
+        ctx.device = h.device
+        exchange([(h.contiguous(), peer)], [])
+        return h.new_empty(0)
+
+    @staticmethod
+    def backward(ctx, _):
+        g = torch.empty(ctx.shape, dtype=ctx.dtype, device=ctx.device)
+        exchange([], [(g, ctx.peer)])
+        return g, None
+
+
+class _RecvPrev(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, anchor, peer, shape, dtype):
+        ctx.peer = peer
+        h = torch.empty(shape, dtype=dtype, device=anchor.device)
+        exchange([], [(h, peer)])
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        exchange([(g.contiguous(), ctx.peer)], [])
+        return None, None, None, None
+
+
+def send_to_next(h: torch.Tensor, peer: int) -> torch.Tensor:
+    """Send ``h`` to the global rank ``peer`` (the next stage); returns an
+    empty token whose backward receives ``h``'s gradient from ``peer``.
+    The token must reach the loss (``pipe_broadcast`` takes it)."""
+    return _SendNext.apply(h, peer)
+
+
+def recv_from_prev(anchor: torch.Tensor, peer: int, shape, dtype
+                   ) -> torch.Tensor:
+    """The activation of ``shape`` and ``dtype`` that the global rank
+    ``peer`` (the previous stage) sends; the backward sends its gradient
+    back. ``anchor`` is an empty tensor on the device that requires grad
+    when autograd records, so that the backward runs."""
+    return _RecvPrev.apply(anchor, peer, tuple(shape), dtype)
+
+
+class _PipeBroadcast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, src, group, last, *tokens):
+        ctx.last, ctx.n_tokens = last, len(tokens)
+        ctx.token_meta = [(t.dtype, t.device) for t in tokens]
+        y = y.contiguous().clone() if last else torch.empty_like(y)
+        dist.broadcast(y, src=src, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        tokens = [torch.zeros(0, dtype=d, device=dev)
+                  for d, dev in ctx.token_meta]
+        return (g if ctx.last else None, None, None, None, *tokens)
+
+
+def pipe_broadcast(y: torch.Tensor, src: int, group, last: bool, tokens
+                   ) -> torch.Tensor:
+    """The last stage's ``y`` on every rank of the pipe ``group`` (``src``
+    its global rank; elsewhere ``y`` gives the shape and dtype only): the
+    JAX package's psum of the output, zero on every stage but the last.
+    Every pipe rank then computes the same loss from it, so the transpose
+    hands the last stage the output's gradient once; the ``tokens`` of
+    this rank's sends take none, which runs their backward (the stage's
+    own)."""
+    return _PipeBroadcast.apply(y, src, group, last, *tokens)

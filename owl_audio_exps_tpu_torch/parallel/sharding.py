@@ -27,6 +27,17 @@ reduce-scattered, parallel/dist.py) and runs column-parallel (``qkv``,
 inserts) by the tensor axis of its weight. ``gather_params`` rebuilds
 the full tensors; ``cache_shardings`` / ``shard_cache`` lay a ring
 cache's heads over tensor and its batch over data.
+
+The pipe axis (parallel/pipeline.py): JAX splits the ``scan_layers``
+group stack over the stages (``spec_for_path``: a leaf under
+``groups/`` shards its leading group dim over ``pipe`` and the rules
+above apply to the per-group dims). The port keeps its blocks unrolled,
+so there the rule reads "block i lives on stage i // (n / K)":
+``shard_params`` drops the blocks of the other stages from a DiT whose
+forward runs the pipeline (``pipeline_active``) and tags every block
+parameter it keeps with its ``pipe_stage``; the fsdp and tensor rules
+then apply to what stays. ``gather_stages`` collects every stage's
+tensors by name.
 """
 
 from __future__ import annotations
@@ -42,7 +53,8 @@ from ..utils.weights import _LISTS
 from .dist import all_gather, all_reduce, copy_to_group, gather_dim
 from .mesh import Mesh, get_mesh
 
-AXIS_DATA, AXIS_FSDP, AXIS_TENSOR = "data", "fsdp", "tensor"
+AXIS_DATA, AXIS_FSDP, AXIS_TENSOR, AXIS_PIPE = ("data", "fsdp", "tensor",
+                                             "pipe")
 
 # ordered: first match wins (JAX layout: kernels [in, out])
 RULES = [
@@ -64,23 +76,31 @@ def _sizes(mesh) -> Dict[str, int]:
     if isinstance(mesh, dict):
         return mesh
     return dict(data=mesh.data, fsdp=mesh.fsdp, tensor=mesh.tensor,
-                seq=mesh.seq)
+                seq=mesh.seq, pipe=mesh.pipe)
 
 
 def spec_for_path(path: str, shape, mesh) -> Tuple[Optional[str], ...]:
     """Rule lookup with a divisibility guard: a mesh axis only applies to
     a dimension it divides evenly (odd-sized embeddings replicate). The
-    JAX package's function over the JAX layout, without its pipe
-    stacking (the port's blocks are unrolled and its mesh has no pipe);
-    ``mesh`` is a Mesh or a dict of axis sizes."""
+    JAX package's function over the JAX layout: with an engaged pipe
+    axis a scan-stacked group leaf (under ``groups/``, leading dim the
+    group count) shards that dim over ``pipe`` (where it divides) and the
+    rules apply to the per-group dims. ``mesh`` is a Mesh or a dict of
+    axis sizes."""
     sizes = _sizes(mesh)
+    n_pipe = sizes.get(AXIS_PIPE, 1)
+    stacked = n_pipe > 1 and "groups/" in path and len(shape) >= 1
+    inner = tuple(shape[1:]) if stacked else tuple(shape)
+    lead = ((AXIS_PIPE if shape[0] % n_pipe == 0 else None),) \
+        if stacked else ()
     for pattern, spec in RULES:
         if re.search(pattern, path):
-            if len(spec) > len(shape):
+            if len(spec) > len(inner):
                 break
-            return tuple(axis if axis is None or shape[i] % sizes[axis] == 0
-                         else None for i, axis in enumerate(spec))
-    return ()
+            return lead + tuple(
+                axis if axis is None or inner[i] % sizes[axis] == 0
+                else None for i, axis in enumerate(spec))
+    return lead
 
 
 def jax_path(name: str, ndim: int) -> str:
@@ -188,7 +208,9 @@ def param_spec(name: str, shape: Sequence[int], mesh,
     kernel = len(shape) == 2 and name.endswith("weight")
     jshape = shape[::-1] if kernel else shape
     path = jax_path(name, len(shape))
-    jspec = spec_for_path(path, jshape, sizes)
+    # the port's unrolled blocks: the stage split is shard_params' (the
+    # fsdp and tensor rules of a stage's block are the unstacked ones)
+    jspec = spec_for_path(path, jshape, dict(sizes, pipe=1))
     # an axis of one rank shards nothing
     jspec = tuple(a if a is not None and sizes[a] > 1 else None
                   for a in jspec) + (None,) * (len(shape) - len(jspec))
@@ -244,17 +266,45 @@ def _check_tensor_layout(module: torch.nn.Module, specs, mesh):
 
 def mesh_coords_of(mesh: Mesh) -> Dict[str, int]:
     return dict(data=mesh.data_index, fsdp=mesh.fsdp_index,
-                tensor=mesh.tensor_index, seq=mesh.seq_index)
+                tensor=mesh.tensor_index, seq=mesh.seq_index,
+                pipe=mesh.pipe_index)
+
+
+def split_stages(module: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
+    """Drop from every DiT of ``module`` whose forward runs the pipeline
+    the blocks of the other stages (built on the meta device when the DiT
+    was made under this mesh, nn/attn.py), and tag the parameters of the
+    blocks kept with ``pipe_stage`` (in place)."""
+    from ..nn.attn import DiT
+    from .pipeline import pipeline_active, stage_blocks
+    for m in module.modules():
+        if not (isinstance(m, DiT) and pipeline_active(m.config, mesh)):
+            continue
+        keep = stage_blocks(m.config, mesh.pipe, mesh.pipe_index)
+        for i in range(len(m.blocks)):
+            if i not in keep:
+                m.blocks[i] = None
+            elif m.blocks[i] is not None:
+                for p in m.blocks[i].parameters():
+                    p.pipe_stage = mesh.pipe_index
+    return module
+
+
+def stage_of(p: torch.Tensor) -> Optional[int]:
+    """The pipeline stage that alone holds ``p`` (None: every stage)."""
+    return getattr(p, "pipe_stage", None)
 
 
 @torch.no_grad()
 def shard_params(module: torch.nn.Module, mesh: Optional[Mesh] = None,
                  n_heads: Optional[int] = None) -> torch.nn.Module:
-    """Keep this rank's slice of every sharded parameter of ``module`` (in
-    place; each becomes a new Parameter tagged with its ``shard_spec``).
-    Every rank must hold the same full weights before. Returns
-    ``module``."""
+    """Keep this rank's stage of a pipelined DiT's blocks
+    (``split_stages``) and this rank's slice of every sharded parameter of
+    ``module`` (in place; each becomes a new Parameter tagged with its
+    ``shard_spec``, and keeps its ``pipe_stage``). The ranks of a stage
+    must hold the same full weights before. Returns ``module``."""
     mesh = mesh or get_mesh()
+    split_stages(module, mesh)
     specs = param_specs(module, mesh, n_heads)
     _check_tensor_layout(module, specs, mesh)
     coords = mesh_coords_of(mesh)
@@ -267,6 +317,8 @@ def shard_params(module: torch.nn.Module, mesh: Optional[Mesh] = None,
         new = torch.nn.Parameter(spec.shard(p.detach(), coords),
                                  requires_grad=p.requires_grad)
         new.shard_spec = spec
+        if stage_of(p) is not None:
+            new.pipe_stage = stage_of(p)
         setattr(owner, leaf, new)
     return module
 
@@ -289,12 +341,104 @@ def gather_tensor(t: torch.Tensor, spec: Optional[ShardSpec],
 def gather_params(module: torch.nn.Module, mesh: Optional[Mesh] = None,
                   device=None) -> Dict[str, torch.Tensor]:
     """The full ``state_dict`` of a sharded module, on every rank (one
-    parameter at a time, each moved to ``device`` when given)."""
+    parameter at a time, each moved to ``device`` when given); with a
+    pipe axis every stage's blocks too (``gather_stages``, through the
+    host: the other stages' tensors arrive on the CPU unless ``device``
+    is given)."""
     mesh = mesh or get_mesh()
     out = {}
     for name, p in module.named_parameters():
         full = gather_tensor(p.detach(), spec_of(p), mesh)
         out[name] = full if device is None else full.to(device)
+    if mesh.pipe_group is not None:
+        merged = gather_stages({n: t.cpu() for n, t in out.items()}, mesh)
+        out = {n: out[n] if n in out else
+               (t if device is None else t.to(device))
+               for n, t in merged.items()}
+    return out
+
+
+def gather_stage_list(obj, mesh: Optional[Mesh] = None) -> list:
+    """Every pipeline stage's ``obj`` (picklable; tensors best on the
+    CPU), in stage order, on every rank of this rank's pipe group
+    ([obj] without a pipe axis). A collective over the pipe group."""
+    import torch.distributed as dist
+    mesh = mesh or get_mesh()
+    if mesh.pipe_group is None:
+        return [obj]
+    parts = [None] * mesh.pipe
+    dist.all_gather_object(parts, obj, group=mesh.pipe_group)
+    return parts
+
+
+class _Slot(int):
+    """A tensor's place in ``collect_stage_list``'s transfer order."""
+
+
+def collect_stage_list(obj, mesh: Optional[Mesh] = None) -> Optional[list]:
+    """Every pipeline stage's ``obj`` (picklable; tensors anywhere in its
+    dicts, lists and tuples), in stage order, on the first rank of this
+    rank's pipe group, and None on the others ([obj] without a pipe
+    axis). The structure travels pickled, the tensors one at a time from
+    each stage to the first (through the card under NCCL), each landing
+    on the CPU. A collective over the pipe group."""
+    import torch.distributed as dist
+    mesh = mesh or get_mesh()
+    if mesh.pipe_group is None:
+        return [obj]
+    tensors = []
+
+    def strip(x):
+        if torch.is_tensor(x):
+            tensors.append(x)
+            return _Slot(len(tensors) - 1)
+        if isinstance(x, dict):
+            return {k: strip(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(strip(v) for v in x)
+        return x
+
+    skeleton = strip(obj)
+    first = mesh.pipe_ranks[0]
+    is_first = mesh.pipe_index == 0
+    heads = [None] * mesh.pipe if is_first else None
+    dist.gather_object((skeleton, [(t.shape, t.dtype) for t in tensors]),
+                       heads, dst=first, group=mesh.pipe_group)
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend(mesh.pipe_group) == "nccl"
+              else torch.device("cpu"))
+    if not is_first:
+        for t in tensors:
+            dist.send(t.detach().to(device).contiguous(), first)
+        return None
+    parts = [obj]
+    for stage, (skel, shapes) in enumerate(heads[1:], 1):
+        got = []
+        for shape, dtype in shapes:
+            buf = torch.empty(shape, dtype=dtype, device=device)
+            dist.recv(buf, mesh.pipe_ranks[stage])
+            got.append(buf.cpu())
+
+        def fill(x):
+            if isinstance(x, _Slot):
+                return got[x]
+            if isinstance(x, dict):
+                return {k: fill(v) for k, v in x.items()}
+            if isinstance(x, (list, tuple)):
+                return type(x)(fill(v) for v in x)
+            return x
+
+        parts.append(fill(skel))
+    return parts
+
+
+def gather_stages(tree: Dict[str, object], mesh: Optional[Mesh] = None
+                  ) -> Dict[str, object]:
+    """Every pipeline stage's ``tree`` ({name: value}) merged into one
+    dict on every rank of this rank's pipe group (``gather_stage_list``)."""
+    out = {}
+    for part in gather_stage_list(dict(tree), mesh):
+        out.update(part)
     return out
 
 

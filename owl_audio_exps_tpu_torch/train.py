@@ -19,6 +19,14 @@ sharded over the four cards; parallel/sharding.py):
 
     torchrun --nproc_per_node 4 -m owl_audio_exps_tpu_torch.train --config_path configs/dit_v4_5B.yml
 
+The pipe axis (parallel/pipeline.py) runs a config with
+``pipeline_parallel: true`` and ``mesh: {pipe: K}`` (mesh_smoke.py
+``--case pipe`` trains the 5B so on three cards), context parallelism
+the AV model (``sequence_parallel: true``, ``mesh: {seq: 4}``;
+sp_smoke.py takes configs/av_v5_8x8_weak.yml), and the distillation
+trainers run under any mesh of data, fsdp and tensor (mesh_smoke.py
+``--case distill``).
+
 What cannot run as configured is cut, and each cut is printed
 (``port_cuts``): a
 data loader that cannot read its data becomes the synthetic source with
@@ -35,7 +43,7 @@ ported: ``cod`` and ``sequence_packing`` are kept where their
 ``local_waveform`` except for an ``audio_rft`` config that names no audio
 VAE (``vae_ckpt_path`` / ``vae_cfg_path``, as configs/audio.yml), whose
 waveforms would reach the model unencoded, and which takes
-``synthetic_audio_latent``; a mesh axis (fsdp, tensor, seq) wider than
+``synthetic_audio_latent``; a mesh axis (fsdp, tensor, seq, pipe) wider than
 the processes that were started shrinks to what divides them; and an
 eval sampler that the trainer's eval does not run is dropped (``rft`` and
 the distillation trainers run the cached video samplers, ``av`` and
@@ -121,10 +129,10 @@ def port_cuts(cfg, world_size: int) -> List[str]:
         cuts.append(f"{key} {data_id!r} -> {synthetic!r} {shapes} ({why})")
         tc[key], tc[kw_key] = synthetic, shapes
     mesh = dict((tc.get("mesh") or {}).items())
-    # the fsdp, tensor and seq axes (in that order) keep what divides the
-    # processes the data axis leaves them
+    # the fsdp, tensor, seq and pipe axes (in that order) keep what
+    # divides the processes the data axis leaves them
     budget = max(world_size // max(mesh.get("data", 1), 1), 1)
-    for axis in ("fsdp", "tensor", "seq"):
+    for axis in ("fsdp", "tensor", "seq", "pipe"):
         size = mesh.get(axis, 1)
         new = math.gcd(size, budget)
         budget //= new

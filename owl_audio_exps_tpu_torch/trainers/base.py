@@ -22,7 +22,8 @@ Under the fsdp and tensor axes ``make_state`` keeps each rank's slice of
 the parameters, the EMA and (as the optimizer creates them) every
 moment, by the rules of parallel/sharding.py, as the JAX package's
 ``_opt_shardings`` lays an optax state like its params; every rank first
-builds the same full weights from the seed. The gradients and metrics
+builds the same full weights from the seed (under the pipe axis, its
+stage's blocks only). The gradients and metrics
 are summed over the ranks that hold the same elements and divided by
 the number of batch ranks before the clip and the optimizer, so every
 rank takes the same step: seq ranks hold shares of one loss, batch ranks
@@ -31,9 +32,14 @@ from the reduce-scatter of its gather (parallel/dist.py). Tensor ranks
 hold the same gradient of every parameter they share: the column-
 parallel layers' replicated input sums its gradient over tensor in the
 backward, so no shared parameter's gradient is partial there and none is
-summed over tensor. Global norms count each logical element once. Rank 0
-alone logs and writes the full logical state (gathered from every rank);
-every rank resumes, re-slicing it onto the live mesh.
+summed over tensor. The pipe ranks (parallel/pipeline.py) take the same
+batch; a pipe rank keeps its stage's blocks (with their EMA and moments)
+and every parameter the stages share, whose whole gradient it holds (the
+pipeline sums the stages' parts as they leave the stack), so none is
+summed over pipe either. Global norms count each logical element once.
+Rank 0 alone logs and writes the full logical state (gathered from every
+rank and every stage, the optimizer's moments numbered as one process
+numbers them); every rank resumes, re-slicing it onto the live mesh.
 """
 
 from __future__ import annotations
@@ -51,9 +57,11 @@ from ..data import get_loader
 from ..data.prefetch import device_prefetch
 from ..muon import AdamW, init_muon
 from ..parallel.dist import barrier, is_main, process_count
-from ..parallel.mesh import MeshConfig, get_mesh, make_mesh
-from ..parallel.sharding import (gather_tensor, mesh_coords_of,
-                                 shard_params, spec_of)
+from ..parallel.mesh import (MeshConfig, get_mesh, make_mesh,
+                             seq_parallel_active)
+from ..parallel.sharding import (collect_stage_list, gather_tensor,
+                                 mesh_coords_of, shard_params, spec_of,
+                                 stage_of)
 from ..schedulers import get_scheduler_cls
 from ..utils.checkpoints import (load_checkpoint, save_checkpoint,
                                  save_clean_export)
@@ -92,20 +100,37 @@ def build_optimizer(train_cfg, named_params):
                  weight_decay=kwargs.pop("weight_decay", 0.01))
 
 
-def global_norm(tensors, specs=None) -> torch.Tensor:
+def global_norm(tensors, specs=None, stages=None) -> torch.Tensor:
     """The L2 norm of ``tensors``. With ``specs`` (one ShardSpec or None
-    each) that shard any, the tensors are this rank's slices: each
-    slice's squares are weighted by its shard count over the world size
-    and summed over every rank, so each logical element counts once."""
+    each) that shard any, or ``stages`` (each tensor's pipeline stage, or
+    None where every stage holds it) that name any, the tensors are this
+    rank's slices: each slice's squares are weighted by the number of
+    ranks that hold a copy of it (the world size over its shard count,
+    over the pipe size for a stage's tensor) and summed over every rank,
+    so each logical element counts once."""
     tensors = list(tensors)
     specs = list(specs) if specs is not None else [None] * len(tensors)
-    if not any(s is not None and s.sharded for s in specs):
+    stages = list(stages) if stages is not None else [None] * len(tensors)
+    if not any(s is not None and s.sharded for s in specs) \
+            and all(st is None for st in stages):
         return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
     world = process_count()
-    total = sum(t.float().pow(2).sum() * ((s.n_shards if s else 1) / world)
-                for t, s in zip(tensors, specs))
+    pipe = get_mesh().pipe
+    total = sum(t.float().pow(2).sum()
+                * ((s.n_shards if s else 1) * (pipe if st is not None else 1)
+                   / world)
+                for t, s, st in zip(tensors, specs, stages))
+    total = torch.as_tensor(total, dtype=torch.float32,
+                            device=tensors[0].device)
     dist.all_reduce(total)
     return torch.sqrt(total)
+
+
+def layout_norm(tensors, params) -> torch.Tensor:
+    """``global_norm`` of ``tensors`` (the parameters or their gradients),
+    each laid out as its parameter's ShardSpec and pipeline stage say."""
+    return global_norm(tensors, [spec_of(p) for p in params],
+                       [stage_of(p) for p in params])
 
 
 @torch.no_grad()
@@ -114,7 +139,7 @@ def clip_grad_norm(params, max_norm: float) -> torch.Tensor:
     JAX package's step does; returns the norm before clipping."""
     params = [p for p in params if p.grad is not None]
     grads = [p.grad for p in params]
-    gnorm = global_norm(grads, [spec_of(p) for p in params])
+    gnorm = layout_norm(grads, params)
     scale = torch.clamp(max_norm / (gnorm + 1e-6), max=1.0)
     for g in grads:
         g.mul_(scale)
@@ -148,6 +173,71 @@ def _map_opt_state(optimizer, fn, state_dict=None):
     return sd
 
 
+def _opt_names(optimizer, named_params) -> Dict:
+    """{part: [the parameter name of each moment index]} of the port's
+    optimizer (part None for one torch optimizer)."""
+    name_of = {id(p): n for n, p in named_params}
+    return {key: [name_of[id(p)] for g in opt.param_groups
+                  for p in g["params"]]
+            for key, opt in _opt_parts(optimizer)}
+
+
+def _opt_by_name(state_dict, names) -> Dict:
+    """An optimizer state_dict keyed by parameter name: {part: (group
+    hyper-parameters, {name: state entry})}. Each part holds one
+    parameter group."""
+    out = {}
+    for key, part_names in names.items():
+        part = state_dict if key is None else state_dict[key]
+        (group,) = part["param_groups"]
+        out[key] = ({k: v for k, v in group.items() if k != "params"},
+                    {part_names[i]: e for i, e in part["state"].items()})
+    return out
+
+
+def _opt_from_names(parts, names) -> Dict:
+    """The torch state_dict numbered by ``names`` ({part: [name of each
+    index]}) from by-name states (``_opt_by_name``; several merge)."""
+    out = {}
+    for key, part_names in names.items():
+        entries = {}
+        for part in parts:
+            entries.update(part[key][1])
+        sd = {"state": {i: entries[n] for i, n in enumerate(part_names)
+                        if n in entries},
+              "param_groups": [dict(parts[0][key][0],
+                                    params=list(range(len(part_names))))]}
+        if key is None:
+            return sd
+        out[key] = sd
+    return out
+
+
+def _saved_opt_names(ema, live, train_cfg) -> Dict:
+    """{part: [name of each moment index]} of a checkpoint's optimizer
+    state, which numbers the whole model's parameters (the EMA's keys, in
+    order) as one process does, part by part as the live optimizer's
+    parts (``live``) split them (Muon's labels, muon.py)."""
+    names = list(ema)
+    if list(live) == [None]:
+        return {None: names}
+    from ..muon import muon_adamw_labels
+    keys = dict((train_cfg.opt_kwargs or {}).items()).get("adamw_keys")
+    labels = muon_adamw_labels([(n, ema[n]) for n in names], keys)
+    return {part: [n for n in names if labels[n] == part] for part in live}
+
+
+def _merge_stage_orders(orders, staged) -> List[str]:
+    """One process's parameter order from every stage's: the names every
+    stage shares around the stages' own (``staged``) in stage order."""
+    first = orders[0]
+    idx = [i for i, n in enumerate(first) if n in staged]
+    if not idx:
+        return list(first)
+    middle = [n for order in orders for n in order if n in staged]
+    return first[:idx[0]] + middle + first[idx[-1] + 1:]
+
+
 class BaseTrainer:
     """Holds configs, device, logging and checkpoint plumbing."""
 
@@ -174,13 +264,14 @@ class BaseTrainer:
     # ------------------------------------------------------------- state
     @property
     def sharded(self) -> bool:
-        """Whether the mesh shards the parameters (fsdp or tensor > 1)."""
-        return self.mesh.fsdp * self.mesh.tensor > 1
+        """Whether the mesh may split the parameters (fsdp, tensor or pipe
+        > 1)."""
+        return self.mesh.fsdp * self.mesh.tensor * self.mesh.pipe > 1
 
     def make_state(self, model: torch.nn.Module) -> TrainState:
         """The state of ``model`` (the full weights, alike on every rank):
-        sharded by the rules under the fsdp and tensor axes, then the EMA
-        and the optimizer over the slices."""
+        split by the rules under the fsdp, tensor and pipe axes, then the
+        EMA and the optimizer over what this rank keeps."""
         if self.sharded:
             shard_params(model, self.mesh)
         ema_dtype = self.train_cfg.get("ema_dtype")
@@ -227,8 +318,7 @@ class BaseTrainer:
                     model.named_parameters(), watch,
                     bins=int(self.train_cfg.get("watch_bins") or 64)))
             opt.step()
-            metrics["param_norm"] = global_norm(
-                params, [spec_of(p) for p in params])
+            metrics["param_norm"] = layout_norm(params, params)
             for name, p in model.named_parameters():
                 e = state.ema[name]
                 e.mul_(beta).add_(p.to(e.dtype) * (1.0 - beta))
@@ -239,14 +329,19 @@ class BaseTrainer:
     @torch.no_grad()
     def reduce_across_ranks(self, params, metrics: Dict):
         """Sum the gradients and the metrics over the ranks that hold the
-        same elements (every rank of this tensor index; for an fsdp shard,
-        whose gradient the reduce-scatter summed over fsdp already, the
-        data x seq ranks of this fsdp and tensor index) and divide by the
-        number of batch ranks (a no-op for one process)."""
+        same elements (every rank of this tensor and pipe index; for an
+        fsdp shard, whose gradient the reduce-scatter summed over fsdp
+        already, the data x seq ranks of this fsdp, tensor and pipe index)
+        and divide by the number of batch ranks, times the seq ranks
+        where each holds the whole loss (no sequence parallelism); a no-op
+        for one process."""
         if process_count() <= 1:
             return
         mesh = self.mesh
-        n_batch = mesh.batch_ranks
+        # without sequence parallelism every seq rank holds the whole loss
+        # of its batch, as the JAX package replicates it over seq
+        n_batch = mesh.batch_ranks * (
+            1 if seq_parallel_active(self.model_cfg) else mesh.seq)
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -268,11 +363,15 @@ class BaseTrainer:
     def ckpt_path(self, step: int) -> str:
         return os.path.join(self.train_cfg.checkpoint_dir, f"step_{step}.pt")
 
-    def logical_state(self, state: TrainState) -> Dict:
+    def logical_state(self, state: TrainState) -> Optional[Dict]:
         """The checkpoint payload with every sharded tensor gathered to
-        its full shape (a collective under the fsdp and tensor axes, on
-        the CPU there; every rank must call it)."""
-        specs = {n: spec_of(p) for n, p in state.model.named_parameters()}
+        its full shape (a collective under the fsdp, tensor and pipe
+        axes, on the CPU there; every rank must call it). Under the pipe
+        axis every stage's tensors are merged on the first rank of each
+        pipe group (``collect_stage_list``), and the other ranks get
+        None. The moments are numbered as one process numbers them."""
+        named = list(state.model.named_parameters())
+        specs = {n: spec_of(p) for n, p in named}
         cpu = "cpu" if self.sharded else None
 
         def full(t, spec):
@@ -284,6 +383,29 @@ class BaseTrainer:
         ema = {n: full(e, specs[n]) for n, e in state.ema.items()}
         opt = _map_opt_state(state.optimizer,
                              lambda t, p: full(t, spec_of(p)))
+        if self.mesh.pipe > 1:
+            names = _opt_names(state.optimizer, named)
+            staged = {n for n, p in named if stage_of(p) is not None}
+            parts = collect_stage_list(
+                dict(params=params, ema=ema, names=names, staged=staged,
+                     opt=_opt_by_name(opt, names)), self.mesh)
+            if parts is None:
+                return None
+            staged = set().union(*(part["staged"] for part in parts))
+
+            def merged(key):
+                out = {}
+                for part in parts:
+                    out.update(part[key])
+                order = _merge_stage_orders([list(part[key])
+                                             for part in parts], staged)
+                return {n: out[n] for n in order}
+
+            params, ema = merged("params"), merged("ema")
+            names = {key: _merge_stage_orders(
+                [part["names"][key] for part in parts], staged)
+                for key in names}
+            opt = _opt_from_names([part["opt"] for part in parts], names)
         return {"params": params, "ema_params": ema, "opt_state": opt,
                 "step": state.step}
 
@@ -308,14 +430,25 @@ class BaseTrainer:
         def local(t, spec):
             return t if spec is None else spec.shard(t, coords)
 
+        # a pipeline stage takes its own blocks' tensors
+        own = state.model.state_dict()
         state.model.load_state_dict(
             {n: local(t, specs.get(n))
-             for n, t in restored["params"].items()}, strict=True)
+             for n, t in restored["params"].items() if n in own},
+            strict=True)
         with torch.no_grad():
             for name, e in state.ema.items():
                 e.copy_(local(restored["ema_params"][name], specs[name]))
         opt = state.optimizer
         state_dict = restored["opt_state"]
+        if self.mesh.pipe > 1:
+            # the moments are numbered as one process numbers them; a
+            # stage takes its own, renumbered
+            live = _opt_names(opt, state.model.named_parameters())
+            saved = _saved_opt_names(restored["ema_params"], live,
+                                     self.train_cfg)
+            state_dict = _opt_from_names(
+                [_opt_by_name(state_dict, saved)], live)
         _map_opt_state(opt, lambda t, p: local(t, spec_of(p)),
                        state_dict=state_dict)
         opt.load_state_dict(state_dict)

@@ -225,7 +225,8 @@ class CausVidTrainer(DistillTrainerBase):
             log["time"] = self.timer.hit()
             if do_sample:
                 log.update(self.eval_step(state))
-            self.logger.log(log, step=self.total_step_counter)
+            if self.is_main:
+                self.logger.log(log, step=self.total_step_counter)
             if do_save:
                 self.save(state)
             self.timer.reset()

@@ -14,9 +14,26 @@ norm to 10 and runs AdamW or Adam with optax's arithmetic; the student's
 step then moves its EMA with beta 0.99.
 
 The trainers draw their noise from ``self.generator`` (on the trainer's
-device, seeded per trainer as the JAX trainers seed their keys); every
-loss and rollout also takes its draws as an argument, so that a caller
-can hand in the JAX trainer's draws.
+device, seeded per trainer as the JAX trainers seed their keys, plus the
+batch rank); every loss and rollout also takes its draws as an argument,
+so that a caller can hand in the JAX trainer's draws. A draw that sets
+how many forwards a step runs (the Self-Forcing rollout's Euler steps)
+comes from ``self.shared_generator``, seeded alike on every rank, so
+that the ranks of a sharded step run the same collectives.
+
+Several processes (``torchrun``; the mesh of ``train.mesh``,
+parallel/mesh.py) run the reference's DDP layout at ``{data: n}`` and
+any mesh of data, fsdp and tensor: every rank builds the three cores
+alike from the seeds (and the checkpoints), then keeps its slices by the
+rules of parallel/sharding.py, as the JAX trainer places them
+(owl_audio_exps_tpu/trainers/distill_common.py:110-150); the optimizers
+and the EMA hold the slices. Each batch rank reads its own shard of the
+data (trainers/base.py ``data_stream``) and draws from its own
+generator, the tensor ranks of one batch rank alike; the student's and
+the critic's gradients and the metrics are summed over the ranks that
+hold the same elements and divided by the batch ranks before the clip
+(trainers/base.py ``reduce_across_ranks``). Rank 0 alone logs and writes
+checkpoints, gathered whole.
 """
 
 from __future__ import annotations
@@ -29,10 +46,10 @@ import torch
 
 from ..models import get_core_cls
 from ..muon import AdamW
-from ..parallel.dist import process_count
+from ..parallel.sharding import gather_tensor, shard_params, spec_of
 from ..utils.checkpoints import (save_checkpoint, save_clean_export,
                                  unwrap_core, versatile_load)
-from .base import BaseTrainer, clip_grad_norm
+from .base import BaseTrainer, _map_opt_state, clip_grad_norm
 
 CLIP_NORM = 10.0
 
@@ -126,15 +143,14 @@ class DistillTrainerBase(BaseTrainer):
         else:
             self.teacher_cfg = cfg.model
         check_video_model(self.teacher_cfg, "teacher_cfg")
-        if process_count() > 1:
-            raise NotImplementedError(
-                "the distillation trainers run in one process")
         super().__init__(cfg, device)
         self.dtype = dtype
         self.teacher = None
         self._eval_core = None
         self.generator = torch.Generator(device=self.device).manual_seed(
-            self.SEED)
+            self.SEED + self.mesh.batch_rank)
+        self.shared_generator = torch.Generator(
+            device=self.device).manual_seed(self.SEED)
 
     # ------------------------------------------------------------- state
     def make_core(self, model_cfg, seed: Optional[int]):
@@ -162,6 +178,10 @@ class DistillTrainerBase(BaseTrainer):
         if self.train_cfg.get("student_ckpt"):
             self.load_core(student, "student_ckpt")
         critic = copy.deepcopy(student)
+        self.init_student(student)
+        if self.sharded:
+            for core in (student, critic, teacher):
+                shard_params(core, self.mesh)
         tc = self.train_cfg
         return DistillState(
             student=student, student_ema=self.ema_of(student),
@@ -171,6 +191,10 @@ class DistillTrainerBase(BaseTrainer):
             critic_opt=build_simple_opt(
                 tc.opt, tc.get("d_opt_kwargs") or tc.opt_kwargs,
                 critic.parameters()))
+
+    def init_student(self, student):
+        """A trainer's own initialisation of the student (after the
+        critic's copy, before the cores are sharded)."""
 
     @staticmethod
     def ema_of(core) -> Dict[str, torch.Tensor]:
@@ -188,6 +212,8 @@ class DistillTrainerBase(BaseTrainer):
         the eval samples from."""
         if self._eval_core is None:
             self._eval_core = self.make_core(self.model_cfg, seed=None)
+            if self.sharded:
+                shard_params(self._eval_core, self.mesh)
         with torch.no_grad():
             for name, p in self._eval_core.named_parameters():
                 p.copy_(state.student_ema[name])
@@ -223,7 +249,9 @@ class DistillTrainerBase(BaseTrainer):
             (loss / accum).backward()
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + v
-        return {k: v / accum for k, v in sums.items()}
+        metrics = {k: v / accum for k, v in sums.items()}
+        self.reduce_across_ranks(list(core.parameters()), metrics)
+        return metrics
 
     def student_update(self, state: DistillState, metrics: Dict):
         """Clip and step the student, move its EMA, count the step."""
@@ -236,15 +264,35 @@ class DistillTrainerBase(BaseTrainer):
 
     def save(self, state: DistillState):
         """step_N.pt with the student, its EMA and optimizer, the critic
-        and its optimizer; plus the EMA export when output_path is set."""
+        and its optimizer, each gathered whole (a collective under the
+        fsdp and tensor axes: every rank calls it, rank 0 writes); plus
+        the EMA export when output_path is set."""
+        cpu = "cpu" if self.sharded else None
+        specs = {n: spec_of(p) for core in (state.student, state.critic)
+                 for n, p in core.named_parameters()}
+
+        def full(t, spec):
+            t = gather_tensor(t, spec, self.mesh)
+            return t if cpu is None else t.to(cpu)
+
+        def whole(core):
+            named = dict(core.named_parameters())
+            return {n: full(t, spec_of(named[n]) if n in named else None)
+                    for n, t in core.state_dict().items()}
+
         payload = {
-            "params": state.student.state_dict(),
-            "ema_params": state.student_ema,
-            "opt_state": state.student_opt.state_dict(),
-            "critic": state.critic.state_dict(),
-            "critic_opt": state.critic_opt.state_dict(),
+            "params": whole(state.student),
+            "ema_params": {n: full(e, specs[n])
+                           for n, e in state.student_ema.items()},
+            "opt_state": _map_opt_state(state.student_opt,
+                                        lambda t, p: full(t, spec_of(p))),
+            "critic": whole(state.critic),
+            "critic_opt": _map_opt_state(state.critic_opt,
+                                         lambda t, p: full(t, spec_of(p))),
             "step": state.step,
         }
+        if not self.is_main:
+            return
         save_checkpoint(self.ckpt_path(state.step), payload)
         out = self.train_cfg.get("output_path")
         if out:

@@ -26,8 +26,7 @@ import torch
 
 from ..sampling.schedulers import get_sd3_euler
 from ..utils.logging import DeferredMetrics
-from .distill_common import (DistillState, DistillTrainerBase,
-                             build_simple_opt)
+from .distill_common import DistillState, DistillTrainerBase
 
 
 def prune_layer_indices(n_teacher: int, n_student: int) -> List[int]:
@@ -112,19 +111,15 @@ class DistillODETrainer(DistillTrainerBase):
         loss = torch.sum(errs * w)
         return loss, {"ode_loss": loss.detach()}
 
-    def init_distill_state(self) -> DistillState:
-        state = super().init_distill_state()
-        # layer-pruned init when the student is shallower than the teacher
+    def init_student(self, student):
+        """The layer-pruned init when the student is shallower than the
+        teacher (before the cores are sharded; the EMA and the optimizer
+        are built over it)."""
         t_layers = self.teacher_cfg.n_layers
         s_layers = self.model_cfg.n_layers
         if s_layers < t_layers and self.train_cfg.get("teacher_ckpt"):
-            state.student.load_state_dict(transfer_pruned_params(
+            student.load_state_dict(transfer_pruned_params(
                 self.teacher.state_dict(), t_layers, s_layers), strict=True)
-            state.student_ema = self.ema_of(state.student)
-            state.student_opt = build_simple_opt(
-                self.train_cfg.opt, self.train_cfg.opt_kwargs,
-                state.student.parameters())
-        return state
 
     def step(self, state: DistillState, micro_batches, draws=None):
         """One student update (and EMA move) over the micro-batches."""
@@ -157,7 +152,8 @@ class DistillODETrainer(DistillTrainerBase):
                 self.metrics.log_dict(mm)
             log = self.metrics.pop()
             log["time"] = self.timer.hit()
-            self.logger.log(log, step=self.total_step_counter)
+            if self.is_main:
+                self.logger.log(log, step=self.total_step_counter)
             if do_save:
                 self.save(state)
             self.timer.reset()

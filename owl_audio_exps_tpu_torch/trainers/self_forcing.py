@@ -56,7 +56,10 @@ class SelfForceTrainer(CausVidTrainer):
         init = torch.randn((R, b, 1) + tuple(vid.shape[2:]), generator=gen,
                            device=dev)
         steps = self.train_cfg.get("rollout_steps", 1)
-        ends = torch.randint(1, steps + 1, (R,), generator=gen, device=dev)
+        # the number of forwards: alike on every rank (the fsdp ranks of a
+        # sharded step gather each weight in every forward)
+        ends = torch.randint(1, steps + 1, (R,),
+                             generator=self.shared_generator, device=dev)
         return SelfForceDraws(perms, init, tuple(ends.tolist()))
 
     def get_rollouts(self, student, vid, mouse, btn, with_grad: bool,

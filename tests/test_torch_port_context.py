@@ -277,7 +277,8 @@ def test_mesh_config_and_the_port_cuts():
     # fsdp runs; on one process it wants more processes than it has
     with pytest.raises(ValueError, match="processes"):
         pmesh.make_mesh(pmesh.MeshConfig(fsdp=2))
-    with pytest.raises(NotImplementedError, match="pipe"):
+    # pipe runs too; on one process it wants more processes than it has
+    with pytest.raises(ValueError, match="processes"):
         pmesh.make_mesh(pmesh.MeshConfig(pipe=2))
     with pytest.raises(ValueError, match="processes"):
         pmesh.make_mesh(pmesh.MeshConfig(seq=2))
@@ -510,3 +511,199 @@ def test_mesh_smoke_runs_fsdp_and_tensor_on_gloo(tmp_path):
     assert all(p["param_rel_l2"] < 3e-2 for p in out["parity"].values())
     assert out["serve"]["ring_heads_per_rank"] == 1
     assert not out["serve"]["graphed"]
+
+
+# ------------------------------------------------------------- slice 14
+
+def test_chip_smoke_pipe_av_split_and_distill_triple_on_the_cpu():
+    """chip_smoke.py's phase 17 at tiny width in one process, float32:
+    (a) an 8-layer DiT (4 groups) split into 2 and 4 stages with 2
+    micro-batches handed over in memory equals the whole stack (out and
+    every gradient within 1e-5 relative); (b) the AV layer at tpf 65 split
+    4 ways through the ring and halo step functions equals the unsplit
+    layer (1e-5); (d) the distillation triple split for {fsdp 2, tensor
+    2} and put together again bit for bit."""
+    import chip_smoke
+    cfg = port_config(model_id="game_rft", n_layers=8, n_heads=2,
+                      d_model=32, channels=4, sample_size=2,
+                      tokens_per_frame=TPF, n_frames=16, n_buttons=3,
+                      causal=True, uncond=False, rope_impl="motion",
+                      local_window=2, global_window=None, cfg_prob=0.0,
+                      local_idx=2)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 16 * TPF, 32, generator=gen)
+    cond = torch.randn(2, 16, 32, generator=gen)
+    limits = (chip_smoke.SPLIT_OUT_REL, chip_smoke.SPLIT_GRAD_REL)
+    try:
+        chip_smoke.SPLIT_OUT_REL = chip_smoke.SPLIT_GRAD_REL = 1e-5
+        pipe = chip_smoke.pipe_one_process_phase("cpu", cfg, x, cond,
+                                                 dtype=torch.float32)
+        av = chip_smoke.av_split_phase("cpu", L=4 * 2 * 2 * 65, n=4,
+                                       tpf=65, window=2, H=2, Dh=8,
+                                       dtype=torch.float32)
+    finally:
+        chip_smoke.SPLIT_OUT_REL, chip_smoke.SPLIT_GRAD_REL = limits
+    assert set(pipe) == {"K2", "K4"}
+    assert all(r["worst_grad_rel_l2"] < 1e-5 and r["out_rel_l2"] < 1e-5
+               for r in pipe.values())
+    assert set(pipe["K4"]["launches_per_stage_and_micro_batch"]) == {
+        f"{s}/{m}" for s in range(4) for m in range(2)}
+    assert max(max(e.values()) for e in av["rel_l2"].values()) < 1e-5
+    rows = chip_smoke.distill_triple_phase("cpu", cfg, cfg)
+    assert set(rows) == {"student", "critic", "teacher"}
+    assert all(r["bit_equal"] and r["params_per_rank"] < r["params"]
+               for row in rows.values() for r in row.values())
+
+
+def _tiny_yaml(tmp_path, name, model, train=None):
+    import yaml
+    cfg = Config.from_yaml(os.path.join(REPO, "configs", name))
+    for key, value in model.items():
+        cfg.model[key] = value
+    for key, value in (train or {}).items():
+        cfg.train[key] = value
+    path = tmp_path / name
+    path.write_text(yaml.safe_dump(cfg.to_dict()))
+    return path
+
+
+def _torchrun(n, *argv):
+    import subprocess
+    import sys
+    return subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(n), *map(str, argv)],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
+
+
+TINY_5B = dict(n_layers=12, d_model=64, n_heads=4, channels=4,
+               sample_size=2, tokens_per_frame=4, n_frames=16,
+               local_window=2)
+
+
+def test_mesh_smoke_runs_the_pipe_case_on_gloo(tmp_path):
+    """mesh_smoke.py --case pipe on 3 gloo processes at
+    configs/dit_v4_5B.yml cut to CPU size (12 layers, 3 groups: one a
+    stage): the pipelined steps from the windowed loader, each rank its
+    stage's blocks, the 12-layer copy against one process (AdamW with eps
+    1e-4, as test_mesh_smoke_runs_fsdp_and_tensor_on_gloo says why)."""
+    import json
+    path = _tiny_yaml(tmp_path, "dit_v4_5B.yml", TINY_5B, dict(
+        data_kwargs={"window_length": 16}, opt="AdamW",
+        opt_kwargs={"lr": 1e-4, "eps": 1e-4}))
+    res = _torchrun(3, "mesh_smoke.py", "--case", "pipe", "--config_path",
+                    path, "--device", "cpu", "--max_steps", "2")
+    assert res.returncode == 0, (res.stdout[-3000:], res.stderr[-3000:])
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["ok"] and out["world"] == 3 and out["case"] == "pipe"
+    stages = [r["train"]["stage"] for r in out["runs"]]
+    blocks = [r["train"]["blocks"] for r in out["runs"]]
+    assert stages == [0, 1, 2] and blocks == [[0, 3], [4, 7], [8, 11]]
+    assert len({tuple(r["train"]["losses"]) for r in out["runs"]}) == 1
+    (parity,) = out["parity"].values()
+    assert parity["loss_rel"] < 1e-2 and parity["param_rel_l2"] < 3e-2
+    assert parity["grad_rel_l2"] < 0.1 and parity["update_rel_l2"] < 0.25
+    assert not parity["failures"] and not parity["grads_skipped"]
+    assert "[pipe] cut: data_id 'sequence_packing' -> 'cod'" in res.stdout
+
+
+def test_mesh_smoke_runs_the_distill_case_on_gloo(tmp_path):
+    """mesh_smoke.py --case distill on 4 gloo processes: CausVid at {data
+    4} and {fsdp 2, tensor 2}, Self-Forcing and ODE at {data 4}, on the
+    three configs cut to CPU size (their teacher too), the {fsdp 2,
+    tensor 2} CausVid run against one process."""
+    import json
+    tiny = dict(n_layers=2, d_model=64, n_heads=4, channels=4,
+                sample_size=2, tokens_per_frame=4, n_frames=16,
+                local_window=2)
+    teacher = _tiny_yaml(tmp_path, "dit_v4.yml", tiny)
+    paths = []
+    for name, extra in (("dit_v4_dmd.yml", {}),
+                        ("dit_v4_sf.yml", dict(min_rollout_frames=2)),
+                        ("dit_v4_prune.yml", dict(ode_steps=2))):
+        paths.append(_tiny_yaml(tmp_path, name, tiny, dict(
+            data_kwargs={"window_length": 4}, teacher_cfg=str(teacher),
+            update_ratio=2, **extra)))
+    res = _torchrun(4, "mesh_smoke.py", "--case", "distill",
+                    "--distill_configs", ",".join(map(str, paths)),
+                    "--device", "cpu")
+    assert res.returncode == 0, (res.stdout[-3000:], res.stderr[-3000:])
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["ok"] and out["world"] == 4 and out["case"] == "distill"
+    assert set(out["runs"][0]) == {
+        "dit_v4_dmd.yml data 4", "dit_v4_dmd.yml fsdp 2 x tensor 2",
+        "dit_v4_sf.yml data 4", "dit_v4_prune.yml data 4"}
+    assert [r["dit_v4_dmd.yml fsdp 2 x tensor 2"]["batch_rank"]
+            for r in out["runs"]] == [0, 0, 1, 1]
+    (parity,) = out["parity"].values()
+    assert parity["loss_rel"] < 1e-2 and parity["param_rel_l2"] < 3e-2
+    assert parity["grad_rel_l2"] < 0.1 and parity["update_rel_l2"] < 0.25
+    assert not parity["failures"]
+    assert parity["worst_grad"].split(".")[0] in ("critic", "student")
+
+
+def test_sp_smoke_runs_the_av_model_on_gloo(tmp_path):
+    """sp_smoke.py on configs/av_v5_8x8_weak.yml cut to CPU size (4
+    layers, tpf 5) over 4 gloo processes: sequence_parallel and the seq
+    axis cut in, 16 frames, group remat, every rank ends with the same
+    parameters, and the 4-layer copy at 8 frames matches one process
+    (AdamW with eps 1e-4: at this width one Muon step's bf16 NS5 lifts the
+    ring's reassociation past the parameter limit, ROADMAP Queue 3's
+    watch item; the card runs the config's Muon)."""
+    import json
+    path = _tiny_yaml(tmp_path, "av_v5_8x8_weak.yml", dict(
+        n_layers=4, d_model=64, n_heads=4, channels=4, audio_channels=4,
+        sample_size=2, tokens_per_frame=5, local_window=2), dict(
+        opt="AdamW", opt_kwargs={"lr": 1e-4, "eps": 1e-4}))
+    res = _torchrun(4, "sp_smoke.py", "--config_path", path, "--device",
+                    "cpu", "--frames", "16", "--remat", "group",
+                    "--check_layers", "4", "--check_frames", "8")
+    assert res.returncode == 0, (res.stdout[-3000:], res.stderr[-3000:])
+    lines = res.stdout.strip().splitlines()
+    assert "same parameters on every rank: True" in lines[-2]
+    out = json.loads(lines[-1])
+    assert out["ok"] and out["world"] == 4
+    assert [r["seq_index"] for r in out["reports"]] == [0, 1, 2, 3]
+    assert "sequence_parallel None -> True" in res.stdout
+    assert out["parity"]["loss_rel"] < 1e-2
+    assert out["parity"]["param_rel_l2"] < 3e-2
+    assert out["parity"]["grad_rel_l2"] < 0.1
+    assert out["parity"]["update_rel_l2"] < 0.25
+    assert not out["parity"]["failures"]
+
+
+@pytest.mark.parametrize("fault", ["sound", "stage_times_3", "stage_zero",
+                                   "one_leaf_half", "update_lost"])
+def test_parity_verdict_holds_gradients_and_updates(fault):
+    """chip_smoke.py ``parity_verdict``, the gate of the multi-card
+    copies: rounding-level differences pass; one stage's gradients scaled
+    by 3 or zeroed, one parameter's gradient half summed, or a third of
+    the update lost fail, though the losses and the whole model's
+    parameters stay within their limits in every case."""
+    import chip_smoke
+    g = torch.Generator().manual_seed(0)
+    names = [f"blocks.{i}.w" for i in range(6)] + ["t_embed.w"]
+    init = {n: torch.randn(64, 64, generator=g) for n in names}
+    ref_g = {n: torch.randn(64, 64, generator=g) for n in names}
+    noise = {n: 1e-3 * torch.randn(64, 64, generator=g) for n in names}
+    got_g = {n: ref_g[n] * (1 + noise[n]) for n in names}
+    stage1 = names[2:4]
+    if fault == "stage_times_3":
+        got_g.update({n: 3 * got_g[n] for n in stage1})
+    elif fault == "stage_zero":
+        got_g.update({n: torch.zeros_like(got_g[n]) for n in stage1})
+    elif fault == "one_leaf_half":
+        got_g["t_embed.w"] = got_g["t_embed.w"] / 2
+    ref = {n: init[n] - 1e-3 * ref_g[n].sign() for n in names}
+    got = {n: init[n] - 1e-3 * got_g[n].sign() for n in names}
+    if fault == "update_lost":
+        got.update({n: init[n].clone() for n in names[:2] + stage1})
+    res = chip_smoke.parity_verdict(1e-6, got, ref, init, got_g, ref_g)
+    assert res["param_rel_l2"] < 3e-2 and res["loss_rel"] < 1e-2
+    assert res["grads_held"] == len(names) and not res["grads_skipped"]
+    if fault == "sound":
+        assert not res["failures"], res
+        assert res["grad_rel_l2"] < 1e-2 and res["update_rel_l2"] < 1e-2
+    else:
+        assert res["failures"], res

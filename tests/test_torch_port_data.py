@@ -261,6 +261,25 @@ def test_prefetch_order_dtypes_errors_and_exhaustion():
     assert len(list(device_prefetch(gen(3), "cpu", size=2))) == 3
 
 
+def test_prefetch_joins_its_worker_when_the_consumer_stops():
+    """Closing the stream joins the worker of an endless loader, so no
+    daemon thread is left for the interpreter to stop inside a torch call
+    at exit (which aborted 2-process gloo runs now and then)."""
+    import itertools
+    import threading
+
+    def endless():
+        for i in itertools.count():
+            yield [np.full((2,), i, np.float32)]
+
+    before = set(threading.enumerate())
+    it = device_prefetch(endless(), "cpu")
+    assert [next(it)[0][0].item() for _ in range(3)] == [0.0, 1.0, 2.0]
+    assert len(set(threading.enumerate()) - before) == 1
+    it.close()
+    assert set(threading.enumerate()) - before == set()
+
+
 # -------------------------------------------------------------------- S3
 
 def _make_tar(n_frames=8, audio=False, controls=True,

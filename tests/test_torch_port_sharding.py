@@ -198,7 +198,9 @@ def test_mesh_is_jax_device_order():
                                                           [1, 3, 5, 7]]
     m = pmesh.Mesh(data=2, fsdp=2, tensor=2, data_index=1, fsdp_index=1)
     assert (m.batch_rank, m.batch_ranks) == (3, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # pipe runs since the pipe axis is ported; on one process it wants
+    # more processes than it has, as fsdp does
+    with pytest.raises(ValueError, match="processes"):
         pmesh.make_mesh(pmesh.MeshConfig(pipe=2))
 
 

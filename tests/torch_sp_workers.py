@@ -384,3 +384,361 @@ def run_jobs(rank, world, jobs):
         out[name] = getattr(me, fn)(*args)
         out[name + "_s"] = time.perf_counter() - t0
     return out
+
+
+# ------------------------------------------------------------ the pipe axis
+
+def _reduce_like_the_trainer(params, mesh):
+    """Sum each gradient over the ranks that hold the same elements, as
+    trainers/base.py ``reduce_across_ranks`` does (without its division
+    by the batch ranks: the callers' losses are global means)."""
+    import torch.distributed as dist
+    from owl_audio_exps_tpu_torch.parallel.sharding import spec_of
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        spec = spec_of(p)
+        group = (mesh.shard_replica_group
+                 if spec is not None and "fsdp" in spec.axes
+                 else mesh.replica_group)
+        if group is not None:
+            dist.all_reduce(p.grad, group=group)
+
+
+def pipe_core(cfg_kw, state_dict, x, t, mesh_kw, grad=True):
+    """The pipelined AudioRFTCore (float32) on this rank's rows of x [B,
+    n, c], t [B, n] under ``mesh_kw``: its output rows and, under the
+    loss mean(out ** 2) over the whole batch, the gradients of the
+    parameters it holds (summed as the trainer sums them, gathered to
+    full shape), the names it holds and their local shapes."""
+    from owl_audio_exps_tpu_torch.configs import transformer_config
+    from owl_audio_exps_tpu_torch.models.audiorft import AudioRFTCore
+    from owl_audio_exps_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from owl_audio_exps_tpu_torch.parallel.sharding import (gather_params,
+                                                            gather_tensor,
+                                                            shard_params,
+                                                            spec_of,
+                                                            stage_of)
+    mesh = make_mesh(MeshConfig(**mesh_kw), device_type="cpu")
+    cfg = transformer_config(**cfg_kw)
+    core = AudioRFTCore(cfg, dtype=torch.float32, device="cpu", seed=None)
+    core.load_state_dict({k: torch.from_numpy(v)
+                          for k, v in state_dict.items()}, strict=True)
+    shard_params(core, mesh)
+    per = x.shape[0] // mesh.batch_ranks
+    rows = slice(mesh.batch_rank * per, (mesh.batch_rank + 1) * per)
+    xr, tr = (torch.from_numpy(np.array(a[rows])) for a in (x, t))
+    with torch.set_grad_enabled(grad):
+        out = core(xr, tr)
+    res = dict(out=_np(out), rows=(rows.start, rows.stop),
+               pipe_index=mesh.pipe_index,
+               held={n: (tuple(p.shape), stage_of(p))
+                     for n, p in core.named_parameters()},
+               gathered={n: _np(t) for n, t in gather_params(core).items()})
+    if grad:
+        ((out.float() ** 2).sum() / out[0].numel() / x.shape[0]).backward()
+        params = list(core.parameters())
+        _reduce_like_the_trainer(params, mesh)
+        res["grads"] = {n: _np(gather_tensor(p.grad, spec_of(p), mesh))
+                        for n, p in core.named_parameters()}
+    return res
+
+
+def pipe_refusals(cfg_kw, state_dict, x, t):
+    """The pipe axis's refusals on this rank of a {pipe 2} world: a batch
+    the micro-batches do not divide, and document packing."""
+    from owl_audio_exps_tpu_torch.configs import transformer_config
+    from owl_audio_exps_tpu_torch.models.audiorft import AudioRFTCore
+    from owl_audio_exps_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from owl_audio_exps_tpu_torch.parallel.sharding import shard_params
+    mesh = make_mesh(MeshConfig(pipe=2), device_type="cpu")
+    out = {}
+    for name, kw, extra in (
+            ("batch", dict(pipeline_microbatches=3), {}),
+            ("docs", {}, dict(doc_id=torch.zeros(x.shape[:2],
+                                                 dtype=torch.int32)))):
+        cfg = transformer_config(**dict(cfg_kw, **kw))
+        core = AudioRFTCore(cfg, dtype=torch.float32, device="cpu",
+                            seed=None)
+        core.load_state_dict({k: torch.from_numpy(v)
+                              for k, v in state_dict.items()}, strict=True)
+        shard_params(core, mesh)
+        try:
+            with torch.no_grad():
+                core(torch.from_numpy(x), torch.from_numpy(t), **extra)
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def pipe_train_step(cfg_dict, state_dict, batch, draws, path):
+    """One audio RFTTrainer step (model in float32) on this rank's rows of
+    the batch under the config's mesh, with the draws handed in; then the
+    state saved to ``path`` (rank 0 writes the whole). Returns the loss,
+    the gradients the optimizer saw (gathered, the names this rank holds)
+    and the logical state after the step."""
+    from owl_audio_exps_tpu_torch.configs import Config
+    from owl_audio_exps_tpu_torch.models.audiorft import AudioRFT
+    from owl_audio_exps_tpu_torch.parallel.sharding import (gather_tensor,
+                                                            spec_of,
+                                                            stage_of)
+    from owl_audio_exps_tpu_torch.trainers import get_trainer_cls
+    cfg = Config.from_dict(cfg_dict)
+    trainer = get_trainer_cls("audio_rft")(cfg, device="cpu")
+    mesh = trainer.mesh
+    model = AudioRFT(cfg.model, dtype=torch.float32, device="cpu", seed=None)
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in state_dict.items()}, strict=True)
+    state = trainer.make_state(model.train())
+    per = batch.shape[0] // mesh.batch_ranks
+    rows = slice(mesh.batch_rank * per, (mesh.batch_rank + 1) * per)
+    mb = [torch.from_numpy(np.array(a[rows])) for a in (batch,) + tuple(draws)]
+
+    def loss_fn(model, mb, generator):
+        x, ts, z = mb
+        loss = model(x, ts=ts, z=z)
+        return loss, {"diffusion_loss": loss.detach()}
+
+    trainer.loss_fn = loss_fn
+    seen, step = {}, state.optimizer.step
+
+    def spied():
+        seen.update({n: _np(gather_tensor(p.grad, spec_of(p), mesh))
+                     for n, p in state.model.named_parameters()})
+        return step()
+
+    state.optimizer.step = spied
+    metrics = trainer.train_step(state, [mb], None,
+                                 clip_norm=trainer.grad_clip_norm())
+    trainer.train_cfg.checkpoint_dir = path
+    trainer.save(state)
+    full = trainer.logical_state(state)
+    return dict(loss=float(metrics["diffusion_loss"]),
+                grad_norm=float(metrics.get("grad_norm", float("nan"))),
+                param_norm=float(metrics["param_norm"]),
+                grads=seen, pipe_index=mesh.pipe_index,
+                stages={n: stage_of(p) for n, p in
+                        state.model.named_parameters()},
+                logical=None if full is None else dict(
+                    params={k: _np(v) for k, v in full["params"].items()},
+                    ema={k: _np(v) for k, v in full["ema_params"].items()},
+                    moments=_opt_arrays(full["opt_state"]),
+                    order=list(full["ema_params"]), step=full["step"]))
+
+
+def pipe_seeded_state(cfg_dict):
+    """The seeded model built under the config's mesh (the blocks left on
+    the meta device) and this rank's parameters after the trainer's
+    ``init_state`` (the same seed)."""
+    from owl_audio_exps_tpu_torch.configs import Config
+    from owl_audio_exps_tpu_torch.models.audiorft import AudioRFT
+    from owl_audio_exps_tpu_torch.trainers import get_trainer_cls
+    cfg = Config.from_dict(cfg_dict)
+    trainer = get_trainer_cls("audio_rft")(cfg, device="cpu")
+    built = AudioRFT(cfg.model, dtype=torch.float32, device="cpu", seed=0)
+    blocks = built.core.transformer.blocks
+    state = trainer.init_state()
+    return dict(meta=[i for i, b in enumerate(blocks)
+                      if all(p.is_meta for p in b.parameters())],
+                params={n: _np(p) for n, p in
+                        state.model.named_parameters()},
+                pipe_index=trainer.mesh.pipe_index)
+
+
+def pipe_restore(cfg_dict, path):
+    """Restore ``path`` onto the config's mesh (after every rank has
+    passed a barrier: rank 0 wrote it); returns the state gathered back
+    to one process's logical state (None but on a pipe group's first
+    rank), this rank's own parameters and EMA, and the names it holds."""
+    import torch.distributed as dist
+    from owl_audio_exps_tpu_torch.configs import Config
+    from owl_audio_exps_tpu_torch.trainers import get_trainer_cls
+    dist.barrier()
+    cfg = Config.from_dict(cfg_dict)
+    trainer = get_trainer_cls("audio_rft")(cfg, device="cpu")
+    state = trainer.load(path, trainer.init_state())
+    full = trainer.logical_state(state)
+    own = dict(params={n: _np(p) for n, p in
+                       state.model.named_parameters()},
+               ema={n: _np(e) for n, e in state.ema.items()})
+    if full is None:
+        return dict(own=own, held=sorted(own["params"]))
+    return dict(params={k: _np(v) for k, v in full["params"].items()},
+                ema={k: _np(v) for k, v in full["ema_params"].items()},
+                moments=_opt_arrays(full["opt_state"]), own=own,
+                held=sorted(own["params"]))
+
+
+# --------------------------------------------- context parallelism, AV
+
+def av_sp(model_id, cfg_kw, state_dict, batch, draws, mesh_kw):
+    """The context-parallel AV wrapper (``game_rft_audio`` or
+    ``game_mft_audio``, float32) on this rank's frames of the whole batch
+    (every data rank takes all of it), with the draws handed in: its
+    losses (this rank's shares), its frames of the predictions (the RFT
+    model's) and every gradient summed over the seq axis."""
+    import torch.distributed as dist
+    from owl_audio_exps_tpu_torch.configs import transformer_config
+    from owl_audio_exps_tpu_torch.models import get_model_cls
+    from owl_audio_exps_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    mesh = make_mesh(MeshConfig(**mesh_kw), device_type="cpu")
+    cfg = transformer_config(**dict(cfg_kw, sequence_parallel=True))
+    model = get_model_cls(model_id)(cfg, dtype=torch.float32, device="cpu",
+                                    seed=None)
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in state_dict.items()}, strict=True)
+    x, audio, mouse, btn = (torch.from_numpy(a) for a in batch)
+    d = {k: torch.from_numpy(v) for k, v in draws.items()}
+    out = {}
+    if model_id == "game_rft_audio":
+        res = model(x, audio, mouse, btn, has_controls=d["has_controls"],
+                    ts=d["ts"], z_video=d["z_video"], z_audio=d["z_audio"],
+                    return_dict=True)
+        losses = [res[k] for k in ("diffusion_loss", "video_loss",
+                                   "audio_loss")]
+        out.update(pred_video=_np(res["pred_video"]),
+                   pred_audio=_np(res["pred_audio"]))
+    else:
+        losses = model(x, audio, mouse, btn, has_controls=d["has_controls"],
+                       ts=d["ts"], rs=d["rs"], z_video=d["z_video"],
+                       z_audio=d["z_audio"])
+    losses[0].backward()
+    grads = {}
+    for n, p in model.named_parameters():
+        g = p.grad.clone()
+        dist.all_reduce(g, group=mesh.seq_group)
+        grads[n] = _np(g)
+    out.update(losses=[float(v) for v in losses], grads=grads,
+               seq_index=mesh.seq_index, data_index=mesh.data_index,
+               frames=mesh.seq_frames(x.shape[1]))
+    return out
+
+
+def av_train_step(cfg_dict, state_dict, batch, draws):
+    """One AVRFTTrainer.train_step (model in float32) on this rank's rows
+    of the batch under the config's mesh, with the draws handed in: the
+    logged losses and the gradients the optimizer saw."""
+    from owl_audio_exps_tpu_torch.configs import Config
+    from owl_audio_exps_tpu_torch.models.gamerft_audio import GameRFTAudio
+    from owl_audio_exps_tpu_torch.trainers import get_trainer_cls
+    cfg = Config.from_dict(cfg_dict)
+    trainer = get_trainer_cls("av")(cfg, device="cpu")
+    mesh = trainer.mesh
+    model = GameRFTAudio(cfg.model, dtype=torch.float32, device="cpu",
+                         seed=None)
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in state_dict.items()}, strict=True)
+    state = trainer.make_state(model.train())
+    per = batch[0].shape[0] // mesh.batch_ranks
+    rows = slice(mesh.batch_rank * per, (mesh.batch_rank + 1) * per)
+    mb = [torch.from_numpy(np.array(a[rows]))
+          for a in tuple(batch) + tuple(draws)]
+
+    def loss_fn(model, mb, generator):
+        x, audio, mouse, btn, has, ts, zv, za = mb
+        loss, lv, la = model(x, audio, mouse, btn, has_controls=has.bool(),
+                             ts=ts, z_video=zv, z_audio=za)
+        return loss, {"diffusion_loss": loss.detach(),
+                      "video_loss": lv.detach(), "audio_loss": la.detach()}
+
+    trainer.loss_fn = loss_fn
+    seen, step = {}, state.optimizer.step
+
+    def spied():
+        seen.update({n: _np(p.grad) for n, p in
+                     state.model.named_parameters()})
+        return step()
+
+    state.optimizer.step = spied
+    metrics = trainer.train_step(state, [mb], None,
+                                 clip_norm=trainer.grad_clip_norm())
+    return dict(losses={k: float(v) for k, v in metrics.items()
+                        if k.endswith("loss")},
+                grads=seen, mesh=(mesh.data, mesh.seq))
+
+
+# ------------------------------------------- distillation over processes
+
+def _rows_of(draws, rows):
+    """A distillation draw tuple cut to this rank's batch rows (the
+    Self-Forcing control permutations must be the identity, which stays
+    the identity on the rank's rows)."""
+    from owl_audio_exps_tpu_torch.trainers.causvid import (LossDraws,
+                                                           RolloutDraws)
+    from owl_audio_exps_tpu_torch.trainers.ode_distill import ODEDraws
+    from owl_audio_exps_tpu_torch.trainers.self_forcing import SelfForceDraws
+    if isinstance(draws, LossDraws):
+        return LossDraws(_rows_of(draws.rollout, rows), draws.ts[rows],
+                         draws.z[rows])
+    if isinstance(draws, RolloutDraws):
+        return RolloutDraws(*(a[rows] for a in draws))
+    if isinstance(draws, SelfForceDraws):
+        d, b = draws.perms.shape
+        assert torch.equal(draws.perms, torch.arange(b).expand(d, b))
+        n = rows.stop - rows.start
+        return SelfForceDraws(torch.arange(n).expand(d, n).contiguous(),
+                              draws.init[:, rows], draws.ends)
+    if isinstance(draws, ODEDraws):
+        return ODEDraws(draws.x[rows], draws.keep)
+    raise TypeError(type(draws))
+
+
+def distill_step(cfg_dict, cores, batch, draws):
+    """One outer step of a distillation trainer (float32 cores: student,
+    critic, teacher from ``cores``) on this rank's rows of the batch under
+    the config's mesh, with the draws handed in ({"critic": ..,
+    "student": ..} of the trainer's draw tuples over the whole batch):
+    the metrics, the student's and critic's parameters after the step and
+    the student's EMA (gathered), and every core's local shapes."""
+    from owl_audio_exps_tpu_torch.configs import Config
+    from owl_audio_exps_tpu_torch.parallel.sharding import (gather_params,
+                                                            gather_tensor,
+                                                            spec_of)
+    from owl_audio_exps_tpu_torch.trainers import get_trainer_cls
+    cfg = Config.from_dict(cfg_dict)
+    trainer = get_trainer_cls(cfg.train.trainer_id)(cfg, device="cpu",
+                                                    dtype=torch.float32)
+    state = trainer.init_distill_state()
+    mesh = trainer.mesh
+    coords = None
+    from owl_audio_exps_tpu_torch.parallel.sharding import mesh_coords_of
+    coords = mesh_coords_of(mesh)
+    with torch.no_grad():
+        for key, core in (("student", state.student),
+                          ("critic", state.critic),
+                          ("teacher", trainer.teacher)):
+            for n, p in core.named_parameters():
+                full = torch.from_numpy(cores[key][n])
+                spec = spec_of(p)
+                p.copy_(full if spec is None else spec.shard(full, coords))
+        state.student_ema = trainer.ema_of(state.student)
+    per = batch[0].shape[0] // mesh.batch_ranks
+    rows = slice(mesh.batch_rank * per, (mesh.batch_rank + 1) * per)
+    mb = [[torch.from_numpy(np.array(a[rows])) for a in batch]]
+    metrics = {}
+    if cfg.train.trainer_id == "ode_distill_vid":
+        metrics.update(trainer.step(state, mb,
+                                    [_rows_of(draws["student"], rows)]))
+    else:
+        metrics.update(trainer.critic_step(
+            state, mb, [_rows_of(draws["critic"], rows)]))
+        metrics.update(trainer.student_step(
+            state, mb, [_rows_of(draws["student"], rows)]))
+    out = dict(metrics={k: float(v) for k, v in metrics.items()},
+               mesh=(mesh.data, mesh.fsdp, mesh.tensor, mesh.batch_rank))
+    for key, core in (("student", state.student), ("critic", state.critic)):
+        out[key] = {n: _np(t) for n, t in gather_params(core, mesh).items()}
+    out["ema"] = {n: _np(gather_tensor(e, spec_of(p), mesh))
+                  for (n, e), p in zip(state.student_ema.items(),
+                                       state.student.parameters())}
+    out["local_shapes"] = {
+        key: {n: tuple(p.shape) for n, p in core.named_parameters()}
+        for key, core in (("student", state.student),
+                          ("critic", state.critic),
+                          ("teacher", trainer.teacher))}
+    out["finite"] = all(torch.isfinite(p).all().item()
+                        for core in (state.student, state.critic,
+                                     trainer.teacher)
+                        for p in core.parameters())
+    return out
