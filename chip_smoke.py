@@ -218,6 +218,23 @@ Phases, each of which exits non-zero on any failure:
    SDPA's; (d) configs/dit_v4_dmd.yml's student, critic and teacher split
    for {fsdp 2, tensor 2} and put together again bit for bit.
 
+18. the last modules of the port: (a) a cod AV table at configs/
+   av_v4_8x8.yml's shapes (128 x 8 x 8 video, 64 audio channels) and
+   inference/build_cache.py writing 4 warm-start buffers of 60 frames
+   from it (the config's S3 loader cut to the table, printed); the
+   window pipeline (phase 3's core, W 60) warm-started from each by
+   ``load_cache``, its buffers bit-equal to the npz, 3 ticks each with
+   exactly 48 K1 launches a tick; (b) inference/test_sampling.py as a
+   subprocess on configs/av_v4_8x8.yml (``av_window``: K1 on every
+   forward, counted exactly) and on configs/dit_v4_tpu_e2e.yml
+   (``av_caching``: no port kernel), frames/s of each; (c) phase 5's
+   trainer with ``train.profile_dir`` and ``profile_start 1`` for 6
+   steps: the Chrome trace of steps 1 to 4 parsed, its K1 and band
+   kernels exactly 4 steps' launches, the traced steps' time against
+   phase 5's; (d) the same trainer with ``train.watch`` norms and full:
+   every group's norms finite, the histograms counting every element,
+   the step time against phase 5's. No checkpoint is written.
+
 The last lines are the kernels' JSON record, the card line, and
 {"ok": true, "device": {...}}.
 """
@@ -1033,6 +1050,14 @@ def expected_counts(cfg, L: int):
     return counts
 
 
+def metric_value(v):
+    """A step metric on the host: a float, or a list for a vector (the
+    ``train.watch`` histograms)."""
+    if torch.is_tensor(v) and v.numel() > 1:
+        return v.tolist()
+    return float(v)
+
+
 def counted_trainer(base):
     """A subclass of the trainer class ``base`` that sets every kernel
     count to 0 before each step and appends the counts, the step's wall
@@ -1050,7 +1075,7 @@ def counted_trainer(base):
             loss = float(metrics["diffusion_loss"])   # waits for the step
             self.steps.append(dict(s=time.perf_counter() - t0, loss=loss,
                                    counts=kernel_counts(),
-                                   metrics={k: float(v) for k, v in
+                                   metrics={k: metric_value(v) for k, v in
                                             metrics.items()}))
             return metrics
 
@@ -4845,6 +4870,38 @@ def parity_verdict(loss_rel, got, ref, init, got_grads, ref_grads):
                 worst_param_rel_l2=per[worst], failures=failures)
 
 
+def watch_verdict(got_steps, ref_steps, n_params: int):
+    """``train.watch: full`` of a multi-card copy against one card's, step
+    by step ({key: value} each, from ``counted_trainer``): the same keys,
+    every norm within PARITY_GRAD_REL relative (the copies' gradient
+    limit: the gradients differ by bf16 sums over ranks), and each
+    histogram counting every one of the ``n_params`` elements (a value
+    near a bin edge may change bins). Returns the readings and
+    ``failures``."""
+    failures, worst, key, keys = [], 0.0, None, 0
+    for i, (got, ref) in enumerate(zip(got_steps, ref_steps)):
+        got = {k: v for k, v in got.items() if k.startswith("watch")}
+        ref = {k: v for k, v in ref.items() if k.startswith("watch")}
+        keys = len(ref)
+        if not ref or set(got) != set(ref):
+            failures.append(f"step {i + 1}: watch keys {sorted(got)} against "
+                            f"one card's {sorted(ref)}")
+            continue
+        for k, v in ref.items():
+            if k.startswith("watch/"):
+                r = abs(got[k] - v) / max(abs(v), 1e-30)
+                if r > worst:
+                    worst, key = r, k
+            elif not k.endswith(("_lo", "_hi")) and not \
+                    sum(got[k]) == sum(v) == n_params:
+                failures.append(f"step {i + 1}: {k} counts {sum(got[k])}, "
+                                f"one card {sum(v)}, of {n_params}")
+    if worst > PARITY_GRAD_REL:
+        failures.append(f"watch {key} rel {worst:.3e} > {PARITY_GRAD_REL}")
+    return dict(watch_norm_rel=worst, watch_worst=key, watch_keys=keys,
+                failures=failures)
+
+
 def pipe_stage_run(dit, K: int, M: int, x, cond, remat: bool = True):
     """``dit``'s blocks split into K stages of whole groups (parallel/
     pipeline.py ``stage_blocks``), M micro-batches run in GPipe order in
@@ -5142,6 +5199,333 @@ def slice14_phase(dev):
     return out
 
 
+# ---------------------------------------------------------------- phase 18
+SLICE15_DIR = os.path.join(ROOT, "build", "chip_smoke_slice15")
+CACHE_SAMPLES, CACHE_TICKS, CACHE_DOC_FRAMES = 4, 3, (72, 96)
+CLI_AV_FRAMES, CLI_DIT_FRAMES = 2, 8
+# phase 18 (c), (d): the traced steps (profile_start 1: steps 1 to 4) and
+# the watch runs' steps
+TRACE_START, TRACE_STEPS, WATCH_STEPS = 1, 6, 3
+# each kernel's name in the trace (the band's backward launch runs its dq
+# kernel, then its dkv kernel: counted by the dq kernel)
+TRACE_KERNELS = {"frame_attention_fwd": "frame_attn_fwd_kernel",
+                 "frame_attention_bwd_dq": "frame_attn_bwd_dq_kernel",
+                 "frame_attention_bwd_dkv": "frame_attn_bwd_dkv_kernel",
+                 "band_attention_fwd": "band_attn_fwd_kernel",
+                 "band_attention_bwd": "band_attn_bwd_dq_kernel"}
+
+
+def write_av_table(path: str, cfg, docs: int, frames, seed: int = 18):
+    """A cod AV table of ``docs`` seeded documents of ``frames`` (lo, hi)
+    frames at the model's shapes (float16 video, float32 audio, mouse,
+    buttons), written with the port's NpyTable; returns the lengths."""
+    import numpy as np
+    from owl_audio_exps_tpu_torch.data.npy_table import NpyTable
+    rng = np.random.default_rng(seed)
+    lens = [int(n) for n in rng.integers(frames[0], frames[1] + 1, docs)]
+    table = NpyTable(path, columns=[
+        "video", "audio", "mouse", "buttons", "tarball", "pt_idx",
+        "missing", "truncated", "seq_len"],
+        array_columns=["video", "audio", "mouse", "buttons"])
+    p = cfg.sample_size
+    for i, n in enumerate(lens):
+        table.append(
+            video=rng.standard_normal((n, cfg.channels, p, p),
+                                      dtype=np.float32).astype(np.float16),
+            audio=rng.standard_normal((n, cfg.audio_channels),
+                                      dtype=np.float32),
+            mouse=rng.standard_normal((n, 2), dtype=np.float32),
+            buttons=(rng.random((n, cfg.n_buttons)) > 0.5).astype(
+                np.float32),
+            tarball=f"doc{i}", pt_idx=i, missing=False, truncated=False,
+            seq_len=n)
+    return lens
+
+
+def warm_cache_phase(dev):
+    """Phase 18 (a): inference/build_cache.py writes CACHE_SAMPLES buffers
+    from a cod table at configs/av_v4_8x8.yml's shapes; CausvidPipeline at
+    full width warm-starts from each and runs CACHE_TICKS ticks."""
+    import numpy as np
+    import yaml
+    from owl_audio_exps_tpu_torch.configs import Config
+    from owl_audio_exps_tpu_torch.inference import build_cache
+    from owl_audio_exps_tpu_torch.inference.pipeline import CausvidPipeline
+    from owl_audio_exps_tpu_torch.models.gamerft_audio import GameRFTAudioCore
+
+    work = os.path.join(SLICE15_DIR, "cache")
+    conf = Config.from_yaml(os.path.join(ROOT, "configs", "av_v4_8x8.yml"))
+    tc = conf.train
+    W, steps = 60, 2
+    table = os.path.join(work, "table")
+    lens = write_av_table(table, conf.model, CACHE_SAMPLES, CACHE_DOC_FRAMES)
+    for key, value, why in (
+            ("data_id", "cod", "no S3 bucket: the phase's cod table"),
+            ("data_kwargs", dict(dataset_path=table, window_length=W,
+                                 batch_columns=["video", "audio", "mouse",
+                                                "buttons"]),
+             f"the table ({len(lens)} documents of {min(lens)}-{max(lens)} "
+             f"frames), the window pipeline's W {W}, the S3 loader's "
+             "[video, audio, mouse, buttons]")):
+        print_cut("cache", "av_v4_8x8.yml", tc, key, value, why)
+    path = os.path.join(work, "av_v4_8x8_cod.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(conf.to_dict(), f)
+    out_dir = os.path.join(work, "data_cache")
+    t0 = time.perf_counter()
+    build_cache.main(["--config_path", path, "--out_dir", out_dir,
+                      "--n_samples", str(CACHE_SAMPLES)])
+    build_s = time.perf_counter() - t0
+
+    cfg = serve_config()
+    core = GameRFTAudioCore(cfg, dtype=torch.bfloat16, device=dev,
+                            seed=0).to(torch.bfloat16).eval()
+    pipe = CausvidPipeline(core, cfg, window_length=W, sampling_steps=steps,
+                           seed=0, device=dev, image_scale=tc.vae_scale,
+                           audio_scale=tc.audio_vae_scale)
+    ticks, launches = [], 0
+    for i in range(CACHE_SAMPLES):
+        pipe.load_cache(out_dir, cache_idx=i)
+        data = np.load(os.path.join(out_dir, f"buffers_{i}.npz"))
+        want = dict(history=data["history"] / pipe.image_scale,
+                    audio=data["audio"] / pipe.audio_scale,
+                    mouse=data["mouse"], button=data["button"])
+        for name, arr in want.items():
+            got = getattr(pipe.buffers, name)
+            ref = torch.from_numpy(np.asarray(arr)).to(dev, torch.bfloat16)
+            if got.shape != ref.shape or not torch.equal(got, ref):
+                fail(f"cache {i}: buffer {name} differs from the npz")
+        for j in range(CACHE_TICKS):
+            reset_counts()
+            frame, audio, dt = pipe([0.1 * j, -0.05 * j],
+                                    np.ones(cfg.n_buttons, np.float32))
+            counts = kernel_counts()
+            want_counts = dict.fromkeys(counts, 0)
+            want_counts["frame_attention_fwd"] = steps * cfg.n_layers
+            if counts != want_counts:
+                fail(f"cache {i} tick {j}: launches {counts}, expected "
+                     f"{want_counts}")
+            if not (torch.isfinite(frame).all() and
+                    torch.isfinite(audio).all()):
+                fail(f"cache {i} tick {j}: non-finite output")
+            ticks.append(1e3 * dt)
+            launches += counts["frame_attention_fwd"]
+    print(f"[cache] build_cache wrote {CACHE_SAMPLES} buffers of {W} frames "
+          f"in {build_s:.2f} s; CausvidPipeline W={W} warm-started from "
+          f"each (buffers bit-equal to the npz), {CACHE_TICKS} ticks each: "
+          f"ms/tick median {statistics.median(ticks):.2f}, K1 fwd "
+          f"{launches} ({steps * cfg.n_layers} a tick)", flush=True)
+    del pipe, core
+    torch.cuda.empty_cache()
+    return dict(build_s=build_s, tick_ms=statistics.median(ticks),
+                ticks=len(ticks), launches=launches,
+                per_tick=steps * cfg.n_layers)
+
+
+def sampling_cli(config: str, frames: int, tag: str):
+    """``python -m owl_audio_exps_tpu_torch.inference.test_sampling`` as a
+    subprocess: (frames/s, latents' shape, its port kernel launches)."""
+    import ast
+    import re
+    cmd = [sys.executable, "-m",
+           "owl_audio_exps_tpu_torch.inference.test_sampling",
+           "--config_path", os.path.join("configs", config),
+           "--num_frames", str(frames)]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    print(f"[{tag}] $ {' '.join(cmd[1:])} (exit {run.returncode}, "
+          f"{wall:.1f} s)", flush=True)
+    for line in run.stdout.strip().splitlines():
+        print(f"[{tag}]   {line}", flush=True)
+    if run.returncode != 0:
+        print(run.stderr[-4000:], flush=True)
+        fail(f"the sampling CLI failed on configs/{config}")
+    m = re.search(r"sampled latents (\([0-9, ]+\)).* \(([0-9.]+) frames/s\)",
+                  run.stdout)
+    k = re.search(r"port kernel launches (\{.*\})", run.stdout)
+    if not (m and k):
+        fail(f"the sampling CLI printed no result on configs/{config}")
+    return (float(m.group(2)), ast.literal_eval(m.group(1)),
+            ast.literal_eval(k.group(1)), wall)
+
+
+def sampling_cli_phase():
+    """Phase 18 (b): the sampling CLI on configs/av_v4_8x8.yml
+    (av_window: K1 on every forward) and configs/dit_v4_tpu_e2e.yml
+    (av_caching: no port kernel)."""
+    from owl_audio_exps_tpu_torch.configs import Config
+    conf = Config.from_yaml(os.path.join(ROOT, "configs", "av_v4_8x8.yml"))
+    skw = conf.train.sampler_kwargs
+    out = {}
+    for config, frames, expect in (
+            ("av_v4_8x8.yml", CLI_AV_FRAMES,
+             CLI_AV_FRAMES * skw.n_steps * 2 * conf.model.n_layers),
+            ("dit_v4_tpu_e2e.yml", CLI_DIT_FRAMES, 0)):
+        fps, shape, counts, wall = sampling_cli(config, frames, "cli")
+        if counts.get("frame_attention_fwd") != expect or any(
+                v for k, v in counts.items() if k != "frame_attention_fwd"):
+            fail(f"the sampling CLI on configs/{config} launched {counts}, "
+                 f"expected K1 fwd {expect} and nothing else")
+        out[config] = dict(frames_per_s=fps, frames=frames, shape=shape,
+                           launches=counts, wall_s=wall)
+    k1 = out["av_v4_8x8.yml"]["launches"]["frame_attention_fwd"]
+    print(f"[cli] av_window {out['av_v4_8x8.yml']['frames_per_s']:.2f} "
+          f"frames/s (K1 fwd {k1}, {skw.n_steps} steps x CFG x "
+          f"{conf.model.n_layers} layers a frame); av_caching "
+          f"{out['dit_v4_tpu_e2e.yml']['frames_per_s']:.2f} frames/s "
+          "(no port kernel)", flush=True)
+    return out
+
+
+def slice15_train_config(tag, **cuts):
+    """configs/dit_v4_tpu_e2e.yml with no checkpoint and ``cuts``, every
+    one printed."""
+    from owl_audio_exps_tpu_torch.configs import Config
+    conf = Config.from_yaml(os.path.join(ROOT, "configs",
+                                         "dit_v4_tpu_e2e.yml"))
+    tc = conf.train
+    base = dict(checkpoint_dir=os.path.join(SLICE15_DIR, tag, "ckpt"),
+                output_path=None, save_interval=10 ** 9, log_interval=1)
+    for key, value in dict(base, **cuts).items():
+        print_cut(tag, "dit_v4_tpu_e2e.yml", tc, key, value,
+                  "phase 18: no checkpoint written"
+                  if key in base else "phase 18")
+    return conf
+
+
+def trace_kernel_counts(path: str):
+    """Each TRACE_KERNELS kernel's events in a Chrome trace, and the
+    trace's device events."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    return ({k: sum(name in n for n in kernels)
+             for k, name in TRACE_KERNELS.items()}, len(kernels))
+
+
+def trace_phase(dev, step_s: float):
+    """Phase 18 (c): RFTTrainer with train.profile_dir and profile_start
+    1: the trace of steps 1 to 4 holds exactly 4 steps' launches."""
+    import glob
+    import shutil
+    from owl_audio_exps_tpu_torch.trainers.rft_trainer import RFTTrainer
+    trace_dir = os.path.join(SLICE15_DIR, "trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    conf = slice15_train_config("trace", profile_dir=trace_dir,
+                                profile_start=TRACE_START,
+                                max_steps=TRACE_STEPS)
+    L = conf.train.data_kwargs.window_length * conf.model.tokens_per_frame
+    per_step = expected_counts(conf.model, L)
+    trainer = counted_trainer(RFTTrainer)(conf, device=dev)
+    trainer.train(max_steps=TRACE_STEPS)
+    for i, st in enumerate(trainer.steps):
+        if st["counts"] != per_step or not math.isfinite(st["loss"]):
+            fail(f"trace step {i}: launches {st['counts']} (expected "
+                 f"{per_step}), loss {st['loss']}")
+    paths = glob.glob(os.path.join(trace_dir, "rank0_*.pt.trace.json"))
+    if len(paths) != 1:
+        fail(f"the profiler wrote {paths}, expected one trace")
+    counts, n_kernels = trace_kernel_counts(paths[0])
+    traced = TRACE_STEPS - 1 - TRACE_START      # steps 1 to 4
+    want = {k: traced * per_step[k] for k in TRACE_KERNELS}
+    size = os.path.getsize(paths[0])
+    times = [st["s"] for st in trainer.steps]
+    with_prof = statistics.median(times[TRACE_START + 1:
+                                        TRACE_START + traced])
+    print(f"[trace] {TRACE_STEPS} steps with profile_start {TRACE_START}: "
+          f"{os.path.relpath(paths[0], ROOT)} ({size / 2 ** 20:.1f} MiB, "
+          f"{n_kernels} kernels); kernels in the trace {counts}, expected "
+          f"{traced} steps x PERF.md's launches a step = {want}", flush=True)
+    if counts != want:
+        fail(f"the trace holds {counts}, expected {want}")
+    print(f"[trace] step s " + " ".join(f"{t:.3f}" for t in times)
+          + f": traced steps {TRACE_START + 1}-{TRACE_START + traced - 1} "
+          f"median {with_prof:.4f} s against {step_s:.4f} s untraced (phase "
+          f"5): {100 * (with_prof / step_s - 1):+.1f}%", flush=True)
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    launches = {k: sum(st["counts"][k] for st in trainer.steps)
+                for k in per_step}
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(trace_kernels=counts, expected=want, trace_mib=size / 2 ** 20,
+                steps_s=times, traced_step_s=with_prof, untraced_step_s=step_s,
+                launches=launches)
+
+
+def watch_phase(dev, step_s: float):
+    """Phase 18 (d): the same trainer with train.watch norms and full:
+    every group present and finite, the histograms counting every
+    parameter and gradient; the step time against watch off."""
+    from owl_audio_exps_tpu_torch.trainers.rft_trainer import RFTTrainer
+    from owl_audio_exps_tpu_torch.utils.telemetry import group_key
+    out, launches = {}, dict.fromkeys(kernel_counts(), 0)
+    for mode in ("norms", "full"):
+        conf = slice15_train_config(f"watch_{mode}", watch=mode,
+                                    max_steps=WATCH_STEPS)
+        trainer = counted_trainer(RFTTrainer)(conf, device=dev)
+        state = trainer.train(max_steps=WATCH_STEPS)
+        groups = sorted({group_key(n) for n, _ in
+                         state.model.named_parameters()})
+        n_params = sum(p.numel() for p in state.model.parameters())
+        bins = int(conf.train.get("watch_bins") or 64)
+        for i, st in enumerate(trainer.steps):
+            m = st["metrics"]
+            for g in groups:
+                for what in ("param_norm", "grad_norm"):
+                    v = m.get(f"watch/{what}/{g}")
+                    if v is None or not math.isfinite(v):
+                        fail(f"watch {mode} step {i}: {what} of {g} is {v}")
+            if mode == "full":
+                for tree in ("params", "grads"):
+                    counts = m[f"watch_hist/{tree}"]
+                    if len(counts) != bins or sum(counts) != n_params:
+                        fail(f"watch full step {i}: the {tree} histogram "
+                             f"counts {sum(counts)} of {n_params}")
+            for k, v in st["counts"].items():
+                launches[k] += v
+        t = statistics.median(st["s"] for st in trainer.steps[1:])
+        out[mode] = dict(step_s=t, groups=len(groups),
+                         steps_s=[st["s"] for st in trainer.steps],
+                         overhead=t / step_s - 1)
+        print(f"[watch] {mode}: {len(groups)} groups "
+              f"({', '.join(groups)}) finite every step; step s median "
+              f"{t:.4f} against {step_s:.4f} watch off (phase 5): "
+              f"{100 * (t / step_s - 1):+.1f}%", flush=True)
+        del trainer, state
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
+def slice15_phase(dev, step_s: float):
+    """Phase 18: the warm-cache writer and the window pipeline warm-started
+    from it (a), the sampling CLI (b), trace capture in the trainer (c)
+    and train.watch's cost (d)."""
+    import shutil
+    shutil.rmtree(SLICE15_DIR, ignore_errors=True)
+    out = {}
+    for name, fn, args in (("warm_cache", warm_cache_phase, (dev,)),
+                           ("sampling_cli", sampling_cli_phase, ()),
+                           ("trace", trace_phase, (dev, step_s)),
+                           ("watch", watch_phase, (dev, step_s))):
+        t0 = time.perf_counter()
+        out[name] = fn(*args)
+        out[name]["seconds"] = time.perf_counter() - t0
+        print(f"[env] phase 18 {name} took {out[name]['seconds']:.1f} s",
+              flush=True)
+    shutil.rmtree(SLICE15_DIR, ignore_errors=True)
+    k1 = "frame_attention_fwd"
+    out["launches_by_path"] = {
+        "warm_cache_serve": {k1: out["warm_cache"]["launches"]},
+        "sampling_cli_av_window": {k1: out["sampling_cli"][
+            "av_v4_8x8.yml"]["launches"][k1]},
+        "traced_train": out["trace"].pop("launches"),
+        "watched_train": out["watch"].pop("launches")}
+    return out
+
+
 def grads_of(fn, q, k, v, g):
     """(out, dq, dk, dv) of fn under the cotangent g; where fn returns a
     tuple (K4's out and lse), g is a tuple too and the list starts with
@@ -5327,6 +5711,7 @@ def main():
     grad_rows.update(shard.pop("grad_rows"))
     s14 = timed("slice14_phase", slice14_phase, dev)
     grad_rows.update(s14.pop("grad_rows"))
+    s15 = timed("slice15_phase", slice15_phase, dev, train["step_s"])
 
     launches = dict(train["totals"])
     launches["frame_attention_fwd"] += serve_launches + sampler_launches
@@ -5397,6 +5782,13 @@ def main():
         for name, count in counts.items():
             if count:
                 extra[name].setdefault("launches_by_path", {})[path] = count
+    # phase 18: the warm-started window pipeline and the av_window CLI
+    # (K1 forward), the traced and the watched trainers (K1, the band)
+    for path, counts in s15.pop("launches_by_path").items():
+        for name, count in counts.items():
+            launches[name] += count
+            if count:
+                extra[name].setdefault("launches_by_path", {})[path] = count
     for trainer in ("CausVidTrainer", "SelfForceTrainer",
                     "DistillODETrainer"):
         for name, count in distill[trainer]["totals"].items():
@@ -5427,7 +5819,7 @@ def main():
                              if n not in ("totals", "per_step")}
                             if isinstance(row, dict) else row)
                         for k, row in mmdit.items()},
-              "sharding": shard, "slice14": s14}
+              "sharding": shard, "slice14": s14, "slice15": s15}
     print(json.dumps(record), flush=True)
     print(f"[env] {card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

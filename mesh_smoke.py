@@ -5,7 +5,7 @@ with the KV ring sharded over heads at {tensor 4}.
 
 Usage (from the repository root, one process per card):
 
-    torchrun --nproc_per_node 4 mesh_smoke.py [--config_path configs/dit_v4_5B.yml] [--max_steps 2] [--serve_ticks 8]
+    torchrun --nproc_per_node 4 mesh_smoke.py [--config_path configs/dit_v4_5B.yml] [--max_steps 2] [--serve_ticks 8] [--parity_only]
     torchrun --nproc_per_node 3 mesh_smoke.py --case pipe [--config_path configs/dit_v4_5B.yml] [--parity_only]
     torchrun --nproc_per_node 4 mesh_smoke.py --case distill [--parity_only]
 
@@ -23,7 +23,10 @@ from one traced step its P2P device ms and the bubble (the share of the
 step its card computes nothing). A 12-layer full-width copy at
 ``PIPE_CHECK_FRAMES`` frames takes the same steps and is held against one
 card by chip_smoke.py ``parity_verdict`` (the losses, every parameter's
-first gradient, the whole model's update). ``--case distill`` trains configs/dit_v4_dmd.yml (CausVid) at
+first gradient, the whole model's update). After the steps the first
+stage collects the whole checkpoint, as ``save`` does, and serializes it
+into a byte counter (timed, with the cards' and the host's peaks).
+``--case distill`` trains configs/dit_v4_dmd.yml (CausVid) at
 {data 4} (the reference's DDP) and {fsdp 2, tensor 2}, dit_v4_sf.yml and
 dit_v4_prune.yml at {data 4}, seeded cores, two outer steps each: the
 student's and the critic's seconds, peak memory and K1 launches a rank;
@@ -42,7 +45,10 @@ its peak device memory and its exact K1 launches (every layer takes K1:
 the packed batch carries documents), and traces one more micro-batch
 (device time by kernel class, NCCL's all-gather, reduce-scatter and
 all-reduce apart). Then a 2-layer copy at full width takes the same
-steps on each mesh and its parameters are gathered. The serve primes a
+steps on each mesh and its parameters are gathered (these copies, the
+pipe case's too, run ``train.watch: full``, whose dict is held against
+one card's by chip_smoke.py ``watch_verdict``; ``--parity_only`` runs
+only the copies). The serve primes a
 ring of ``SERVE_WINDOW`` frames through ``CachedStreamingPipeline`` (the
 config's sampler's 16 steps) and runs ``--serve_ticks`` steady ticks at
 {tensor 4}: ms a tick, graph or eager (as the pipeline decides from the
@@ -112,6 +118,8 @@ def train_config(args, mesh, table, n_layers=None, tag="mesh"):
     if n_layers is not None:
         cut(cfg.model, "n_layers", n_layers,
             "the parity copy, which one card takes unsharded")
+        cut(tc, "watch", "full", "the parity copy's telemetry, held "
+            "against one card")
     cuts += port_cuts(cfg, world)
     cuts.show(f"[{tag}] cut")
     return cfg
@@ -249,15 +257,17 @@ def parity_run(args, mesh, table, device):
     from owl_audio_exps_tpu_torch.trainers import get_trainer_cls
     cfg = train_config(args, mesh, table, n_layers=CHECK_LAYERS,
                        tag="parity")
-    trainer = get_trainer_cls(cfg.train.trainer_id)(cfg, device=device)
+    trainer = chip_smoke.counted_trainer(
+        get_trainer_cls(cfg.train.trainer_id))(cfg, device=device)
     batch_ranks = trainer.mesh.batch_ranks
     state = trainer.train(max_steps=args.max_steps)
     params = {k: v.cpu() for k, v in gather_params(state.model).items()}
     losses = [h["diffusion_loss"] for h in trainer.logger.history]
+    watch = [st["metrics"] for st in trainer.steps]
     del state, trainer
     gc.collect()
     return dict(params=params, losses=losses, batch_ranks=batch_ranks,
-                mesh=dict(mesh))
+                mesh=dict(mesh), watch=watch)
 
 
 def parity_reference(args, run, table, device):
@@ -289,12 +299,14 @@ def parity_reference(args, run, table, device):
     state = trainer.init_state()
     init = {k: v.detach().cpu().clone()
             for k, v in state.model.named_parameters()}
-    losses = []
+    losses, watch = [], []
     for _ in range(args.max_steps):
         micro = [trainer.to_device(next(it)) for it in loaders]
         metrics = trainer.train_step(state, micro, None,
                                      clip_norm=trainer.grad_clip_norm())
         losses.append(float(metrics["diffusion_loss"]))
+        watch.append({k: chip_smoke.metric_value(v)
+                      for k, v in metrics.items()})
     ref = {k: v.detach().cpu() for k, v in state.model.named_parameters()}
     got = run["params"]
 
@@ -305,10 +317,12 @@ def parity_reference(args, run, table, device):
     upd_rel = max(rel(got[k] - init[k], ref[k] - init[k]) for k in ref
                   if (ref[k] - init[k]).norm() > 0)
     l_rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], losses))
+    n_params = sum(v.numel() for v in ref.values())
     del state, trainer
     gc.collect()
     return dict(loss_rel=l_rel, param_rel_l2=p_rel, update_rel_l2=upd_rel,
-                losses=run["losses"], ref_losses=losses)
+                losses=run["losses"], ref_losses=losses,
+                **chip_smoke.watch_verdict(run["watch"], watch, n_params))
 
 
 def serve_core(cfg, device):
@@ -381,8 +395,7 @@ def main(argv=None):
     parser.add_argument("--case", default="fsdp",
                         choices=("fsdp", "pipe", "distill"))
     parser.add_argument("--parity_only", action="store_true",
-                        help="--case pipe / distill: only the copies held "
-                        "against one card")
+                        help="only the copies held against one card")
     parser.add_argument("--distill_configs", default=None,
                         help="comma-separated paths for --case distill "
                         "(by default configs/dit_v4_{dmd,sf,prune}.yml)")
@@ -422,7 +435,7 @@ def main(argv=None):
     table = write_table(args, rank)
 
     reports = {}
-    for mesh in TRAIN_MESHES:
+    for mesh in () if args.parity_only else TRAIN_MESHES:
         t0 = time.perf_counter()
         rep = reports[mesh_name(mesh)] = train_case(args, mesh, table,
                                                     device, on_card)
@@ -439,8 +452,10 @@ def main(argv=None):
     runs = [parity_run(args, mesh, table, device) for mesh in TRAIN_MESHES]
 
     cfg = Config.from_yaml(args.config_path)
-    pmesh.make_mesh(pmesh.MeshConfig(**SERVE_MESH), device_type=device.type)
-    served = serve_run(args, cfg, device, on_card, sharded=True)
+    if not args.parity_only:
+        pmesh.make_mesh(pmesh.MeshConfig(**SERVE_MESH),
+                        device_type=device.type)
+        served = serve_run(args, cfg, device, on_card, sharded=True)
 
     gathered = [None] * world
     dist.all_gather_object(gathered, reports)
@@ -476,10 +491,21 @@ def main(argv=None):
             f"steps: losses {res['losses']} vs one card {res['ref_losses']}"
             f" (worst rel {res['loss_rel']:.3e}, limit {LOSS_REL}); "
             f"parameters rel L2 {res['param_rel_l2']:.3e} (limit "
-            f"{PARAM_REL}); their updates rel L2 {res['update_rel_l2']:.3e}")
+            f"{PARAM_REL}); their updates rel L2 {res['update_rel_l2']:.3e};"
+            f" watch full: {res['watch_keys']} keys, worst norm rel "
+            f"{res['watch_norm_rel']:.3e} ({res['watch_worst']}), histogram "
+            f"totals exact unless listed: {res['failures']}")
         if res["loss_rel"] > LOSS_REL or res["param_rel_l2"] > PARAM_REL:
             bad.append(f"parity {name}: the sharded steps disagree with one "
                        "card")
+        bad += [f"parity {name}: {f}" for f in res["failures"]]
+    if args.parity_only:
+        shutil.rmtree(WORK, ignore_errors=True)
+        for f in bad:
+            print(f"FAILED: {f}", flush=True)
+        print(json.dumps(dict(ok=not bad, world=world, parity=parity)),
+              flush=True)
+        sys.exit(1 if bad else 0)
     ref = serve_run(args, cfg, device, on_card, sharded=False)
     serve_rel = max(chip_smoke.rel_l2(a, b)
                     for a, b in zip(served["outs"], ref["outs"]))
@@ -560,6 +586,8 @@ def pipe_config(args, table, world, n_layers=None, frames=None,
     cuts.no_checkpoint(tc, WORK)
     if n_layers is not None:
         cut(m, "n_layers", n_layers, "the parity copy")
+        cut(tc, "watch", "full", "the parity copy's telemetry, held "
+            "against one card")
     if frames is not None:
         cut(m, "n_frames", frames, "the parity copy's window")
     cuts += port_cuts(cfg, world)
@@ -673,8 +701,54 @@ def trace_pipe_step(trainer, state, micro, gen):
                 device_ms={k: v / 1e3 for k, v in classes.items()})
 
 
+class ByteCounter:
+    """A writable sink that keeps only the count of the bytes written."""
+
+    def __init__(self):
+        self.n = 0
+
+    def write(self, b):
+        self.n += len(b)
+        return len(b)
+
+    def flush(self):
+        pass
+
+
+def pipe_checkpoint(trainer, state, device):
+    """The checkpoint of ``state`` as ``BaseTrainer.save`` makes it: the
+    whole logical state collected on the pipe group's first rank
+    (``logical_state``: each stage's tensors sent there one at a time),
+    then serialized with torch.save into a byte counter (the machine
+    caps a call's disk writes below a 5B checkpoint). Every rank takes
+    part; seconds, bytes, the card's and the host's peaks."""
+    import resource
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    dist.barrier()
+    t0 = time.perf_counter()
+    payload = trainer.logical_state(state)
+    out = dict(collect_s=time.perf_counter() - t0, peak_gib=(
+        torch.cuda.max_memory_allocated(device) / 2 ** 30 if on_card
+        else None))
+    if payload is not None:
+        sink = ByteCounter()
+        t0 = time.perf_counter()
+        torch.save(payload, sink)
+        out.update(serialize_s=time.perf_counter() - t0,
+                   gib=sink.n / 2 ** 30,
+                   tensors=sum(len(v) for k, v in payload.items()
+                               if k in ("params", "ema_params")))
+        del payload
+    out["host_peak_gib"] = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    dist.barrier()
+    return out
+
+
 def pipe_train(args, table, world, device, on_card, n_layers=None,
-               frames=None, tag="pipe"):
+               frames=None, tag="pipe", save=False):
     """The pipe case's steps (counted) on this rank; with ``n_layers`` the
     parity copy, whose parameters are gathered from every stage."""
     from owl_audio_exps_tpu_torch.data import get_loader
@@ -721,12 +795,15 @@ def pipe_train(args, table, world, device, on_card, n_layers=None,
         micro = trainer.to_device(next(loader))
         gen = torch.Generator(device=device).manual_seed(99)
         out["trace"] = trace_pipe_step(trainer, state, micro, gen)
+    if n_layers is None and save:
+        out["checkpoint"] = pipe_checkpoint(trainer, state, device)
     if n_layers is not None:
         out["params"] = {k: v.cpu() for k, v in
                          gather_params(state.model, m).items()}
         out["grads"] = chip_smoke.first_grads(trainer, state.model)
         out["losses"] = [h["diffusion_loss"] for h in
                          trainer.logger.history] or out["losses"]
+        out["watch"] = [st["metrics"] for st in trainer.steps]
     del state, trainer
     gc.collect()
     if on_card:
@@ -739,18 +816,22 @@ def pipe_reference(args, table, world, device, run):
     from owl_audio_exps_tpu_torch.trainers import get_trainer_cls
     cfg = pipe_config(args, table, 1, PIPE_CHECK_LAYERS, check_frames(args),
                       tag="parity")
-    trainer = chip_smoke.recording_grads(
-        get_trainer_cls(cfg.train.trainer_id))(cfg, device=device)
+    trainer = chip_smoke.recording_grads(chip_smoke.counted_trainer(
+        get_trainer_cls(cfg.train.trainer_id)))(cfg, device=device)
     init = {k: v.detach().cpu().clone()
             for k, v in trainer.init_state().model.named_parameters()}
     state = trainer.train(max_steps=args.max_steps)
     ref = {k: v.detach().cpu() for k, v in state.model.named_parameters()}
     losses = [h["diffusion_loss"] for h in trainer.logger.history]
-    return dict(**chip_smoke.parity_verdict(
+    verdict = chip_smoke.parity_verdict(
         max(abs(a - b) / abs(b) for a, b in zip(run["losses"], losses)),
         run["params"], ref, init, run["grads"],
-        chip_smoke.first_grads(trainer, state.model)),
-        losses=run["losses"], ref_losses=losses)
+        chip_smoke.first_grads(trainer, state.model))
+    watch = chip_smoke.watch_verdict(
+        run["watch"], [st["metrics"] for st in trainer.steps],
+        sum(v.numel() for v in ref.values()))
+    verdict["failures"] += watch.pop("failures")
+    return dict(**verdict, **watch, losses=run["losses"], ref_losses=losses)
 
 
 # ---------------------------------------------------------- --case distill
@@ -968,14 +1049,17 @@ def case_main(args):
         table = write_window_table(args, rank)
         if not args.parity_only:
             rep = runs["train"] = pipe_train(args, table, world, device,
-                                             on_card)
+                                             on_card, save=True)
             print(f"[pipe] rank {rank} (stage {rep['stage']}, blocks "
                   f"{rep['blocks']}): steps " + " ".join(
                       f"{x:.3f}" for x in rep["steps_s"]) + " s, peak "
                   + (f"{rep['peak_gib']:.2f} GiB" if on_card else "n/a")
                   + f", launches {rep['launches_per_step']}"
                   + (f", traced step {rep['trace']}" if rep.get("trace")
-                     else "") + f", failures {rep['failures']}", flush=True)
+                     else "")
+                  + (f", checkpoint {rep['checkpoint']}"
+                     if rep.get("checkpoint") else "")
+                  + f", failures {rep['failures']}", flush=True)
         checks.append(pipe_train(args, table, world, device, on_card,
                                  PIPE_CHECK_LAYERS, check_frames(args),
                                  "parity"))
@@ -1005,7 +1089,7 @@ def case_main(args):
     gathered = [None] * world
     light = {k: {kk: vv for kk, vv in v.items()
                  if kk not in ("student", "params", "initial_student",
-                               "grads")}
+                               "grads", "watch")}
              for k, v in runs.items()}
     dist.all_gather_object(gathered, light)
     pdist.cleanup()

@@ -555,10 +555,14 @@ class DiT(nn.Module):
     def _cached(self, x, cond, doc_id, kv_cache, write, decoding, write_len):
         cfg = self.config
         if any(b is None for b in self.blocks):
-            raise NotImplementedError(
+            # the JAX package's cached forward runs unrolled blocks, which
+            # a scan_layers model (every pipelined one) does not hold: its
+            # eval sample at a pipe mesh raises ScopeParamNotFoundError
+            raise ValueError(
                 "a cached forward of a DiT whose blocks are split over "
-                "pipeline stages: the port runs the pipe axis on uncached "
-                "forwards only, as the JAX package's pipeline")
+                "pipeline stages: this rank holds only its stage's blocks, "
+                "and the JAX package refuses a cached forward of a "
+                "pipelined scan_layers model as well")
         L = x.shape[1]
         local_mask, global_mask = build_masks(
             cfg, L, doc_id, kv_cache=kv_cache, decoding=decoding,

@@ -4,7 +4,14 @@
 * ``MouseEmbedding``: symlog deltas -> polar; the angle through a bias-free
   projection of [cos, sin], the magnitude through sincos;
 * ``ButtonEmbedding``: {0, 1} -> {-1, 1} -> MLP;
-* ``ControlEmbedding``: the sum of the two.
+* ``ControlEmbedding``: the sum of the two;
+* ``StepEmbedding`` (a distilled student's step count, log2-scaled),
+  ``ConditionEmbedding`` (a class id) and ``LearnedPosEnc`` (a learned
+  additive position table, aligned to the end of a shorter input), which
+  no model of either package builds.
+
+The Linears are drawn by nn/layers.py ``reset_parameters``; the modules
+with other parameters draw them in their own ``reset_parameters``.
 """
 
 from __future__ import annotations
@@ -14,7 +21,7 @@ import math
 import torch
 from torch import nn
 
-from .layers import Linear, MLPCustom
+from .layers import Linear, MLPCustom, reset_parameters
 
 
 def sincos_embed(x: torch.Tensor, dim: int, theta: float = 300.0,
@@ -39,6 +46,79 @@ class TimestepEmbedding(nn.Module):
 
     def forward(self, t):
         return self.mlp(sincos_embed(t, 512).to(self.dtype))
+
+
+class StepEmbedding(nn.Module):
+    """Steps (a scalar or [b]) -> [b, dim_out]: sincos(d_in) of
+    log2(max_steps) - log2(steps) at mult 1000 / log2(max_steps), then an
+    MLP(d_in, 4 dim_out, dim_out)."""
+
+    def __init__(self, dim_out: int, d_in: int = 512, max_steps: int = 128,
+                 dtype=torch.bfloat16, device=None):
+        super().__init__()
+        self.d_in = d_in
+        self.max_steps = max_steps
+        self.dtype = dtype
+        self.mlp = MLPCustom(d_in, 4 * dim_out, dim_out, dtype=dtype,
+                             device=device)
+
+    def forward(self, steps):
+        steps = torch.as_tensor(steps, dtype=torch.float32,
+                                device=self.mlp.fc1.weight.device)
+        if steps.ndim == 0:
+            steps = steps[None]
+        t = math.log2(self.max_steps) - torch.log2(steps)
+        mult = 1000.0 / math.log2(self.max_steps)
+        emb = sincos_embed(t, self.d_in, theta=300.0, mult=mult)
+        return self.mlp(emb.to(self.dtype))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        reset_parameters(self, generator)
+
+
+class ConditionEmbedding(nn.Module):
+    """Class ids [...] -> [..., dim]: a float32 table, then an MLP(dim,
+    4 dim, dim)."""
+
+    def __init__(self, n_classes: int, dim: int, dtype=torch.bfloat16,
+                 device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.embedding = nn.Embedding(
+            n_classes, dim, _weight=torch.zeros(n_classes, dim,
+                                                device=device))
+        self.mlp = MLPCustom(dim, 4 * dim, dim, dtype=dtype, device=device)
+
+    def forward(self, x):
+        return self.mlp(self.embedding(x).to(self.dtype))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        self.embedding.weight.normal_(
+            0.0, self.embedding.embedding_dim ** -0.5, generator=generator)
+        reset_parameters(self.mlp, generator)
+
+
+class LearnedPosEnc(nn.Module):
+    """x [b, n, dim] plus the last n rows of a learned [n_seq, dim] table
+    (float32, drawn 0.02 N(0, 1)) in ``dtype``."""
+
+    def __init__(self, n_seq: int, dim: int, dtype=torch.bfloat16,
+                 device=None):
+        super().__init__()
+        self.n_seq = n_seq
+        self.dtype = dtype
+        self.p = nn.Parameter(torch.zeros(n_seq, dim, device=device))
+
+    def forward(self, x):
+        n = x.shape[1]
+        p = self.p[-n:] if n < self.n_seq else self.p
+        return x + p.to(self.dtype)[None]
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        self.p.normal_(0.0, 0.02, generator=generator)
 
 
 class MouseEmbedding(nn.Module):

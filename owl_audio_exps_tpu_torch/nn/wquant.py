@@ -60,8 +60,19 @@ def quantize_params_int8(module: nn.Module, min_elems: int = 65536,
     return out
 
 
+def is_quantized_kernel(v) -> bool:
+    """Whether ``v`` holds an int8 weight: a ``Linear`` whose weight was
+    replaced by ``weight_q`` / ``weight_s``, or a mapping with ``q`` and
+    ``s`` (the JAX package's quantized kernel)."""
+    from collections.abc import Mapping
+    from .layers import Linear
+    if isinstance(v, Linear):
+        return v.weight is None and hasattr(v, "weight_q")
+    return isinstance(v, Mapping) and "q" in v and "s" in v
+
+
 def quantized_names(module: nn.Module):
     """Names of the ``Linear`` modules that hold int8 weights."""
     from .layers import Linear
     return sorted(name for name, m in module.named_modules()
-                  if isinstance(m, Linear) and m.weight is None)
+                  if isinstance(m, Linear) and is_quantized_kernel(m))

@@ -10,8 +10,8 @@ updates, and moves the EMA towards the parameters with beta 0.999, as the
 JAX package's one jitted step does. With ``train.watch`` the step also
 returns the per-module parameter and gradient norms (and, under
 ``full``, histograms of ``watch_bins`` bins) of the clipped gradients
-before the update (utils/telemetry.py). Parameters and optimizer state are
-updated in place.
+before the update (utils/telemetry.py), on any mesh (``watch``).
+Parameters and optimizer state are updated in place.
 
 Several processes (one per device, under ``torchrun``; parallel/dist.py)
 form the mesh of ``train.mesh`` (parallel/mesh.py): the batch ranks (data
@@ -67,7 +67,8 @@ from ..utils.checkpoints import (load_checkpoint, save_checkpoint,
                                  save_clean_export)
 from ..utils.device import resolve_device
 from ..utils.logging import ExperimentLogger, LogHelper, Timer
-from ..utils.telemetry import watch_metrics
+from ..utils.telemetry import (bin_counts, group_key, value_range,
+                               watch_metrics)
 
 
 @dataclasses.dataclass
@@ -309,12 +310,8 @@ class BaseTrainer:
             if clip_norm is not None:
                 metrics["grad_norm"] = clip_grad_norm(params, clip_norm)
             watch = self.train_cfg.get("watch")
-            if watch and self.sharded:
-                raise NotImplementedError(
-                    "train.watch over parameters sharded by the fsdp and "
-                    "tensor axes is not ported (ROADMAP.md Queue 1)")
             if watch:
-                metrics.update(watch_metrics(
+                metrics.update(self.watch(
                     model.named_parameters(), watch,
                     bins=int(self.train_cfg.get("watch_bins") or 64)))
             opt.step()
@@ -325,6 +322,72 @@ class BaseTrainer:
         opt.zero_grad(set_to_none=True)
         state.step += 1
         return metrics
+
+    @torch.no_grad()
+    def watch(self, named_params, mode: str, bins: int = 64,
+              depth: int = 2) -> Dict[str, torch.Tensor]:
+        """utils/telemetry.py ``watch_metrics`` of the whole model, on every
+        rank alike. Unsharded, each rank holds the whole model and its
+        summed gradients. Under the fsdp, tensor and pipe axes a rank holds
+        slices: a group's squares are weighted as ``global_norm`` weights
+        them and summed over every rank (a pipe rank adds the groups of the
+        other stages' blocks); the histograms take the min and max over
+        every rank, and each slice's elements are counted on the one rank
+        of its copies whose place on every axis that does not split it is
+        0."""
+        named = list(named_params)
+        if not self.sharded:
+            return watch_metrics(named, mode, bins=bins, depth=depth)
+        mesh = self.mesh
+        coords = mesh_coords_of(mesh)
+        world, dev = process_count(), named[0][1].device
+        trees = {"params": [p.detach() for _, p in named],
+                 "grads": [p.grad if p.grad is not None
+                           else torch.zeros_like(p) for _, p in named]}
+        keys = self._watch_keys(named, depth)
+        slot = {k: i for i, k in enumerate(keys)}
+        squares = torch.zeros(2, len(keys), dtype=torch.float32, device=dev)
+        counted = []
+        for i, (name, p) in enumerate(named):
+            spec, stage = spec_of(p), stage_of(p)
+            split = {a for a in (spec.axes if spec else ()) if a}
+            if stage is not None:
+                split.add("pipe")
+            share = (spec.n_shards if spec else 1) * (
+                mesh.pipe if stage is not None else 1) / world
+            j = slot[group_key(name, depth)]
+            for row, tree in enumerate(trees.values()):
+                squares[row, j] += tree[i].float().pow(2).sum() * share
+            counted.append(all(c == 0 for a, c in coords.items()
+                               if a not in split))
+        dist.all_reduce(squares)
+        norms = squares.sqrt()
+        out = {}
+        for row, what in enumerate(("param_norm", "grad_norm")):
+            out.update({f"watch/{what}/{k}": norms[row, slot[k]]
+                        for k in keys})
+        if mode == "full":
+            for name, tree in trees.items():
+                lo, hi = value_range(tree)
+                dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+                dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+                mine = [t for t, c in zip(tree, counted) if c]
+                counts = (bin_counts(mine, lo, hi, bins) if mine else
+                          torch.zeros(bins, dtype=torch.int64, device=dev))
+                dist.all_reduce(counts)
+                out[f"watch_hist/{name}"] = counts.to(torch.int32)
+                out[f"watch_hist/{name}_lo"] = lo
+                out[f"watch_hist/{name}_hi"] = hi
+        return out
+
+    def _watch_keys(self, named, depth: int) -> List[str]:
+        """Every rank's parameter groups, sorted (gathered once)."""
+        if getattr(self, "_watch_key_list", None) is None:
+            mine = sorted({group_key(n, depth) for n, _ in named})
+            every = [None] * process_count()
+            dist.all_gather_object(every, mine)
+            self._watch_key_list = sorted(set().union(*every))
+        return self._watch_key_list
 
     @torch.no_grad()
     def reduce_across_ranks(self, params, metrics: Dict):

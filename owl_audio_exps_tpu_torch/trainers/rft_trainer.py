@@ -15,6 +15,9 @@ video samplers, the AV trainers' with the window samplers; with
 ``eval_media_dir`` the AV trainers export the decoded clip and the audio
 trainer a decoded WAV through the VAE bridge (utils/owl_vae_bridge.py),
 which also encodes the audio trainer's waveforms when it names a VAE.
+With ``train.profile_dir`` the loop writes a torch.profiler trace of
+steps ``profile_start`` (10) to ``profile_start + 3`` there
+(utils/profiling.py).
 The noise comes from one ``torch.Generator`` on the device, seeded 1234
 plus the batch rank (data x fsdp), so the tensor and seq ranks of one
 batch rank draw alike. Under several processes every rank starts from
@@ -35,6 +38,7 @@ from ..models import get_model_cls
 from ..parallel.dist import broadcast_from_main
 from ..utils.logging import DeferredMetrics
 from ..utils.mfu import MFUProfiler
+from ..utils.profiling import StepProfiler
 from ..parallel.sharding import shard_params
 from .base import BaseTrainer, TrainState
 
@@ -125,6 +129,9 @@ class RFTFamilyTrainer(BaseTrainer):
 
     def _train_loop(self, state, max_steps, accum, batches, sampler,
                     sample_loader, profiler, generator):
+        step_profiler = StepProfiler(self.train_cfg.get("profile_dir"),
+                                     start=self.train_cfg.get(
+                                         "profile_start", 10))
         total = max_steps if max_steps is not None else \
             self.train_cfg.get("max_steps") or int(1e12)
         pending = DeferredMetrics()
@@ -139,8 +146,10 @@ class RFTFamilyTrainer(BaseTrainer):
                 self.save(state)
                 break
             micro = [next(batches) for _ in range(accum)]
+            step_profiler.maybe_start(self.total_step_counter)
             metrics = self.train_step(state, micro, generator, clip_norm=clip)
             pending.append(self.total_step_counter + 1, metrics)
+            step_profiler.maybe_stop(self.total_step_counter)
             self.total_step_counter += 1
 
             do_sample = sampler is not None and \

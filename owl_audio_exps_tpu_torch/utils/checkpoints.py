@@ -8,7 +8,7 @@ written to a temporary name and renamed, so a crash mid-save never leaves
 a torn checkpoint under the final name. ``versatile_load`` reads the
 inference weights of either kind of file, or of a clean export's
 directory, and ``unwrap_core`` takes a training wrapper's core out of
-them. ``load_torch_file`` reads a state_dict in the torch reference's
+them; ``latest_step_dir`` finds the newest step in a directory. ``load_torch_file`` reads a state_dict in the torch reference's
 layout (the port's own) from either, from an owl_wms checkpoint, or
 from a reference golden's ``.npz``.
 """
@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -54,6 +54,22 @@ def versatile_load(path: str, map_location=None) -> Dict[str, Any]:
         if isinstance(state, dict) and key in state:
             return state[key]
     return state
+
+
+def latest_step_dir(checkpoint_dir: str) -> Optional[str]:
+    """The newest ``step_N`` entry of a directory (a JAX package's step
+    directory, or the port trainer's ``step_N.pt``), None if it has
+    none or does not exist."""
+    if not os.path.isdir(checkpoint_dir):
+        return None
+    steps = []
+    for name in os.listdir(checkpoint_dir):
+        m = re.fullmatch(r"step_(\d+)(\.pt)?", name)
+        if m:
+            steps.append((int(m.group(1)), name))
+    if not steps:
+        return None
+    return os.path.join(checkpoint_dir, max(steps)[1])
 
 
 def unwrap_core(state_dict: Dict[str, torch.Tensor]

@@ -5,12 +5,14 @@ code on numpy, PIL and scipy; the paths the trainers' exports use).
 GIF frames go through PIL, WAV through scipy; ``write_av`` muxes one
 watchable file: mp4 + AAC through an ffmpeg subprocess when the binary
 exists, else the pure-Python MJPEG + PCM AVI of ``write_avi``.
+``channel_gifs`` shows latent channels; ``wandb_video`` / ``wandb_audio``
+wrap media for wandb where it is installed.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -40,6 +42,23 @@ def write_wav(path: str, waveform: np.ndarray, sample_rate: int = 44100
     wf = np.clip(np.asarray(waveform, dtype=np.float32), -1.0, 1.0)
     wavfile.write(path, sample_rate, (wf * 32767).astype(np.int16))
     return path
+
+
+def channel_gifs(latents: np.ndarray, out_dir: str, prefix: str,
+                 channels: Sequence[int] = (0,), fps: int = 60):
+    """One grey GIF per channel of a latent video [n, c, h, w], each
+    scaled to its own min and max: ``<prefix>_ch<k>.gif``."""
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for ch in channels:
+        x = np.asarray(latents[:, ch], dtype=np.float32)
+        lo, hi = x.min(), x.max()
+        norm = (x - lo) / max(hi - lo, 1e-6)
+        frames = (np.repeat(norm[..., None], 3, axis=-1) * 255).astype(
+            np.uint8)
+        paths.append(write_gif(
+            os.path.join(out_dir, f"{prefix}_ch{ch}.gif"), frames, fps))
+    return paths
 
 
 def _jpeg_bytes(frame: np.ndarray, quality: int = 90) -> bytes:
@@ -206,3 +225,25 @@ def save_av_bundle(out_dir: str, name: str, video_frames: np.ndarray = None,
         written["av"] = write_av(os.path.join(out_dir, name), frames,
                                  waveform, fps, sample_rate)
     return written
+
+
+def wandb_video(video_frames: np.ndarray, fps: int = 60):
+    """A ``wandb.Video`` of frames [n, H, W, 3] in [-1, 1] when wandb is
+    installed, else the frames as they are."""
+    try:
+        import wandb
+    except ImportError:
+        return video_frames
+    frames = to_uint8_frames(video_frames)
+    return wandb.Video(np.transpose(frames, (0, 3, 1, 2)), fps=fps)
+
+
+def wandb_audio(waveform: np.ndarray, sample_rate: int = 44100):
+    """A ``wandb.Audio`` of a waveform when wandb is installed, else the
+    waveform as it is."""
+    try:
+        import wandb
+    except ImportError:
+        return waveform
+    return wandb.Audio(np.asarray(waveform, dtype=np.float32),
+                       sample_rate=sample_rate)

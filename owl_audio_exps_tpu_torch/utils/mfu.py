@@ -3,9 +3,9 @@ owl_audio_exps_tpu/utils/mfu.py).
 
 FLOPs are computed analytically from the transformer config (matmul
 terms, the accounting the JAX package uses); timing is the host clock
-around steps that end in a device synchronize; the peak is one H100
-SXM's dense bf16 rate, 989 TFLOP/s (NVIDIA's data sheet; its 1,979 is
-the rate with sparsity).
+around steps that end in a device synchronize; the peak is the card's
+dense bf16 rate (``detect_peak_tflops``, from NVIDIA's data sheets,
+which give twice these with sparsity): 989 TFLOP/s on an H100 SXM.
 """
 
 from __future__ import annotations
@@ -13,6 +13,23 @@ from __future__ import annotations
 import time
 
 H100_PEAK_TFLOPS = 989.0
+# dense bf16 TFLOP/s by device name, the first match taken
+PEAK_TFLOPS = (("h100 nvl", 835.0), ("h100 pcie", 756.0),
+               ("h100", H100_PEAK_TFLOPS))
+
+
+def detect_peak_tflops() -> float:
+    """The dense bf16 peak of card 0 from ``torch.cuda.get_device_name``
+    (an H100 SXM reads "NVIDIA H100 80GB HBM3"); the H100 SXM's where no
+    card or no entry matches."""
+    import torch
+    if not torch.cuda.is_available():
+        return H100_PEAK_TFLOPS
+    name = torch.cuda.get_device_name(0).lower()
+    for key, tflops in PEAK_TFLOPS:
+        if key in name:
+            return tflops
+    return H100_PEAK_TFLOPS
 
 
 def transformer_flops_per_token(config, seq_len: int) -> float:
@@ -42,10 +59,11 @@ def training_flops_per_token(config, seq_len: int) -> float:
 
 class MFUProfiler:
     """Training-step timing x FLOP count: seconds per step, tokens/s,
-    achieved TFLOP/s and MFU against one H100."""
+    achieved TFLOP/s and MFU against the card's peak."""
 
     def __init__(self, config, batch_tokens: int, seq_len: int):
         self.batch_tokens = batch_tokens
+        self.peak_tflops = detect_peak_tflops()
         self.flops_per_step = \
             training_flops_per_token(config, seq_len) * batch_tokens
         self._t0 = None
@@ -75,5 +93,5 @@ class MFUProfiler:
             "perf/sec_per_step": sec_per_step,
             "perf/tokens_per_sec": self.batch_tokens / sec_per_step,
             "perf/achieved_tflops": tflops,
-            "perf/mfu": tflops / H100_PEAK_TFLOPS,
+            "perf/mfu": tflops / self.peak_tflops,
         }

@@ -10,7 +10,11 @@ owl_audio_exps_tpu/utils/telemetry.py), the ``train.watch`` knob:
   maximum (counts, lo, hi).
 
 Everything is computed on the device inside the step and returned as
-device tensors: no value is read back to the host here.
+device tensors; only ``torch.bincount`` (``full``) reads its input's range
+back to the host, once per chunk of elements. Over parameters
+split by the fsdp, tensor or pipe axes, trainers/base.py
+``BaseTrainer.watch`` computes the same dict from this rank's slices
+with these helpers and a few collectives.
 """
 
 from __future__ import annotations
@@ -22,11 +26,16 @@ import torch
 Named = Iterable[Tuple[str, torch.Tensor]]
 
 
+def group_key(name: str, depth: int = 2) -> str:
+    """The group of a parameter: the first ``depth`` components of its
+    name, joined by "/"."""
+    return "/".join(name.split(".")[:depth]) or "root"
+
+
 def _groups(named: Named, depth: int) -> Dict[str, List[torch.Tensor]]:
     groups: Dict[str, List[torch.Tensor]] = {}
     for name, t in named:
-        key = "/".join(name.split(".")[:depth]) or "root"
-        groups.setdefault(key, []).append(t)
+        groups.setdefault(group_key(name, depth), []).append(t)
     return groups
 
 
@@ -41,15 +50,35 @@ def group_norms(named: Named, prefix: str,
 def value_histogram(tensors: List[torch.Tensor], bins: int = 64):
     """(counts [bins] int32, lo, hi) over every element of ``tensors``,
     the range this step's min and max."""
+    lo, hi = value_range(tensors)
+    return bin_counts(tensors, lo, hi, bins).to(torch.int32), lo, hi
+
+
+def value_range(tensors: List[torch.Tensor]):
+    """(min, max) over every element of ``tensors``, float32."""
     lo = torch.stack([t.detach().float().amin() for t in tensors]).amin()
     hi = torch.stack([t.detach().float().amax() for t in tensors]).amax()
+    return lo, hi
+
+
+def bin_counts(tensors: List[torch.Tensor], lo, hi, bins: int,
+               chunk: int = 1 << 26) -> torch.Tensor:
+    """int64 counts of the elements of ``tensors`` in ``bins`` equal bins
+    between ``lo`` and ``hi`` (the ends clamped into the first and last).
+    The bin indices of about ``chunk`` elements at a time go to one
+    ``torch.bincount``, which reads its input's range back to the host:
+    one wait for the device per chunk rather than per tensor."""
     span = torch.clamp(hi - lo, min=1e-12)
     counts = torch.zeros(bins, dtype=torch.int64, device=lo.device)
-    for t in tensors:
-        idx = ((t.detach().float().reshape(-1) - lo) / span * bins).to(
-            torch.int32).clamp(0, bins - 1)
-        counts += torch.bincount(idx, minlength=bins)
-    return counts.to(torch.int32), lo, hi
+    pending, size = [], 0
+    for i, t in enumerate(tensors):
+        pending.append(((t.detach().float().reshape(-1) - lo) / span
+                        * bins).to(torch.int32).clamp(0, bins - 1))
+        size += pending[-1].numel()
+        if size >= chunk or i == len(tensors) - 1:
+            counts += torch.bincount(torch.cat(pending), minlength=bins)
+            pending, size = [], 0
+    return counts
 
 
 def watch_metrics(named_params: Named, mode: str, bins: int = 64,

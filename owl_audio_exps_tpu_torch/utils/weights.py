@@ -4,7 +4,8 @@ The port's own copy of the mapping in owl_audio_exps_tpu/utils/
 torch_import.py (``export_torch_state_dict``,
 ``inverse_permute_qkv_rows``): flax module paths become dotted torch
 names (``blocks_3`` -> ``blocks.3``), a flax ``kernel`` [in, out] becomes
-the torch ``weight`` [out, in], norm ``scale``s become ``weight``s, and
+the torch ``weight`` [out, in], norm ``scale``s and an ``nn.Embed`` table
+(``embedding``) become ``weight``s, and
 the heads-major [H, 3, Dh] rows of every QKV projection are permuted back
 to the torch reference's [3, H, Dh]. The port's modules load the result
 with ``load_state_dict`` directly: ``GameRFTAudioCore`` and ``GameRFTCore``
@@ -120,7 +121,7 @@ def params_from_jax(params: dict, n_heads: int) -> Dict[str, torch.Tensor]:
         elif leaf == "bias":
             if is_qkv and value.ndim == 1:
                 value = inverse_permute_qkv_rows(value, n_heads)
-        elif leaf == "scale":
+        elif leaf in ("scale", "embedding"):
             leaf = "weight"
         out[".".join(mod_path + [leaf])] = torch.from_numpy(np.array(value))
 

@@ -473,9 +473,9 @@ def test_mesh_smoke_runs_fsdp_and_tensor_on_gloo(tmp_path):
     """mesh_smoke.py, the 4-card run of the sharded trainer and serve, on
     4 gloo processes at configs/dit_v4_5B.yml cut to CPU size: {fsdp 4}
     and {fsdp 2, tensor 2} each take a step from the script's packed
-    table, the 2-layer copy matches one process, and the head-sharded
-    serve at {tensor 4} matches the whole model; rank 0 prints the JSON
-    line last. The test runs AdamW (eps 1e-4, ROADMAP Queue 3's watch
+    table, the 2-layer copy (with train.watch: full) matches one
+    process, and the head-sharded serve at {tensor 4} matches the whole
+    model; rank 0 prints the JSON line last. The test runs AdamW (eps 1e-4, ROADMAP Queue 3's watch
     item on Adam's first step): at this width one Muon step moves the
     weights by a large fraction, and its bf16 NS5 lifts the tensor ranks'
     bf16 partial-sum rounding past the 3e-2 parameter limit; the card
@@ -509,6 +509,9 @@ def test_mesh_smoke_runs_fsdp_and_tensor_on_gloo(tmp_path):
              for m in ("fsdp 4", "fsdp 2 x tensor 2")]
     assert heads == [[4] * 4, [2] * 4]
     assert all(p["param_rel_l2"] < 3e-2 for p in out["parity"].values())
+    # the copies' train.watch: full against one process's
+    assert all(p["watch_keys"] > 0 and p["watch_norm_rel"] < 0.1
+               and not p["failures"] for p in out["parity"].values())
     assert out["serve"]["ring_heads_per_rank"] == 1
     assert not out["serve"]["graphed"]
 
@@ -586,8 +589,10 @@ def test_mesh_smoke_runs_the_pipe_case_on_gloo(tmp_path):
     """mesh_smoke.py --case pipe on 3 gloo processes at
     configs/dit_v4_5B.yml cut to CPU size (12 layers, 3 groups: one a
     stage): the pipelined steps from the windowed loader, each rank its
-    stage's blocks, the 12-layer copy against one process (AdamW with eps
-    1e-4, as test_mesh_smoke_runs_fsdp_and_tensor_on_gloo says why)."""
+    stage's blocks, the whole checkpoint collected on stage 0, the
+    12-layer copy (with train.watch: full) against one process (AdamW
+    with eps 1e-4, as test_mesh_smoke_runs_fsdp_and_tensor_on_gloo says
+    why)."""
     import json
     path = _tiny_yaml(tmp_path, "dit_v4_5B.yml", TINY_5B, dict(
         data_kwargs={"window_length": 16}, opt="AdamW",
@@ -601,10 +606,16 @@ def test_mesh_smoke_runs_the_pipe_case_on_gloo(tmp_path):
     blocks = [r["train"]["blocks"] for r in out["runs"]]
     assert stages == [0, 1, 2] and blocks == [[0, 3], [4, 7], [8, 11]]
     assert len({tuple(r["train"]["losses"]) for r in out["runs"]}) == 1
+    # the whole checkpoint collected on stage 0 and serialized there
+    ckpt = [r["train"]["checkpoint"] for r in out["runs"]]
+    assert ckpt[0]["gib"] > 0 and ckpt[0]["tensors"] > 0
+    assert all("gib" not in c for c in ckpt[1:])
     (parity,) = out["parity"].values()
     assert parity["loss_rel"] < 1e-2 and parity["param_rel_l2"] < 3e-2
     assert parity["grad_rel_l2"] < 0.1 and parity["update_rel_l2"] < 0.25
     assert not parity["failures"] and not parity["grads_skipped"]
+    # the copy's train.watch: full against one process's, every step
+    assert parity["watch_keys"] > 0 and parity["watch_norm_rel"] < 0.1
     assert "[pipe] cut: data_id 'sequence_packing' -> 'cod'" in res.stdout
 
 

@@ -62,7 +62,9 @@ def test_port_package_has_its_kernel_source():
                    "data/native_loader.py", "data/cod_latent.py",
                    "data/latent_seq_packing.py", "data/prefetch.py",
                    "data/s3_cod_latent.py", "data/s3_cod_latent_mixed.py",
-                   "models/gamemft_audio.py"):
+                   "models/gamemft_audio.py", "utils/profiling.py",
+                   "inference/build_cache.py",
+                   "inference/test_sampling.py"):
         assert os.path.join("owl_audio_exps_tpu_torch", module) in PORT_FILES
     assert len(PORT_FILES) > 30
 
@@ -264,6 +266,50 @@ print("FORBIDDEN", bad)
     assert "FORBIDDEN []" in res.stdout
 
 
+def test_slice15_entry_points_run_without_importing_jax(tmp_path):
+    """The warm-cache writer, the sampling CLI and a profiled trainer
+    step, in a process that never imports JAX."""
+    code = f"""
+import sys, numpy as np, torch, yaml, glob
+from owl_audio_exps_tpu_torch.configs import Config
+from owl_audio_exps_tpu_torch.data.npy_table import NpyTable
+from owl_audio_exps_tpu_torch.inference import build_cache, test_sampling
+from owl_audio_exps_tpu_torch.utils.profiling import trace_if
+t = NpyTable({str(tmp_path / "t")!r}, columns=["video", "mouse", "buttons",
+    "tarball", "pt_idx", "missing", "truncated", "seq_len"],
+    array_columns=["video", "mouse", "buttons"])
+t.append(video=np.zeros((6, 4, 2, 2), np.float16),
+         mouse=np.zeros((6, 2), np.float32),
+         buttons=np.zeros((6, 3), np.float32), tarball="d", pt_idx=0,
+         missing=False, truncated=False, seq_len=6)
+cfg = {{"model": {{"audio_channels": 4}}, "train": {{"data_id": "cod",
+       "data_kwargs": {{"dataset_path": {str(tmp_path / "t")!r},
+                        "window_length": 3,
+                        "batch_columns": ["video", "mouse", "buttons"]}}}}}}
+open({str(tmp_path / "c.yml")!r}, "w").write(yaml.safe_dump(cfg))
+build_cache.main(["--config_path", {str(tmp_path / "c.yml")!r},
+                  "--out_dir", {str(tmp_path / "cache")!r},
+                  "--n_samples", "2"])
+assert np.load({str(tmp_path / "cache" / "buffers_1.npz")!r})[
+    "audio"].shape == (1, 3, 4)
+raw = Config.from_yaml("configs/dit_v4_tpu_e2e.yml").to_dict()
+raw["model"].update(n_layers=2, d_model=32, n_heads=2, n_frames=16)
+open({str(tmp_path / "s.yml")!r}, "w").write(yaml.safe_dump(raw))
+lat = test_sampling.main(["--config_path", {str(tmp_path / "s.yml")!r},
+                          "--num_frames", "2", "--device", "cpu"])
+assert lat.shape == (1, 10, 128, 8, 8)
+with trace_if({str(tmp_path / "trace")!r}):
+    torch.ones(3).sum()
+assert glob.glob({str(tmp_path / "trace" / "*.pt.trace.json")!r})
+bad = [m for m in sys.modules if m.split(".")[0] in
+       ("jax", "jaxlib", "flax", "owl_audio_exps_tpu")]
+print("FORBIDDEN", bad)
+"""
+    res = _run(code)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "FORBIDDEN []" in res.stdout
+
+
 def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
@@ -341,6 +387,11 @@ def test_entry_points_default_to_the_card():
         get_trainer_cls("rft")(Config.from_dict(
             {"model": {"model_id": "game_rft"},
              "train": {"data_id": "sequence_packing"}}))
+    # the offline sampling CLI
+    from owl_audio_exps_tpu_torch.inference.test_sampling import \
+        main as sampling_main
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sampling_main(["--config_path", "configs/dit_v4_tpu_e2e.yml"])
 
 
 def test_bench_torch_fails_without_a_card():

@@ -38,7 +38,7 @@ from owl_audio_exps_tpu_torch.parallel import pipeline, sharding
 from owl_audio_exps_tpu_torch.utils.weights import params_from_jax
 
 import torch_sp_workers as workers
-from torch_port_util import numpy_params
+from torch_port_util import assert_watch, jax_watch_of, numpy_params
 
 # tests/test_pipeline_parallel.py's _cfg
 CFG = dict(model_id="audio_rft", n_layers=8, n_heads=2, d_model=32,
@@ -92,7 +92,8 @@ STEP_MODEL = dict(CFG, n_layers=4, n_frames=8, sample_size=8,
 
 def _train_cfg(tmp, mesh):
     """JAX's test_trainer_step_on_data_pipe_mesh config, cut to 4 ranks
-    ({data 2, pipe 2}; batch 2 a data rank) and the ranks' float32 model."""
+    ({data 2, pipe 2}; batch 2 a data rank) and the ranks' float32 model,
+    with ``train.watch: full``."""
     return Config.from_dict({
         "model": STEP_MODEL,
         "train": {
@@ -102,7 +103,7 @@ def _train_cfg(tmp, mesh):
             "opt": "AdamW", "opt_kwargs": {"lr": 1e-3, "eps": 1e-4},
             "mesh": mesh, "checkpoint_dir": str(tmp / "ckpt"),
             "save_interval": 100, "sample_interval": 1000,
-            "vae_scale": 1.0},
+            "vae_scale": 1.0, "watch": "full", "watch_bins": 16},
         "wandb": {"run_name": "pipe_step"}}).to_dict()
 
 
@@ -141,7 +142,8 @@ def world2(ref, tmp_path_factory):
     jobs = [("pipe2_m2", "pipe_core", (_pipe_kw(2), ref["sd"], ref["x"],
                                        ref["t"], {"pipe": 2}, False)),
             ("refusals", "pipe_refusals", (_pipe_kw(2), ref["sd"], ref["x"],
-                                           ref["t"]))]
+                                           ref["t"])),
+            ("cached", "pipe_cached_sample", (VIDEO_PIPE,) + _video_ctx())]
     return workers.run_ranks(workers.run_jobs, 2, tmp / "ranks", jobs)
 
 
@@ -259,13 +261,82 @@ def test_pipe_refusals_match_jax(ref, world2):
             port_config(**dict(_pipe_kw(2), **off)), m)
 
 
-def test_pipe_trainer_step_matches_one_process(world4):
-    """A trainer step at {data 2, pipe 2} (blocks held only by their
-    stage) against the port's one-process step on the whole batch."""
+# a pipelined scan_layers video core (tests/test_torch_port_sharding.py's
+# tiny DiT, 4 layers in 2 groups) and its eval sample's inputs
+VIDEO_PIPE = dict(model_id="game_rft", n_layers=4, n_heads=2, d_model=32,
+                  channels=4, sample_size=2, tokens_per_frame=4, n_frames=8,
+                  n_buttons=3, causal=True, uncond=False, has_audio=False,
+                  rope_impl="ortho", local_window=4, global_window=None,
+                  cfg_prob=0.0, backbone="dit", local_idx=2,
+                  scan_layers=True, pipeline_parallel=True,
+                  pipeline_microbatches=1)
+
+
+def _video_ctx():
+    rs = np.random.RandomState(4)
+    return (rs.randn(1, 4, 4, 2, 2).astype(np.float32),
+            rs.randn(1, 6, 2).astype(np.float32),
+            (rs.rand(1, 6, 3) > 0.5).astype(np.float32))
+
+
+def test_cached_forward_at_a_pipe_mesh_is_refused_in_both_packages(world2):
+    """The rft trainer's eval sample (``av_caching``) on a pipelined
+    scan_layers core at {pipe 2}: JAX's cached forward runs unrolled
+    blocks, which the scanned parameters (``groups``) do not hold, and
+    raises (its uncached forward pipelines:
+    test_pipelined_forward_matches_jax_scan); a port rank holds only its
+    stage's blocks and raises too (ROADMAP.md Queue 3, reference
+    behaviour 15)."""
+    from flax.errors import ScopeParamNotFoundError
+    from owl_audio_exps_tpu.models.gamerft import GameRFTCore as JaxVideo
+    from owl_audio_exps_tpu.sampling import get_sampler_cls as jax_sampler
+    x, mouse, btn = (jnp.asarray(a) for a in _video_ctx())
+    core = JaxVideo(jax_config(**VIDEO_PIPE), dtype=jnp.float32)
+    sampler = jax_sampler("av_caching")(n_steps=2, num_frames=2,
+                                        cfg_scale=1.0)
+    try:
+        jax_make_mesh(JaxMeshConfig(pipe=2), devices=jax.devices()[:2])
+        params = core.init(jax.random.key(0), x, jnp.zeros(x.shape[:2]),
+                           mouse[:, :4], btn[:, :4])
+        assert set(params["params"]["transformer"]) == {"groups"}
+        with pytest.raises(ScopeParamNotFoundError, match="blocks_0"):
+            sampler(core, params, x, mouse, btn, jax.random.key(1))
+    finally:
+        jax_make_mesh(JaxMeshConfig())
+    for r in world2:
+        assert "split over pipeline stages" in r["cached"]
+
+
+@pytest.fixture(scope="module")
+def pipe_one(world4):
+    """The port's one-process trainer step on the whole batch."""
     sd, batch, draws = world4["step_inputs"]
     tmp = world4["tmp"]
-    one = workers.pipe_train_step(_train_cfg(tmp / "one", {}), sd, batch,
-                                  draws, str(tmp / "one" / "ckpt"))
+    return workers.pipe_train_step(_train_cfg(tmp / "one", {}), sd, batch,
+                                   draws, str(tmp / "one" / "ckpt"))
+
+
+def test_pipe_watch_matches_one_process_and_jax(world4, pipe_one):
+    """``train.watch: full`` at {data 2, pipe 2}: every rank's dict is the
+    same (a stage adds the other stage's blocks), equals the one-process
+    step's (norms rtol 1e-5, histogram counts exact) and the JAX
+    package's ``watch_metrics`` of the same parameters and gradients."""
+    sd = world4["step_inputs"][0]
+    grads = {}
+    for r in world4["res"]:
+        assert_watch(r["step"]["watch"], pipe_one["watch"])
+        for k, v in world4["res"][0]["step"]["watch"].items():
+            np.testing.assert_array_equal(r["step"]["watch"][k], v)
+        grads.update(r["step"]["grads"])
+    assert set(grads) == set(sd)
+    assert_watch(world4["res"][0]["step"]["watch"],
+                 jax_watch_of(sd, grads, 16))
+
+
+def test_pipe_trainer_step_matches_one_process(world4, pipe_one):
+    """A trainer step at {data 2, pipe 2} (blocks held only by their
+    stage) against the port's one-process step on the whole batch."""
+    one = pipe_one
     for r in world4["res"]:
         got = r["step"]
         np.testing.assert_allclose(got["loss"], one["loss"], rtol=1e-5)

@@ -50,7 +50,7 @@ from owl_audio_exps_tpu_torch.parallel import sharding
 from owl_audio_exps_tpu_torch.utils.weights import params_from_jax
 
 import torch_sp_workers as workers
-from torch_port_util import numpy_params
+from torch_port_util import assert_watch, jax_watch_of, numpy_params
 
 TINY = dict(
     model_id="game_rft", n_layers=2, n_heads=4, d_model=64, channels=4,
@@ -288,6 +288,10 @@ def _jax_steps(tmp, batch, weights):
     return out
 
 
+# the train steps run train.watch: full (histograms of 16 bins)
+WATCH = dict(watch="full", watch_bins=16)
+
+
 @pytest.fixture(scope="module")
 def world4(tmp_path_factory):
     """Every {fsdp 2, tensor 2} case in one 4-rank gloo world: the AdamW
@@ -306,10 +310,10 @@ def world4(tmp_path_factory):
     jobs, one = [], {}
     for opt in ("AdamW", "Muon"):
         jobs.append((opt, "sharded_step", (
-            _train_cfg(tmp, opt, {"fsdp": 2, "tensor": 2}), sd, batch,
-            js["draws"])))
-        one[opt] = workers.sharded_step(_train_cfg(tmp, opt, {}), sd,
-                                        batch, js["draws"])
+            _train_cfg(tmp, opt, {"fsdp": 2, "tensor": 2}, **WATCH), sd,
+            batch, js["draws"])))
+        one[opt] = workers.sharded_step(_train_cfg(tmp, opt, {}, **WATCH),
+                                        sd, batch, js["draws"])
     # the TP decode of tests/test_multichip_serve.py, on the same weights
     core = JaxCore(jax_config(**TINY), dtype=jnp.float32)
     rs = np.random.RandomState(0)
@@ -341,7 +345,7 @@ def world4(tmp_path_factory):
             rs.randn(4, 12).astype(np.float32))
     jobs.append(("collectives", "collectives", coll))
     res = workers.run_ranks(workers.run_jobs, 4, tmp / "ranks", jobs)
-    return dict(res=res, jax=js, one=one, tmp=tmp,
+    return dict(res=res, jax=js, one=one, tmp=tmp, sd=sd,
                 dec=(core, jparams, dec_in), save_cfg=save_cfg, coll=coll)
 
 
@@ -399,6 +403,27 @@ def test_sharded_step_matches_one_process(world4, opt):
     assert shapes["core.transformer.blocks.0.adaln1.fc.weight"] == (128, 32)
     assert shapes["core.transformer.blocks.0.mlp.fc2.bias"] == (64,)
     assert [r[opt]["mesh"][3] for r in world4["res"]] == [0, 0, 1, 1]
+
+
+@pytest.mark.parametrize("opt", ["AdamW", "Muon"])
+def test_sharded_watch_matches_one_process_and_jax(world4, opt):
+    """``train.watch: full`` at {fsdp 2, tensor 2}: every rank's dict is
+    the same, equals the one-process step's (norms rtol 1e-5, histogram
+    counts exact) and the JAX package's ``watch_metrics`` of the same
+    parameters (the step's initial weights) and clipped gradients."""
+    ref = world4["one"][opt]["watch"]
+    assert any(k.startswith("watch/grad_norm/core/") for k in ref)
+    first = world4["res"][0][opt]["watch"]
+    for r in world4["res"]:
+        assert_watch(r[opt]["watch"], ref)
+        for k, v in first.items():
+            np.testing.assert_array_equal(r[opt]["watch"][k], v)
+    got = world4["res"][0][opt]
+    want = jax_watch_of(world4["sd"], got["grads"], WATCH["watch_bins"])
+    assert_watch(first, want)
+    n = sum(v.size for v in world4["sd"].values())
+    assert int(first["watch_hist/params"].sum()) == n
+    assert int(first["watch_hist/grads"].sum()) == n
 
 
 def _port(tree):

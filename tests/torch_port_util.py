@@ -331,3 +331,39 @@ def assert_params(named, jax_tree, n_heads=2, what=""):
         np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(),
                                    atol=STATE_ATOL, rtol=0,
                                    err_msg=f"{what}{name}")
+
+
+def _tree_of(named):
+    """{dotted name: array} -> the nested tree the names spell (the JAX
+    package's watch groups a tree by its first path components, as the
+    port groups names)."""
+    tree = {}
+    for name, a in named.items():
+        node = tree
+        *path, leaf = name.split(".")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = jnp.asarray(a)
+    return tree
+
+
+def assert_watch(got, want):
+    """A sharded rank's ``train.watch`` dict against another's: the same
+    keys, norms and histogram ranges rtol 1e-5 (float32 sums in another
+    order), histogram counts exact."""
+    assert set(got) == set(want)
+    for key, w in want.items():
+        if key.startswith("watch_hist/") and not key.endswith(("_lo",
+                                                               "_hi")):
+            np.testing.assert_array_equal(got[key], w, err_msg=key)
+        else:
+            np.testing.assert_allclose(got[key], w, rtol=1e-5, err_msg=key)
+
+
+def jax_watch_of(params, grads, bins):
+    """The JAX package's ``watch_metrics`` ('full') of the port's named
+    parameters and gradients ({name: array}), as numpy."""
+    from owl_audio_exps_tpu.utils.telemetry import watch_metrics
+    out = watch_metrics(_tree_of(params), _tree_of(grads), "full",
+                        bins=bins)
+    return {k: np.asarray(v) for k, v in out.items()}

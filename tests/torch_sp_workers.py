@@ -183,6 +183,13 @@ def _np(t):
     return t.detach().float().cpu().numpy()
 
 
+def _watch(metrics):
+    """The step's ``train.watch`` entries as numpy (histogram counts
+    int32)."""
+    return {k: v.detach().cpu().numpy() for k, v in metrics.items()
+            if k.startswith("watch")}
+
+
 def sharded_step(cfg_dict, state_dict, batch, draws):
     """One RFTTrainer.train_step (model in float32) on this rank's rows of
     the batch under the config's mesh, with the draws handed in: the
@@ -224,7 +231,7 @@ def sharded_step(cfg_dict, state_dict, batch, draws):
                                  clip_norm=trainer.grad_clip_norm())
     return dict(loss=float(metrics["diffusion_loss"]),
                 grad_norm=float(metrics.get("grad_norm", float("nan"))),
-                grads=seen,
+                grads=seen, watch=_watch(metrics),
                 params={n: _np(t) for n, t in
                         gather_params(state.model, mesh).items()},
                 local_shapes={n: tuple(p.shape) for n, p in
@@ -472,6 +479,29 @@ def pipe_refusals(cfg_kw, state_dict, x, t):
     return out
 
 
+def pipe_cached_sample(cfg_kw, x, mouse, btn):
+    """The rft eval's sample (``av_caching``, 2 frames) on a seeded
+    pipelined video core whose blocks this rank of a {pipe 2} world holds
+    its stage of: the error it raises, None if it samples."""
+    from owl_audio_exps_tpu_torch.configs import transformer_config
+    from owl_audio_exps_tpu_torch.models.gamerft import GameRFTCore
+    from owl_audio_exps_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from owl_audio_exps_tpu_torch.parallel.sharding import shard_params
+    from owl_audio_exps_tpu_torch.sampling import get_sampler_cls
+    mesh = make_mesh(MeshConfig(pipe=2), device_type="cpu")
+    core = GameRFTCore(transformer_config(**cfg_kw), dtype=torch.float32,
+                       device="cpu", seed=0)
+    shard_params(core, mesh)
+    sampler = get_sampler_cls("av_caching")(n_steps=2, num_frames=2,
+                                            cfg_scale=1.0)
+    try:
+        sampler(core, *(torch.from_numpy(a) for a in (x, mouse, btn)),
+                generator=torch.Generator().manual_seed(0))
+    except ValueError as e:
+        return str(e)
+    return None
+
+
 def pipe_train_step(cfg_dict, state_dict, batch, draws, path):
     """One audio RFTTrainer step (model in float32) on this rank's rows of
     the batch under the config's mesh, with the draws handed in; then the
@@ -517,7 +547,8 @@ def pipe_train_step(cfg_dict, state_dict, batch, draws, path):
     return dict(loss=float(metrics["diffusion_loss"]),
                 grad_norm=float(metrics.get("grad_norm", float("nan"))),
                 param_norm=float(metrics["param_norm"]),
-                grads=seen, pipe_index=mesh.pipe_index,
+                grads=seen, watch=_watch(metrics),
+                pipe_index=mesh.pipe_index,
                 stages={n: stage_of(p) for n, p in
                         state.model.named_parameters()},
                 logical=None if full is None else dict(
