@@ -24,7 +24,15 @@ Phases, each of which exits non-zero on any failure:
    computes the same function (a yardstick the port never calls): the
    frame-mask forward (K1), its dq and dkv backward kernels, and the
    band forward and backward (K2/K3), output and gradients held at every
-   head against (autograd of) the plain version, 2 heads at a time;
+   head against (autograd of) the plain version, 2 heads at a time; K1
+   with documents (its kDoc bodies) at five layouts, each at Dh 64 and
+   128: 24 documents of 8-40 frames at L 16,384 (L 4,096 at Dh 128),
+   boundaries inside tiles at tpf 65, ids that decrease and repeat
+   (causal with a window, and bidirectional), boundaries on tile edges;
+   at every K1 row with documents (here and in phases 14 and 16) the
+   summary kernel's output is held int for int against its plain version
+   (ops/doc_tiles.py doc_tiles), and document-free K1 is timed at the
+   same shape, its share of bound printed beside the row's;
 3. ``CausvidPipeline`` (window recompute, 60 frames x 65 tokens) at the
    full width of configs/av_v4_8x8.yml made causal (24 layers x 1536,
    24 heads x 64), 2 sampling steps, seeded random bf16 weights: timed
@@ -342,21 +350,36 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 # ---------------------------------------------------------------- phase 2
 KERNEL_CASES = [
-    # name, L, tpf, causal, window, two documents, batch
-    ("L3900_causal_w16", 3900, 65, True, 16, False, 1),
-    ("L3900_causal_global", 3900, 65, True, None, False, 1),
-    ("L1040_bidir_w16", 1040, 65, False, 16, False, 1),
-    ("L3900_causal_w16_2docs", 3900, 65, True, 16, True, 1),
-    ("L4096_tpf64_causal_w16", 4096, 64, True, 16, False, 1),
-    ("L16384_tpf64_causal_global", 16384, 64, True, None, False, 1),
-    ("L24960_tpf65_causal_global", 24960, 65, True, None, False, 1),
+    # name, L, tpf, causal, window, documents (doc_layout), batch[, Dh]
+    ("L3900_causal_w16", 3900, 65, True, 16, None, 1),
+    ("L3900_causal_global", 3900, 65, True, None, None, 1),
+    ("L1040_bidir_w16", 1040, 65, False, 16, None, 1),
+    ("L3900_causal_w16_2docs", 3900, 65, True, 16, "two", 1),
+    ("L4096_tpf64_causal_w16", 4096, 64, True, 16, None, 1),
+    ("L16384_tpf64_causal_global", 16384, 64, True, None, None, 1),
+    ("L24960_tpf65_causal_global", 24960, 65, True, None, None, 1),
     # the distillation window (phase 12): every layer at L 3,840, and the
     # ODE student's 8 trajectory states on the batch axis
-    ("L3840_tpf64_causal_w16", 3840, 64, True, 16, False, 1),
-    ("L3840_tpf64_causal_global", 3840, 64, True, None, False, 1),
-    ("L3840_tpf64_causal_w16_B8", 3840, 64, True, 16, False, 8),
-    ("L3840_tpf64_causal_global_B8", 3840, 64, True, None, False, 8),
-]
+    ("L3840_tpf64_causal_w16", 3840, 64, True, 16, None, 1),
+    ("L3840_tpf64_causal_global", 3840, 64, True, None, None, 1),
+    ("L3840_tpf64_causal_w16_B8", 3840, 64, True, 16, None, 8),
+    ("L3840_tpf64_causal_global_B8", 3840, 64, True, None, None, 8),
+] + [  # K1's document walk (the kDoc bodies) at Dh 64 and 128
+    (name + sfx, L, tpf, causal, window, docs, 1, Dh)
+    for name, L, tpf, causal, window, docs in (
+        ("L16384_tpf64_causal_global_24docs", 16384, 64, True, None,
+         "many"),
+        ("L4160_tpf65_causal_global_midtile", 4160, 65, True, None,
+         "midtile"),
+        ("L4096_tpf64_causal_w16_decreasing", 4096, 64, True, 16, "odd"),
+        ("L4096_tpf64_bidir_global_decreasing", 4096, 64, False, None,
+         "odd"),
+        ("L4096_tpf64_causal_global_tile_edges", 4096, 64, True, None,
+         "edges"))
+    for sfx, Dh in (("", 64), ("_Dh128", 128))
+    if not (Dh == 128 and L > 8192)] + [
+    ("L4096_tpf64_causal_global_many_Dh128", 4096, 64, True, None, "many",
+     1, 128)]
 
 
 def by_heads(fn, *ts, chunk: int = CHECK_HEADS):
@@ -375,6 +398,75 @@ def abs_err(a, b):
 def two_doc_ids(dev, L, tpf):
     nf = -(-L // tpf)
     return (torch.arange(nf, device=dev) >= nf // 3).int()[None]
+
+
+def doc_layout(dev, kind, L, tpf):
+    """Per-frame ids [1, n_frames] int32 of a phase-2 layout: "two"
+    documents (a third and two thirds); "many" short ones, seeded: 24 of
+    8-40 frames at 256 frames, else of 8-12 frames; "midtile", documents
+    of 7, 11, 13 and 17 frames in turn (at tpf 65 every boundary falls
+    inside a 128-row tile); "odd", runs of 5 frames with ids 2, 1, 0, 2,
+    1, 0, ... (ids that decrease, each id in many runs); "edges",
+    documents of 6, 10, 16 and 32 frames (at tpf 64 every boundary on a
+    tile edge)."""
+    nf = -(-L // tpf)
+    if kind == "two":
+        return two_doc_ids(dev, L, tpf)
+    g = torch.Generator().manual_seed(24)
+    if kind == "many" and nf == 256:   # 24 documents of 8-40 frames
+        sizes = [8] * 24
+        while sum(sizes) < nf:
+            i = int(torch.randint(24, (1,), generator=g))
+            sizes[i] += sizes[i] < 40
+    elif kind == "many":   # fewer frames: documents of 8-12 frames
+        sizes = []
+        while sum(sizes) < nf:
+            sizes.append(int(torch.randint(8, 13, (1,), generator=g)))
+    elif kind in ("midtile", "edges"):
+        cycle = (7, 11, 13, 17) if kind == "midtile" else (6, 10, 16, 32)
+        sizes = [cycle[i % 4] for i in range(nf)]
+    elif kind == "odd":
+        sizes = [5] * nf
+    else:
+        fail(f"unknown document layout {kind}")
+    ids = torch.cat([torch.full((n,), (2 - i % 3) if kind == "odd" else i)
+                     for i, n in enumerate(sizes)])[:nf]
+    return ids.int()[None].to(dev)
+
+
+# the document summary kernel (ops/doc_tiles.py) at each K1 case with
+# documents: {case: row of the kernels' record}
+DOC_SUMMARY_ROWS = {}
+
+
+def doc_summary_case(name, q, doc, tpf, window, causal):
+    """The summary kernel's output for K1 with ``doc`` at this mask, held
+    int for int against the plain doc_tiles, timed with its plain version
+    and its bound (bytes: the ids read, the summary written). Returns the
+    DocTiles the case's kernels are timed on."""
+    from owl_audio_exps_tpu_torch.ops import doc_tiles, splash
+    L = q.shape[2]
+    docs = splash.doc_tiles_for(doc, q, tpf, window, causal)
+    want = doc_tiles.doc_tiles(doc.cpu(), L, tpf, window, causal)
+    equal = torch.equal(docs.summary.cpu(), want)
+    ms = cuda_ms(lambda: doc_tiles.doc_tiles_cuda(docs.doc, L, tpf, window,
+                                                  causal), 20)
+    plain_ms = cuda_ms(lambda: doc_tiles.doc_tiles(docs.doc, L, tpf, window,
+                                                   causal), 5)
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+               max_abs_err=0.0 if equal else float(
+                   (docs.summary.cpu() - want).abs().max()),
+               **bound_row(0.0, 4.0 * (docs.doc.numel()
+                                       + docs.summary.numel())))
+    DOC_SUMMARY_ROWS[name] = row
+    print(f"[kernel] doc_tiles {name}: summary of {n_docs(doc)} documents "
+          f"{'equal to' if equal else 'DIFFERS from'} the plain doc_tiles "
+          f"int for int; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{row['bound_ms']:.3e} ms (bytes)", flush=True)
+    if not equal:
+        fail(f"{name}: the document summary kernel disagrees with its "
+             f"plain version")
+    return docs
 
 
 def pairs_of(L, tpf, window, causal, doc, B=1):
@@ -431,6 +523,9 @@ def fwd_case(dev, gen, name, L, tpf, causal, window, doc, B, H=24, Dh=64,
     args = (tpf, window, causal, doc)
     long = B * L >= LONG_L
     out = splash.splash_attention(q, k, v, *args)
+    # the kernel timed alone: on the summary made (and checked) once
+    targs = args if doc is None else (tpf, window, causal, doc_summary_case(
+        name, q, doc, tpf, window, causal))
     if not torch.isfinite(out).all():
         fail(f"{name}: kernel output not finite")
     # every head against the plain version in f32, CHECK_HEADS at a time
@@ -440,10 +535,10 @@ def fwd_case(dev, gen, name, L, tpf, causal, window, doc, B, H=24, Dh=64,
     mean_abs = sum(a for _, a in stats) / out.numel()
 
     iters = 5 if long else 20
-    ms = cuda_ms(lambda: splash.splash_attention(q, k, v, *args), iters)
+    ms = cuda_ms(lambda: splash.splash_attention(q, k, v, *targs), iters)
     # the training path's forward also writes the logsumexp
     ms_lse = cuda_ms(lambda: splash.frame_attention_cuda(
-        q, k, v, *args, return_lse=True), iters)
+        q, k, v, *targs, return_lse=True), iters)
     plain = (lambda: by_heads(lambda *t: plain_fn(*t, *args), q, k, v)) \
         if long else (lambda: plain_fn(q, k, v, *args))
     if long:
@@ -468,6 +563,11 @@ def fwd_case(dev, gen, name, L, tpf, causal, window, doc, B, H=24, Dh=64,
                **bound_row(4.0 * Dh * pairs * H, 4.0 * B * H * L * Dh * 2))
     row["tflops"] = row["gflop"] / ms
     row["share_of_bound"] = row["bound_ms"] / ms
+    if doc is not None:
+        row.update(nodoc_row("frame_attention_fwd", name, cuda_ms(
+            lambda: splash.splash_attention(q, k, v, tpf, window, causal),
+            iters), 4.0 * Dh * pairs_of(L, tpf, window, causal, None, B) * H,
+            4.0 * B * H * L * Dh * 2, row))
     lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
     print(f"[kernel] frame_attention_fwd {name}: B={B} H={H} L={L} "
           f"Dh={Dh} tpf={tpf} causal={causal} window={window} "
@@ -487,38 +587,57 @@ def fwd_case(dev, gen, name, L, tpf, causal, window, doc, B, H=24, Dh=64,
     return row
 
 
+def nodoc_row(kernel, name, nodoc_ms, nodoc_flops, nbytes, row):
+    """Document-free K1 at a document row's shape, timed in the same run:
+    its ms, its share of its own bound (the pairs without documents, the
+    same bytes) and the document row's share against it (printed)."""
+    nodoc_bound = bound_row(nodoc_flops, nbytes)["bound_ms"]
+    share = nodoc_bound / nodoc_ms
+    print(f"[kernel] {kernel} {name}: with documents {row['ms']:.4f} ms, "
+          f"{100 * row['share_of_bound']:.1f}% of bound; document-free "
+          f"{nodoc_ms:.4f} ms, {100 * share:.1f}% of its bound "
+          f"{nodoc_bound:.4f} ms: {row['share_of_bound'] / share:.2f}x its "
+          f"share", flush=True)
+    return dict(nodoc_ms=nodoc_ms, nodoc_bound_ms=nodoc_bound,
+                nodoc_share_of_bound=share,
+                share_vs_nodoc=row["share_of_bound"] / share)
+
+
 def kernel_phase(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = {}
-    for name, L, tpf, causal, window, two_docs, B in KERNEL_CASES:
-        doc = two_doc_ids(dev, L, tpf) if two_docs else None
-        rows[name] = fwd_case(dev, gen, name, L, tpf, causal, window, doc, B)
+    for name, L, tpf, causal, window, docs, B, *Dh in KERNEL_CASES:
+        doc = doc_layout(dev, docs, L, tpf) if docs else None
+        rows[name] = fwd_case(dev, gen, name, L, tpf, causal, window, doc, B,
+                              Dh=Dh[0] if Dh else 64)
     return rows
 
 
 # ------------------------------------------------------- phase 2, gradients
 GRAD_CASES = [
-    # name, kernel, L, tpf, causal, window, two documents, logit bound,
-    # batch
-    ("L16384_tpf64_causal_global", "frame", 16384, 64, True, None, False,
+    # name, kernel, L, tpf, causal, window, documents (doc_layout), logit
+    # bound, batch[, Dh]
+    ("L16384_tpf64_causal_global", "frame", 16384, 64, True, None, None,
      None, 1),
-    ("L24960_tpf65_causal_global", "frame", 24960, 65, True, None, False,
+    ("L24960_tpf65_causal_global", "frame", 24960, 65, True, None, None,
      None, 1),
-    ("L3900_tpf65_causal_w16_2docs", "frame", 3900, 65, True, 16, True,
+    ("L3900_tpf65_causal_w16_2docs", "frame", 3900, 65, True, 16, "two",
      None, 1),
-    ("L1040_tpf65_bidir_w16", "frame", 1040, 65, False, 16, False, None, 1),
-    ("L16384_tpf64_w16_bound8", "band", 16384, 64, True, 16, False, 8.0, 1),
-    ("L16384_tpf64_w16_rowmax", "band", 16384, 64, True, 16, False, None, 1),
-    ("L4160_tpf65_w16_bound8", "band", 4160, 65, True, 16, False, 8.0, 1),
+    ("L1040_tpf65_bidir_w16", "frame", 1040, 65, False, 16, None, None, 1),
+    ("L16384_tpf64_w16_bound8", "band", 16384, 64, True, 16, None, 8.0, 1),
+    ("L16384_tpf64_w16_rowmax", "band", 16384, 64, True, 16, None, None, 1),
+    ("L4160_tpf65_w16_bound8", "band", 4160, 65, True, 16, None, 8.0, 1),
     # the distillation window (phase 12), B 1 and the ODE student's B 8
-    ("L3840_tpf64_causal_w16", "frame", 3840, 64, True, 16, False, None, 1),
-    ("L3840_tpf64_causal_global", "frame", 3840, 64, True, None, False,
+    ("L3840_tpf64_causal_w16", "frame", 3840, 64, True, 16, None, None, 1),
+    ("L3840_tpf64_causal_global", "frame", 3840, 64, True, None, None,
      None, 1),
-    ("L3840_tpf64_causal_w16_B8", "frame", 3840, 64, True, 16, False, None,
+    ("L3840_tpf64_causal_w16_B8", "frame", 3840, 64, True, 16, None, None,
      8),
-    ("L3840_tpf64_causal_global_B8", "frame", 3840, 64, True, None, False,
+    ("L3840_tpf64_causal_global_B8", "frame", 3840, 64, True, None, None,
      None, 8),
-]
+] + [  # K1's document walk: KERNEL_CASES's document layouts
+    (name, "frame", L, tpf, causal, window, docs, None, B, *Dh)
+    for name, L, tpf, causal, window, docs, B, *Dh in KERNEL_CASES[11:]]
 
 
 def rms_normed(t):
@@ -574,19 +693,31 @@ def grad_case(dev, gen, name, kind, L, tpf, causal, window, doc, bound, B,
 
     pairs = pairs_of(L, tpf, window, causal, doc, B)
     elems, stats = B * H * L * Dh, B * H * L
+    nodoc = {}   # document-free K1 at this shape: {part: (ms, flops)}
     if kind == "frame":
-        out, lse = splash.frame_attention_cuda(q, k, v, *margs,
-                                               return_lse=True)
-        dq_ms = cuda_ms(lambda: splash.frame_attention_bwd_dq_cuda(
-            q, k, v, out, lse, dout, *margs), iters)
-        _, delta = splash.frame_attention_bwd_dq_cuda(q, k, v, out, lse,
-                                                      dout, *margs)
-        dkv_ms = cuda_ms(lambda: splash.frame_attention_bwd_dkv_cuda(
-            q, k, v, out, lse, delta, dout, *margs), iters)
+        def bwd_ms(margs):
+            out, lse = splash.frame_attention_cuda(q, k, v, *margs,
+                                                   return_lse=True)
+            dq_ms = cuda_ms(lambda: splash.frame_attention_bwd_dq_cuda(
+                q, k, v, out, lse, dout, *margs), iters)
+            _, delta = splash.frame_attention_bwd_dq_cuda(q, k, v, out, lse,
+                                                          dout, *margs)
+            return dq_ms, cuda_ms(lambda: splash.frame_attention_bwd_dkv_cuda(
+                q, k, v, out, lse, delta, dout, *margs), iters)
+
+        # the kernels timed alone: on the summary made (and checked) once
+        dq_ms, dkv_ms = bwd_ms(margs if doc is None else (
+            tpf, window, causal, doc_summary_case(name, q, doc, tpf, window,
+                                                  causal)))
         timed = {"dq": (dq_ms, bound_row(6.0 * Dh * pairs * H,
                                          12.0 * elems + 8.0 * stats)),
                  "dkv": (dkv_ms, bound_row(8.0 * Dh * pairs * H,
                                            12.0 * elems + 8.0 * stats))}
+        if doc is not None:
+            free = pairs_of(L, tpf, window, causal, None, B)
+            nodoc = dict(zip(("dq", "dkv"), zip(
+                bwd_ms((tpf, window, causal, None)),
+                (6.0 * Dh * free * H, 8.0 * Dh * free * H))))
     else:
         fwd_ms = cuda_ms(lambda: band.band_attention_cuda(q, k, v, *margs),
                          iters)
@@ -597,7 +728,8 @@ def grad_case(dev, gen, name, kind, L, tpf, causal, window, doc, bound, B,
                                            8.0 * elems + 4.0 * stats)),
                  "bwd": (bwd_ms, bound_row(10.0 * Dh * pairs * H,
                                            16.0 * elems + 4.0 * stats))}
-    del out, lse
+    if kind != "frame":
+        del out, lse
     mask = sdpa_mask(dev, L, tpf, window, causal, doc) \
         if library is True else None
     sdpa = library if callable(library) else (
@@ -631,6 +763,10 @@ def grad_case(dev, gen, name, kind, L, tpf, causal, window, doc, bound, B,
             rel_l2=max(errs[n][0] for n in keys), checked_heads=H,
             tflops=bnd["gflop"] / ms, share_of_bound=bnd["bound_ms"] / ms,
             **bnd)
+        if part in nodoc:
+            rows[(kname, name)].update(nodoc_row(
+                kname, name, *nodoc[part], 12.0 * elems + 8.0 * stats,
+                rows[(kname, name)]))
     lib = ("n/a" if lib_bwd is None else
            f"fwd {lib_fwd:.4f} ms bwd {lib_bwd:.4f} ms")
     print(f"[kernel] {kind} {name}: B={B} H={H} L={L} Dh={Dh} tpf={tpf} "
@@ -661,11 +797,11 @@ def grad_case(dev, gen, name, kind, L, tpf, causal, window, doc, bound, B,
 def grad_kernel_phase(dev):
     gen = torch.Generator(device=dev).manual_seed(10)
     rows = {}
-    for name, kind, L, tpf, causal, window, two_docs, bound, B in \
+    for name, kind, L, tpf, causal, window, docs, bound, B, *Dh in \
             GRAD_CASES:
-        doc = two_doc_ids(dev, L, tpf) if two_docs else None
+        doc = doc_layout(dev, docs, L, tpf) if docs else None
         rows.update(grad_case(dev, gen, name, kind, L, tpf, causal, window,
-                              doc, bound, B))
+                              doc, bound, B, Dh=Dh[0] if Dh else 64))
     return rows
 
 
@@ -1020,7 +1156,8 @@ def kernel_counts():
 
 
 def reset_counts():
-    from owl_audio_exps_tpu_torch.ops import band, band2, splash
+    from owl_audio_exps_tpu_torch.ops import band, band2, doc_tiles, splash
+    doc_tiles.launches = 0   # K1's document summary, counted apart
     splash.launches = splash.dq_launches = splash.dkv_launches = 0
     splash.lse_launches = splash.lse_dq_launches = 0
     splash.lse_dkv_launches = 0
@@ -1069,12 +1206,14 @@ def counted_trainer(base):
             self.steps = []
 
         def train_step(self, state, micro, gen, **kw):
+            from owl_audio_exps_tpu_torch.ops import doc_tiles
             reset_counts()
             t0 = time.perf_counter()
             metrics = super().train_step(state, micro, gen, **kw)
             loss = float(metrics["diffusion_loss"])   # waits for the step
             self.steps.append(dict(s=time.perf_counter() - t0, loss=loss,
                                    counts=kernel_counts(),
+                                   doc_tiles=doc_tiles.launches,
                                    metrics={k: metric_value(v) for k, v in
                                             metrics.items()}))
             return metrics
@@ -1114,6 +1253,7 @@ def profile_call(fn, step_s, tag):
         torch.cuda.synchronize()
     classes = {"K1 fwd (frame_attention_fwd)": 0.0,
                "K1 bwd (dq + dkv)": 0.0,
+               "K1 document summary (doc_tiles)": 0.0,
                "band fwd (K2/K3 or K5)": 0.0, "band bwd (K2/K3 or K5)": 0.0,
                "matmul (cuBLAS)": 0.0,
                "other (elementwise, norms, optimizer, copies)": 0.0}
@@ -1132,6 +1272,8 @@ def profile_call(fn, step_s, tag):
             classes["K1 fwd (frame_attention_fwd)"] += us
         elif "frame_attn_bwd" in n:
             classes["K1 bwd (dq + dkv)"] += us
+        elif "doc_tiles_kernel" in n:
+            classes["K1 document summary (doc_tiles)"] += us
         elif "band_attn_fwd" in n:
             classes["band fwd (K2/K3 or K5)"] += us
         elif "band_attn_bwd" in n:
@@ -3452,6 +3594,13 @@ def packed_train_phase(dev, table: str):
         if st["counts"] != expect:
             fail(f"packed step {i + 1}: kernel launches {st['counts']}, "
                  f"expected {expect}")
+        # one document summary for each K1 forward with documents
+        if st["doc_tiles"] != expect["frame_attention_fwd"]:
+            fail(f"packed step {i + 1}: {st['doc_tiles']} document summary "
+                 f"launches, expected {expect['frame_attention_fwd']}")
+    print(f"[packed]   document summary launches per step "
+          f"{[st['doc_tiles'] for st in trainer.steps]} (one a K1 "
+          f"forward)", flush=True)
     timed = [st["s"] for st in trainer.steps[1:]]
     step_s = statistics.median(timed)
     tokens = L * tc.batch_size * trainer.accum_steps()
@@ -3483,7 +3632,8 @@ def packed_train_phase(dev, table: str):
                prefetch_wait_share=wait_share, device_ms=breakdown,
                per_step=expect,
                totals={k: sum(st["counts"][k] for st in trainer.steps)
-                       for k in expect})
+                       for k in expect},
+               doc_tile_totals=sum(st["doc_tiles"] for st in trainer.steps))
     del trainer, state, batch, doc
     gc.collect()
     torch.cuda.empty_cache()
@@ -5565,6 +5715,10 @@ MAIN_CASE = {  # the training path's geometry of each kernel
 }
 
 
+# the document summary's main-path geometry: the packed training window
+DOC_SUMMARY_CASE = "L98304_tpf64_packed_global"
+
+
 def kernel_record(fwd_rows, grad_rows, launches, extra):
     out = []
     for name, (src, replaces) in KERNELS.items():
@@ -5585,6 +5739,18 @@ def kernel_record(fwd_rows, grad_rows, launches, extra):
             library_ms=main["library_ms"],
             case=f"B=1 H=24 Dh=64 {MAIN_CASE[name]}", cases=cases,
             **extra.get(name, {})))
+    # the helper kernel K1's document path launches before its forward
+    main = DOC_SUMMARY_ROWS[DOC_SUMMARY_CASE]
+    out.append(dict(
+        name="doc_tiles", route="cuda",
+        source="owl_audio_exps_tpu_torch/csrc/frame_attention.cu",
+        replaces="owl_audio_exps_tpu/ops/splash.py:279",
+        launches=launches["doc_tiles"],
+        max_abs_err=max(r["max_abs_err"] for r in DOC_SUMMARY_ROWS.values()),
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=None,
+        case=f"B=1 {DOC_SUMMARY_CASE}", cases=dict(DOC_SUMMARY_ROWS),
+        **extra.get("doc_tiles", {})))
     return out
 
 
@@ -5593,9 +5759,12 @@ def kernel_record(fwd_rows, grad_rows, launches, extra):
 # for both head dims, and the band kernels (K2/K3 and K5) for both softmax
 # forms
 HOPPER_KERNELS = {
-    "frame_attention": [(f"{k}_kernel", f"ILi{dh}E") for k in (
-        "frame_attn_fwd", "frame_attn_bwd_dq", "frame_attn_bwd_dkv",
-        "ring_attn_fwd", "ring_attn_bwd_dq", "ring_attn_bwd_dkv")
+    # K1 with and without documents (the kDoc bodies), K4
+    "frame_attention": [(f"{k}_kernel", f"ILi{dh}ELb{doc}E") for k in (
+        "frame_attn_fwd", "frame_attn_bwd_dq", "frame_attn_bwd_dkv")
+        for dh in (64, 128) for doc in (0, 1)] + [
+        (f"{k}_kernel", f"ILi{dh}E") for k in (
+            "ring_attn_fwd", "ring_attn_bwd_dq", "ring_attn_bwd_dkv")
         for dh in (64, 128)],
     "band_attention": [(f"band_attn_{k}_kernel", f"ILi{dh}ELb{fixed}E")
                        for k in ("fwd", "bwd_dq", "bwd_dkv")
@@ -5736,6 +5905,13 @@ def main():
     for name, n in av["AVRFTTrainer"]["per_step"].items():
         if n:
             extra.setdefault(name, {})["launches_per_av_train_step"] = n
+    launches["doc_tiles"] = packed["train"]["doc_tile_totals"]
+    extra["doc_tiles"] = dict(
+        launches_per_packed_train_step=packed["train"]["per_step"][
+            "frame_attention_fwd"],
+        note="one launch per K1 forward with documents; replaces no TPU "
+             "kernel (the splash kernel compares the SegmentIds made at "
+             "ops/splash.py:279-295 per element)")
     for name, count in packed["train"]["totals"].items():
         launches[name] += count
         if count:

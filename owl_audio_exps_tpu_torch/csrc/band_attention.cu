@@ -124,6 +124,7 @@ Params band_params(const void* const* ptr, const long long* st,
   Params p = make_params(ptr, st, ints, scale, cap);
   p.causal = 1;
   p.doc = nullptr;
+  p.dsum = nullptr;
   return p;
 }
 

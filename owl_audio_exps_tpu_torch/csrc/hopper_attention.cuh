@@ -66,7 +66,12 @@
 // * The walk: key/query ranges in closed form from the frames (kv_range
 //   / q_range), FULL tiles that skip the per-element mask, the mask as
 //   one unsigned compare of fq - fk against [dmin, dmin + dspan], and the
-//   heaviest query tiles of a causal grid first. Under a causal window of
+//   heaviest query tiles of a causal grid first. With documents (K1's kDoc
+//   bodies) the walk reads a per-tile summary of the ids (doc_tiles, the
+//   section "documents" below): it skips the tiles whose ids cannot meet
+//   the block's, runs single-document tiles unmasked, clips the range to
+//   the runs of the block's ids, and takes the tiles in the helper's order
+//   of work. Under a causal window of
 //   w frames (the band) a 128-row tile meets C / 128 + 1 or 2 tiles of
 //   the other operand (C = w * tpf); only those at the diagonal and at
 //   the window's far edge are PARTIAL (one of each at tpf 64, up to five
@@ -122,7 +127,9 @@ struct Params {
   float* lse;         // [B, H, L] f32, or null
   float* delta;       // [B, H, L] f32: K1 dq writes it, the others read it
   const int* doc;     // per-frame document id [B, n_frames], or null
+  const int* dsum;    // its tile summary [B, dsum_row] (doc_tiles), or null
   int B, H, L, tpf, window, causal, n_frames;
+  int n64, n128, dsum_row;  // 64- and 128-row tiles along L; summary ints
   float scale;        // the q pre-scale
   float logit_mul;    // multiplies the raw Q.K^T: scale when folded, else 1
   float inv_tpf;
@@ -543,10 +550,11 @@ __device__ __forceinline__ bool in_mask(Mask m, int fq, int fk) {
 }
 
 // Whether every pair of query rows [q0, q0 + nq) and key rows [k0, k0 +
-// nk) is visible (as FrameMask.__getitem__ classifies a block full).
+// nk) is visible by the frame mask (as FrameMask.__getitem__ classifies a
+// block full); with documents the walk adds the ids' condition.
 __device__ __forceinline__ bool tile_full(const Params& p, int q0, int nq,
                                           int k0, int nk) {
-  if (q0 + nq > p.L || k0 + nk > p.L || p.doc) return false;
+  if (q0 + nq > p.L || k0 + nk > p.L) return false;
   const int fq_lo = q0 / p.tpf, fq_hi = (q0 + nq - 1) / p.tpf;
   const int fk_lo = k0 / p.tpf, fk_hi = (k0 + nk - 1) / p.tpf;
   if (p.causal && fk_hi > fq_lo) return false;
@@ -580,6 +588,277 @@ __device__ __forceinline__ void q_range(const Params& p, int k0, int rows,
   const int fq_max = w > 0 ? min(nf - 1, fk_hi + w - 1) : nf - 1;
   end = min((fq_max + 1) * p.tpf, p.L);
   begin = (fq_min * p.tpf / bq) * bq;
+}
+
+// ---------------------------------------------------------- documents
+//
+// K1 with documents (the kDoc bodies) walks a summary of the per-frame
+// ids that the helper kernel of frame_attention.cu (owl_doc_tiles)
+// computes on the card for each call, and ops/splash.py doc_tiles in
+// plain PyTorch, int for int the same. A batch row's dsum_row ints:
+//   tiles [n64][4]   the 64-row tile t (its rows below L): the least and
+//                    the greatest id, and the first and last frame its
+//                    rows can see by document (the bounds of its ids'
+//                    runs where the row's ids never decrease, else 0 and
+//                    n_frames - 1);
+//   runs [n_frames][2]  the first and last frame of each frame's run of
+//                    equal ids (0 and n_frames - 1 where ids decrease);
+//   order_q [n128], order_k [n128]  the 128-row tiles as query tiles
+//                    (forward, dq) and as key tiles (dkv), the heaviest
+//                    first: work is the length of the clipped range;
+//   mono             1 where the row's ids never decrease, else 0;
+// and zeros up to a multiple of 4. Where the ids never decrease an id
+// fills one run, so a row sees exactly the keys of its run: the mask of a
+// row is one interval of frames (RowIv), and a tile's partners lie in its
+// runs (the clip). Elsewhere the same id may fill two runs, which see each
+// other; there the per-element test also compares the ids.
+
+__host__ __device__ inline int doc_row_len(int L, int tpf) {
+  const int nf = (L + tpf - 1) / tpf, n64 = (L + 63) / 64;
+  const int n128 = (L + 127) / 128;
+  return (4 * n64 + 2 * nf + 2 * n128 + 1 + 3) / 4 * 4;
+}
+
+// The ids of rows [r0, r0 + rows) (r0 < L, a multiple of 64; rows 64 or
+// 128) from the tiles of one row's summary.
+struct DocSpan {
+  int lo, hi, first, last;
+};
+
+__device__ __forceinline__ DocSpan doc_span(const int* row, int n64, int r0,
+                                            int rows) {
+  const int4* t = reinterpret_cast<const int4*>(row);
+  const int a = r0 / 64, z = min((r0 + rows) / 64, n64);
+  int4 v = t[a];
+  DocSpan s{v.x, v.y, v.z, v.w};
+  for (int i = a + 1; i < z; ++i) {
+    v = t[i];
+    s.lo = min(s.lo, v.x);
+    s.hi = max(s.hi, v.y);
+    s.first = min(s.first, v.z);
+    s.last = max(s.last, v.w);
+  }
+  return s;
+}
+
+__device__ __forceinline__ const int* doc_row(const Params& p, int b) {
+  return p.dsum + (long long)b * p.dsum_row;
+}
+
+__device__ __forceinline__ bool doc_mono(const Params& p, int b) {
+  return doc_row(p, b)[4 * p.n64 + 2 * p.n_frames + 2 * p.n128] != 0;
+}
+
+// kv_range and q_range of the rows with ids `d`, narrowed to the frames
+// [d.first, d.last] they can see by document.
+__device__ __forceinline__ void kv_range_doc(const Params& p,
+                                             const DocSpan& d, int q0,
+                                             int rows, int bk, int& begin,
+                                             int& end) {
+  const int nf = p.n_frames, w = p.window;
+  const int fq_lo = q0 / p.tpf, fq_hi = (min(q0 + rows, p.L) - 1) / p.tpf;
+  const int fk_min = max(w > 0 ? max(0, fq_lo - w + 1) : 0, d.first);
+  const int fk_max = min(
+      p.causal ? fq_hi : (w > 0 ? min(nf - 1, fq_hi + w - 1) : nf - 1),
+      d.last);
+  end = min((fk_max + 1) * p.tpf, p.L);
+  begin = (fk_min * p.tpf / bk) * bk;
+}
+
+__device__ __forceinline__ void q_range_doc(const Params& p, const DocSpan& d,
+                                            int k0, int rows, int bq,
+                                            int& begin, int& end) {
+  const int nf = p.n_frames, w = p.window;
+  const int fk_lo = k0 / p.tpf, fk_hi = (min(k0 + rows, p.L) - 1) / p.tpf;
+  const int fq_min =
+      max(p.causal ? fk_lo : (w > 0 ? max(0, fk_lo - w + 1) : 0), d.first);
+  const int fq_max = min(w > 0 ? min(nf - 1, fk_hi + w - 1) : nf - 1, d.last);
+  end = min((fq_max + 1) * p.tpf, p.L);
+  begin = (fq_min * p.tpf / bq) * bq;
+}
+
+// The frames a row sees (kKeysOwn false: a query row of frame f, the keys
+// it sees) or that see it (kKeysOwn: a key row, the queries that see it):
+// the frame mask's interval narrowed to f's run, as lo + [0, span]; `doc`
+// is f's id, compared per element only where the ids decrease.
+struct RowIv {
+  int lo;
+  unsigned span;
+  int doc;
+};
+
+template <bool kKeysOwn>
+__device__ __forceinline__ RowIv row_iv(const Params& p, int b, int f) {
+  const int nf = p.n_frames, wl = p.window > 0 ? min(p.window, nf) : nf;
+  const int2 run =
+      reinterpret_cast<const int2*>(doc_row(p, b) + 4 * p.n64)[f];
+  int lo = kKeysOwn ? (p.causal ? f : f - wl + 1) : f - wl + 1;
+  int hi = kKeysOwn ? f + wl - 1 : (p.causal ? f : f + wl - 1);
+  lo = max(lo, run.x);
+  hi = min(hi, run.y);
+  return {lo, (unsigned)(hi - lo), doc_of(p, b, f)};
+}
+
+// A MASKED tile with documents: -inf where column 8 j + 2 t4 + e of the
+// other operand's tile at c0 (its frame, kNoFrame past L) is not visible
+// to or from the thread's row i (iv[i]), in the m64 x N accumulator s;
+// kIds compares the ids too (rows whose ids decrease). A pass of its own
+// before the softmax, so that a FULL tile's exp work is the
+// document-free one.
+template <int N, bool kIds>
+__device__ __forceinline__ void doc_mask_cols(float (&s)[N / 2],
+                                              const Params& p, int b,
+                                              const RowIv (&iv)[2], int c0,
+                                              int t4) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = c0 + 8 * j + 2 * t4 + e;
+      const int f = col < p.L ? frame_of(p, col) : kNoFrame;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if ((unsigned)(f - iv[i].lo) > iv[i].span ||
+            (kIds && doc_of(p, b, f) != iv[i].doc))
+          s[4 * j + 2 * i + e] = -INFINITY;
+    }
+}
+
+template <int N>
+__device__ __forceinline__ void doc_mask(float (&s)[N / 2], const Params& p,
+                                         int b, const RowIv (&iv)[2],
+                                         bool mono, int c0, int t4) {
+  if (mono)
+    doc_mask_cols<N, false>(s, p, b, iv, c0, t4);
+  else
+    doc_mask_cols<N, true>(s, p, b, iv, c0, t4);
+}
+
+// The tiles of the other operand that a kDoc block visits where its row's
+// ids decrease: bit i of vis for tile i of its range, of full[c] where
+// that tile is FULL for consumer c's 64 rows (both tiles of one id, the
+// same, and the frame mask alone calls the pair full). Built in shared
+// memory by every thread of the block before the producer and the
+// consumers part, so that both walk the same tiles and the ring's barrier
+// phases stay matched. (Where the ids never decrease the clipped range
+// holds no tile to skip and FULL follows from the runs: no walk, no reads
+// of other tiles' ids; DocSteps, doc_full.)
+template <int kWords>
+struct DocWalk {
+  uint32_t vis[kWords], full[2][kWords];
+
+  // the first visited tile at or after i, or n
+  __device__ __forceinline__ int next(int i, int n) const {
+    for (int w = i >> 5; 32 * w < n; ++w) {
+      const uint32_t m = vis[w] & (w == (i >> 5) ? ~0u << (i & 31) : ~0u);
+      if (m) return 32 * w + __ffs(m) - 1;
+    }
+    return n;
+  }
+  __device__ __forceinline__ int count(int n) const {
+    int c = 0;
+    for (int w = 0; 32 * w < n; ++w) c += __popc(vis[w]);
+    return c;
+  }
+  __device__ __forceinline__ bool is_full(int c, int i) const {
+    return (full[c][i >> 5] >> (i & 31)) & 1;
+  }
+};
+
+// Fill `walk` for the block's 128-row tile at own0 (query rows; key rows
+// with kKeysOwn) against the n tiles of bt rows of the other operand from
+// `begin`: skipped where the two tiles' [lo, hi] id intervals are
+// disjoint. One tile a thread, a ballot a word; the caller syncs.
+template <bool kKeysOwn, int kWords>
+__device__ void doc_walk_build(const Params& p, int b, int own0, int begin,
+                               int bt, int n, DocWalk<kWords>* walk) {
+  const int* row = doc_row(p, b);
+  const DocSpan own = doc_span(row, p.n64, own0, kRows);
+  DocSpan half[2];
+  bool single[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int r = own0 + 64 * c;
+    half[c] = r < p.L ? doc_span(row, p.n64, r, 64) : own;
+    single[c] = r < p.L && half[c].lo == half[c].hi;
+  }
+  for (int i = threadIdx.x; i < (n + 31) / 32 * 32; i += blockDim.x) {
+    bool vis = false, f[2] = {false, false};
+    if (i < n) {
+      const int o0 = begin + i * bt;
+      const DocSpan o = doc_span(row, p.n64, o0, bt);
+      vis = o.lo <= own.hi && own.lo <= o.hi;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int r = own0 + 64 * c;
+        f[c] = vis && o.lo == o.hi && single[c] && half[c].lo == o.lo &&
+               (kKeysOwn ? tile_full(p, o0, bt, r, 64)
+                         : tile_full(p, r, 64, o0, bt));
+      }
+    }
+    const uint32_t mv = __ballot_sync(~0u, vis);
+    const uint32_t m0 = __ballot_sync(~0u, f[0]);
+    const uint32_t m1 = __ballot_sync(~0u, f[1]);
+    if (threadIdx.x % 32 == 0) {
+      walk->vis[i / 32] = mv;
+      walk->full[0][i / 32] = m0;
+      walk->full[1][i / 32] = m1;
+    }
+  }
+}
+
+// A kDoc block's walk over the n tiles of its clipped range: every tile
+// where the row's ids never decrease (the clip leaves none there that the
+// ids skip), else the tiles of the shared-memory walk.
+template <int kWords>
+struct DocSteps {
+  const DocWalk<kWords>* walk;
+  int n;
+  bool mono;
+  __device__ __forceinline__ int next(int i) const {
+    return mono ? i : walk->next(i, n);
+  }
+  __device__ __forceinline__ int count() const {
+    return mono ? n : walk->count(n);
+  }
+};
+
+// A consumer's 64 rows at r0 (query rows; key rows in dkv): whether they
+// hold one id, and that id's run as rows [run0, run1) (read where the
+// row's ids never decrease, when the run is the id's only one).
+struct DocHalf {
+  bool single;
+  int run0, run1;
+};
+
+__device__ __forceinline__ DocHalf doc_half(const Params& p, int b, int r0) {
+  if (r0 >= p.L) return {false, 0, 0};
+  const DocSpan s = doc_span(doc_row(p, b), p.n64, r0, 64);
+  return {s.lo == s.hi, s.first * p.tpf, min((s.last + 1) * p.tpf, p.L)};
+}
+
+// Whether the other operand's tile [o0, o0 + bt) (tile ti of the range) is
+// FULL for consumer c's rows at r0: where the ids never decrease, the tile
+// lies in the run of the rows' one id and the frame mask calls the pair
+// full; elsewhere the walk's bit says so.
+template <bool kKeysOwn, int kWords>
+__device__ __forceinline__ bool doc_full(const Params& p,
+                                         const DocSteps<kWords>& steps,
+                                         const DocHalf& h, int c, int ti,
+                                         int r0, int o0, int bt) {
+  if (!steps.mono) return steps.walk->is_full(c, ti);
+  return h.single && o0 >= h.run0 && o0 + bt <= h.run1 &&
+         (kKeysOwn ? tile_full(p, o0, bt, r0, 64)
+                   : tile_full(p, r0, 64, o0, bt));
+}
+
+// The block's 128-row tile with documents: its place in the helper's
+// order by work (order_k for a dkv block, else order_q).
+__device__ __forceinline__ int doc_tile_of(const Params& p, int b,
+                                           bool keys) {
+  const int* order = doc_row(p, b) + 4 * p.n64 + 2 * p.n_frames +
+                     (keys ? p.n128 : 0);
+  return order[blockIdx.x] * kRows;
 }
 
 __device__ __forceinline__ long long stat_index(const Params& p, int b, int h,
@@ -634,6 +913,9 @@ __device__ __forceinline__ void store_rows(bf16* base, long long s_row,
 
 // Q [128, D] once; K and V [128, D] per stage. (Three consumers, 192 rows
 // a block, would leave 160 registers each, and the forward spills there.)
+// With documents the walk's bits follow the barriers: 128 words a mask
+// take 4,096 key tiles (L <= kDocMaxL) and fit the 1,992 bytes Dh 128
+// leaves.
 template <int D>
 struct Fwd : Shape {
   static constexpr int kBM = kRows, kBK = 128, kStages = 3;
@@ -641,6 +923,21 @@ struct Fwd : Shape {
   static constexpr int kQBytes = kBM * D * 2, kKVBytes = kBK * D * 2;
   static constexpr size_t kSmem =
       1024 + kQBytes + 2 * kStages * kKVBytes + 8 * (1 + 2 * kStages);
+  static constexpr int kWalkWords = 128;
+};
+
+// The longest L K1 takes with documents: every body's walk holds its
+// range's tiles (4,096 of 128 rows, 8,192 of 64).
+constexpr int kDocMaxL = 1 << 19;
+
+// A body's block with documents: the walk after the barriers.
+template <template <int> class Cfg>
+struct WithDoc {
+  template <int D>
+  struct Of : Cfg<D> {
+    static constexpr size_t kSmem =
+        Cfg<D>::kSmem + sizeof(DocWalk<Cfg<D>::kWalkWords>);
+  };
 };
 
 // The persistent forward's block: Q double-buffered where shared memory
@@ -663,7 +960,7 @@ struct FwdItems : Fwd<D> {
 // K-major Q and K), mask unless the tile is FULL, online softmax in f32
 // (row max and sum over the quad that holds a row), O += P.V with P from
 // registers and V MN-major; pipelined and taking turns, as the header says.
-template <int D>
+template <int D, bool kDoc = false>
 __device__ __forceinline__ void fwd_block(const Maps& maps, const Params& p,
                                           int b, int h, int q0) {
   using C = Fwd<D>;
@@ -673,6 +970,8 @@ __device__ __forceinline__ void fwd_block(const Maps& maps, const Params& p,
   uint64_t* barQ = reinterpret_cast<uint64_t*>(sV + C::kStages * C::kKVBytes);
   uint64_t* full = barQ + 1;
   uint64_t* empty = full + C::kStages;
+  [[maybe_unused]] auto* walk =
+      reinterpret_cast<DocWalk<C::kWalkWords>*>(empty + C::kStages);
   if (threadIdx.x == 0) {
     mbar_init(barQ, 1);
     for (int s = 0; s < C::kStages; ++s) {
@@ -680,12 +979,26 @@ __device__ __forceinline__ void fwd_block(const Maps& maps, const Params& p,
       mbar_init(&empty[s], C::kConsumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if constexpr (kDoc) {  // Q first: the summary's reads overlap it
+      mbar_expect_tx(barQ, C::kQBytes);
+      load_rows<D, C::kBM>(sQ, &maps.q, barQ, q0, h, b);
+    }
+  }
+  int kv_begin, kv_end;
+  [[maybe_unused]] bool mono = false;
+  if constexpr (kDoc) {  // the clipped range (and walk), before the sync
+    mono = doc_mono(p, b);
+    kv_range_doc(p, doc_span(doc_row(p, b), p.n64, q0, C::kBM), q0, C::kBM,
+                 C::kBK, kv_begin, kv_end);
+    if (!mono)
+      doc_walk_build<false>(p, b, q0, kv_begin, C::kBK,
+                            (kv_end - kv_begin + C::kBK - 1) / C::kBK, walk);
   }
   __syncthreads();
 
-  int kv_begin, kv_end;
-  kv_range(p, q0, C::kBM, C::kBK, kv_begin, kv_end);
+  if constexpr (!kDoc) kv_range(p, q0, C::kBM, C::kBK, kv_begin, kv_end);
   const int n_tiles = (kv_end - kv_begin + C::kBK - 1) / C::kBK;
+  [[maybe_unused]] const DocSteps<C::kWalkWords> steps{walk, n_tiles, mono};
 
   if (threadIdx.x < 128) {  // producer
     regs_dec<C::kProducerRegs>();
@@ -693,15 +1006,25 @@ __device__ __forceinline__ void fwd_block(const Maps& maps, const Params& p,
       prefetch_map(&maps.q);
       prefetch_map(&maps.k);
       prefetch_map(&maps.v);
-      mbar_expect_tx(barQ, C::kQBytes);
-      load_rows<D, C::kBM>(sQ, &maps.q, barQ, q0, h, b);
-      for (int t = 0; t < n_tiles; ++t) {
+      if constexpr (!kDoc) {
+        mbar_expect_tx(barQ, C::kQBytes);
+        load_rows<D, C::kBM>(sQ, &maps.q, barQ, q0, h, b);
+      }
+      // the t-th tile loaded, key tile ti of the range
+      auto load = [&](int t, int ti) {
         const int s = t % C::kStages;
         mbar_wait(&empty[s], ((t / C::kStages) & 1) ^ 1);
         mbar_expect_tx(&full[s], 2 * C::kKVBytes);
-        const int k0 = kv_begin + t * C::kBK;
+        const int k0 = kv_begin + ti * C::kBK;
         load_rows<D, C::kBK>(sK + s * C::kKVBytes, &maps.k, &full[s], k0, h, b);
         load_rows<D, C::kBK>(sV + s * C::kKVBytes, &maps.v, &full[s], k0, h, b);
+      };
+      if constexpr (kDoc) {
+        for (int t = 0, ti = steps.next(0); ti < n_tiles;
+             ++t, ti = steps.next(ti + 1))
+          load(t, ti);
+      } else {
+        for (int t = 0; t < n_tiles; ++t) load(t, t);
       }
     }
   } else {  // consumers
@@ -713,11 +1036,15 @@ __device__ __forceinline__ void fwd_block(const Maps& maps, const Params& p,
     const int row = r0 + 16 * warp + g;    // this thread's rows: row, row + 8
     const int L = p.L;
     const Mask mk = mask_of(p);
-    int fq[2], docq[2];
+    int fq[2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      fq[i] = min(row + 8 * i, L - 1) / p.tpf;
-      docq[i] = p.doc ? doc_of(p, b, fq[i]) : 0;
+    for (int i = 0; i < 2; ++i) fq[i] = min(row + 8 * i, L - 1) / p.tpf;
+    [[maybe_unused]] RowIv iv[2];
+    [[maybe_unused]] DocHalf half{};
+    if constexpr (kDoc) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) iv[i] = row_iv<false>(p, b, fq[i]);
+      half = doc_half(p, b, r0);
     }
     const float c = p.logit_mul * kLog2e;
 
@@ -761,24 +1088,25 @@ __device__ __forceinline__ void fwd_block(const Maps& maps, const Params& p,
     // is still on the tensor cores, and S_{t+1} is issued with P_t.V_t.
     uint32_t pa[C::kBK / 16][4];
     // the last tile is peeled (no next tile to issue), so that every
-    // wgmma group in the loop is committed on every path
-    auto step = [&](int t, auto more) {
+    // wgmma group in the loop is committed on every path. Step t runs key
+    // tile ti of the range (ti == t without documents).
+    auto step = [&](int t, int ti, auto more) {
       const int s = t % C::kStages;
-      const int k0 = kv_begin + t * C::kBK;
+      const int k0 = kv_begin + ti * C::kBK;
 
-      if (!tile_full(p, r0, 64, k0, C::kBK)) {
+      if constexpr (kDoc) {
+        if (!doc_full<false>(p, steps, half, cw, ti, r0, k0, C::kBK))
+          doc_mask<C::kBK>(sc, p, b, iv, mono, k0, t4);
+      } else if (!tile_full(p, r0, 64, k0, C::kBK)) {
 #pragma unroll
         for (int j = 0; j < C::kBK / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int col = k0 + 8 * j + 2 * t4 + e;
             const int fk = col < L ? frame_of(p, col) : kNoFrame;
-            const int dk = (p.doc && col < L) ? doc_of(p, b, fk) : 0;
 #pragma unroll
-            for (int i = 0; i < 2; ++i) {
-              const bool vis = in_mask(mk, fq[i], fk) && dk == docq[i];
-              if (!vis) sc[4 * j + 2 * i + e] = -INFINITY;
-            }
+            for (int i = 0; i < 2; ++i)
+              if (!in_mask(mk, fq[i], fk)) sc[4 * j + 2 * i + e] = -INFINITY;
           }
       }
 
@@ -840,11 +1168,23 @@ __device__ __forceinline__ void fwd_block(const Maps& maps, const Params& p,
         keep(sc);
       }
     };
-    for (int t = 0; t + 1 < n_tiles; ++t) step(t, std::true_type{});
-    step(n_tiles - 1, std::false_type{});
+    int n_run = n_tiles;  // the tiles walked
+    if constexpr (kDoc) {
+      n_run = steps.count();
+      int ti = steps.next(0);
+      for (int t = 0; t + 1 < n_run; ++t) {
+        const int next = steps.next(ti + 1);
+        step(t, ti, std::true_type{});
+        ti = next;
+      }
+      step(n_run - 1, ti, std::false_type{});
+    } else {
+      for (int t = 0; t + 1 < n_tiles; ++t) step(t, t, std::true_type{});
+      step(n_tiles - 1, n_tiles - 1, std::false_type{});
+    }
     wg_wait0();
     keep(o);
-    if (tid == 0) mbar_arrive(&empty[(n_tiles - 1) % C::kStages]);
+    if (tid == 0) mbar_arrive(&empty[(n_run - 1) % C::kStages]);
 
     // normalise and write; rows at or past L are not written
     float inv[2];
@@ -1175,6 +1515,7 @@ struct Dq : Shape {
   static constexpr size_t kSmem = 1024 + 3 * kQBytes +
                                   2 * kStages * kKVBytes + 4 * kRows +
                                   8 * (1 + 2 * kStages);
+  static constexpr int kWalkWords = 256;  // 8,192 key tiles of 64 rows
 };
 
 // dq. Replaces the splash library's dq kernel (_splash_attention_bwd_dq,
@@ -1188,7 +1529,7 @@ struct Dq : Shape {
 // MN-major; pipelined and taking turns. delta comes from this tile's dO
 // and O and is stored for the dkv pass, or, with kReadDelta (K4), is read
 // from p.delta. With kFixed, P = exp(min(S, cap) - lse).
-template <int D, bool kReadDelta, bool kFixed = false>
+template <int D, bool kReadDelta, bool kFixed = false, bool kDoc = false>
 __device__ __forceinline__ void dq_block(const Maps& maps, const Params& p,
                                          int b, int h, int q0) {
   using C = Dq<D>;
@@ -1201,6 +1542,15 @@ __device__ __forceinline__ void dq_block(const Maps& maps, const Params& p,
   uint64_t* barQ = reinterpret_cast<uint64_t*>(sDelta + kRows);
   uint64_t* full = barQ + 1;
   uint64_t* empty = full + C::kStages;
+  [[maybe_unused]] auto* walk =
+      reinterpret_cast<DocWalk<C::kWalkWords>*>(empty + C::kStages);
+  // Q, dO (and O) of the query tile
+  auto load_own = [&] {
+    mbar_expect_tx(barQ, (kReadDelta ? 2 : 3) * C::kQBytes);
+    load_rows<D, kRows>(sQ, &maps.q, barQ, q0, h, b);
+    load_rows<D, kRows>(sdO, &maps.dout, barQ, q0, h, b);
+    if (!kReadDelta) load_rows<D, kRows>(sO, &maps.o, barQ, q0, h, b);
+  };
   if (threadIdx.x == 0) {
     mbar_init(barQ, 1);
     for (int s = 0; s < C::kStages; ++s) {
@@ -1208,27 +1558,43 @@ __device__ __forceinline__ void dq_block(const Maps& maps, const Params& p,
       mbar_init(&empty[s], C::kConsumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if constexpr (kDoc) load_own();  // the summary's reads overlap it
+  }
+  int kv_begin, kv_end;
+  [[maybe_unused]] bool mono = false;
+  if constexpr (kDoc) {  // the clipped range (and walk), before the sync
+    mono = doc_mono(p, b);
+    kv_range_doc(p, doc_span(doc_row(p, b), p.n64, q0, kRows), q0, kRows,
+                 C::kBK, kv_begin, kv_end);
+    if (!mono)
+      doc_walk_build<false>(p, b, q0, kv_begin, C::kBK,
+                            (kv_end - kv_begin + C::kBK - 1) / C::kBK, walk);
   }
   __syncthreads();
 
-  int kv_begin, kv_end;
-  kv_range(p, q0, kRows, C::kBK, kv_begin, kv_end);
+  if constexpr (!kDoc) kv_range(p, q0, kRows, C::kBK, kv_begin, kv_end);
   const int n_tiles = (kv_end - kv_begin + C::kBK - 1) / C::kBK;
+  [[maybe_unused]] const DocSteps<C::kWalkWords> steps{walk, n_tiles, mono};
 
   if (threadIdx.x < 128) {  // producer
     regs_dec<C::kProducerRegs>();
     if (threadIdx.x == 0) {
-      mbar_expect_tx(barQ, (kReadDelta ? 2 : 3) * C::kQBytes);
-      load_rows<D, kRows>(sQ, &maps.q, barQ, q0, h, b);
-      load_rows<D, kRows>(sdO, &maps.dout, barQ, q0, h, b);
-      if (!kReadDelta) load_rows<D, kRows>(sO, &maps.o, barQ, q0, h, b);
-      for (int t = 0; t < n_tiles; ++t) {
+      if constexpr (!kDoc) load_own();
+      // the t-th tile loaded, key tile ti of the range
+      auto load = [&](int t, int ti) {
         const int s = t % C::kStages;
         mbar_wait(&empty[s], ((t / C::kStages) & 1) ^ 1);
         mbar_expect_tx(&full[s], 2 * C::kKVBytes);
-        const int k0 = kv_begin + t * C::kBK;
+        const int k0 = kv_begin + ti * C::kBK;
         load_rows<D, C::kBK>(sK + s * C::kKVBytes, &maps.k, &full[s], k0, h, b);
         load_rows<D, C::kBK>(sV + s * C::kKVBytes, &maps.v, &full[s], k0, h, b);
+      };
+      if constexpr (kDoc) {
+        for (int t = 0, ti = steps.next(0); ti < n_tiles;
+             ++t, ti = steps.next(ti + 1))
+          load(t, ti);
+      } else {
+        for (int t = 0; t < n_tiles; ++t) load(t, t);
       }
     }
   } else {  // consumers
@@ -1240,15 +1606,21 @@ __device__ __forceinline__ void dq_block(const Maps& maps, const Params& p,
     const int row = r0 + 16 * warp + g;
     const int L = p.L;
     const Mask mk = mask_of(p);
-    int fq[2], docq[2];
+    int fq[2];
     float lse2[2], delta[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = row + 8 * i;
       fq[i] = min(r, L - 1) / p.tpf;
-      docq[i] = p.doc ? doc_of(p, b, fq[i]) : 0;
       lse2[i] = r < L ? p.lse[stat_index(p, b, h, r)] * kLog2e : INFINITY;
       if (kReadDelta) delta[i] = r < L ? p.delta[stat_index(p, b, h, r)] : 0.f;
+    }
+    [[maybe_unused]] RowIv iv[2];
+    [[maybe_unused]] DocHalf half{};
+    if constexpr (kDoc) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) iv[i] = row_iv<false>(p, b, fq[i]);
+      half = doc_half(p, b, r0);
     }
     const float c = p.logit_mul * kLog2e;
 
@@ -1325,33 +1697,42 @@ __device__ __forceinline__ void dq_block(const Maps& maps, const Params& p,
     // is still on the tensor cores; S_{t+1}, dP_{t+1} go with dS_t.K_t.
     uint32_t da[C::kBK / 16][4];
     // the last tile is peeled (no next tile to issue), so that every
-    // wgmma group in the loop is committed on every path
-    auto step = [&](int t, auto more) {
+    // wgmma group in the loop is committed on every path. Step t runs key
+    // tile ti of the range (ti == t without documents).
+    auto step = [&](int t, int ti, auto more) {
       const int s = t % C::kStages;
-      const int k0 = kv_begin + t * C::kBK;
-      const bool full_tile = tile_full(p, r0, 64, k0, C::kBK);
+      const int k0 = kv_begin + ti * C::kBK;
+      if constexpr (kDoc) {  // masked to -inf first: exp(-inf) is 0
+        if (!doc_full<false>(p, steps, half, cw, ti, r0, k0, C::kBK))
+          doc_mask<C::kBK>(sc, p, b, iv, mono, k0, t4);
 #pragma unroll
-      for (int j = 0; j < C::kBK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = k0 + 8 * j + 2 * t4 + e;
-          int fk = 0, dk = 0;
-          if (!full_tile) {
-            fk = col < L ? frame_of(p, col) : kNoFrame;
-            dk = (p.doc && col < L) ? doc_of(p, b, fk) : 0;
-          }
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int x = 4 * j + 2 * i + e;
-            const bool vis =
-                full_tile || (in_mask(mk, fq[i], fk) && dk == docq[i]);
-            const float pij =
-                vis ? ex2(fmaf(softmax_logit<kFixed>(sc[x], p.cap_raw), c,
-                               -lse2[i]))
-                    : 0.f;
-            sc[x] = pij * (dp[x] - delta[i]);  // dS
-          }
+        for (int x = 0; x < C::kBK / 2; ++x) {
+          const int i = (x / 2) % 2;
+          const float pij = ex2(fmaf(softmax_logit<kFixed>(sc[x], p.cap_raw),
+                                     c, -lse2[i]));
+          sc[x] = pij * (dp[x] - delta[i]);  // dS
         }
+      } else {
+        const bool full_tile = tile_full(p, r0, 64, k0, C::kBK);
+#pragma unroll
+        for (int j = 0; j < C::kBK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = k0 + 8 * j + 2 * t4 + e;
+            int fk = 0;
+            if (!full_tile) fk = col < L ? frame_of(p, col) : kNoFrame;
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int x = 4 * j + 2 * i + e;
+              const bool vis = full_tile || in_mask(mk, fq[i], fk);
+              const float pij =
+                  vis ? ex2(fmaf(softmax_logit<kFixed>(sc[x], p.cap_raw), c,
+                                 -lse2[i]))
+                      : 0.f;
+              sc[x] = pij * (dp[x] - delta[i]);  // dS
+            }
+          }
+      }
       // dS_{t-1}.K_{t-1} done: its stage and da are free
       wg_wait0();
       keep(acc);
@@ -1376,11 +1757,23 @@ __device__ __forceinline__ void dq_block(const Maps& maps, const Params& p,
         keep(dp);
       }
     };
-    for (int t = 0; t + 1 < n_tiles; ++t) step(t, std::true_type{});
-    step(n_tiles - 1, std::false_type{});
+    int n_run = n_tiles;  // the tiles walked
+    if constexpr (kDoc) {
+      n_run = steps.count();
+      int ti = steps.next(0);
+      for (int t = 0; t + 1 < n_run; ++t) {
+        const int next = steps.next(ti + 1);
+        step(t, ti, std::true_type{});
+        ti = next;
+      }
+      step(n_run - 1, ti, std::false_type{});
+    } else {
+      for (int t = 0; t + 1 < n_tiles; ++t) step(t, t, std::true_type{});
+      step(n_tiles - 1, n_tiles - 1, std::false_type{});
+    }
     wg_wait0();
     keep(acc);
-    if (tid == 0) mbar_arrive(&empty[(n_tiles - 1) % C::kStages]);
+    if (tid == 0) mbar_arrive(&empty[(n_run - 1) % C::kStages]);
     // s = scale q . k, so dq = scale * dS . K
     const float mul[2] = {p.scale, p.scale};
     store_rows<D>(p.dq + b * p.s_dq[0] + h * p.s_dq[1], p.s_dq[2], row, L,
@@ -1400,6 +1793,7 @@ struct Dkv : Shape {
   static constexpr size_t kSmem = 1024 + 2 * kKVBytes +
                                   kStages * (2 * kQBytes + 8 * kBQ) +
                                   8 * (1 + 2 * kStages);
+  static constexpr int kWalkWords = 256;  // 8,192 query tiles of 64 rows
 };
 
 // dkv. Replaces the splash library's dkv kernel (_splash_attention_bwd_dkv,
@@ -1414,7 +1808,7 @@ struct Dkv : Shape {
 // Q MN-major). The producer warp's 32 lanes also copy each query tile's
 // lse (times log2 e) and delta into shared memory and arrive with it.
 // With kFixed, P^T = exp(min(S^T, cap) - lse).
-template <int D, bool kFixed = false>
+template <int D, bool kFixed = false, bool kDoc = false>
 __device__ __forceinline__ void dkv_block(const Maps& maps, const Params& p,
                                           int b, int h, int k0) {
   using C = Dkv<D>;
@@ -1427,6 +1821,13 @@ __device__ __forceinline__ void dkv_block(const Maps& maps, const Params& p,
   uint64_t* barKV = reinterpret_cast<uint64_t*>(sDelta + C::kStages * C::kBQ);
   uint64_t* full = barKV + 1;
   uint64_t* empty = full + C::kStages;
+  [[maybe_unused]] auto* walk =
+      reinterpret_cast<DocWalk<C::kWalkWords>*>(empty + C::kStages);
+  auto load_own = [&] {  // K and V of the key tile
+    mbar_expect_tx(barKV, 2 * C::kKVBytes);
+    load_rows<D, kRows>(sK, &maps.k, barKV, k0, h, b);
+    load_rows<D, kRows>(sV, &maps.v, barKV, k0, h, b);
+  };
   if (threadIdx.x == 0) {
     mbar_init(barKV, 1);
     for (int s = 0; s < C::kStages; ++s) {
@@ -1434,26 +1835,34 @@ __device__ __forceinline__ void dkv_block(const Maps& maps, const Params& p,
       mbar_init(&empty[s], C::kConsumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if constexpr (kDoc) load_own();  // the summary's reads overlap it
+  }
+  int q_begin, q_end;
+  [[maybe_unused]] bool mono = false;
+  if constexpr (kDoc) {  // the clipped range (and walk), before the sync
+    mono = doc_mono(p, b);
+    q_range_doc(p, doc_span(doc_row(p, b), p.n64, k0, kRows), k0, kRows,
+                C::kBQ, q_begin, q_end);
+    if (!mono)
+      doc_walk_build<true>(p, b, k0, q_begin, C::kBQ,
+                           (q_end - q_begin + C::kBQ - 1) / C::kBQ, walk);
   }
   __syncthreads();
 
-  int q_begin, q_end;
-  q_range(p, k0, kRows, C::kBQ, q_begin, q_end);
+  if constexpr (!kDoc) q_range(p, k0, kRows, C::kBQ, q_begin, q_end);
   const int n_tiles = (q_end - q_begin + C::kBQ - 1) / C::kBQ;
   const int L = p.L;
+  [[maybe_unused]] const DocSteps<C::kWalkWords> steps{walk, n_tiles, mono};
 
   if (threadIdx.x < 128) {  // producer
     regs_dec<C::kProducerRegs>();
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
-      if (lane == 0) {
-        mbar_expect_tx(barKV, 2 * C::kKVBytes);
-        load_rows<D, kRows>(sK, &maps.k, barKV, k0, h, b);
-        load_rows<D, kRows>(sV, &maps.v, barKV, k0, h, b);
-      }
-      for (int t = 0; t < n_tiles; ++t) {
+      if (!kDoc && lane == 0) load_own();
+      // the t-th tile loaded, query tile ti of the range
+      auto load = [&](int t, int ti) {
         const int s = t % C::kStages;
-        const int qt = q_begin + t * C::kBQ;
+        const int qt = q_begin + ti * C::kBQ;
         mbar_wait(&empty[s], ((t / C::kStages) & 1) ^ 1);
 #pragma unroll
         for (int i = 0; i < C::kBQ / 32; ++i) {
@@ -1471,6 +1880,13 @@ __device__ __forceinline__ void dkv_block(const Maps& maps, const Params& p,
         } else {
           mbar_arrive(&full[s]);
         }
+      };
+      if constexpr (kDoc) {
+        for (int t = 0, ti = steps.next(0); ti < n_tiles;
+             ++t, ti = steps.next(ti + 1))
+          load(t, ti);
+      } else {
+        for (int t = 0; t < n_tiles; ++t) load(t, t);
       }
     }
   } else {  // consumers
@@ -1481,11 +1897,15 @@ __device__ __forceinline__ void dkv_block(const Maps& maps, const Params& p,
     const int kr0 = k0 + 64 * cw;
     const int row = kr0 + 16 * warp + g;
     const Mask mk = mask_of(p);
-    int fk[2], dock[2];
+    int fk[2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      fk[i] = min(row + 8 * i, L - 1) / p.tpf;
-      dock[i] = p.doc ? doc_of(p, b, fk[i]) : 0;
+    for (int i = 0; i < 2; ++i) fk[i] = min(row + 8 * i, L - 1) / p.tpf;
+    [[maybe_unused]] RowIv iv[2];
+    [[maybe_unused]] DocHalf half{};
+    if constexpr (kDoc) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) iv[i] = row_iv<true>(p, b, fk[i]);
+      half = doc_half(p, b, kr0);
     }
     const float c = p.logit_mul * kLog2e;
     const uint32_t k_addr = smem_u32(sK), v_addr = smem_u32(sV);
@@ -1497,9 +1917,12 @@ __device__ __forceinline__ void dkv_block(const Maps& maps, const Params& p,
 
     const Turns turn{cw};
     turn.init();
-    for (int t = 0; t < n_tiles; ++t) {
+    const int n_run = kDoc ? steps.count() : n_tiles;
+    // step t runs query tile ti of the range (ti == t without documents)
+    for (int t = 0, ti = kDoc ? steps.next(0) : 0; t < n_run;
+         ++t, ti = kDoc ? steps.next(ti + 1) : t) {
       const int s = t % C::kStages;
-      const int qt = q_begin + t * C::kBQ;
+      const int qt = q_begin + ti * C::kBQ;
       uint8_t* q_tile = sQ + s * C::kQBytes;
       const uint32_t q_addr = smem_u32(q_tile);
       const uint32_t do_addr = smem_u32(sdO + s * C::kQBytes);
@@ -1531,31 +1954,40 @@ __device__ __forceinline__ void dkv_block(const Maps& maps, const Params& p,
       keep(st);
       keep(dpt);
 
-      const bool full_tile = tile_full(p, qt, C::kBQ, kr0, 64);
+      if constexpr (kDoc) {  // masked to -inf first: exp(-inf) is 0
+        if (!doc_full<true>(p, steps, half, cw, ti, kr0, qt, C::kBQ))
+          doc_mask<C::kBQ>(st, p, b, iv, mono, qt, t4);
 #pragma unroll
-      for (int j = 0; j < C::kBQ / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = 8 * j + 2 * t4 + e, qrow = qt + col;
-          const float lc = lse2[col], dc = dl[col];
-          int fqc = 0, docc = 0;
-          if (!full_tile) {
-            fqc = qrow < L ? frame_of(p, qrow) : -kNoFrame;
-            docc = (p.doc && qrow < L) ? doc_of(p, b, fqc) : 0;
-          }
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int x = 4 * j + 2 * i + e;
-            const bool vis =
-                full_tile || (in_mask(mk, fqc, fk[i]) && docc == dock[i]);
-            const float pij =
-                vis ? ex2(fmaf(softmax_logit<kFixed>(st[x], p.cap_raw), c,
-                               -lc))
-                    : 0.f;
-            st[x] = pij;                       // P^T
-            dpt[x] = pij * (dpt[x] - dc);      // dS^T
-          }
+        for (int x = 0; x < C::kBQ / 2; ++x) {
+          const int col = 8 * (x / 4) + 2 * t4 + x % 2;
+          const float pij = ex2(fmaf(softmax_logit<kFixed>(st[x], p.cap_raw),
+                                     c, -lse2[col]));
+          st[x] = pij;                         // P^T
+          dpt[x] = pij * (dpt[x] - dl[col]);   // dS^T
         }
+      } else {
+        const bool full_tile = tile_full(p, qt, C::kBQ, kr0, 64);
+#pragma unroll
+        for (int j = 0; j < C::kBQ / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = 8 * j + 2 * t4 + e, qrow = qt + col;
+            const float lc = lse2[col], dc = dl[col];
+            int fqc = 0;
+            if (!full_tile) fqc = qrow < L ? frame_of(p, qrow) : -kNoFrame;
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int x = 4 * j + 2 * i + e;
+              const bool vis = full_tile || in_mask(mk, fqc, fk[i]);
+              const float pij =
+                  vis ? ex2(fmaf(softmax_logit<kFixed>(st[x], p.cap_raw), c,
+                                 -lc))
+                      : 0.f;
+              st[x] = pij;                       // P^T
+              dpt[x] = pij * (dpt[x] - dc);      // dS^T
+            }
+          }
+      }
       uint32_t pa[C::kBQ / 16][4], dsa[C::kBQ / 16][4];
       to_a<C::kBQ>(pa, st);
       to_a<C::kBQ>(dsa, dpt);
@@ -1659,11 +2091,11 @@ int launch(Kernel kernel, size_t smem, dim3 grid, int threads,
 enum Operand { OP_Q, OP_K, OP_V, OP_O, OP_DO, OP_DQ, OP_DK, OP_DV };
 
 // Every C entry point (frame_attention.cu, band_attention.cu) takes the
-// same arrays: 11 pointers (q, k, v, o, dout, dq, dk, dv, lse, delta,
-// doc), 24 element strides (batch, head, row of the 8 tensor operands in
-// that order, a dim of extent 1 given its dense stride by
-// ops/_attn_launch.py map_strides) and 7 ints (B, H, L, Dh, tpf, window,
-// causal); band2's 3 more ints are its plan. `cap` is the fixed shift's
+// same arrays: 12 pointers (q, k, v, o, dout, dq, dk, dv, lse, delta,
+// doc, its tile summary), 24 element strides (batch, head, row of the 8
+// tensor operands in that order, a dim of extent 1 given its dense stride
+// by ops/_attn_launch.py map_strides) and 7 ints (B, H, L, Dh, tpf,
+// window, causal); band2's 3 more ints are its plan. `cap` is the fixed shift's
 // bound on the scaled logits (read by kFixed bodies).
 inline Params make_params(const void* const* ptr, const long long* st,
                           const int* in, float scale, float cap) {
@@ -1681,6 +2113,7 @@ inline Params make_params(const void* const* ptr, const long long* st,
   p.lse = static_cast<float*>(const_cast<void*>(ptr[8]));
   p.delta = static_cast<float*>(const_cast<void*>(ptr[9]));
   p.doc = static_cast<const int*>(ptr[10]);
+  p.dsum = static_cast<const int*>(ptr[11]);
   p.B = in[0];
   p.H = in[1];
   p.L = in[2];
@@ -1688,6 +2121,9 @@ inline Params make_params(const void* const* ptr, const long long* st,
   p.window = in[5];
   p.causal = in[6];
   p.n_frames = (p.L + p.tpf - 1) / p.tpf;
+  p.n64 = (p.L + 63) / 64;
+  p.n128 = (p.L + kRows - 1) / kRows;
+  p.dsum_row = doc_row_len(p.L, p.tpf);
   p.inv_tpf = 1.f / (float)p.tpf;
   p.scale = scale;
   // a power-of-two scale folds into the f32 logits exactly

@@ -3,8 +3,8 @@
 
 Every C entry point of csrc/frame_attention.cu and csrc/band_attention.cu
 takes the same three arrays (``make_params`` in
-csrc/hopper_attention.cuh): 11 pointers (q, k, v, o, dout, dq, dk, dv,
-lse, delta, doc), 24 element strides (batch, head, row of the eight [B,
+csrc/hopper_attention.cuh): 12 pointers (q, k, v, o, dout, dq, dk, dv,
+lse, delta, doc, its tile summary), 24 element strides (batch, head, row of the eight [B,
 H, L, Dh] operands, ``map_strides``) and 7 ints (B, H, L, Dh, tpf,
 window, causal; band2 adds its plan), then its floats and the stream.
 Every kernel reads its inputs through TMA tensor maps built from those
@@ -170,17 +170,19 @@ def empty_heads(like: torch.Tensor) -> torch.Tensor:
 def launch(fn, tensors: Dict[str, torch.Tensor], ints: Sequence[int],
            floats: Sequence[float], lse: Optional[torch.Tensor] = None,
            delta: Optional[torch.Tensor] = None,
-           doc: Optional[torch.Tensor] = None, what: str = "attention"):
+           doc: Optional[torch.Tensor] = None,
+           doc_summary: Optional[torch.Tensor] = None,
+           what: str = "attention"):
     """Call a C entry point on the current stream; raises on a non-zero
     CUDA error (a refused launch never runs and no synchronize reports
-    it)."""
+    it). ``doc`` comes with its summary (ops/doc_tiles.py)."""
     ptrs, strides = [], []
     for name in OPERANDS:
         t = tensors.get(name)
         ptrs.append(None if t is None else t.data_ptr())
         strides.extend([0, 0, 0] if t is None
                        else map_strides(t.shape, t.stride()))
-    for t in (lse, delta, doc):
+    for t in (lse, delta, doc, doc_summary):
         ptrs.append(None if t is None else t.data_ptr())
     ref = tensors["q"]
     err = fn((ctypes.c_void_p * len(ptrs))(*ptrs),

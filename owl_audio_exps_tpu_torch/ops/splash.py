@@ -21,7 +21,12 @@ an output cotangent autograd hands in (the expanded gradient of
 ``out.sum()``, say) is made dense first.
 
 Visibility is the TPU package's ``FrameMask`` algebra, ANDed with
-same-document equality when ``doc_id`` is given. q is pre-scaled by
+same-document equality when ``doc_id`` is given. With documents the
+kernels walk a summary of the ids (``ops/doc_tiles.py``), written on the
+card by a helper kernel once a forward call (counted in
+``doc_tiles.launches``) and kept for its backward: ``doc_tiles_for``
+makes a ``DocTiles`` of it, which every entry point here also takes in
+place of ``doc_id``. q is pre-scaled by
 ``scale`` (default Dh^-0.5) in q's dtype, as on the TPU, so
 dq = scale * d(scaled q). The kernels mask ragged lengths themselves, so
 nothing is padded (the TPU's sentinel-segment padding only existed for
@@ -42,11 +47,12 @@ kernels read. On a CPU tensor it runs ``splash_attention_lse_plain``.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import _attn_launch as kl
+from . import doc_tiles as dt
 from .attention import dot_attention
 from .masks import dense_mask
 
@@ -69,6 +75,8 @@ def splash_attention_plain(q, k, v, tokens_per_frame: int,
     L, Dh = q.shape[2], q.shape[3]
     if scale is None:
         scale = Dh ** -0.5
+    if isinstance(doc_id, DocTiles):
+        doc_id = doc_id.doc
     qs = (q * scale).to(q.dtype)
     mask = dense_mask(L, tokens_per_frame, window,
                       None if doc_id is None else doc_id.long(), 0,
@@ -81,15 +89,40 @@ def _ints(q, tokens_per_frame, window, causal):
     return (B, H, L, Dh, tokens_per_frame, window or 0, int(bool(causal)))
 
 
-def _doc(doc_id, q, tokens_per_frame):
+class DocTiles(NamedTuple):
+    """A per-frame doc_id on the card with the summary K1's kernels walk
+    (ops/doc_tiles.py), made for one mask."""
+    doc: torch.Tensor        # int32 [B, n_frames]
+    summary: torch.Tensor    # int32 [B, doc_tiles_row(L, tpf)]
+    mask: tuple              # (L, tpf, window or 0, causal)
+
+
+def doc_tiles_for(doc_id, q, tokens_per_frame: int, window: Optional[int],
+                  causal: bool) -> Optional[DocTiles]:
+    """``doc_id`` (per-frame [B, n_frames]) on q's card with its summary,
+    written there by the helper kernel (no host read of the ids); a
+    DocTiles made for this mask as it is; None for None."""
     if doc_id is None:
         return None
     B, L = q.shape[0], q.shape[2]
+    mask = (L, tokens_per_frame, window or 0, bool(causal))
+    if isinstance(doc_id, DocTiles):
+        if doc_id.mask != mask or doc_id.doc.shape[0] != B:
+            raise ValueError(f"DocTiles made for {doc_id.mask}, used at "
+                             f"{mask} with batch {B}")
+        return doc_id
     n_frames = -(-L // tokens_per_frame)
     if tuple(doc_id.shape) != (B, n_frames):
         raise ValueError(f"doc_id shape {tuple(doc_id.shape)} != "
                          f"{(B, n_frames)}")
-    return doc_id.to(device=q.device, dtype=torch.int32).contiguous()
+    doc = doc_id.to(device=q.device, dtype=torch.int32).contiguous()
+    return DocTiles(doc, dt.doc_tiles_cuda(doc, L, tokens_per_frame, window,
+                                           causal), mask)
+
+
+def _doc_args(docs: Optional[DocTiles]) -> dict:
+    return {} if docs is None else dict(doc=docs.doc,
+                                        doc_summary=docs.summary)
 
 
 def frame_attention_cuda(q, k, v, tokens_per_frame: int,
@@ -97,15 +130,15 @@ def frame_attention_cuda(q, k, v, tokens_per_frame: int,
                          doc_id=None, scale: Optional[float] = None,
                          return_lse: bool = False):
     """Launch the forward kernel. q, k, v: [B, H, L, Dh] bf16 on one card,
-    Dh 64 or 128; doc_id: per-frame [B, n_frames] or None. With
-    ``return_lse`` also returns the f32 logsumexp [B, H, L] of the scaled
-    logits."""
+    Dh 64 or 128; doc_id: per-frame [B, n_frames], its DocTiles, or None.
+    With ``return_lse`` also returns the f32 logsumexp [B, H, L] of the
+    scaled logits."""
     global launches
     kl.check_operands(q, q=q, k=k, v=v)
     kl.refuse_autograd(q, k, v)
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive or None, got {window}")
-    doc = _doc(doc_id, q, tokens_per_frame)
+    docs = doc_tiles_for(doc_id, q, tokens_per_frame, window, causal)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     q, k, v = kl.tma_views(q=q, k=k, v=v)
@@ -116,18 +149,19 @@ def frame_attention_cuda(q, k, v, tokens_per_frame: int,
     kl.launch(kl.entry(_SOURCE, "owl_frame_attn_fwd", 1),
               dict(q=q, k=k, v=v, o=out),
               _ints(q, tokens_per_frame, window, causal), (float(scale),),
-              lse=lse, doc=doc, what="frame attention")
+              lse=lse, what="frame attention", **_doc_args(docs))
     launches += 1
     return (out, lse) if return_lse else out
 
 
-def _bwd_args(q, k, v, out, dout, tokens_per_frame, doc_id, scale):
+def _bwd_args(q, k, v, out, dout, tokens_per_frame, window, causal, doc_id,
+              scale):
     kl.check_operands(q, q=q, k=k, v=v, out=out, dout=dout)
-    doc = _doc(doc_id, q, tokens_per_frame)
+    docs = doc_tiles_for(doc_id, q, tokens_per_frame, window, causal)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     q, k, v, out, dout = kl.tma_views(q=q, k=k, v=v, out=out, dout=dout)
-    return dict(q=q, k=k, v=v, o=out, dout=dout), doc, float(scale)
+    return dict(q=q, k=k, v=v, o=out, dout=dout), docs, float(scale)
 
 
 def frame_attention_bwd_dq_cuda(q, k, v, out, lse, dout,
@@ -137,14 +171,14 @@ def frame_attention_bwd_dq_cuda(q, k, v, out, lse, dout,
     """Launch the dq kernel. Returns (dq, delta): bf16 [B, H, L, Dh] and
     the f32 [B, H, L] rowsum(dO * O) the dkv kernel reads."""
     global dq_launches
-    args, doc, scale = _bwd_args(q, k, v, out, dout, tokens_per_frame,
-                                 doc_id, scale)
+    args, docs, scale = _bwd_args(q, k, v, out, dout, tokens_per_frame,
+                                  window, causal, doc_id, scale)
     lse = lse.to(torch.float32).contiguous()
     delta = torch.empty_like(lse)
     args["dq"] = kl.empty_heads(args["q"])
     kl.launch(kl.entry(_SOURCE, "owl_frame_attn_bwd_dq", 1), args,
               _ints(q, tokens_per_frame, window, causal), (scale,), lse=lse,
-              delta=delta, doc=doc, what="frame attention dq")
+              delta=delta, what="frame attention dq", **_doc_args(docs))
     dq_launches += 1
     return args["dq"], delta
 
@@ -156,13 +190,13 @@ def frame_attention_bwd_dkv_cuda(q, k, v, out, lse, delta, dout,
     """Launch the dkv kernel (after the dq kernel, whose delta it reads).
     Returns (dk, dv), bf16 [B, H, L, Dh]."""
     global dkv_launches
-    args, doc, scale = _bwd_args(q, k, v, out, dout, tokens_per_frame,
-                                 doc_id, scale)
+    args, docs, scale = _bwd_args(q, k, v, out, dout, tokens_per_frame,
+                                  window, causal, doc_id, scale)
     args["dk"], args["dv"] = (kl.empty_heads(args["q"]) for _ in range(2))
     kl.launch(kl.entry(_SOURCE, "owl_frame_attn_bwd_dkv", 1), args,
               _ints(q, tokens_per_frame, window, causal), (scale,),
-              lse=lse.to(torch.float32).contiguous(), delta=delta, doc=doc,
-              what="frame attention dkv")
+              lse=lse.to(torch.float32).contiguous(), delta=delta,
+              what="frame attention dkv", **_doc_args(docs))
     dkv_launches += 1
     return args["dk"], args["dv"]
 
@@ -171,7 +205,9 @@ def frame_attention_bwd_cuda(q, k, v, out, lse, dout, tokens_per_frame: int,
                              window: Optional[int], causal: bool,
                              doc_id=None, scale: Optional[float] = None):
     """The dq kernel (which also stores delta = rowsum(dO * O)), then the
-    dkv kernel. Returns (dq, dk, dv), bf16 [B, H, L, Dh]."""
+    dkv kernel, on one summary of the documents. Returns (dq, dk, dv), bf16
+    [B, H, L, Dh]."""
+    doc_id = doc_tiles_for(doc_id, q, tokens_per_frame, window, causal)
     mask = (tokens_per_frame, window, causal, doc_id, scale)
     dq, delta = frame_attention_bwd_dq_cuda(q, k, v, out, lse, dout, *mask)
     dk, dv = frame_attention_bwd_dkv_cuda(q, k, v, out, lse, delta, dout,
@@ -181,17 +217,19 @@ def frame_attention_bwd_cuda(q, k, v, out, lse, dout, tokens_per_frame: int,
 
 class FrameAttentionFunction(torch.autograd.Function):
     """Forward kernel (saving the logsumexp) with the dq + dkv kernels as
-    its backward. Under ``torch.utils.checkpoint`` the recomputed forward
-    is a forward launch like any other and is counted in ``launches``."""
+    its backward, all three on one summary of the documents. Under
+    ``torch.utils.checkpoint`` the recomputed forward is a forward launch
+    like any other and is counted in ``launches``."""
 
     @staticmethod
     def forward(ctx, q, k, v, tokens_per_frame, window, causal, doc_id,
                 scale):
+        docs = doc_tiles_for(doc_id, q, tokens_per_frame, window, causal)
         out, lse = frame_attention_cuda(q, k, v, tokens_per_frame, window,
-                                        causal, doc_id, scale,
+                                        causal, docs, scale,
                                         return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (tokens_per_frame, window, causal, doc_id, scale)
+        ctx.args = (tokens_per_frame, window, causal, docs, scale)
         return out
 
     @staticmethod
@@ -205,11 +243,13 @@ class FrameAttentionFunction(torch.autograd.Function):
 def splash_attention(q, k, v, tokens_per_frame: int, window: Optional[int],
                      causal: bool, doc_id=None, head_chunks: int = 1,
                      scale: Optional[float] = None):
-    """q, k, v: [B, H, L, Dh]; doc_id: per-frame [B, n_frames] or None.
-    ``head_chunks`` > 1 splits the heads into that many calls (a memory
-    lever carried over from the TPU package; same result).
-    Returns [B, H, L, Dh] in q's dtype."""
+    """q, k, v: [B, H, L, Dh]; doc_id: per-frame [B, n_frames] (or, on
+    the card, its DocTiles) or None. ``head_chunks`` > 1 splits the heads
+    into that many calls (a memory lever carried over from the TPU package;
+    same result). Returns [B, H, L, Dh] in q's dtype."""
     H = q.shape[1]
+    if q.device.type == "cuda":   # one summary for every head chunk
+        doc_id = doc_tiles_for(doc_id, q, tokens_per_frame, window, causal)
     if head_chunks > 1 and H % head_chunks == 0 and H > head_chunks:
         hc = H // head_chunks
         return torch.cat([

@@ -97,6 +97,50 @@ def test_kernel_backward_matches_plain_on_card(L, tpf, window, causal, docs):
         assert _rel_l2(a, b) < GRAD_REL_L2, name
 
 
+# per-frame ids of K1's document walk: ids that never decrease (short
+# documents, boundaries in mid-tile at tpf 65), and ids that decrease and
+# come back (no clip; the ids compared per element)
+DOC_LAYOUTS = {
+    "short": lambda nf: torch.arange(nf) // 7,
+    "decreasing_repeated": lambda nf: 2 - (torch.arange(nf) // 5) % 3,
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", sorted(DOC_LAYOUTS))
+@pytest.mark.parametrize("L,tpf,window,causal,Dh", [
+    (4160, 65, None, True, 64), (4096, 64, 16, True, 128),
+    (1300, 13, 3, False, 64)])
+def test_document_walk_matches_plain_on_card(layout, L, tpf, window, causal,
+                                             Dh):
+    """K1's kDoc bodies, forward and backward, against the plain version,
+    and the summary kernel's output against the plain doc_tiles int for
+    int."""
+    _need_card()
+    from owl_audio_exps_tpu_torch.ops import doc_tiles
+    nf = -(-L // tpf)
+    doc = torch.stack([DOC_LAYOUTS[layout](nf), torch.arange(nf) // 9]
+                      ).int().cuda()
+    q, k, v = _qkv(L, seed=5, Dh=Dh, B=2)
+    dout = _qkv(L, seed=6, Dh=Dh, B=2)[0]
+    before = doc_tiles.launches
+    docs = splash.doc_tiles_for(doc, q, tpf, window, causal)
+    assert doc_tiles.launches == before + 1
+    assert torch.equal(docs.summary.cpu(), doc_tiles.doc_tiles(
+        doc.cpu(), L, tpf, window, causal))
+    out, got = _grads(lambda *a: splash.splash_attention(
+        *a, tpf, window, causal, doc), q, k, v, dout)
+    torch.cuda.synchronize()
+    want_out, want = _grads(lambda *a: splash.splash_attention_plain(
+        *a, tpf, window, causal, doc), q.float(), k.float(), v.float(),
+        dout.float())
+    err = (out.float() - want_out).abs()
+    assert err.max().item() < 2e-2 and err.mean().item() < 2e-3
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a).all(), name
+        assert _rel_l2(a, b) < GRAD_REL_L2, name
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("window", [16, None])
 def test_kernel_with_packed_documents_matches_plain_on_card(window,

@@ -29,7 +29,21 @@ CASES = {  # B, H, tpf, n_frames, window, causal, docs
     "bidirectional_window": (1, 2, 5, 8, 3, False, False),
     "two_documents": (2, 2, 5, 8, None, True, True),
     "ragged_tpf65": (1, 2, 65, 2, 2, True, False),
+    # ids that decrease, and one id in two separate runs (which see each
+    # other: the ids are compared, not the runs)
+    "decreasing_repeated_documents": (2, 2, 5, 8, None, True, "odd"),
+    "decreasing_repeated_bidirectional": (2, 2, 5, 8, 3, False, "odd"),
 }
+
+
+def _doc_ids(docs, nf):
+    """Per-frame ids of a case: row 0 documents of 3 + 5 frames, row 1 of
+    6 + 2; or ("odd") ids that decrease and come back."""
+    if docs == "odd":
+        return np.array([[2, 2, 0, 0, 2, 2, 1, 1],
+                         [1, 0, 0, 1, 1, 0, 2, 2]], np.int32)[:, :nf]
+    return np.stack([np.arange(nf) >= 3, np.arange(nf) >= 6]).astype(
+        np.int32)
 
 
 def _inputs(B, H, L, Dh=64, seed=0):
@@ -42,10 +56,7 @@ def test_plain_matches_jax_splash_interpret(case):
     B, H, tpf, nf, window, causal, docs = CASES[case]
     L = tpf * nf
     q, k, v = _inputs(B, H, L)
-    doc = None
-    if docs:  # row 0: documents of 3 + 5 frames; row 1: 6 + 2
-        doc = np.stack([np.arange(nf) >= 3, np.arange(nf) >= 6]).astype(
-            np.int32)
+    doc = _doc_ids(docs, nf) if docs else None
     before = splash.launches
     ref = jax_splash(*(jnp.asarray(a) for a in (q, k, v)), tpf, window,
                      causal, None if doc is None else jnp.asarray(doc),
@@ -57,6 +68,32 @@ def test_plain_matches_jax_splash_interpret(case):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL,
                                rtol=0)
     assert splash.launches == before   # CPU tensors never reach the kernel
+
+
+@pytest.mark.parametrize("case", ["two_documents",
+                                  "decreasing_repeated_documents"])
+def test_plain_gradients_match_jax_splash_interpret(case):
+    """dq, dk, dv of the port's K1 (its plain version on the CPU) against
+    the JAX splash's custom vjp in interpret mode, with documents."""
+    import jax
+
+    B, H, tpf, nf, window, causal, docs = CASES[case]
+    L = tpf * nf
+    q, k, v = _inputs(B, H, L)
+    g = _inputs(B, H, L, seed=1)[0]
+    doc = _doc_ids(docs, nf)
+    _, vjp = jax.vjp(lambda *a: jax_splash(*a, tpf, window, causal,
+                                            jnp.asarray(doc),
+                                            interpret=True),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    splash.splash_attention(*leaves, tpf, window, causal,
+                            torch.from_numpy(doc)).backward(
+                                torch.from_numpy(g))
+    for name, a, b in zip(("dq", "dk", "dv"), leaves, want):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(b), atol=ATOL,
+                                   rtol=0, err_msg=name)
 
 
 def test_head_chunks_and_scale():
