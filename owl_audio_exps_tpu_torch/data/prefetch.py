@@ -13,6 +13,12 @@ trainers' losses cast, as the JAX package's trainers, whose ``put_fn``
 iterator reaches the consumer, and the stream ends when the iterator is
 exhausted. Closing the stream, or the interpreter's exit, stops the
 worker and waits for the batch it holds.
+
+The consumer's side counts, over every stream of the process (read and
+reset like the kernels' launch counters): ``batches`` handed out,
+``empty_gets`` (gets that found no batch ready) and ``wait_s`` (seconds
+blocked on the next batch); under a profiler capture the wait is the
+span ``owl.data.wait`` (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -20,14 +26,26 @@ from __future__ import annotations
 import atexit
 import queue
 import threading
+import time
 from typing import Iterator, Optional
 
 import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 _END = object()
+
+batches = 0
+empty_gets = 0
+wait_s = 0.0
+
+
+def counts():
+    """The consumer's counters as they stand: ``batches``,
+    ``empty_gets`` and ``wait_s``."""
+    return {"batches": batches, "empty_gets": empty_gets, "wait_s": wait_s}
 
 
 def _put(batch, device: torch.device,
@@ -53,6 +71,7 @@ def device_prefetch(iterator: Iterator, device="cuda", size: int = 2):
     """Wrap a host iterator of batches (lists of numpy arrays); yields
     them as lists of tensors on ``device`` (the card unless the caller
     asks for the CPU) with ``size`` batches in flight."""
+    global batches, empty_gets, wait_s
     device = resolve_device(device)
     q: "queue.Queue" = queue.Queue(maxsize=size)
     stop = threading.Event()
@@ -89,7 +108,14 @@ def device_prefetch(iterator: Iterator, device="cuda", size: int = 2):
     atexit.register(halt)
     try:
         while True:
-            item = q.get()
+            t0 = time.perf_counter()
+            with span("owl.data.wait"):
+                try:
+                    item = q.get_nowait()
+                except queue.Empty:
+                    empty_gets += 1
+                    item = q.get()
+            wait_s += time.perf_counter() - t0
             if item is _END:
                 return
             if isinstance(item, Exception):
@@ -101,6 +127,7 @@ def device_prefetch(iterator: Iterator, device="cuda", size: int = 2):
                 for t in batch:
                     # memory made on the side stream is used on this one
                     t.record_stream(consumer)
+            batches += 1
             yield batch
     finally:
         atexit.unregister(halt)

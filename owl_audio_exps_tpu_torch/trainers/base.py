@@ -67,6 +67,7 @@ from ..utils.checkpoints import (load_checkpoint, save_checkpoint,
                                  save_clean_export)
 from ..utils.device import resolve_device
 from ..utils.logging import ExperimentLogger, LogHelper, Timer
+from ..utils.profiling import span
 from ..utils.telemetry import (bin_counts, group_key, value_range,
                                watch_metrics)
 
@@ -292,36 +293,66 @@ class BaseTrainer:
                    generator: torch.Generator,
                    clip_norm: Optional[float] = None) -> Dict:
         """One optimizer step over the micro-batches; returns the step's
-        metrics as device scalars (no host sync)."""
+        metrics as device scalars (no host sync).
+
+        Under a torch.profiler capture the step records its phases as
+        spans (utils/profiling.py ``span``) of step ``state.step``:
+        ``owl.train.step`` around it all, ``owl.train.forward`` around
+        each loss, ``owl.train.backward`` around each backward (with
+        remat it holds the recomputed forward too) and
+        ``owl.train.update`` around what follows the last backward, in
+        which ``owl.train.reduce``, ``owl.train.clip`` (when clipping),
+        ``owl.train.watch`` (under ``train.watch``),
+        ``owl.train.optimizer``, ``owl.train.param_norm`` and
+        ``owl.train.ema``."""
+        step = state.step
+        with span("owl.train.step", step):
+            model, opt = state.model, state.optimizer
+            accum = len(micro_batches)
+            opt.zero_grad(set_to_none=True)
+            sums: Dict[str, torch.Tensor] = {}
+            for mb in micro_batches:
+                with span("owl.train.forward", step):
+                    loss, metrics = self.loss_fn(model, mb, generator)
+                with span("owl.train.backward", step):
+                    (loss / accum).backward()
+                for k, v in metrics.items():
+                    sums[k] = sums.get(k, 0.0) + v
+            with span("owl.train.update", step):
+                metrics = {k: v / accum for k, v in sums.items()}
+                self.apply_update(state, metrics, clip_norm, step)
+        state.step += 1
+        return metrics
+
+    @torch.no_grad()
+    def apply_update(self, state: TrainState, metrics: Dict,
+                     clip_norm: Optional[float], step: int):
+        """The step after the backward: the sums over ranks, the clip, the
+        watch, the optimizer, the parameters' norm and the EMA; adds its
+        metrics to ``metrics``."""
         model, opt = state.model, state.optimizer
-        beta = self.EMA_BETA
-        accum = len(micro_batches)
-        opt.zero_grad(set_to_none=True)
-        sums: Dict[str, torch.Tensor] = {}
-        for mb in micro_batches:
-            loss, metrics = self.loss_fn(model, mb, generator)
-            (loss / accum).backward()
-            for k, v in metrics.items():
-                sums[k] = sums.get(k, 0.0) + v
-        metrics = {k: v / accum for k, v in sums.items()}
         params = [p for p in model.parameters()]
-        self.reduce_across_ranks(params, metrics)
-        with torch.no_grad():
-            if clip_norm is not None:
+        with span("owl.train.reduce", step):
+            self.reduce_across_ranks(params, metrics)
+        if clip_norm is not None:
+            with span("owl.train.clip", step):
                 metrics["grad_norm"] = clip_grad_norm(params, clip_norm)
-            watch = self.train_cfg.get("watch")
-            if watch:
+        watch = self.train_cfg.get("watch")
+        if watch:
+            with span("owl.train.watch", step):
                 metrics.update(self.watch(
                     model.named_parameters(), watch,
                     bins=int(self.train_cfg.get("watch_bins") or 64)))
+        with span("owl.train.optimizer", step):
             opt.step()
+        with span("owl.train.param_norm", step):
             metrics["param_norm"] = layout_norm(params, params)
+        with span("owl.train.ema", step):
+            beta = self.EMA_BETA
             for name, p in model.named_parameters():
                 e = state.ema[name]
                 e.mul_(beta).add_(p.to(e.dtype) * (1.0 - beta))
         opt.zero_grad(set_to_none=True)
-        state.step += 1
-        return metrics
 
     @torch.no_grad()
     def watch(self, named_params, mode: str, bins: int = 64,

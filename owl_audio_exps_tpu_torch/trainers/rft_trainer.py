@@ -16,8 +16,13 @@ video samplers, the AV trainers' with the window samplers; with
 trainer a decoded WAV through the VAE bridge (utils/owl_vae_bridge.py),
 which also encodes the audio trainer's waveforms when it names a VAE.
 With ``train.profile_dir`` the loop writes a torch.profiler trace of
-steps ``profile_start`` (10) to ``profile_start + 3`` there
-(utils/profiling.py).
+steps ``profile_start`` (10) to ``profile_start + 3`` there, with the
+records of the step's spans and of the loop's ``owl.train.drain``,
+``owl.train.eval`` and ``owl.train.save`` (utils/profiling.py). Each
+log also holds ``data/batches``, ``data/wait_s`` and
+``data/empty_gets``: the batches the loop took, the seconds it waited
+for them and the gets that found none ready since the last log
+(data/prefetch.py).
 The noise comes from one ``torch.Generator`` on the device, seeded 1234
 plus the batch rank (data x fsdp), so the tensor and seq ranks of one
 batch rank draw alike. Under several processes every rank starts from
@@ -34,11 +39,12 @@ import numpy as np
 import torch
 
 from ..data import get_loader
+from ..data.prefetch import counts as prefetch_counts
 from ..models import get_model_cls
 from ..parallel.dist import broadcast_from_main
 from ..utils.logging import DeferredMetrics
 from ..utils.mfu import MFUProfiler
-from ..utils.profiling import StepProfiler
+from ..utils.profiling import StepProfiler, span
 from ..parallel.sharding import shard_params
 from .base import BaseTrainer, TrainState
 
@@ -138,6 +144,7 @@ class RFTFamilyTrainer(BaseTrainer):
         log_interval = self.log_interval()
         clip = self.grad_clip_norm()
         profiler.start()
+        waited = prefetch_counts()
 
         while self.total_step_counter < total:
             if self.should_stop():
@@ -163,19 +170,27 @@ class RFTFamilyTrainer(BaseTrainer):
                 continue
 
             # ---- the only host sync in the loop
-            drained = pending.drain()
-            for _, m in drained:
-                self.metrics.log_dict(m)
+            with span("owl.train.drain", self.total_step_counter):
+                drained = pending.drain()
+                for _, m in drained:
+                    self.metrics.log_dict(m)
             profiler.stop(n_steps=len(drained))
             log = self.metrics.pop()
             log["time"] = self.timer.hit() / max(1, len(drained))
             log.update(profiler.report())
+            counts = prefetch_counts()
+            log.update({f"data/{k}": v - waited[k]
+                        for k, v in counts.items()})
+            waited = counts
             if do_sample:
-                log.update(self.eval_step(state, sample_loader, sampler))
+                with span("owl.train.eval", self.total_step_counter):
+                    log.update(self.eval_step(state, sample_loader,
+                                              sampler))
             if self.is_main:
                 self.logger.log(log, step=self.total_step_counter)
             if do_save:
-                self.save(state)
+                with span("owl.train.save", self.total_step_counter):
+                    self.save(state)
             # eval/save time is excluded from the next window's step timing
             self.timer.reset()
             profiler.start()

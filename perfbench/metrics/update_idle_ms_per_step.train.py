@@ -1,0 +1,9 @@
+"""Idle device milliseconds a step in the traced steps, in gaps whose
+middle falls inside an ``owl.train.update`` host range of the trace
+(perfbench/phases.py)."""
+
+from perfbench.phases import UPDATE, idle_ms_per_step
+
+
+def read(ctx):
+    return idle_ms_per_step(ctx, UPDATE)
