@@ -7,7 +7,8 @@ Usage (from the repository root, on a machine with one NVIDIA GPU):
 (``python3 chip_smoke.py --packed-fit`` runs only the probe that shows
 why phase 14 trains configs/dit_v4.yml with group remat:
 ``packed_fit_phase``; ``--mmdit-fit`` the one that shows why phase 15
-trains configs/mmdit_v2.yml with block remat: ``mmdit_fit_phase``.)
+trains configs/mmdit_v2.yml with block remat: ``mmdit_fit_phase``;
+``--decode`` the decode kernel's rows alone: ``decode_phase``.)
 
 Phases, each of which exits non-zero on any failure:
 
@@ -32,7 +33,12 @@ Phases, each of which exits non-zero on any failure:
    at every K1 row with documents (here and in phases 14 and 16) the
    summary kernel's output is held int for int against its plain version
    (ops/doc_tiles.py doc_tiles), and document-free K1 is timed at the
-   same shape, its share of bound printed beside the row's;
+   same shape, its share of bound printed beside the row's; then the
+   decode kernel (ops/decode_attention.py, no TPU counterpart) at the
+   cached AV serve's four call shapes, its global call at 8 sessions and
+   the prime's two against its plain version, its ms a call inside a
+   graph beside its bound, the plain version's, and at the four the
+   former dense path's and one SDPA call's (``decode_phase``);
 3. ``CausvidPipeline`` (window recompute, 60 frames x 65 tokens) at the
    full width of configs/av_v4_8x8.yml made causal (24 layers x 1536,
    24 heads x 64), 2 sampling steps, seeded random bf16 weights: timed
@@ -82,8 +88,9 @@ Phases, each of which exits non-zero on any failure:
    draws; int8 weights and the int8 ring against bf16; RTF of bf16, int8
    and 32 int8 streams, ms and kernels per token with and without the
    graph, and the device-busy share of one traced 16-token window;
-11. the KV-cached video and AV serve, which reaches no kernel of the port
-   either (cached attention is plain PyTorch): ``AVCachingSamplerV2`` on
+11. the KV-cached video and AV serve, which reaches none of K1-K5 either
+   (cached attention takes the decode kernel, counted apart in
+   ops/decode_attention.py ``launches``): ``AVCachingSamplerV2`` on
    configs/dit_v4.yml at full width (16 layers x 1536) on the eval's clip
    (60 frames, 30 of them context), the config's 16 steps and the 2-step
    [1.0, 0.5] schedule with CFG 1.3, graph against eager on the same
@@ -2066,6 +2073,9 @@ def make_core(cfg, dev, seed: int):
 
 
 def check_no_port_kernels(what: str):
+    """Fail if any of K1-K5 (``kernel_counts``: the TPU kernels' ports)
+    launched; the decode kernel of the cached forwards is not one of them
+    and is counted apart (ops/decode_attention.py ``launches``)."""
     counts = kernel_counts()
     if any(counts.values()):
         fail(f"{what} launched kernels of the port: {counts}")
@@ -5772,6 +5782,239 @@ HOPPER_KERNELS = {
 }
 
 
+# ---------------------------------------------------- the decode kernel
+# the cached AV serve's attention calls (perfbench av_v5.serve.cached1: a
+# 120-frame ring of 65 tokens a frame with its 16-frame shadow, 8,840
+# slots, full; 24 heads of 64): the steady forward's 130 queries over
+# [ring | 130 new] (global layers, and local ones under their window mask
+# over the whole ring), the decoding forward's 65 over [ring | 65 new] and
+# its local layers' gathered 975-token window; the steady global call of
+# 8 sessions on one ring (phase 11's 8-session tick); and the prime's
+# 7,735 queries (119 frames) over the empty ring, in 49 query tiles of
+# one split each
+DECODE_CASES = [
+    # name, sessions, queries, mask, write_len, ring full (else empty)
+    ("global_steady", 1, 130, "global", 65, True),
+    ("local_steady", 1, 130, "local", 65, True),
+    ("global_decode", 1, 65, "global", None, True),
+    ("local_decode", 1, 65, "gathered", None, True),
+    ("global_steady_b8", 8, 130, "global", 65, True),
+    ("global_prime", 1, 7735, "global", None, False),
+    ("local_prime", 1, 7735, "local", None, False),
+]
+# kernel vs plain version on the same bf16 operands: both round P to bf16
+# after sums in another order, and the output to bf16, so a few elements
+# differ by a bf16 step. Read on an H100 at these rows: largest 2.4e-4 to
+# 4.9e-4 at the tick's shapes and 8 sessions, 1.95e-3 at the prime (a
+# step at 0.25-0.5: its first frames see 65 keys); mean 1.1e-7 to 1.8e-7.
+# The largest may reach one step at 0.5-1 (3.9e-3); a mask bit wrong for
+# one key a row moves the mean by ~1e-4
+DECODE_MAX_ABS, DECODE_MEAN_ABS = 4e-3, 2e-6
+# the decode kernel's launches in one steady tick of the cached AV serve
+# (24 layers; fused write, 2 steps): 48 calls of 4 launches (the plan,
+# pass 1, pass 2, the splits' sum)
+DECODE_TICK_LAUNCHES = 48 * 4
+
+
+def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device ms a call of ``fn`` takes inside a CUDA graph of ``calls``
+    calls (as the serve replays its tick): the median of ``reps`` replays,
+    after one warm call on a side stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
+def decode_phase(dev):
+    """The decode kernel (ops/decode_attention.py) at the serve's shapes
+    (``DECODE_CASES``): its device ms a call inside a graph (plan, pass 1,
+    pass 2, the splits' sum), against its bound (K and V of the visible
+    64-key tiles at 3.35 TB/s; 4 Dh FLOPs a visible pair at 989 TFLOP/s),
+    the plain version's ms, and at one session's tick shapes the port's
+    former dense path's ms (dot_attention over the concatenated ring) and
+    one SDPA call with the same mask (the library's yardstick; the port
+    never calls it). Checks every row's output against the plain version
+    and the launches."""
+    from torch.nn import functional as F
+
+    from owl_audio_exps_tpu_torch.configs import Config
+    from owl_audio_exps_tpu_torch.nn.attn import build_masks
+    from owl_audio_exps_tpu_torch.nn.kv_cache import KVCache
+    from owl_audio_exps_tpu_torch.ops import decode_attention as da
+    from owl_audio_exps_tpu_torch.ops.attention import dot_attention
+
+    with open(os.path.join(ROOT, "perfbench", "configs", "av_v5.json")) as f:
+        conf = json.load(f)
+    cfg = Config.from_dict({"model": conf["model"],
+                            "train": conf["train"]}).model
+    H, Dh, tpf = cfg.n_heads, cfg.d_model // cfg.n_heads, cfg.tokens_per_frame
+    gen = torch.Generator(device=dev).manual_seed(20)
+    # the serve's ring geometry (capacity and shadow; meta: no memory)
+    spec = KVCache.from_config(cfg, 1, capacity_frames=120, device="meta")
+    capacity, shadow = spec.capacity, spec.shadow
+
+    def draw(*shape):
+        x = torch.randn(*shape, generator=gen, device=dev)
+        return (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True))).to(
+            torch.bfloat16)
+
+    def ring(sessions, filled):
+        """A one-layer ring of the serve's geometry, every slot drawn: full
+        from slot 1,235, or empty."""
+        c = KVCache.create(1, sessions, capacity, H, Dh, tpf, shadow=shadow,
+                           device=dev)
+        for buf in (c.k, c.v):
+            buf.copy_(draw(*buf.shape))
+        if filled:
+            c.start.fill_(1235)
+            c.length.fill_(c.capacity)
+            c.rope_offset.fill_(c.capacity)
+        return c
+
+    rows, faults = {}, []
+    for name, B, lq, kind, wl, filled in DECODE_CASES:
+        cache = ring(B, filled)
+        q, nk, nv = (draw(B, H, lq, Dh) for _ in range(3))
+        if kind == "gathered":
+            n = cfg.local_window * tpf - lq
+            ck, cv, valid = cache.gather_trailing(0, n, local=True)
+            mask = torch.cat([valid, torch.ones(lq, dtype=torch.bool,
+                                                device=dev)])[None, :]
+        else:
+            local, glob = build_masks(cfg, lq, None, kv_cache=cache,
+                                      write_len=wl)
+            mask = local if kind == "local" else glob
+            ck, cv = cache.read_layer(0)
+        S = ck.shape[2]
+        m2 = mask.expand(lq, S + lq)
+        rows_q, nq = da.query_tiling(lq)
+        n_tiles = da.key_tiles(S, lq)[1]
+        ns = da.split_count(B * H * nq, n_tiles, da._sms(dev.index or 0))
+        cols = [da.tile_columns(j, S, lq) for j in range(n_tiles)]
+        # K and V of each query tile's visible tiles, every session
+        keys = sum(c1 - c0 for qt in range(nq) for c0, c1 in cols
+                   if bool(m2[qt * rows_q:(qt + 1) * rows_q, c0:c1].any()))
+        pairs = int(m2.sum())
+        nbytes = B * 2 * keys * H * Dh * 2
+        flops = B * 4 * Dh * pairs * H
+        bound = bound_row(flops, nbytes)
+        before = da.launches
+        out = da.decode_attention(q, ck, cv, nk, nv, mask)
+        torch.cuda.synchronize()
+        launched = da.launches - before
+        if launched != 3 + (ns > 1):
+            faults.append(f"{name}: {launched} launches, expected "
+                          f"{3 + (ns > 1)}")
+        plain = da.decode_attention_plain(q, ck, cv, nk, nv, mask)
+        err = (out.float() - plain.float()).abs()
+        max_abs, mean_abs = err.max().item(), err.mean().item()
+        if not (max_abs < DECODE_MAX_ABS and mean_abs < DECODE_MEAN_ABS):
+            faults.append(f"{name}: max {max_abs:.3g} mean {mean_abs:.3g} "
+                          f"against the plain version")
+        ms = graph_ms(lambda: da.decode_attention(q, ck, cv, nk, nv, mask))
+        plain_ms = cuda_ms(
+            lambda: da.decode_attention_plain(q, ck, cv, nk, nv, mask), 3, 1)
+        dense_ms = lib = None
+        if B == 1 and lq <= 130:
+            kf, vf = torch.cat([ck, nk], 2), torch.cat([cv, nv], 2)
+            dense_ms = cuda_ms(lambda: dot_attention(q, kf, vf, mask), 10)
+            lib = library_ms(lambda: F.scaled_dot_product_attention(
+                q, kf, vf, attn_mask=m2[None, None]), 20)
+        rows[name] = dict(
+            shape=f"{B} x {lq} x ({S} + {lq})", splits=ns, query_tiles=nq,
+            visible_keys=keys, visible_pairs=pairs, ms=ms, **bound,
+            gbytes=nbytes / 1e9, share_of_bound=bound["bound_ms"] / ms,
+            plain_ms=plain_ms, dense_ms=dense_ms, library_ms=lib,
+            launches_a_call=launched, max_abs=max_abs, mean_abs=mean_abs)
+        print(f"[decode] {name} {rows[name]['shape']}: {ms:.4f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), plain "
+              f"{plain_ms:.3f}, dense {dense_ms}, sdpa {lib}, {nq} query "
+              f"tiles, {ns} splits, launches {launched}, max {max_abs:.3g} "
+              f"mean {mean_abs:.3g}", flush=True)
+        del cache, q, nk, nv, ck, cv, out, plain, err
+        torch.cuda.empty_cache()
+    if faults:
+        fail(f"decode kernel against its plain version (limits "
+             f"{DECODE_MAX_ABS}, {DECODE_MEAN_ABS}): {faults}")
+    rows["serve_tick"] = decode_tick_check(dev)
+    return rows
+
+
+def decode_tick_check(dev):
+    """The cached AV serve at configs/causvid.yml's width (phase 11's
+    pipeline, 1 session): every attention call of the steady tick takes
+    the decode kernel, eager and in the captured graph: no dense call,
+    ``DECODE_TICK_LAUNCHES`` launches a tick, as many at each warm-up
+    step and at the capture, none at a replay."""
+    import numpy as np
+
+    from owl_audio_exps_tpu_torch.inference.pipeline import (
+        AVCachedStreamingPipeline)
+    from owl_audio_exps_tpu_torch.nn import attn
+    from owl_audio_exps_tpu_torch.ops import decode_attention as da
+    from owl_audio_exps_tpu_torch.sampling.common import WARMUP_STEPS
+
+    cfg = pipeline_config()
+    core = make_core(cfg, dev, seed=7)
+    gen = torch.Generator(device=dev).manual_seed(43)
+    p = cfg.sample_size
+    ctx = (torch.randn(1, PIPE_PRIME, cfg.channels, p, p, generator=gen,
+                       device=dev),
+           torch.randn(1, PIPE_PRIME, cfg.audio_channels, generator=gen,
+                       device=dev),
+           torch.zeros(1, PIPE_PRIME, 2, device=dev),
+           torch.zeros(1, PIPE_PRIME, cfg.n_buttons, device=dev))
+    rs = np.random.RandomState(6)
+    counts = {}
+    for graphed in (False, True):
+        pipe = AVCachedStreamingPipeline(
+            core, cfg, window_frames=PIPE_WINDOW, sampling_steps=PIPE_STEPS,
+            seed=9, n_sessions=1, fused_write=True, device=dev,
+            graphed=graphed)
+        pipe.prime(*ctx)
+        got = []
+        for _ in range(WARMUP_STEPS + 2):
+            d0, l0 = attn.dense_calls, da.launches
+            pipe(rs.randn(1, 2).astype(np.float32),
+                 (rs.rand(1, cfg.n_buttons) > 0.5).astype(np.float32))
+            got.append((attn.dense_calls - d0, da.launches - l0))
+        counts["graphed" if graphed else "eager"] = got
+        del pipe
+    # the graphed pipeline's first WARMUP_STEPS ticks run eagerly, the
+    # next one captures its step (and replays it), later ones replay only
+    want = dict(eager=[(0, DECODE_TICK_LAUNCHES)] * (WARMUP_STEPS + 2),
+                graphed=[(0, DECODE_TICK_LAUNCHES)] * (WARMUP_STEPS + 1)
+                + [(0, 0)])
+    print(f"[decode] the serve's steady tick, (dense calls, decode launches) "
+          f"a tick: {counts} (expected {want})", flush=True)
+    if counts != want:
+        fail(f"decode kernel launches in the serve's tick {counts}, "
+             f"expected {want}")
+    del core
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches_per_steady_tick=DECODE_TICK_LAUNCHES,
+                dense_calls_per_tick=0, counts=counts)
+
+
 def sass_check(libs):
     """cuobjdump -sass of every built library: each of its entry kernels
     (HOPPER_KERNELS) must multiply with HGMMA (wgmma), load with UTMALDG
@@ -5838,9 +6081,13 @@ def main():
     if sys.argv[1:] == ["--mmdit-fit"]:
         print(json.dumps({"mmdit_fit": mmdit_fit_phase(dev)}), flush=True)
         return
+    if sys.argv[1:] == ["--decode"]:
+        print(json.dumps({"decode": decode_phase(dev)}), flush=True)
+        print(f"[env] {card_line()}", flush=True)
+        return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}; usage: chip_smoke.py "
-             f"[--packed-fit | --mmdit-fit]")
+             f"[--packed-fit | --mmdit-fit | --decode]")
 
     seconds = {}
 
@@ -5853,6 +6100,7 @@ def main():
         return out
 
     fwd_rows = timed("kernel_phase", kernel_phase, dev)
+    decode = timed("decode_phase", decode_phase, dev)
     grad_rows = timed("grad_kernel_phase", grad_kernel_phase, dev)
     reset_counts()
     serve_launches, tick_ms, breakdown = timed(
@@ -5995,7 +6243,8 @@ def main():
                              if n not in ("totals", "per_step")}
                             if isinstance(row, dict) else row)
                         for k, row in mmdit.items()},
-              "sharding": shard, "slice14": s14, "slice15": s15}
+              "sharding": shard, "slice14": s14, "slice15": s15,
+              "decode": decode}
     print(json.dumps(record), flush=True)
     print(f"[env] {card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,8 +22,9 @@ produces one (``first``). ``n_sessions`` sessions tick in lockstep on
 one ring, one batch row each. The host knows the ring's write offset, so
 when the next frame would leave the RoPE table an exact rebase
 (nn/kv_cache.py ``rope_rebase_plan``) runs between ticks and sessions
-are unbounded. Cached attention is plain PyTorch (as the JAX package's is
-plain XLA), so no kernel of the port runs on these pipelines. With
+are unbounded. Cached attention runs the decode kernel
+(ops/decode_attention.py, routed by nn/attn.py ``cached_attention``) on
+the card, where the JAX package runs plain XLA. With
 ``frame_decode_fn`` / ``audio_decode_fn`` (utils/owl_vae_bridge.py) a
 tick returns the decoded frames as the JAX pipelines shape them
 ([n_sessions, 1, H, W, 3], one session [1, H, W, 3]) and the waveforms

@@ -78,12 +78,17 @@ owl_audio_exps_tpu/nn/attn.py:68-139 and :221-309. The masks come from
 the ring's device counters (``build_masks``): ``decode_mask_from_cache``
 over [ring slots | new tokens], with the fused write's eviction rows
 under ``write_len``; under ``decoding`` validity alone, local layers cut
-to their trailing ``local_window`` frames. Attention is plain PyTorch,
-as the JAX package's is plain XLA there: ``cache_attn_impl`` ``concat``
-(``dot_attention`` over the concatenated K/V) or ``noconcat``
-(``cached_dot_attention``); a decoding local layer whose window is
-shorter than the ring gathers its trailing window from its ring
-(``can_local_gather``). ``decode_impl`` takes ``auto`` or ``dense``.
+to their trailing ``local_window`` frames. A decoding local layer whose
+window is shorter than the ring gathers its trailing window from its
+ring (``can_local_gather``). ``decode_impl`` takes ``auto`` or ``dense``.
+Under ``auto`` a call whose tensors the decode kernel takes (CUDA, bf16
+or fp16 q and ring, Dh 64 or 128, no gradient; not an int8 ring:
+ops/decode_attention.py ``accepts``) runs it, reading the ring in place;
+every other call, and every call under ``dense``, is plain PyTorch, as
+the JAX package's is plain XLA there (it has no decode kernel):
+``cache_attn_impl`` ``concat`` (``dot_attention`` over the concatenated
+K/V) or ``noconcat`` (``cached_dot_attention``), counted in
+``dense_calls``.
 RoPE positions start at the ring's ``rope_offset``. With ``write``, each
 layer writes the leading ``write_len`` tokens (all by default) of its
 rotated K and V into its own ring right after its attention has read it,
@@ -98,6 +103,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import decode_attention
 from ..ops.attention import cached_dot_attention, dot_attention
 from ..ops.masks import decode_mask_from_cache, dense_mask
 from ..ops.norms import rms_norm
@@ -105,6 +111,12 @@ from ..ops.rope import rope_table_for
 from ..parallel.mesh import get_mesh, seq_parallel_active
 from ..parallel.pipeline import pipeline_active, stage_blocks
 from .layers import MLP, AdaLN, Gate, Linear
+
+
+# cached_attention calls routed to dot_attention / cached_dot_attention
+# since the last reset (set to 0 to reset); the decode kernel's own count
+# is ops/decode_attention.py ``launches``
+dense_calls = 0
 
 
 def use_splash_path(config, q_len: int, device) -> bool:
@@ -282,13 +294,16 @@ def train_attention(cfg, local: bool, q, k, v, doc_id=None,
 def cached_attention(cfg, layer_idx: int, local: bool, q, k, v, mask,
                      kv_cache):
     """Attention of new tokens q, k, v [B, H, L, Dh] (normed, rotated, in
-    the compute dtype) over [layer's ring | new tokens]."""
+    the compute dtype) over [layer's ring | new tokens]: the decode kernel
+    (ops/decode_attention.py) under ``decode_impl: auto`` where it takes
+    the call, else ``dot_attention`` / ``cached_dot_attention`` (counted in
+    ``dense_calls``)."""
+    global dense_calls
     impl = cfg.get("decode_impl", "auto")
     if impl not in ("auto", "dense"):
         raise ValueError(
-            f"decode_impl={impl!r}: valid values are 'auto'/'dense' (the "
-            "JAX package deleted its flash-decode kernel; cached attention "
-            "is dense)")
+            f"decode_impl={impl!r}: valid values are 'auto' (the decode "
+            "kernel where it takes the call) and 'dense'")
     noconcat = cfg.get("cache_attn_impl", "concat") == "noconcat"
     L, dtype = q.shape[2], q.dtype
     if mask is None and local and can_local_gather(cfg, L, kv_cache):
@@ -301,6 +316,10 @@ def cached_attention(cfg, layer_idx: int, local: bool, q, k, v, mask,
                                             device=valid.device)])[None, :]
     else:
         ck, cv = kv_cache.read_layer(layer_idx)
+    if (impl == "auto" and not kv_cache.quantized
+            and decode_attention.accepts(q, ck, cv, k, v, mask)):
+        return decode_attention.decode_attention_cuda(q, ck, cv, k, v, mask)
+    dense_calls += 1
     ck, cv = ck.to(dtype), cv.to(dtype)
     if noconcat:
         return cached_dot_attention(q, ck, cv, k, v, mask)

@@ -16,11 +16,12 @@ permutations.
 The JAX package unrolls all ``rollout_steps`` steps of every frame and
 masks the inactive ones with ``lax.select``; the port runs only the
 active ``end`` steps, which gives the same values and gradients. The
-cached forwards take plain attention, as in the JAX package, so the
-rollout launches no kernel of the port; the ring is written in place
-only under no gradient, and every graded read of it copies (the
-[ring | new] concat or the local window's gather), so the backward never
-reads a slot a later write overwrote.
+cached forwards that need a gradient take plain attention, as in the JAX
+package (the decode kernel has no backward; those under no gradient may
+take it on the card), so the rollout launches no training kernel of the
+port; the ring is written in place only under no gradient, and every
+graded read of it copies (the [ring | new] concat or the local window's
+gather), so the backward never reads a slot a later write overwrote.
 """
 
 from __future__ import annotations

@@ -682,3 +682,127 @@ def test_graphed_steady_tick_matches_the_eager_tick(n_sessions):
             assert (got.float() - want.float()).abs().max().item() <= 1e-2
     assert pipes[0].loop.graphs and not pipes[1].loop.graphs
     assert int(pipes[0].cache.rope_offset) == int(pipes[1].cache.rope_offset)
+
+
+# ------------------------------------------------------ decode attention
+
+def _serve_ring(B, H, Dh, length, start, dtype=torch.bfloat16):
+    """The AV serve's single ring (120 frames of 65 tokens, a 16-frame
+    shadow) with every slot drawn, at ``length`` tokens from ``start``."""
+    from owl_audio_exps_tpu_torch.nn.kv_cache import KVCache
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    c = KVCache.create(n_layers=2, batch_size=B, capacity=7800, n_heads=H,
+                       head_dim=Dh, tokens_per_frame=65, dtype=dtype,
+                       shadow=1040, device="cuda")
+    for buf in (c.k, c.v):
+        buf.copy_(torch.randn(buf.shape, generator=gen, device="cuda"))
+    c.start.fill_(start)
+    c.length.fill_(length)
+    c.rope_offset.fill_(length)
+    return c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,B,H,Dh,lq,length,dtype", [
+    ("global_steady", 1, 24, 64, 130, 7800, torch.bfloat16),
+    ("local_steady", 1, 24, 64, 130, 7800, torch.bfloat16),
+    ("global_decode", 1, 24, 64, 65, 7800, torch.bfloat16),
+    ("local_decode", 1, 24, 64, 65, 7800, torch.bfloat16),
+    ("global_steady", 8, 24, 64, 130, 7800, torch.bfloat16),
+    ("global_steady", 1, 12, 128, 130, 3000, torch.bfloat16),
+    ("local_decode", 2, 12, 128, 65, 500, torch.float16),
+    ("global_prime", 1, 24, 64, 7735, 0, torch.bfloat16)])
+def test_decode_kernel_matches_plain_on_card(kind, B, H, Dh, lq, length,
+                                             dtype):
+    """The decode kernel at the serve's shapes (av_v5: a 120-frame ring of
+    8,840 slots with its shadow; the steady forward's 130 queries, the
+    decoding forward's 65, the prime's 7,735) against its plain version on
+    the same operands, and bit for bit against itself. Limits: those of
+    chip_smoke.py's decode rows (``DECODE_MAX_ABS``, ``DECODE_MEAN_ABS``),
+    set from what the kernel reads against its plain version there: a
+    few elements a bf16 step apart, the largest 1.95e-3 at the prime, the
+    mean under 2e-7."""
+    _need_card()
+    from owl_audio_exps_tpu_torch.configs import transformer_config
+    from owl_audio_exps_tpu_torch.nn.attn import build_masks
+    from owl_audio_exps_tpu_torch.ops import decode_attention as da
+    cfg = transformer_config(tokens_per_frame=65, local_window=16,
+                             global_window=None, causal=True, n_frames=120)
+    c = _serve_ring(B, H, Dh, length, 1235 if length == 7800 else 0, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, nk, nv = (torch.randn(B, H, lq, Dh, generator=gen, device="cuda")
+                 .to(dtype) for _ in range(3))
+    if kind == "local_decode":
+        ck, cv, valid = c.gather_trailing(1, 1040 - lq, local=True)
+        mask = torch.cat([valid, torch.ones(lq, dtype=torch.bool,
+                                            device="cuda")])[None, :]
+    else:
+        local, glob = build_masks(
+            cfg, lq, None, kv_cache=c, decoding=kind == "global_decode",
+            write_len=65 if kind.endswith("steady") else None)
+        mask = local if kind == "local_steady" else glob
+        ck, cv = c.read_layer(0)
+    before = da.launches
+    out = da.decode_attention(q, ck, cv, nk, nv, mask)
+    again = da.decode_attention(q, ck, cv, nk, nv, mask)
+    torch.cuda.synchronize()
+    rows, nq = da.query_tiling(lq)
+    ns = da.split_count(B * H * nq, da.key_tiles(ck.shape[2], lq)[1],
+                        da._sms(0))
+    # the plan, pass 1, pass 2 and, with more than one split, their sum
+    assert da.launches == before + 2 * (3 + (ns > 1))
+    assert torch.equal(out, again)
+    ref = da.decode_attention_plain(q, ck, cv, nk, nv, mask)
+    err = (out.float() - ref.float()).abs()
+    assert torch.isfinite(out).all()
+    reading = (err.max().item(), err.mean().item())
+    assert reading[0] < 4e-3 and reading[1] < 2e-6, reading
+
+
+@pytest.mark.cuda
+def test_decode_kernel_carries_the_graphed_steady_tick():
+    """The cached AV serve at Dh 64 (the kernel's width): every attention
+    call of the steady tick takes the kernel and none is dense. A tick is
+    2 forwards x 4 layers = 8 calls of 4 launches (the plan, pass 1, pass
+    2, the splits' sum). The graphed tick matches the eager one (cuBLAS may
+    pick other algorithms under capture: chip_smoke.py's 1e-2)."""
+    _need_card()
+    import numpy as np
+    from owl_audio_exps_tpu_torch.configs import transformer_config
+    from owl_audio_exps_tpu_torch.inference.pipeline import (
+        AVCachedStreamingPipeline)
+    from owl_audio_exps_tpu_torch.models.gamerft_audio import (
+        GameRFTAudioCore)
+    from owl_audio_exps_tpu_torch.nn import attn
+    from owl_audio_exps_tpu_torch.ops import decode_attention as da
+    cfg = transformer_config(
+        model_id="game_rft_audio", n_layers=4, n_heads=2, d_model=128,
+        channels=16, audio_channels=8, sample_size=8, tokens_per_frame=65,
+        n_frames=16, rope_headroom=16, n_buttons=3, causal=True,
+        has_audio=True, local_window=4, global_window=None, local_idx=2)
+    core = GameRFTAudioCore(cfg, dtype=torch.bfloat16, device="cuda",
+                            seed=0).to(torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    ctx = (torch.randn(1, 6, 16, 8, 8, generator=gen, device="cuda"),
+           torch.randn(1, 6, 8, generator=gen, device="cuda"),
+           torch.zeros(1, 6, 2, device="cuda"),
+           torch.zeros(1, 6, 3, device="cuda"))
+    pipes = [AVCachedStreamingPipeline(core, cfg, window_frames=12,
+                                       sampling_steps=2, seed=4, graphed=g)
+             for g in (True, False)]
+    for p in pipes:
+        p.prime(*ctx)
+    rs = np.random.RandomState(0)
+    for i in range(20):
+        mouse = rs.randn(2).astype(np.float32)
+        btn = (rs.rand(3) > 0.5).astype(np.float32)
+        d0 = attn.dense_calls
+        fg, ag, _ = pipes[0](mouse, btn)
+        l0 = da.launches
+        fe, ae, _ = pipes[1](mouse, btn)
+        assert attn.dense_calls == d0
+        assert da.launches - l0 == 8 * 4
+        for got, want in ((fg, fe), (ag, ae)):
+            assert torch.isfinite(got.float()).all()
+            assert (got.float() - want.float()).abs().max().item() <= 1e-2
+    assert pipes[0].loop.graphs and not pipes[1].loop.graphs
