@@ -27,6 +27,18 @@ package). A cached forward writes every layer's K and V of all its
 tokens into the ring and advances it by all of them: the JAX package's
 MMDiT takes no ``write_len`` (owl_audio_exps_tpu/nn/mmattn.py:174-178),
 so a fused write-forward of two frames commits both (ROADMAP.md Queue 3).
+
+Spans (utils/profiling.py ``span``, recorded only while a profiler
+capture runs): ``owl.mmdit.joint`` from the two streams' qkv outputs to
+the q, k and v attention takes (the interleave, the QK norm, RoPE, the
+cast), ``owl.mmdit.split`` from attention's output to the two streams'
+out-projection inputs, and ``owl.mmdit.audio`` around each of the audio
+stream's own calls (its qkv projection, its out projection, its MLP
+sub-layer with its adaLN, gate and residual).
+``block_forwards`` counts block forwards, remat's recomputes included
+(a CUDA graph's replay runs no Python and counts none), always on: a
+capture's records hold ``block_forwards`` joint and split spans and
+three times as many audio spans.
 """
 
 from __future__ import annotations
@@ -40,10 +52,15 @@ from ..ops.attention import dot_attention
 from ..ops.norms import rms_norm
 from ..ops.rope import rope_table_for
 from ..parallel.mesh import seq_parallel_active
+from ..utils.profiling import span
 from .attn import (build_masks, cached_attention, local_layer_flags,
                    remat_active, sp_train_attention, train_attention,
                    use_splash_path)
 from .layers import MLP, Linear, cond_adaln, cond_gate
+
+# MMDiT block forwards since the last reset (set to 0 to reset), remat's
+# recomputes included
+block_forwards = 0
 
 
 class MMAttn(nn.Module):
@@ -78,17 +95,22 @@ class MMAttn(nn.Module):
         L = n * tpf
         # each stream's [.., 3, H, Dh] rows (the torch reference order),
         # interleaved per frame; q, k, v are views of the joint tensor
-        qkv = torch.cat([self.qkv_projs[0](x0).view(B, n, V, 3 * cfg.d_model),
-                         self.qkv_projs[1](x1).view(B, n, 1, 3 * cfg.d_model)],
-                        dim=2).view(B, L, 3, H, Dh)
-        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        q, k = rms_norm(q), rms_norm(k)
-        rope = rope_table_for(cfg)
-        positions = (kv_cache.write_positions(L) if kv_cache is not None
-                     else torch.arange(pos_offset, pos_offset + L,
-                                       device=x0.device))
-        q, k = rope(q, positions), rope(k, positions)
-        q, k, v = (t.to(self.dtype) for t in (q, k, v))
+        qkv0 = self.qkv_projs[0](x0)
+        with span("owl.mmdit.audio"):
+            qkv1 = self.qkv_projs[1](x1)
+        with span("owl.mmdit.joint"):
+            qkv = torch.cat([qkv0.view(B, n, V, 3 * cfg.d_model),
+                             qkv1.view(B, n, 1, 3 * cfg.d_model)],
+                            dim=2).view(B, L, 3, H, Dh)
+            del qkv0, qkv1
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            q, k = rms_norm(q), rms_norm(k)
+            rope = rope_table_for(cfg)
+            positions = (kv_cache.write_positions(L) if kv_cache is not None
+                         else torch.arange(pos_offset, pos_offset + L,
+                                           device=x0.device))
+            q, k = rope(q, positions), rope(k, positions)
+            q, k, v = (t.to(self.dtype) for t in (q, k, v))
         if kv_cache is not None:
             out = cached_attention(cfg, self.layer_idx, self.local, q, k, v,
                                    mask, kv_cache)
@@ -100,9 +122,14 @@ class MMAttn(nn.Module):
             out = train_attention(cfg, self.local, q, k, v)
         else:
             out = dot_attention(q, k, v, mask)
-        out = out.transpose(1, 2).reshape(B, n, tpf, cfg.d_model)
-        y0 = out[:, :, :V].reshape(B, n * V, cfg.d_model)
-        return self.out_projs[0](y0), self.out_projs[1](out[:, :, V])
+        with span("owl.mmdit.split"):
+            out = out.transpose(1, 2).reshape(B, n, tpf, cfg.d_model)
+            y0 = out[:, :, :V].reshape(B, n * V, cfg.d_model)
+            y1 = out[:, :, V]
+        y0 = self.out_projs[0](y0)
+        with span("owl.mmdit.audio"):
+            y1 = self.out_projs[1](y1)
+        return y0, y1
 
 
 class MMDiTBlock(nn.Module):
@@ -119,6 +146,8 @@ class MMDiTBlock(nn.Module):
 
     def forward(self, x0, x1, cond0, cond1, mask, splash: bool = False,
                 kv_cache=None, write: bool = False, pos_offset: int = 0):
+        global block_forwards
+        block_forwards += 1
         a_s0, a_b0, a_g0, m_s0, m_b0, m_g0 = cond0.chunk(6, dim=-1)
         a_s1, a_b1, a_g1, m_s1, m_b1, m_g1 = cond1.chunk(6, dim=-1)
         h0, h1 = self.attn(cond_adaln(x0, a_s0, a_b0),
@@ -131,8 +160,9 @@ class MMDiTBlock(nn.Module):
                   if kv_cache is None else 1)
         x0 = x0 + cond_gate(self.mlps[0](cond_adaln(x0, m_s0, m_b0), chunks),
                             m_g0)
-        x1 = x1 + cond_gate(self.mlps[1](cond_adaln(x1, m_s1, m_b1), chunks),
-                            m_g1)
+        with span("owl.mmdit.audio"):
+            x1 = x1 + cond_gate(self.mlps[1](cond_adaln(x1, m_s1, m_b1),
+                                             chunks), m_g1)
         return x0, x1
 
 
