@@ -20,6 +20,19 @@ the same parameters:
 NS5's products are plain ``torch.matmul`` (the JAX package leaves them to
 XLA). The optimizers update in place, with ``torch.no_grad``.
 
+The update is enqueued a group of tensors at a time, with no host sync.
+The parameters whole on this rank (``groupable``) are grouped by device
+and dtypes, Muon's by shape too, and each group is cut into chunks of at
+most ``CHUNK_ELEMENTS`` elements, which bounds the temporaries. Each
+operation of the per-tensor chain runs once over a chunk's list
+(``torch._foreach_*``), in the chain's order and dtypes, so AdamW's
+results are the per-tensor chain's bit for bit; NS5 runs once on the
+chunk's stacked matrices. AdamW's bias corrections reach the list
+operations as Python floats holding the float32 values. A sharded or
+staged parameter takes the same chain alone (the per-tensor loop). The
+module counters ``grouped`` and ``looped`` count the parameters updated
+each way.
+
 Under the fsdp and tensor axes (parallel/sharding.py) a parameter, its
 gradient and its moments are this rank's slice. AdamW is elementwise and
 runs on the slices; Muon gathers the momentum-updated gradient over the
@@ -35,7 +48,18 @@ from typing import Callable, Dict, Iterable, Optional, Tuple, Union
 import torch
 
 from .parallel.mesh import get_mesh
-from .parallel.sharding import gather_tensor, mesh_coords_of, spec_of
+from .parallel.sharding import (gather_tensor, mesh_coords_of, spec_of,
+                                stage_of)
+
+# parameters updated through the grouped path and through the per-tensor
+# loop since import (always on)
+grouped = 0
+looped = 0
+
+# the most elements a chunk of a group holds (a larger tensor goes alone):
+# each float32 temporary of a chunk's list operations is at most 128 MB,
+# and an update at av_v5's widths allocates ~640 MB above its start
+CHUNK_ELEMENTS = 1 << 25
 
 
 def as_dtype(dtype) -> Optional[torch.dtype]:
@@ -66,6 +90,39 @@ def zeropower_via_newtonschulz5(G: torch.Tensor, steps: int = 5) -> torch.Tensor
     return X
 
 
+def groupable(p: torch.Tensor) -> bool:
+    """Whether ``p`` takes the grouped update: it is whole on this rank
+    (no ShardSpec, or one that shards nothing) and on every pipeline
+    stage. Others (Muon's gather and shard) take the per-tensor loop."""
+    spec = spec_of(p)
+    return (spec is None or not spec.sharded) and stage_of(p) is None
+
+
+def chunks(items, key: Callable, numel: Callable):
+    """``items`` grouped by ``key`` (first-seen order), each group cut in
+    order into chunks of at most ``CHUNK_ELEMENTS`` elements by ``numel``
+    (an item larger than that alone): yields lists."""
+    groups: Dict = {}
+    for item in items:
+        groups.setdefault(key(item), []).append(item)
+    for group in groups.values():
+        chunk, size = [], 0
+        for item in group:
+            n = numel(item)
+            if chunk and size + n > CHUNK_ELEMENTS:
+                yield chunk
+                chunk, size = [], 0
+            chunk.append(item)
+            size += n
+        yield chunk
+
+
+def _count(n_grouped: int, n_looped: int):
+    global grouped, looped
+    grouped += n_grouped
+    looped += n_looped
+
+
 class Muon(torch.optim.Optimizer):
     """Muon on 2-D weights in the torch [out, in] layout; the step is the
     full parameter delta (decay + orthogonalized step)."""
@@ -81,36 +138,70 @@ class Muon(torch.optim.Optimizer):
     @torch.no_grad()
     def step(self):
         for group in self.param_groups:
-            lr, mom = group["lr"], group["momentum"]
-            wd = group["weight_decay"]
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
+            live = [p for p in group["params"] if p.grad is not None]
+            for p in live:
                 if p.ndim != 2:
                     raise NotImplementedError(
                         f"Muon takes 2-D weights, got shape {tuple(p.shape)}")
-                g = p.grad
                 state = self.state[p]
                 if "momentum" not in state:
                     state["momentum"] = torch.zeros_like(
                         p, dtype=self.momentum_dtype or p.dtype)
-                buf = state["momentum"].to(g.dtype)
-                new_buf = buf + (1.0 - mom) * (g - buf)
-                if self.momentum_dtype is not None:
-                    new_buf = new_buf.to(self.momentum_dtype)
-                buf_g = new_buf.to(g.dtype)
-                gm = g + mom * (buf_g - g) if group["nesterov"] else buf_g
-                spec = spec_of(p)
-                o = zeropower_via_newtonschulz5(
-                    gather_tensor(gm, spec).mT,
-                    group["ns_steps"]).to(p.dtype).mT
-                shape = p.shape
-                if spec is not None and spec.sharded:
-                    o = spec.shard(o, mesh_coords_of(get_mesh()))
-                    shape = spec.shape
-                scale = max(1.0, shape[1] / shape[0]) ** 0.5
-                p.add_(-(lr * wd) * p - (lr * scale) * o)
-                state["momentum"] = new_buf
+            whole = [p for p in live if groupable(p)]
+            for chunk in chunks(whole, lambda p: (
+                    p.device, p.shape, p.dtype, p.grad.dtype,
+                    self.state[p]["momentum"].dtype), lambda p: p.numel()):
+                self._update(chunk, group)
+            for p in live:
+                if not groupable(p):
+                    self._update([p], group)
+            _count(len(whole), len(live) - len(whole))
+
+    def _update(self, params, group):
+        """One step of ``params``: matrices of one shape, dtypes and
+        device, or one sharded matrix, whose NS5 runs on the matrix
+        gathered over the axes that shard it."""
+        lr, mom = group["lr"], group["momentum"]
+        wd = group["weight_decay"]
+        grads = [p.grad for p in params]
+        states = [self.state[p] for p in params]
+        bufs = [s["momentum"].to(g.dtype) for s, g in zip(states, grads)]
+        new_bufs = torch._foreach_sub(grads, bufs)
+        torch._foreach_mul_(new_bufs, 1.0 - mom)
+        torch._foreach_add_(new_bufs, bufs)
+        del bufs
+        if self.momentum_dtype is not None:
+            new_bufs = [b.to(self.momentum_dtype) for b in new_bufs]
+        gm = [b.to(g.dtype) for b, g in zip(new_bufs, grads)]
+        if group["nesterov"]:
+            gm = torch._foreach_sub(gm, grads)
+            torch._foreach_mul_(gm, mom)
+            torch._foreach_add_(gm, grads)
+        spec = spec_of(params[0])
+        full = [gather_tensor(x, spec) for x in gm]
+        del gm
+        # NS5 of the transposes [in, out], which it turns to [min, max]:
+        # stacked so that this is row-major (the same values, faster
+        # products), then back to the [out, in] layout
+        n_out, n_in = full[0].shape
+        G = (torch.stack(full).mT if n_in > n_out
+             else torch.stack([x.mT for x in full]))
+        del full
+        o = zeropower_via_newtonschulz5(G, group["ns_steps"]).mT.to(
+            params[0].dtype, memory_format=torch.contiguous_format)
+        del G
+        shape = params[0].shape
+        if spec is not None and spec.sharded:
+            o = spec.shard(o[0], mesh_coords_of(get_mesh()))[None]
+            shape = spec.shape
+        scale = max(1.0, shape[1] / shape[0]) ** 0.5
+        o.mul_(lr * scale)
+        delta = torch._foreach_mul(params, -(lr * wd))
+        torch._foreach_sub_(delta, list(o.unbind(0)))
+        del o
+        torch._foreach_add_(params, delta)
+        for s, b in zip(states, new_bufs):
+            s["momentum"] = b
 
     def load_state_dict(self, state_dict):
         # torch casts loaded state to the parameter's dtype; the momentum
@@ -154,26 +245,64 @@ class AdamW(torch.optim.Optimizer):
             count = group["count"]
             lr = (float(self.schedule(count - 1)) if self.schedule
                   else group["lr"])
-            # bias corrections in float32, as the JAX package computes them
-            c1 = 1.0 - torch.tensor(b1, dtype=torch.float32) ** count
-            c2 = 1.0 - torch.tensor(b2, dtype=torch.float32) ** count
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
+            # bias corrections in float32, as the JAX package computes
+            # them; the list operations take them as Python floats, which
+            # hold the float32 values exactly
+            c1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** count)
+            c2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** count)
+            live = [p for p in group["params"] if p.grad is not None]
+            for p in live:
                 state = self.state[p]
                 if "mu" not in state:
                     dt = self.state_dtype or p.dtype
                     state["mu"] = torch.zeros_like(p, dtype=dt)
                     state["nu"] = torch.zeros_like(p, dtype=dt)
-                g32 = p.grad.float()
-                mu32 = state["mu"].float() * b1 + (1 - b1) * g32
-                nu32 = state["nu"].float() * b2 + (1 - b2) * g32 * g32
-                c1d, c2d = c1.to(p.device), c2.to(p.device)
-                upd = mu32 / c1d / (torch.sqrt(nu32 / c2d) + group["eps"])
-                p.add_((-lr * (upd + group["weight_decay"] * p.float())
-                        ).to(p.dtype))
-                state["mu"].copy_(mu32)
-                state["nu"].copy_(nu32)
+            whole = [p for p in live if groupable(p)]
+            for chunk in chunks(whole, lambda p: (
+                    p.device, p.dtype, self.state[p]["mu"].dtype),
+                    lambda p: p.numel()):
+                self._update(chunk, group, lr, c1, c2)
+            for p in live:
+                if not groupable(p):
+                    self._update([p], group, lr, c1, c2)
+            _count(len(whole), len(live) - len(whole))
+
+    def _update(self, params, group, lr, c1, c2):
+        """The step of ``params`` (one device and dtypes): the float32
+        chain mu <- b1 mu + (1 - b1) g, nu <- b2 nu + (1 - b2) g g,
+        p <- p - lr (mu / c1 / (sqrt(nu / c2) + eps) + wd p), each
+        operation over the list."""
+        b1, b2 = group["betas"]
+        states = [self.state[p] for p in params]
+        mus = [s["mu"] for s in states]
+        nus = [s["nu"] for s in states]
+        g32 = [p.grad.float() for p in params]
+        m = torch._foreach_mul([x.float() for x in mus], b1)
+        t = torch._foreach_mul(g32, 1 - b1)
+        torch._foreach_add_(m, t)
+        torch._foreach_copy_(mus, m)
+        # a list of scalars: the card divides by each (a single scalar
+        # would be multiplied by its reciprocal)
+        upd = torch._foreach_div(m, [c1] * len(m))
+        del m
+        v = torch._foreach_mul([x.float() for x in nus], b2)
+        t = torch._foreach_mul(g32, 1 - b2)
+        torch._foreach_mul_(t, g32)
+        torch._foreach_add_(v, t)
+        del t, g32
+        torch._foreach_copy_(nus, v)
+        torch._foreach_div_(v, [c2] * len(v))
+        torch._foreach_sqrt_(v)
+        torch._foreach_add_(v, group["eps"])
+        torch._foreach_div_(upd, v)
+        del v
+        decay = torch._foreach_mul([p.float() for p in params],
+                                   group["weight_decay"])
+        torch._foreach_add_(upd, decay)
+        del decay
+        torch._foreach_mul_(upd, -lr)
+        torch._foreach_add_(params, [u.to(p.dtype)
+                                     for u, p in zip(upd, params)])
 
     def load_state_dict(self, state_dict):
         # torch casts loaded state to the parameter's dtype; the moments

@@ -55,7 +55,7 @@ import torch.distributed as dist
 
 from ..data import get_loader
 from ..data.prefetch import device_prefetch
-from ..muon import AdamW, init_muon
+from ..muon import AdamW, chunks, init_muon
 from ..parallel.dist import barrier, is_main, process_count
 from ..parallel.mesh import (MeshConfig, get_mesh, make_mesh,
                              seq_parallel_active)
@@ -115,7 +115,9 @@ def global_norm(tensors, specs=None, stages=None) -> torch.Tensor:
     stages = list(stages) if stages is not None else [None] * len(tensors)
     if not any(s is not None and s.sharded for s in specs) \
             and all(st is None for st in stages):
-        return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
+        # each tensor's float32 norm as one list reduction, then theirs
+        norms = torch._foreach_norm(tensors, dtype=torch.float32)
+        return torch.linalg.vector_norm(torch.stack(norms))
     world = process_count()
     pipe = get_mesh().pipe
     total = sum(t.float().pow(2).sum()
@@ -126,6 +128,22 @@ def global_norm(tensors, specs=None, stages=None) -> torch.Tensor:
                             device=tensors[0].device)
     dist.all_reduce(total)
     return torch.sqrt(total)
+
+
+@torch.no_grad()
+def ema_update(ema: Dict[str, torch.Tensor], named_params, beta: float):
+    """e <- e beta, then e <- e + p (1 - beta) rounded to e's dtype (p cast
+    to it first), for each parameter's EMA ``ema[name]``: each operation
+    over the list of a chunk of the EMAs that share a device and dtype
+    (muon.py ``chunks``)."""
+    pairs = [(ema[n], p) for n, p in named_params]
+    for chunk in chunks(pairs, lambda ep: (ep[0].device, ep[0].dtype),
+                        lambda ep: ep[0].numel()):
+        es = [e for e, _ in chunk]
+        step = torch._foreach_mul([p.to(e.dtype) for e, p in chunk],
+                                  1.0 - beta)
+        torch._foreach_mul_(es, beta)
+        torch._foreach_add_(es, step)
 
 
 def layout_norm(tensors, params) -> torch.Tensor:
@@ -143,8 +161,7 @@ def clip_grad_norm(params, max_norm: float) -> torch.Tensor:
     grads = [p.grad for p in params]
     gnorm = layout_norm(grads, params)
     scale = torch.clamp(max_norm / (gnorm + 1e-6), max=1.0)
-    for g in grads:
-        g.mul_(scale)
+    torch._foreach_mul_(grads, scale)
     return gnorm
 
 
@@ -348,10 +365,7 @@ class BaseTrainer:
         with span("owl.train.param_norm", step):
             metrics["param_norm"] = layout_norm(params, params)
         with span("owl.train.ema", step):
-            beta = self.EMA_BETA
-            for name, p in model.named_parameters():
-                e = state.ema[name]
-                e.mul_(beta).add_(p.to(e.dtype) * (1.0 - beta))
+            ema_update(state.ema, model.named_parameters(), self.EMA_BETA)
         opt.zero_grad(set_to_none=True)
 
     @torch.no_grad()
