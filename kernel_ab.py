@@ -3,8 +3,8 @@
 Usage (from the repository root, on a machine with one NVIDIA GPU):
 
     git archive <parent> | tar -x -C build/parent
-    python3 owl_audio_exps_tpu_torch/ops/kernel_ab.py \
-        parent=build/parent change=. [--doc-order-off noorder]
+    python3 kernel_ab.py parent=build/parent change=. \
+        [--doc-order-off noorder]
 
 Each tree runs in its own process, which builds that tree's kernels
 (owl_audio_exps_tpu_torch/csrc, into <tree>/build/kernels) and times them

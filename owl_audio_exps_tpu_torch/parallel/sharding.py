@@ -505,10 +505,3 @@ def shard_cache(cache, mesh: Optional[Mesh] = None):
         setattr(out, name, leaf.contiguous())
     return out
 
-
-def pin_tail_replicated(x: torch.Tensor) -> torch.Tensor:
-    """The JAX package pins a tiny activation (the mouse angle stack)
-    replicated, a hint to GSPMD's sharding propagation under composed
-    pipe x tensor meshes. Eager PyTorch propagates no sharding, so the
-    hint has no meaning here and ``x`` is returned as it is."""
-    return x

@@ -22,7 +22,6 @@ from owl_audio_exps_tpu.configs import Config as JaxConfig
 from owl_audio_exps_tpu.configs import transformer_config as jax_config
 from owl_audio_exps_tpu.data.synthetic import get_loader as jax_loader
 from owl_audio_exps_tpu.models.audiorft import AudioRFT as JaxAudioRFT
-from owl_audio_exps_tpu.models.audiorft import AudioRFTCore as JaxCore
 from owl_audio_exps_tpu.nn.kv_cache import KVCache as JaxKVCache
 from owl_audio_exps_tpu.nn.wquant import quantize_params_int8 as jax_quantize
 from owl_audio_exps_tpu.sampling.audio_caching import (
@@ -42,27 +41,12 @@ from owl_audio_exps_tpu_torch.sampling.audio_caching import (
 from owl_audio_exps_tpu_torch.trainers import get_trainer_cls
 from owl_audio_exps_tpu_torch.utils.weights import params_from_jax
 
-from torch_port_util import (assert_same_state, load_jax_params,
+from torch_port_util import (AUDIO, MODEL_RNGS, assert_same_state, audio_cores,
+                             carried, jax_apply, jax_core, load_jax_params,
                              numpy_params, t)
 
 F32 = jnp.float32
 ATOL = 1e-4
-AUDIO = dict(model_id="audio_rft", n_layers=4, n_heads=2, d_model=32,
-             channels=8, tokens_per_frame=1, n_frames=64, sample_size=16,
-             causal=True, uncond=True, has_audio=True, rope_impl="audio1d",
-             local_window=4, global_window=None, cfg_prob=0.0,
-             backbone="dit", local_idx=2)
-
-
-def _cores(**over):
-    kw = dict(AUDIO, **over)
-    jcfg, pcfg = jax_config(**kw), port_config(**kw)
-    jcore = JaxCore(jcfg, dtype=F32)
-    params = jax.jit(jcore.init)(jax.random.key(0), jnp.zeros((1, 8, 8)),
-                                 jnp.zeros((1, 8)))
-    port = AudioRFTCore(pcfg, dtype=torch.float32, device="cpu", seed=None)
-    return jcfg, pcfg, jcore, params, load_jax_params(port, params,
-                                                      pcfg.n_heads)
 
 
 def _inputs(seed, b, n):
@@ -72,9 +56,9 @@ def _inputs(seed, b, n):
 
 
 def test_core_matches_jax():
-    _, _, jcore, params, port = _cores()
+    _, _, jcore, params, port = audio_cores()
     x, ts = _inputs(0, 2, 12)
-    want, _ = jcore.apply(params, jnp.asarray(x), jnp.asarray(ts))
+    want, _ = jax_apply(jcore, params, x, ts)
     with torch.no_grad():
         got = port(t(x), t(ts))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
@@ -94,7 +78,7 @@ def test_cached_forwards_match_jax(split, impl):
     cached forwards that do not write, and an unfused decoding write, each
     against JAX ``core.apply`` from the same cache state: velocities and
     the new ring state."""
-    jcfg, pcfg, jcore, params, port = _cores(split_local_cache=split,
+    jcfg, pcfg, jcore, params, port = audio_cores(split_local_cache=split,
                                              cache_attn_impl=impl)
     x, ts = _inputs(3, 2, 14)
     jc = JaxKVCache.from_config(jcfg, 2, capacity_frames=8, dtype=F32)
@@ -104,8 +88,8 @@ def test_cached_forwards_match_jax(split, impl):
 
     def both(sl, **kw):
         nonlocal jc
-        want, new = jcore.apply(params, jnp.asarray(x[:, sl]),
-                                jnp.asarray(ts[:, sl]), kv_cache=jc, **kw)
+        want, new = jax_apply(jcore, params, x[:, sl], ts[:, sl],
+                              kv_cache=jc, **kw)
         with torch.no_grad():
             got = port(t(x[:, sl]), t(ts[:, sl]), kv_cache=pc, **kw)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
@@ -128,7 +112,7 @@ def test_cached_decode_matches_the_full_forward():
     """Prefill n - 1 tokens, then decode the last: equal to the full causal
     forward's last token (tests/test_models.py)."""
     for decoding in (False, True):
-        _, pcfg, _, _, port = _cores()
+        _, pcfg, _, _, port = audio_cores()
         x, ts = _inputs(3, 2, 12)
         cache = KVCache.from_config(pcfg, 2, capacity_frames=16,
                                     dtype=torch.float32, device="cpu")
@@ -145,7 +129,7 @@ def test_fused_write_commits_one_token():
     """A 2-token forward with write_len=1 stores the same ring as a
     1-token write (tests/test_fused_write.py), and a finite global window
     is refused under the fused write."""
-    _, pcfg, _, _, port = _cores()
+    _, pcfg, _, _, port = audio_cores()
     x, ts = _inputs(4, 1, 8)
     caches = [KVCache.from_config(pcfg, 1, capacity_frames=16,
                                   dtype=torch.float32, device="cpu")
@@ -207,7 +191,7 @@ SAMPLER_CASES = {
 @pytest.mark.parametrize("case", sorted(SAMPLER_CASES))
 def test_sampler_matches_jax(case):
     over, skw, init_len = SAMPLER_CASES[case]
-    _, pcfg, jcore, params, port = _cores(n_layers=3, **over)
+    _, pcfg, jcore, params, port = audio_cores(n_layers=3, **over)
     x = np.random.RandomState(0).randn(1, init_len, 8).astype(np.float32)
     want = JaxSampler(noise_prev=0.2, **skw)(jcore, params, jnp.asarray(x),
                                              jax.random.key(1))
@@ -226,7 +210,7 @@ def test_sampler_matches_jax(case):
 
 
 def test_sampler_draws_from_the_generator_and_checks_given_draws():
-    _, _, _, _, port = _cores(n_layers=2)
+    _, _, _, _, port = audio_cores(n_layers=2)
     x = torch.from_numpy(np.random.RandomState(1).randn(2, 5, 8).astype(
         np.float32))
     sampler = AudioCachingSampler(n_steps=2, num_tokens=4, max_window=6)
@@ -250,12 +234,11 @@ def test_sampler_draws_from_the_generator_and_checks_given_draws():
 
 def test_audio_rft_loss_matches_jax():
     kw = dict(AUDIO)
-    model = JaxAudioRFT(jax_config(**kw), dtype=F32)
     x, _ = _inputs(5, 2, 16)
-    params = model.init({"params": jax.random.key(0),
-                         "noise": jax.random.key(1)}, jnp.asarray(x))
-    out = model.apply(params, jnp.asarray(x), return_dict=True,
-                      rngs={"noise": jax.random.key(2)})
+    model, params = jax_core(JaxAudioRFT, jax_config(**kw), x,
+                             rngs=MODEL_RNGS)
+    out = jax_apply(model, params, x, return_dict=True,
+                    rngs={"noise": jax.random.key(2)})
     port = AudioRFT(port_config(**kw), dtype=torch.float32, device="cpu",
                     seed=None)
     load_jax_params(port, params, 2)
@@ -297,16 +280,14 @@ def test_audio_trainer_step_matches_jax(tmp_path):
     new_state, metrics_j = step(state, _stack_accum(batches), rng)
     draws = []
     for b, r in zip(batches, jax.random.split(rng, 2)):
-        out = jtr.model.apply({"params": params0},
-                              jnp.asarray(b[0]).astype(jnp.bfloat16),
-                              return_dict=True, rngs={"noise": r})
+        out = jax_apply(jtr.model, {"params": params0},
+                        jnp.asarray(b[0]).astype(jnp.bfloat16),
+                        return_dict=True, rngs={"noise": r})
         draws.append(dict(ts=t(out["ts"]), z=t(out["z_audio"])))
 
     ptr = get_trainer_cls("audio_rft")(Config.from_dict(raw), device="cpu")
     assert ptr.accum_steps() == 2
-    model = load_jax_params(AudioRFT(ptr.model_cfg, dtype=torch.float32,
-                                     device="cpu", seed=None),
-                            {"params": params0}, 2)
+    model = carried(AudioRFT, ptr.model_cfg, {"params": params0})
     pstate = ptr.make_state(model.train())
     forward = model.forward
     model.forward = lambda x, generator=None: forward(x, **draws.pop(0))
@@ -411,7 +392,7 @@ def test_int8_selects_the_jax_weights_and_matches_its_forward():
     package's (>= min_elems, 2-D), with the same codes and scales, and
     the int8 forward equals the JAX int8 forward; it stays close to the
     float forward (tests/test_wquant.py: cosine > 0.995)."""
-    jcfg, pcfg, jcore, params, port = _cores(d_model=64)
+    jcfg, pcfg, jcore, params, port = audio_cores(d_model=64)
     x, ts = _inputs(2, 2, 16)
     jq = jax_quantize(params["params"], min_elems=1024)
     qport = quantize_params_int8(port, min_elems=1024)
@@ -424,8 +405,8 @@ def test_int8_selects_the_jax_weights_and_matches_its_forward():
         m = qport.get_submodule(name)
         assert m.weight is None and m.weight_q.dtype == torch.int8
         assert m.weight_q.shape == want[name + ".weight"].shape
-    jout, _ = jcore.apply({"params": jq}, jnp.asarray(x), jnp.asarray(ts))
-    fout, _ = jcore.apply(params, jnp.asarray(x), jnp.asarray(ts))
+    jout, _ = jax_apply(jcore, {"params": jq}, x, ts)
+    fout, _ = jax_apply(jcore, params, x, ts)
     with torch.no_grad():
         pout = qport(t(x), t(ts))
     np.testing.assert_allclose(pout.numpy(), np.asarray(jout), atol=ATOL,
@@ -453,14 +434,14 @@ def test_int8_codes_match_jax_and_the_float_tree_is_required():
     wd = dequantize_kernel(q, s, torch.float32).numpy().T
     amax = np.abs(w).max(axis=0, keepdims=True)
     assert (np.abs(wd - w) <= (amax / 127.0 * 0.51 + 1e-6) * 1.01).all()
-    _, _, _, params, _ = _cores(d_model=64)
+    _, _, _, params, _ = audio_cores(d_model=64)
     with pytest.raises(ValueError, match="int8"):
         params_from_jax(numpy_params(
             {"params": jax_quantize(params["params"], min_elems=1024)}), 2)
 
 
 def test_int8_sampler_runs_with_int8_weights_and_ring():
-    _, _, _, _, port = _cores(d_model=64, kv_quant="int8")
+    _, _, _, _, port = audio_cores(d_model=64, kv_quant="int8")
     qport = quantize_params_int8(port, min_elems=1024)
     x = torch.from_numpy(np.random.RandomState(4).randn(1, 8, 8).astype(
         np.float32))

@@ -36,7 +36,8 @@ from owl_audio_exps_tpu_torch.utils.weights import params_from_jax
 
 import test_torch_port_meanflow as mf
 import torch_sp_workers as workers
-from torch_port_util import TINY_AV, av_inputs, numpy_params
+from torch_port_util import (MODEL_RNGS, TINY_AV, av_inputs, jax_core,
+                             numpy_params)
 
 AV = dict(TINY_AV, causal=True, n_buttons=3)
 BACKBONES = ("dit", "uvit", "mmdit")
@@ -55,9 +56,7 @@ def _jax_av(backbone):
     x, a, _, m, b = av_inputs(rs, 2, 8, cfg)
     batch = tuple(np.asarray(v, np.float32) for v in (x, a, m, b))
     jin = [jnp.asarray(v) for v in batch]
-    model = JaxGameRFTAudio(cfg, dtype=jnp.float32)
-    params = jax.jit(model.init)({"params": jax.random.key(0),
-                                  "noise": jax.random.key(1)}, *jin)
+    model, params = jax_core(JaxGameRFTAudio, cfg, *batch, rngs=MODEL_RNGS)
 
     def loss_and_draw(p):
         out = model.apply(p, *jin, return_dict=True,
@@ -77,7 +76,8 @@ def _jax_av(backbone):
 
 def _jax_meanflow():
     batch = mf._data(n=8)
-    model, params = mf._jax_model(batch)
+    model, params = jax_core(mf.JaxGameMFTAudio, jax_config(**mf.MFT),
+                             *batch, rngs=MODEL_RNGS)
     key = jax.random.key(3)
     draws = mf._jax_draws(model, params, batch, key)
     jin = [jnp.asarray(a) for a in batch]
@@ -136,20 +136,13 @@ def world(tmp_path_factory):
     no_sp = _train_cfg(tmp, {"seq": 2})
     no_sp["model"]["sequence_parallel"] = False
     jobs.append(("step_no_sp", "av_train_step", (no_sp, *step_args)))
+    # MeanFlow at {seq 2} (every data rank takes the whole batch)
+    refs["mft"] = ref = _jax_meanflow()
+    jobs.append(("mft2", "av_sp", ("game_mft_audio", mf.MFT, ref["sd"],
+                                   ref["batch"], ref["draws"], {"seq": 2})))
     res = workers.run_ranks(workers.run_jobs, 4, tmp / "ranks", jobs)
     one = workers.av_train_step(_train_cfg(tmp, {}), *step_args)
     return dict(res=res, refs=refs, one=one)
-
-
-@pytest.fixture(scope="module")
-def world_mft(tmp_path_factory):
-    """MeanFlow at {seq 2}, in a 2-rank world of its own."""
-    tmp = tmp_path_factory.mktemp("avsp_mft")
-    ref = _jax_meanflow()
-    res = workers.run_ranks(workers.run_jobs, 2, tmp / "ranks", [(
-        "mft2", "av_sp", ("game_mft_audio", mf.MFT, ref["sd"], ref["batch"],
-                          ref["draws"], {"seq": 2}))])
-    return dict(res=res, ref=ref)
 
 
 def _seq_group(res, case):
@@ -181,12 +174,12 @@ def test_av_model_under_sp_matches_jax(backbone, n, world):
                                        rtol=1e-3, err_msg=name)
 
 
-def test_meanflow_under_sp_matches_jax(world_mft):
+def test_meanflow_under_sp_matches_jax(world):
     """MeanFlow's jvp through the ring and the halo (their exchanges carry
     the tangents; the plain partials on the CPU, as JAX's
     _partial_attn_dense), the CFG rows chosen over every frame."""
-    ref = world_mft["ref"]
-    group = _seq_group(world_mft["res"], "mft2")
+    ref = world["refs"]["mft"]
+    group = _seq_group(world["res"], "mft2")
     for i in range(3):
         np.testing.assert_allclose(sum(g["losses"][i] for g in group),
                                    ref["losses"][i], rtol=1e-4)

@@ -38,7 +38,8 @@ from owl_audio_exps_tpu_torch.ops import band2
 from owl_audio_exps_tpu_torch.trainers import get_trainer_cls
 from owl_audio_exps_tpu_torch.utils.weights import params_from_jax
 
-from torch_port_util import TINY_AV, load_jax_params, numpy_params, t
+from torch_port_util import (MODEL_RNGS, TINY_AV, carried, jax_apply, jax_core,
+                             numpy_params, t)
 
 # the AV token layout at a band2 geometry: 8 x 8 video + 1 audio token a
 # frame (tpf 65), 32 frames, a 16-frame window: L = 2,080, plan (520, 2)
@@ -55,14 +56,6 @@ def _av_batch(rs, b, cfg):
             (rs.rand(b, n, cfg.n_buttons) > 0.5).astype(np.float32))
 
 
-def _jax_model(jcfg, batch):
-    model = JaxGameRFTAudio(jcfg, dtype=jnp.float32)
-    params = jax.jit(model.init)({"params": jax.random.key(0),
-                                  "noise": jax.random.key(1)},
-                                 *(jnp.asarray(a) for a in batch))
-    return model, params
-
-
 def _draws(out):
     return dict(ts=t(out["ts"]), z_video=t(out["z_video"]),
                 z_audio=t(out["z_audio"]), has_controls=t(out["cfg_mask"]))
@@ -75,7 +68,8 @@ def test_av_loss_and_gradients_match_jax(monkeypatch):
     pcfg = port_config(**AV_BAND2, attn_impl="splash")
     assert attention_route(pcfg, True, 32 * 65) == ("band2", (520, 2))
     batch = _av_batch(np.random.RandomState(0), 2, jcfg)
-    model, params = _jax_model(jcfg, batch)
+    model, params = jax_core(JaxGameRFTAudio, jcfg, *batch,
+                             rngs=MODEL_RNGS)
     jin = [jnp.asarray(a) for a in batch]
 
     def loss_and_draw(p):
@@ -91,9 +85,7 @@ def test_av_loss_and_gradients_match_jax(monkeypatch):
     orig = band2.band2_attention
     monkeypatch.setattr(band2, "band2_attention", lambda *a, **kw: (
         calls.append(a[5:7]), orig(*a, **kw))[1])
-    port = load_jax_params(GameRFTAudio(pcfg, dtype=torch.float32,
-                                        device="cpu", seed=None),
-                           params, jcfg.n_heads)
+    port = carried(GameRFTAudio, pcfg, params)
     loss, v_loss, a_loss = port(*(t(a) for a in batch), **_draws(out))
     loss.backward()
     assert calls == [(520, 2)] * 3          # the 3 local layers
@@ -118,7 +110,8 @@ def test_params_from_jax_covers_every_key_of_the_av_wrapper(scan_layers):
               scan_layers=scan_layers)
     jcfg, pcfg = jax_config(**kw), port_config(**kw)
     batch = _av_batch(np.random.RandomState(1), 1, jcfg)
-    model, params = _jax_model(jcfg, batch)
+    model, params = jax_core(JaxGameRFTAudio, jcfg, *batch,
+                             rngs=MODEL_RNGS)
     sd = params_from_jax(numpy_params(params), jcfg.n_heads)
     port = GameRFTAudio(pcfg, dtype=torch.float32, device="cpu", seed=None)
     want = port.state_dict()
@@ -128,8 +121,8 @@ def test_params_from_jax_covers_every_key_of_the_av_wrapper(scan_layers):
     for k, v in sd.items():
         assert tuple(v.shape) == tuple(want[k].shape), k
     port.load_state_dict(sd, strict=True)
-    out = model.apply(params, *(jnp.asarray(a) for a in batch),
-                      return_dict=True, rngs={"noise": jax.random.key(2)})
+    out = jax_apply(model, params, *batch, return_dict=True,
+                    rngs={"noise": jax.random.key(2)})
     with torch.no_grad():
         loss = port(*(t(a) for a in batch), **_draws(out))[0]
     np.testing.assert_allclose(loss.item(), float(out["diffusion_loss"]),
@@ -220,15 +213,12 @@ def test_av_trainer_step_matches_jax(trainer_id, data_id, tmp_path):
     audio = (jnp.asarray(batch[1]) / 0.45).astype(jnp.bfloat16)
     extra = ({} if trainer_id == "av" else
              {"has_controls": jnp.asarray(batch[4]).astype(bool)})
-    out = jtr.model.apply({"params": params0}, vid, audio,
-                          jnp.asarray(batch[2]), jnp.asarray(batch[3]),
-                          return_dict=True, **extra,
-                          rngs={"noise": jax.random.split(rng, 1)[0]})
+    out = jax_apply(jtr.model, {"params": params0}, vid, audio, batch[2],
+                    batch[3], return_dict=True, **extra,
+                    rngs={"noise": jax.random.split(rng, 1)[0]})
 
     ptr = get_trainer_cls(trainer_id)(Config.from_dict(raw), device="cpu")
-    model = load_jax_params(GameRFTAudio(ptr.model_cfg, dtype=torch.float32,
-                                         device="cpu", seed=None),
-                            {"params": params0}, jtr.model_cfg.n_heads)
+    model = carried(GameRFTAudio, ptr.model_cfg, {"params": params0})
     pstate = ptr.make_state(model.train())
     draws, seen = _draws(out), []
     forward = model.forward

@@ -28,7 +28,8 @@ from owl_audio_exps_tpu_torch.sampling import get_sampler_cls
 from owl_audio_exps_tpu_torch.sampling.av_window import (
     CausalAVWindowSampler, CausalAVWindowSamplerNoCFG)
 
-from torch_port_util import assert_same_state, av_cores, av_inputs, t
+from torch_port_util import (assert_same_state, av_cores, av_inputs, jax_apply,
+                             t)
 
 ATOL = 1e-4
 W = 4
@@ -71,10 +72,8 @@ def test_step0_rings_match_jax_and_the_uncached_forward(has_controls):
     x, a, wt, m, btn = _window(1, 2, pcfg)
     hc = np.full((2,), has_controls)
     jc = JaxKVCache.from_config(jcfg, 2, capacity_frames=W, dtype=jnp.float32)
-    (jv, ja), jc = jax.jit(
-        lambda p, c, *arr: jcore.apply(p, *arr[:5], has_controls=arr[5],
-                                       kv_cache=c, write=True))(
-        params, jc, *(jnp.asarray(v) for v in (x, a, wt, m, btn, hc)))
+    (jv, ja), jc = jax_apply(jcore, params, x, a, wt, m, btn,
+                             has_controls=hc, kv_cache=jc, write=True)
     jc = jc.drop_newest(1)
     pc = KVCache.from_config(pcfg, 2, capacity_frames=W, dtype=torch.float32,
                              device="cpu")

@@ -17,9 +17,6 @@ value (rtol 2^-7) plus atol 1e-3; the ring counters and the host's RoPE
 offset exact.
 """
 
-import importlib.util
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,20 +27,11 @@ from owl_audio_exps_tpu_torch.inference.pipeline import (
     AVCachedStreamingPipeline, CachedStreamingPipeline, CausvidPipeline,
     TickNoise)
 
-from torch_port_util import COUNTERS, RINGS, av_cores, t, video_cores
+from torch_port_util import (COUNTERS, RINGS, av_cores, jax_serve_pipelines,
+                             t, video_cores)
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL, ATOL = 2.0 ** -7, 1e-3
 F32 = jnp.float32
-
-
-def jax_pipelines():
-    """The JAX package's inference/pipeline.py, loaded from its file."""
-    spec = importlib.util.spec_from_file_location(
-        "jax_serve_pipeline", os.path.join(REPO, "inference", "pipeline.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def close(got, want, what):
@@ -124,7 +112,8 @@ def _run(kind, case, **model):
         jcfg, pcfg, jcore, params, port = av_cores(**over)
         jcls, pcls = "AVCachedStreamingPipeline", AVCachedStreamingPipeline
         items = [(4, 2, 2), (4,)]
-    jp = getattr(jax_pipelines(), jcls)(jcore, params, jcfg, seed=11, **pkw)
+    jp = getattr(jax_serve_pipelines(), jcls)(jcore, params, jcfg, seed=11,
+                                              **pkw)
     pp = pcls(port, pcfg, device="cpu", **pkw)
     draws = Draws(jp, items)
     rs = np.random.RandomState(3)
@@ -238,7 +227,7 @@ def test_causvid_load_cache(tmp_path):
                 mouse=rs.randn(1, W, 2).astype(np.float32),
                 button=(rs.rand(1, W, 3) > 0.5).astype(np.float32))
     np.savez(tmp_path / "buffers_5.npz", **data)
-    jmod = jax_pipelines()
+    jmod = jax_serve_pipelines()
     jcfg, _, jcore, _, _ = av_cores(causal=True)
     jp = jmod.CausvidPipeline(jcore, params, jcfg, image_scale=2.0,
                               audio_scale=4.0, window_length=W)

@@ -16,6 +16,7 @@ in another order through 4 layers, the ring merging partials where the
 seq-1 step runs one softmax).
 """
 
+import functools
 import os
 
 import jax
@@ -45,14 +46,10 @@ from owl_audio_exps_tpu_torch.train import port_cuts
 from owl_audio_exps_tpu_torch.utils.weights import params_from_jax
 
 import torch_sp_workers as workers
-from torch_port_util import numpy_params
+from torch_port_util import MODEL_RNGS, jax_apply, jax_core, numpy_params, t
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, H, DH, TPF = 1, 2, 8, 4
-
-
-def _t(a):
-    return torch.from_numpy(np.array(a))
 
 
 # ------------------------------------------------------------------ K4
@@ -67,7 +64,7 @@ def test_k4_plain_matches_jax_splash_lse(causal):
     q *= DH ** -0.5          # the ring hands in pre-scaled q
     jo, jl = jax_splash.splash_attention_lse(
         *(jnp.asarray(a) for a in (q, k, v)), TPF, causal, interpret=True)
-    po, pl = splash.splash_attention_lse(_t(q), _t(k), _t(v), TPF, causal)
+    po, pl = splash.splash_attention_lse(t(q), t(k), t(v), TPF, causal)
     assert po.dtype == pl.dtype == torch.float32
     np.testing.assert_allclose(po.numpy(), np.asarray(jo), atol=3e-5,
                                rtol=3e-5)
@@ -77,12 +74,12 @@ def test_k4_plain_matches_jax_splash_lse(causal):
     want = jax_splash.splash_attention_lse_vjp(
         *(jnp.asarray(a) for a in (q, k, v)), jo, jl, jnp.asarray(g_out),
         jnp.asarray(g_lse), TPF, causal, interpret=True)
-    got = splash.splash_attention_lse_vjp(_t(q), _t(k), _t(v), po, pl,
-                                          _t(g_out), _t(g_lse), TPF, causal)
+    got = splash.splash_attention_lse_vjp(t(q), t(k), t(v), po, pl,
+                                          t(g_out), t(g_lse), TPF, causal)
     # autograd of the CPU path through both outputs gives the same
-    leaves = [_t(a).requires_grad_() for a in (q, k, v)]
+    leaves = [t(a).requires_grad_() for a in (q, k, v)]
     o, lse = splash.splash_attention_lse(*leaves, TPF, causal)
-    auto = torch.autograd.grad((o, lse), leaves, (_t(g_out), _t(g_lse)))
+    auto = torch.autograd.grad((o, lse), leaves, (t(g_out), t(g_lse)))
     for name, a, b, c in zip("qkv", got, want, auto):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=3e-4,
                                    rtol=3e-4, err_msg=f"d{name}")
@@ -100,15 +97,15 @@ def test_chunked_local_matches_jax(halo):
     kh, vh = (rs.randn(2, 3, C, DH).astype(np.float32) for _ in range(2))
     kw, jkw = {}, {}
     if halo in ("valid", "invalid"):
-        kw = dict(halo_kv=(_t(kh), _t(vh)), halo_valid=halo == "valid")
+        kw = dict(halo_kv=(t(kh), t(vh)), halo_valid=halo == "valid")
         jkw = dict(halo_kv=(jnp.asarray(kh), jnp.asarray(vh)),
                    halo_valid=jnp.asarray(halo == "valid"))
     if halo == "docs":
         docs = np.array([[0] * 5 + [1] * 4 + [2] * 3, [0] * 12], np.int32)
-        kw, jkw = dict(doc_id=_t(docs)), dict(doc_id=jnp.asarray(docs))
+        kw, jkw = dict(doc_id=t(docs)), dict(doc_id=jnp.asarray(docs))
     want = jax_local.chunked_local_attention(
         *(jnp.asarray(a) for a in (q, k, v)), tpf, window, **jkw)
-    got = local.chunked_local_attention(_t(q), _t(k), _t(v), tpf, window,
+    got = local.chunked_local_attention(t(q), t(k), t(v), tpf, window,
                                         **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
                                rtol=2e-5)
@@ -144,17 +141,74 @@ def _jax_full(q, k, v, gw, window, n):
     return res
 
 
+# the model of tests/test_context_parallel.py
+SP_MODEL = dict(
+    model_id="game_rft", sample_size=2, channels=4, n_layers=2, n_heads=2,
+    d_model=32, tokens_per_frame=4, n_buttons=3, cfg_prob=0.0, n_frames=16,
+    causal=True, uncond=False, backbone="dit", has_audio=False,
+    rope_impl="ortho", local_window=2, global_window=None)
+
+
+@functools.cache
+def _sp_model_ref():
+    """The inputs of the JAX model without SP, its draws, its state dict
+    in the port's names, its core's prediction on the noised inputs and
+    its loss."""
+    rs = np.random.RandomState(11)
+    x = rs.randn(2, 16, 4, 2, 2).astype(np.float32)
+    mouse = rs.randn(2, 16, 2).astype(np.float32)
+    btn = (rs.rand(2, 16, 3) > 0.5).astype(np.float32)
+    model, params = jax_core(JaxGameRFT, jax_config(**SP_MODEL), x, mouse,
+                             btn, rngs=MODEL_RNGS)
+    out = jax_apply(model, params, x, mouse, btn, return_dict=True,
+                    rngs={"noise": jax.random.key(2)})
+    draws = [np.asarray(out[key]) for key in ("ts", "z_video", "cfg_mask")]
+    te = draws[0][:, :, None, None, None]
+    lerpd = x * (1 - te) + draws[1] * te
+    want_pred, _ = jax_apply(
+        JaxCore(jax_config(**SP_MODEL), dtype=jnp.float32),
+        {"params": params["params"]["core"]}, lerpd, draws[0], mouse, btn,
+        has_controls=draws[2])
+    sd = params_from_jax(numpy_params(params), SP_MODEL["n_heads"])
+    return ((x, mouse, btn), draws, sd, np.asarray(want_pred),
+            float(out["diffusion_loss"]))
+
+
+@pytest.fixture(scope="module")
+def seq_worlds(tmp_path_factory):
+    """n -> ((q, k, v, gw), per-rank results) of one gloo world of n ranks:
+    the halo and the ring on the same inputs (two window chunks a shard
+    either way), and at 4 ranks also the context-parallel model and one
+    trainer step (``_sp_config``)."""
+    runs = {}
+
+    def run(n):
+        if n not in runs:
+            tmp = tmp_path_factory.mktemp(f"seq{n}")
+            rs = np.random.RandomState(n)
+            L = n * 2 * 2 * TPF
+            arrays = tuple(rs.randn(B, H, L, DH).astype(np.float32)
+                           for _ in range(4))
+            jobs = [(str(w), "ring_halo_worker", arrays + (TPF, w))
+                    for w in (2, None)]
+            if n == 4:
+                inputs, draws, sd, _, _ = _sp_model_ref()
+                jobs += [("model", "model_worker", (
+                    dict(SP_MODEL, sequence_parallel=True), sd, inputs,
+                    draws)), ("trainer", "trainer_step_worker", (
+                        _sp_config(tmp / "sp", 4)[0].to_dict(),))]
+            runs[n] = arrays, workers.run_ranks(workers.run_jobs, n,
+                                                tmp / "ranks", jobs)
+        return runs[n]
+    return run
+
+
 @pytest.mark.parametrize("window", [2, None], ids=["halo", "ring"])
 @pytest.mark.parametrize("n_shards", [2, 3, 4])
 def test_ring_and_halo_match_jax_and_the_full_sequence(n_shards, window,
-                                                       tmp_path):
-    rs = np.random.RandomState(n_shards)
-    per = 2 * (window or 2) * TPF      # two window chunks a shard
-    L = n_shards * per
-    q, k, v, gw = (rs.randn(B, H, L, DH).astype(np.float32)
-                   for _ in range(4))
-    res = workers.run_ranks(workers.ring_halo_worker, n_shards, tmp_path,
-                            q, k, v, gw, TPF, window)
+                                                       seq_worlds):
+    (q, k, v, gw), res = seq_worlds(n_shards)
+    res = [r[str(window)] for r in res]
     out = np.concatenate([r["out"] for r in res], axis=2)
     grads = [np.concatenate([r["grads"][i] for r in res], axis=2)
              for i in range(3)]
@@ -173,45 +227,13 @@ def test_ring_and_halo_match_jax_and_the_full_sequence(n_shards, window,
     assert all(r["forbidden"] == [] for r in res)   # the ranks ran no JAX
 
 
-# --------------------------------------------------------------- model
-
-# the model of tests/test_context_parallel.py
-SP_MODEL = dict(
-    model_id="game_rft", sample_size=2, channels=4, n_layers=2, n_heads=2,
-    d_model=32, tokens_per_frame=4, n_buttons=3, cfg_prob=0.0, n_frames=16,
-    causal=True, uncond=False, backbone="dit", has_audio=False,
-    rope_impl="ortho", local_window=2, global_window=None)
-
-
-def test_sp_model_matches_jax_without_sp(tmp_path):
-    rs = np.random.RandomState(11)
-    x = rs.randn(2, 16, 4, 2, 2).astype(np.float32)
-    mouse = rs.randn(2, 16, 2).astype(np.float32)
-    btn = (rs.rand(2, 16, 3) > 0.5).astype(np.float32)
-    model = JaxGameRFT(jax_config(**SP_MODEL), dtype=jnp.float32)
-    jin = [jnp.asarray(a) for a in (x, mouse, btn)]
-    params = model.init({"params": jax.random.key(0),
-                         "noise": jax.random.key(1)}, *jin)
-    out = model.apply(params, *jin, return_dict=True,
-                      rngs={"noise": jax.random.key(2)})
-    draws = [np.asarray(out[key]) for key in ("ts", "z_video", "cfg_mask")]
-    te = draws[0][:, :, None, None, None]
-    lerpd = x * (1 - te) + draws[1] * te
-    want_pred, _ = JaxCore(jax_config(**SP_MODEL), dtype=jnp.float32).apply(
-        {"params": params["params"]["core"]}, jnp.asarray(lerpd),
-        jnp.asarray(draws[0]), *jin[1:],
-        has_controls=jnp.asarray(draws[2]))
-
-    sd = params_from_jax(numpy_params(params), SP_MODEL["n_heads"])
-    res = workers.run_ranks(
-        workers.model_worker, 4, tmp_path,
-        dict(SP_MODEL, sequence_parallel=True), sd, (x, mouse, btn), draws)
+def test_sp_model_matches_jax_without_sp(seq_worlds):
+    _, _, _, want_pred, want_loss = _sp_model_ref()
+    res = [r["model"] for r in seq_worlds(4)[1]]
     pred = np.concatenate([r["pred"] for r in res], axis=1)
-    np.testing.assert_allclose(pred, np.asarray(want_pred), atol=3e-5,
-                               rtol=3e-5)
-    np.testing.assert_allclose(sum(r["loss"] for r in res),
-                               float(out["diffusion_loss"]), atol=3e-5,
-                               rtol=3e-5)
+    np.testing.assert_allclose(pred, want_pred, atol=3e-5, rtol=3e-5)
+    np.testing.assert_allclose(sum(r["loss"] for r in res), want_loss,
+                               atol=3e-5, rtol=3e-5)
 
 
 # -------------------------------------------------------------- trainer
@@ -240,13 +262,12 @@ def _sp_config(tmp_path, world: int):
     return cfg, cuts
 
 
-def test_sp_trainer_step_matches_seq1(tmp_path):
+def test_sp_trainer_step_matches_seq1(tmp_path, seq_worlds):
     cfg4, cuts = _sp_config(tmp_path, 4)
     assert [c.split()[0] for c in cuts] == ["data_id", "mesh"]
     assert cfg4.train.mesh["seq"] == 4 and cfg4.train.data_id == \
         "synthetic_latent"
-    res = workers.run_ranks(workers.trainer_step_worker, 4,
-                            tmp_path / "sp", cfg4.to_dict())
+    res = [r["trainer"] for r in seq_worlds(4)[1]]
     assert [r["mesh"] for r in res] == [(1, 4)] * 4
     assert all(r["step"] == 1 and r["accum"] == 2 for r in res)
     # ring partials per rank: per micro batch and global layer, each of
@@ -262,7 +283,7 @@ def test_sp_trainer_step_matches_seq1(tmp_path):
                                                   for r in res[1:])
 
     cfg1, _ = _sp_config(tmp_path, 1)   # one process: seq 1, no SP
-    ref = workers.trainer_step_worker(0, 1, cfg1.to_dict())
+    ref = workers.trainer_step_worker(cfg1.to_dict())
     np.testing.assert_allclose(res[0]["losses"][0], ref["losses"][0],
                                rtol=1e-5)
     assert set(ref["grads"]) == set(res[0]["grads"])
@@ -314,18 +335,18 @@ def test_params_from_jax_takes_the_scanned_layout(local_idx):
     ts = rs.rand(2, 4).astype(np.float32)
     mouse = rs.randn(2, 4, 2).astype(np.float32)
     btn = (rs.rand(2, 4, 3) > 0.5).astype(np.float32)
-    args = [jnp.asarray(a) for a in (x, ts, mouse, btn)]
-    unrolled = JaxCore(jax_config(**base), dtype=jnp.float32)
-    scanned = JaxCore(jax_config(**base, scan_layers=True),
-                      dtype=jnp.float32)
-    params = unrolled.init(jax.random.key(0), *args)["params"]
-    stacked = convert_params(params, to_scanned=True, n_layers=8,
+    args = (x, ts, mouse, btn)
+    _, params = jax_core(JaxCore, jax_config(**base), *args)
+    stacked = convert_params(params["params"], to_scanned=True, n_layers=8,
                              local_idx=local_idx)
     assert "groups" in stacked["transformer"]
-    want, _ = scanned.apply({"params": stacked}, *args)
+    want, _ = jax_apply(JaxCore(jax_config(**base, scan_layers=True),
+                                dtype=jnp.float32), {"params": stacked},
+                        *args)
 
     sd = params_from_jax(numpy_params(stacked), base["n_heads"])
-    flat = params_from_jax(numpy_params(params), base["n_heads"])
+    flat = params_from_jax(numpy_params(params["params"]),
+                           base["n_heads"])
     assert set(sd) == set(flat)
     for key in flat:
         torch.testing.assert_close(sd[key], flat[key], atol=0, rtol=0)
@@ -333,7 +354,7 @@ def test_params_from_jax_takes_the_scanned_layout(local_idx):
                        dtype=torch.float32, device="cpu", seed=None)
     port.load_state_dict(sd, strict=True)
     with torch.no_grad():
-        got = port(*(_t(a) for a in (x, ts, mouse, btn)))
+        got = port(*(t(a) for a in (x, ts, mouse, btn)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
                                rtol=0)
 
@@ -350,7 +371,7 @@ def test_chip_smoke_ring_and_halo_in_one_process_on_the_cpu():
     n, window = 4, 2
     L = n * 2 * window * TPF
     rs = np.random.RandomState(12)
-    q, k, v, g = (_t(rs.randn(B, H, L, DH).astype(np.float32))
+    q, k, v, g = (t(rs.randn(B, H, L, DH).astype(np.float32))
                   for _ in range(4))
     with workers.count_ring_partials() as calls:
         ring = chip_smoke.grads_of(lambda *t: chip_smoke.ring_one_process(

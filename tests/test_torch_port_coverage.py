@@ -67,6 +67,8 @@ NO_COUNTERPART = {
     },
     "owl_audio_exps_tpu/parallel/sharding.py": {
         "param_shardings": _SHARDING + "; `param_spec` per parameter",
+        "pin_tail_replicated": "a GSPMD layout hint on an activation; "
+                               "eager PyTorch propagates no sharding",
     },
     "owl_audio_exps_tpu/data/native_loader.py": {
         "native_available": "the port builds its gather or raises "

@@ -51,7 +51,7 @@ from owl_audio_exps_tpu_torch.parallel import mesh as port_mesh
 from owl_audio_exps_tpu_torch.trainers import get_trainer_cls
 from owl_audio_exps_tpu_torch.utils.weights import params_from_jax
 
-from torch_port_util import load_jax_params, numpy_params, t
+from torch_port_util import MODEL_RNGS, carried, jax_core, numpy_params, t
 
 COLUMNS = ["video", "mouse", "buttons", "tarball", "pt_idx", "missing",
            "truncated", "seq_len"]
@@ -521,11 +521,9 @@ def test_packed_step_matches_jax(tmp_path, monkeypatch):
     assert attention_route(pcfg, True, 64, doc_id) == ("splash", None)
 
     jcfg = jax_config(**PACKED)
-    model = JaxGameRFT(jcfg, dtype=jnp.float32)
     jin = [jnp.asarray(a) for a in jbatch]
     jin[0] = (jin[0] / 0.63).astype(jnp.bfloat16)
-    params = jax.jit(model.init)({"params": jax.random.key(0),
-                                  "noise": jax.random.key(1)}, *jin)
+    model, params = jax_core(JaxGameRFT, jcfg, *jin, rngs=MODEL_RNGS)
     rngs = {"noise": jax.random.key(5)}
 
     def loss_and_draw(p):
@@ -535,8 +533,7 @@ def test_packed_step_matches_jax(tmp_path, monkeypatch):
     (jl, draw), jgrads = jax.jit(jax.value_and_grad(
         loss_and_draw, has_aux=True))(params)
 
-    port = load_jax_params(GameRFT(pcfg, dtype=torch.float32, device="cpu",
-                                   seed=None), params, 2)
+    port = carried(GameRFT, pcfg, params)
     calls = []
     plain = splash.splash_attention_plain
     monkeypatch.setattr(splash, "splash_attention_plain",

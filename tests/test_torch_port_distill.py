@@ -54,8 +54,8 @@ from owl_audio_exps_tpu_torch.utils.checkpoints import (save_clean_export,
                                                         versatile_load)
 from owl_audio_exps_tpu_torch.utils.weights import params_from_jax
 
-from torch_port_util import (LOSS_RTOL, assert_grads, assert_params,
-                             batch, jax_example_args, numpy_params, raw_cfg,
+from torch_port_util import (LOSS_RTOL, assert_grads, assert_params, batch,
+                             jax_example_args, jax_init, numpy_params, raw_cfg,
                              t, trainers)
 
 def causvid_draws(key, shape) -> LossDraws:
@@ -295,10 +295,9 @@ def _teacher(tmp_path, n_layers=4):
                                        model=dict(n_layers=n_layers)))
     path = tmp_path / "teacher.yml"
     path.write_text(yaml.safe_dump(tcfg.to_dict()))
-    core = JaxCore(tcfg.model, dtype=jnp.float32)
-    params = jax.jit(core.init)(jax.random.key(3),
-                                *jax_example_args(tcfg.model))["params"]
-    return str(path), params
+    _, params = jax_init(JaxCore(tcfg.model, dtype=jnp.float32),
+                         *jax_example_args(tcfg.model), rngs=3)
+    return str(path), params["params"]
 
 
 def test_transfer_pruned_params_matches_jax(tmp_path):

@@ -35,7 +35,7 @@ from owl_audio_exps_tpu_torch.inference import build_cache, test_sampling
 from owl_audio_exps_tpu_torch.sampling.common import SamplerNoise
 from owl_audio_exps_tpu_torch.utils.weights import params_from_jax
 
-from torch_port_util import jax_sampler_draws, numpy_params, t
+from torch_port_util import jax_init, jax_sampler_draws, numpy_params, t
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BF16_TWO_STEPS = 2.0 ** -6
@@ -140,7 +140,8 @@ def _tiny(name, **model):
 
 def _jax_params(raw, ctx_frames):
     """The JAX script's params: its core's init from key 0 on the seeded
-    context, carried into the port's layout."""
+    context (jitted, as the script's eager init draws them), carried into
+    the port's layout."""
     from owl_audio_exps_tpu.configs import Config as JaxConfig
     from owl_audio_exps_tpu.models import get_core_cls
     m = JaxConfig.from_dict(raw).model
@@ -149,18 +150,16 @@ def _jax_params(raw, ctx_frames):
     bf = jax.numpy.bfloat16
     if m.model_id == "audio_rft":
         ctx = jax.numpy.asarray(rs.randn(1, 16, m.channels), bf)
-        params = core.init(jax.random.key(0), ctx,
-                           jax.numpy.zeros((1, 16), bf))["params"]
+        _, params = jax_init(core, ctx, jax.numpy.zeros((1, 16), bf))
     else:
         total = ctx_frames
         ctx = jax.numpy.asarray(rs.randn(1, 8, m.channels, m.sample_size,
                                          m.sample_size), bf)
         mouse = jax.numpy.asarray(rs.randn(1, total, 2), bf)
         btn = jax.numpy.asarray(rs.rand(1, total, m.n_buttons) > 0.5, bf)
-        params = core.init(jax.random.key(0), ctx,
-                           jax.numpy.zeros((1, 8), bf), mouse[:, :8],
-                           btn[:, :8])["params"]
-    return params_from_jax(numpy_params(params), m.n_heads)
+        _, params = jax_init(core, ctx, jax.numpy.zeros((1, 8), bf),
+                             mouse[:, :8], btn[:, :8])
+    return params_from_jax(numpy_params(params["params"]), m.n_heads)
 
 
 @pytest.mark.parametrize("name,num", [("dit_v4_tpu_e2e.yml", 3),

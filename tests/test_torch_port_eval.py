@@ -32,8 +32,8 @@ from owl_audio_exps_tpu_torch.sampling import get_sampler_cls
 from owl_audio_exps_tpu_torch.sampling.common import SamplerNoise
 from owl_audio_exps_tpu_torch.trainers import get_trainer_cls
 
-from torch_port_util import (AV, VIDEO, jax_sampler_draws, load_jax_params,
-                             t, video_cores)
+from torch_port_util import (AV, VIDEO, carried, jax_sampler_draws, t,
+                             video_cores)
 
 VIDEO_KW = dict(window_length=6, channels=4, sample_size=2, n_buttons=3)
 
@@ -73,9 +73,8 @@ def test_rft_eval_step_matches_jax(tmp_path):
 
     raw["train"]["eval_sample_dir"] = str(tmp_path / "port")
     ptr = get_trainer_cls("rft")(Config.from_dict(raw), device="cpu")
-    model = load_jax_params(GameRFT(ptr.model_cfg, dtype=torch.float32,
-                                    device="cpu", seed=None),
-                            {"params": {"core": params["params"]}}, 2)
+    model = carried(GameRFT, ptr.model_cfg,
+                    {"params": {"core": params["params"]}})
     pstate = ptr.make_state(model)
     # the eval core in float32, as the JAX one here
     ptr._eval_core = GameRFTCore(ptr.model_cfg, dtype=torch.float32,

@@ -18,7 +18,8 @@ PORT_FILES = sorted(
     os.path.relpath(p, REPO) for p in
     glob.glob(os.path.join(REPO, "owl_audio_exps_tpu_torch", "**", "*.py"),
               recursive=True)) + ["chip_smoke.py", "sp_smoke.py",
-                                  "mesh_smoke.py", "bench_torch.py"]
+                                  "mesh_smoke.py", "bench_torch.py",
+                                  "kernel_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "owl_audio_exps_tpu")
 
 

@@ -36,7 +36,7 @@ from owl_audio_exps_tpu_torch.ops.masks import decode_mask_from_cache
 from owl_audio_exps_tpu_torch.ops.rope import (_table_frames, get_rope_freqs,
                                                rope_rebase_tables)
 
-from torch_port_util import assert_same_state, load_jax_params, t
+from torch_port_util import assert_same_state, cores, jax_apply, t
 
 F32 = jnp.float32
 
@@ -306,20 +306,15 @@ def test_rebase_matches_jax_and_keeps_the_decode_output(kv_quant):
     """rebase_rope moves the rings as the JAX package's does, and a
     decoding forward against the rebased ring equals the one against the
     ring before it (relative positions are unchanged)."""
-    kw = dict(AUDIO, kv_quant=kv_quant)
-    jcfg, pcfg = jax_config(**kw), port_config(**kw)
+    jcfg, pcfg, jcore, params, port = cores(
+        JaxCore, AudioRFTCore, AUDIO, ((1, 8, 8), (1, 8)), kv_quant=kv_quant)
     rs = np.random.RandomState(0)
     x = rs.randn(2, 7, 8).astype(np.float32)
     ts = rs.rand(2, 7).astype(np.float32)
-    jcore = JaxCore(jcfg, dtype=F32)
-    params = jcore.init(jax.random.key(0), jnp.asarray(x), jnp.asarray(ts))
-    port = load_jax_params(AudioRFTCore(pcfg, dtype=torch.float32,
-                                        device="cpu", seed=None),
-                           params, 2)
     jc = jkv.KVCache.from_config(jcfg, 2, 6, F32)
     pc = pkv.KVCache.from_config(pcfg, 2, 6, torch.float32, device="cpu")
-    _, jc = jcore.apply(params, jnp.asarray(x[:, :6]), jnp.asarray(ts[:, :6]),
-                        kv_cache=jc, write=True)
+    _, jc = jax_apply(jcore, params, x[:, :6], ts[:, :6], kv_cache=jc,
+                      write=True)
     with torch.no_grad():
         port(t(x[:, :6]), t(ts[:, :6]), kv_cache=pc, write=True)
         before = port(t(x[:, 6:]), t(ts[:, 6:]), kv_cache=pc, decoding=True)
@@ -330,8 +325,8 @@ def test_rebase_matches_jax_and_keeps_the_decode_output(kv_quant):
     assert_same_state(jc, pc)
     with torch.no_grad():
         after = port(t(x[:, 6:]), t(ts[:, 6:]), kv_cache=pc, decoding=True)
-    want, _ = jcore.apply(params, jnp.asarray(x[:, 6:]),
-                          jnp.asarray(ts[:, 6:]), kv_cache=jc, decoding=True)
+    want, _ = jax_apply(jcore, params, x[:, 6:], ts[:, 6:], kv_cache=jc,
+                        decoding=True)
     np.testing.assert_allclose(after.numpy(), np.asarray(want), atol=1e-5)
     if kv_quant is None:
         torch.testing.assert_close(after, before, atol=1e-5, rtol=0)

@@ -30,7 +30,8 @@ from owl_audio_exps_tpu_torch.models.gamemft_audio import (GameMFTAudio,
 from owl_audio_exps_tpu_torch.trainers import get_trainer_cls
 from owl_audio_exps_tpu_torch.utils.weights import params_from_jax
 
-from torch_port_util import load_jax_params, numpy_params, t
+from torch_port_util import (MODEL_RNGS, carried, jax_apply, jax_core,
+                             numpy_params, t)
 
 MFT = dict(model_id="game_mft_audio", n_layers=2, n_heads=2, d_model=32,
            channels=4, audio_channels=4, sample_size=2, tokens_per_frame=5,
@@ -46,15 +47,6 @@ def _data(n=4, b=2):
             rs.randn(b, n, 4).astype(np.float32),
             rs.randn(b, n, 2).astype(np.float32),
             (rs.rand(b, n, 3) > 0.5).astype(np.float32))
-
-
-def _jax_model(batch, **over):
-    model = JaxGameMFTAudio(jax_config(**dict(MFT, **over)),
-                            dtype=jnp.float32)
-    params = jax.jit(model.init)({"params": jax.random.key(0),
-                                  "noise": jax.random.key(1)},
-                                 *(jnp.asarray(a) for a in batch))
-    return model, params
 
 
 def _jax_draws(model, params, batch, key):
@@ -77,19 +69,14 @@ def _jax_draws(model, params, batch, key):
         z_audio=t(jax.random.normal(r_za, audio.shape, jnp.float32)))
 
 
-def _port_model(params, **over):
-    model = GameMFTAudio(port_config(**dict(MFT, **over)),
-                         dtype=torch.float32, device="cpu", seed=None)
-    return load_jax_params(model, params, MFT["n_heads"])
-
-
 def test_sample_timesteps_on_jax_draws():
     batch = _data()
-    model, params = _jax_model(batch)
+    model, params = jax_core(JaxGameMFTAudio, jax_config(**MFT), *batch,
+                             rngs=MODEL_RNGS)
     draws = _jax_draws(model, params, batch, jax.random.key(2))
     jts, jrs = model.apply(params, draws["r_ts"], 2, 4,
                            method=model.sample_timesteps)
-    port = _port_model(params)
+    port = carried(GameMFTAudio, port_config(**MFT), params)
     ts, rs = port.sample_timesteps(2, 4, u=draws["u"], pair=draws["pair"])
     np.testing.assert_allclose(ts.numpy(), np.asarray(jts), atol=1e-6)
     np.testing.assert_allclose(rs.numpy(), np.asarray(jrs), atol=1e-6)
@@ -108,7 +95,8 @@ def test_loss_and_gradients_match_jax(remat):
     over = {} if remat == "off" else dict(gradient_checkpointing=True,
                                           remat_granularity="group")
     batch = _data()
-    model, params = _jax_model(batch, **over)
+    model, params = jax_core(JaxGameMFTAudio, jax_config(**dict(MFT, **over)),
+                             *batch, rngs=MODEL_RNGS)
     key = jax.random.key(3)     # one row dropped, one on the CFG tangent
     draws = _jax_draws(model, params, batch, key)
     jin = [jnp.asarray(a) for a in batch]
@@ -120,7 +108,7 @@ def test_loss_and_gradients_match_jax(remat):
     (jl, (jlv, jla)), jgrads = jax.jit(jax.value_and_grad(
         loss_fn, has_aux=True))(params["params"])
 
-    port = _port_model(params, **over)
+    port = carried(GameMFTAudio, port_config(**dict(MFT, **over)), params)
     ts, rs = port.sample_timesteps(2, 4, u=draws["u"], pair=draws["pair"])
     in_window = ((ts >= 0.3) & (ts <= 0.8)).float().mean(1) >= 0.25
     assert draws["has_controls"].tolist() == [False, True]
@@ -146,16 +134,13 @@ def test_interval_embedding_changes_the_core_output():
     equals the JAX core on carried weights at r = 0 and r = t / 2."""
     x, audio, mouse, btn = _data()
     tt = np.full((2, 4), 0.8, np.float32)
-    jcore = JaxGameMFTAudioCore(jax_config(**MFT), dtype=jnp.float32)
-    jin = [jnp.asarray(a) for a in (x, audio, tt, mouse, btn)]
-    params = jax.jit(jcore.init)(jax.random.key(0), *jin)
-    core = GameMFTAudioCore(port_config(**MFT), dtype=torch.float32,
-                            device="cpu", seed=None)
-    load_jax_params(core, params, MFT["n_heads"])
+    jcore, params = jax_core(JaxGameMFTAudioCore, jax_config(**MFT), x,
+                             audio, tt, mouse, btn)
+    core = carried(GameMFTAudioCore, port_config(**MFT), params)
     outs = []
     for r in (np.zeros_like(tt), tt * 0.5):
-        (jv, ja), _ = jax.jit(lambda rr: jcore.apply(
-            params, *jin, r=rr))(jnp.asarray(r))
+        (jv, ja), _ = jax_apply(jcore, params, x, audio, tt, mouse, btn,
+                                r=r)
         with torch.no_grad():
             pv, pa = core(*(t(a) for a in (x, audio, tt, mouse, btn)),
                           r=t(r))
@@ -204,12 +189,14 @@ def test_jvp_tangent_matches_a_central_difference():
 
 def test_params_from_jax_carries_the_meanflow_tree():
     batch = _data()
-    _, params = _jax_model(batch)
+    _, params = jax_core(JaxGameMFTAudio, jax_config(**MFT), *batch,
+                         rngs=MODEL_RNGS)
     sd = params_from_jax(numpy_params(params), MFT["n_heads"])
     assert {k for k in sd if k.startswith("core.r_embed.")} == {
         k for k in GameMFTAudio(port_config(**MFT), device="cpu")
         .state_dict() if k.startswith("core.r_embed.")}
-    _port_model(params)    # strict: every key of the tree and the module
+    # strict: every key of the tree and the module
+    carried(GameMFTAudio, port_config(**MFT), params)
     assert get_model_cls("game_mft_audio") is GameMFTAudio
     assert get_core_cls("game_mft_audio") is GameMFTAudioCore
 

@@ -30,6 +30,8 @@ from owl_audio_exps_tpu.models.gamemft_audio import \
     GameMFTAudioCore as JaxMFTCore
 from owl_audio_exps_tpu.models.gamerft_audio import \
     GameRFTAudio as JaxGameRFTAudio
+from owl_audio_exps_tpu.models.gamerft_audio import \
+    GameRFTAudioCore as JaxAVCore
 from owl_audio_exps_tpu.nn.kv_cache import KVCache as JaxKVCache
 from owl_audio_exps_tpu.sampling.av_caching import \
     AVCachingSamplerV2 as JaxAVCachingSamplerV2
@@ -54,8 +56,9 @@ from owl_audio_exps_tpu_torch.utils.checkpoints import load_torch_file
 from owl_audio_exps_tpu_torch.utils.telemetry import watch_metrics
 from owl_audio_exps_tpu_torch.utils.weights import params_from_jax
 
-from torch_port_util import (TINY_AV, assert_same_state, av_cores,
-                             av_inputs, load_jax_params, numpy_params, t)
+from torch_port_util import (MODEL_RNGS, TINY_AV, assert_same_state, av_cores,
+                             av_inputs, carried, jax_apply, jax_core,
+                             numpy_params, t)
 
 GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "goldens")
@@ -66,19 +69,6 @@ MM = dict(TINY_AV, backbone="mmdit", n_buttons=3, cfg_prob=0.1,
 def _cfgs(**over):
     kw = dict(MM, **over)
     return jax_config(**kw), Config.from_dict({"model": kw}).model
-
-
-def _jax_core(jcfg, inputs):
-    from owl_audio_exps_tpu.models.gamerft_audio import GameRFTAudioCore
-    core = GameRFTAudioCore(jcfg, dtype=jnp.float32)
-    params = jax.jit(core.init)(jax.random.key(0),
-                                *(jnp.asarray(a) for a in inputs))
-    return core, params
-
-
-def _port_core(pcfg, params, cls=GameRFTAudioCore):
-    return load_jax_params(cls(pcfg, dtype=torch.float32, device="cpu",
-                               seed=None), params, pcfg.n_heads)
 
 
 def _close(got, want, what=""):
@@ -99,11 +89,9 @@ def test_mmdit_core_matches_jax(causal, attn_impl):
     pcfg.attn_impl = attn_impl
     inputs = av_inputs(np.random.RandomState(0), 2, 4, jcfg)
     has = np.array([True, False])
-    jcore, params = _jax_core(jcfg, inputs)
-    (vj, aj), _ = jax.jit(jcore.apply)(
-        params, *(jnp.asarray(a) for a in inputs),
-        has_controls=jnp.asarray(has))
-    port = _port_core(pcfg, params)
+    jcore, params = jax_core(JaxAVCore, jcfg, *inputs)
+    (vj, aj), _ = jax_apply(jcore, params, *inputs, has_controls=has)
+    port = carried(GameRFTAudioCore, pcfg, params)
     assert isinstance(port.transformer, MMDiT)
     calls = []
     orig = splash.splash_attention
@@ -130,7 +118,7 @@ def test_mmdit_params_from_jax_round_trips():
     export to the torch reference layout."""
     jcfg, pcfg = _cfgs()
     inputs = av_inputs(np.random.RandomState(1), 1, 2, jcfg)
-    _, params = _jax_core(jcfg, inputs)
+    _, params = jax_core(JaxAVCore, jcfg, *inputs)
     sd = params_from_jax(numpy_params(params), jcfg.n_heads)
     port = GameRFTAudioCore(pcfg, dtype=torch.float32, device="cpu")
     assert set(sd) == set(port.state_dict())
@@ -163,18 +151,16 @@ def test_mmdit_kv_cache_matches_jax_and_the_uncached_forward(decoding):
     jcfg, pcfg = _cfgs()
     inputs = av_inputs(np.random.RandomState(2), 1, 6, jcfg)
     n = 6
-    jcore, params = _jax_core(jcfg, inputs)
-    port = _port_core(pcfg, params)
+    jcore, params = jax_core(JaxAVCore, jcfg, *inputs)
+    port = carried(GameRFTAudioCore, pcfg, params)
     args = [t(a) for a in inputs]
     with torch.no_grad():
         fv, fa = port(*args)
     jc = JaxKVCache.from_config(jcfg, 1, dtype=jnp.float32)
-    head = [jnp.asarray(a[:, :n - 1]) for a in inputs]
-    tail = [jnp.asarray(a[:, n - 1:]) for a in inputs]
-    _, jc = jax.jit(lambda p, c, *a: jcore.apply(
-        p, *a, kv_cache=c, write=True))(params, jc, *head)
-    (jv, ja), _ = jax.jit(lambda p, c, *a: jcore.apply(
-        p, *a, kv_cache=c, decoding=decoding))(params, jc, *tail)
+    _, jc = jax_apply(jcore, params, *(a[:, :n - 1] for a in inputs),
+                      kv_cache=jc, write=True)
+    (jv, ja), _ = jax_apply(jcore, params, *(a[:, n - 1:] for a in inputs),
+                            kv_cache=jc, decoding=decoding)
     pc = KVCache.from_config(pcfg, 1, dtype=torch.float32, device="cpu")
     with torch.no_grad():
         port(*(a[:, :n - 1] for a in args), kv_cache=pc, write=True)
@@ -196,18 +182,15 @@ def test_mmdit_fused_write_commits_every_frame_as_in_jax():
     for backbone, committed in (("mmdit", 2), ("dit", 1)):
         jcfg, pcfg = _cfgs(backbone=backbone)
         inputs = av_inputs(np.random.RandomState(3), 1, 5, jcfg)
-        jcore, params = _jax_core(jcfg, inputs)
-        port = _port_core(pcfg, params)
+        jcore, params = jax_core(JaxAVCore, jcfg, *inputs)
+        port = carried(GameRFTAudioCore, pcfg, params)
         jc = JaxKVCache.from_config(jcfg, 1, dtype=jnp.float32)
         pc = KVCache.from_config(pcfg, 1, dtype=torch.float32, device="cpu")
         head = [a[:, :3] for a in inputs]
         two = [a[:, 3:5] for a in inputs]
-        _, jc = jax.jit(lambda p, c, *a: jcore.apply(
-            p, *a, kv_cache=c, write=True))(
-            params, jc, *(jnp.asarray(a) for a in head))
-        (jv, ja), jc = jax.jit(lambda p, c, *a: jcore.apply(
-            p, *a, kv_cache=c, write=True, write_len=1))(
-            params, jc, *(jnp.asarray(a) for a in two))
+        _, jc = jax_apply(jcore, params, *head, kv_cache=jc, write=True)
+        (jv, ja), jc = jax_apply(jcore, params, *two, kv_cache=jc,
+                                 write=True, write_len=1)
         with torch.no_grad():
             port(*(t(a) for a in head), kv_cache=pc, write=True)
             pv, pa = port(*(t(a) for a in two), kv_cache=pc, write=True,
@@ -230,9 +213,8 @@ def test_mmdit_return_dict_loss_and_gradients_match_jax(cfg_prob):
     rs = np.random.RandomState(4)
     x, a, _, m, b = av_inputs(rs, 4, 4, jcfg)
     batch = [jnp.asarray(v) for v in (x, a, m, b)]
-    model = JaxGameRFTAudio(jcfg, dtype=jnp.float32)
-    params = jax.jit(model.init)({"params": jax.random.key(0),
-                                  "noise": jax.random.key(1)}, *batch)
+    model, params = jax_core(JaxGameRFTAudio, jcfg, *batch,
+                             rngs=MODEL_RNGS)
 
     def loss_and_draw(p):
         out = model.apply(p, *batch, return_dict=True, cfg_prob=cfg_prob,
@@ -241,9 +223,7 @@ def test_mmdit_return_dict_loss_and_gradients_match_jax(cfg_prob):
 
     (_, out), grads = jax.jit(jax.value_and_grad(
         loss_and_draw, has_aux=True))(params)
-    port = load_jax_params(GameRFTAudio(pcfg, dtype=torch.float32,
-                                        device="cpu", seed=None),
-                           params, jcfg.n_heads)
+    port = carried(GameRFTAudio, pcfg, params)
     got = port(*(t(v) for v in (x, a, m, b)), ts=t(out["ts"]),
                z_video=t(out["z_video"]), z_audio=t(out["z_audio"]),
                has_controls=t(out["cfg_mask"]), return_dict=True,
@@ -304,13 +284,9 @@ def test_meanflow_core_backbones_match_jax(backbone):
     jcfg, pcfg = _cfgs(**over)
     x, a, ts, m, b = av_inputs(np.random.RandomState(6), 2, 4, jcfg)
     r = ts * 0.5
-    core = JaxMFTCore(jcfg, dtype=jnp.float32)
-    args = [jnp.asarray(v) for v in (x, a, ts, m, b)]
-    params = jax.jit(core.init)(jax.random.key(0), *args)
-    (vj, aj), _ = jax.jit(lambda p, *q: core.apply(p, *q,
-                                                    r=jnp.asarray(r)))(
-        params, *args)
-    port = _port_core(pcfg, params, GameMFTAudioCore)
+    core, params = jax_core(JaxMFTCore, jcfg, x, a, ts, m, b)
+    (vj, aj), _ = jax_apply(core, params, x, a, ts, m, b, r=r)
+    port = carried(GameMFTAudioCore, pcfg, params)
     with torch.no_grad():
         vp, ap = port(*(t(v) for v in (x, a, ts, m, b)), r=t(r))
     _close(vp, vj, "video")
@@ -462,15 +438,12 @@ def test_mmdit_v2_trainer_step_matches_jax(tmp_path):
     new_state, metrics_j = step(state, _stack_accum([batch]), rng)
     vid = (jnp.asarray(batch[0]) / 0.63).astype(jnp.bfloat16)
     audio = (jnp.asarray(batch[1]) / 0.0357).astype(jnp.bfloat16)
-    out = jtr.model.apply({"params": params0}, vid, audio,
-                          jnp.asarray(batch[2]), jnp.asarray(batch[3]),
-                          return_dict=True,
-                          rngs={"noise": jax.random.split(rng, 1)[0]})
+    out = jax_apply(jtr.model, {"params": params0}, vid, audio,
+                    batch[2], batch[3], return_dict=True,
+                    rngs={"noise": jax.random.split(rng, 1)[0]})
 
     ptr = get_trainer_cls("av")(Config.from_dict(raw), device="cpu")
-    model = load_jax_params(GameRFTAudio(ptr.model_cfg, dtype=torch.float32,
-                                         device="cpu", seed=None),
-                            {"params": params0}, jtr.model_cfg.n_heads)
+    model = carried(GameRFTAudio, ptr.model_cfg, {"params": params0})
     pstate = ptr.make_state(model.train())
     labels = pstate.optimizer.labels
     assert {n for n, lab in labels.items() if lab == "adamw"} == {
@@ -536,18 +509,14 @@ def test_watch_matches_jax_watch_metrics(bins):
     histograms' counts exact, lo and hi exact."""
     jcfg, pcfg = _cfgs()
     x, a, _, m, b = av_inputs(np.random.RandomState(9), 1, 2, jcfg)
-    model = JaxGameRFTAudio(jcfg, dtype=jnp.float32)
-    params = jax.jit(model.init)({"params": jax.random.key(0),
-                                  "noise": jax.random.key(1)},
-                                 *(jnp.asarray(v) for v in (x, a, m, b)))
+    _, params = jax_core(JaxGameRFTAudio, jcfg, x, a, m, b,
+                         rngs=MODEL_RNGS)
     rs = np.random.RandomState(10)
     grads = jax.tree.map(
         lambda p: jnp.asarray(rs.randn(*p.shape).astype(np.float32)),
         params)
     want = jax_watch(params["params"], grads["params"], "full", bins=bins)
-    port = load_jax_params(GameRFTAudio(pcfg, dtype=torch.float32,
-                                        device="cpu", seed=None),
-                           params, jcfg.n_heads)
+    port = carried(GameRFTAudio, pcfg, params)
     g = params_from_jax(numpy_params(grads), jcfg.n_heads)
     for name, p in port.named_parameters():
         p.grad = g[name]
@@ -619,9 +588,8 @@ def test_mmdit_v2_batch_columns_fail_in_both_packages(tmp_path):
     jtr.model = JaxGameRFTAudio(jtr.model_cfg, dtype=jnp.float32)
     params = jtr.init_state().params
     ptr = get_trainer_cls("av")(Config.from_dict(raw), device="cpu")
-    model = load_jax_params(GameRFTAudio(ptr.model_cfg, dtype=torch.float32,
-                                         device="cpu", seed=None),
-                            {"params": params}, jtr.model_cfg.n_heads)
+    model = carried(GameRFTAudio, ptr.model_cfg, {"params": params})
+    loss_fn = jax.jit(jtr.loss_fn)
     written = ["video", "mouse", "buttons", "audio"]
     for cols, fails in ((written, True),
                         (["video", "audio", "mouse", "buttons"], False)):
@@ -629,13 +597,13 @@ def test_mmdit_v2_batch_columns_fail_in_both_packages(tmp_path):
         port_batch = ptr.to_device(batch)
         if fails:
             with pytest.raises(Exception):
-                jtr.loss_fn(params, [jnp.asarray(a) for a in batch],
-                            jax.random.key(0))
+                loss_fn(params, [jnp.asarray(a) for a in batch],
+                        jax.random.key(0))
             with pytest.raises(RuntimeError):
                 ptr.loss_fn(model, port_batch, torch.Generator())
             continue
-        loss_j, out = jtr.loss_fn(params, [jnp.asarray(a) for a in batch],
-                                  jax.random.key(0))
+        loss_j, out = loss_fn(params, [jnp.asarray(a) for a in batch],
+                              jax.random.key(0))
         assert np.isfinite(float(loss_j))
         loss_p, _ = ptr.loss_fn(model, port_batch,
                                 torch.Generator().manual_seed(0))

@@ -9,7 +9,6 @@ same function. Tolerance: atol 1e-4 on outputs of magnitude ~1 after two
 blocks (float32 reassociation).
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,23 +25,10 @@ from owl_audio_exps_tpu_torch.nn.attn import (DiT, attention_route,
 from owl_audio_exps_tpu_torch.ops import splash
 from owl_audio_exps_tpu_torch.utils.weights import params_from_jax
 
-from torch_port_util import (av_inputs, configs, load_jax_params,
-                             numpy_params, t)
+from torch_port_util import (av_inputs, carried, configs, jax_apply, jax_core,
+                             jax_init, load_jax_params, numpy_params, t)
 
 ATOL = 1e-4
-
-
-def _jax_core(jcfg, inputs):
-    core = JaxCore(jcfg, dtype=jnp.float32)
-    params = jax.jit(core.init)(jax.random.key(0),
-                                *(jnp.asarray(a) for a in inputs))
-    return core, params
-
-
-def _port_core(pcfg, params):
-    core = GameRFTAudioCore(pcfg, dtype=torch.float32, device="cpu",
-                            seed=None)
-    return load_jax_params(core, params, pcfg.n_heads)
 
 
 @pytest.mark.parametrize("attn_impl", ["auto", "splash"])
@@ -53,11 +39,10 @@ def test_core_matches_jax(causal, attn_impl):
     rs = np.random.RandomState(0)
     inputs = av_inputs(rs, 2, 4, jcfg)
     has_controls = np.array([True, False])
-    jcore, params = _jax_core(jcfg, inputs)
-    (vj, aj), _ = jax.jit(jcore.apply)(
-        params, *(jnp.asarray(a) for a in inputs),
-        has_controls=jnp.asarray(has_controls))
-    port = _port_core(pcfg, params)
+    jcore, params = jax_core(JaxCore, jcfg, *inputs)
+    (vj, aj), _ = jax_apply(jcore, params, *inputs,
+                            has_controls=has_controls)
+    port = carried(GameRFTAudioCore, pcfg, params)
     before = splash.launches
     with torch.no_grad():
         vp, ap = port(*(t(a) for a in inputs),
@@ -71,11 +56,11 @@ def test_core_matches_jax(causal, attn_impl):
 def test_uncond_core_matches_jax():
     jcfg, pcfg = configs(uncond=True, causal=False, local_window=3)
     inputs = av_inputs(np.random.RandomState(1), 1, 5, jcfg)
-    jcore, params = _jax_core(jcfg, inputs)
-    (vj, aj), _ = jax.jit(jcore.apply)(params,
-                                       *(jnp.asarray(a) for a in inputs))
+    jcore, params = jax_core(JaxCore, jcfg, *inputs)
+    (vj, aj), _ = jax_apply(jcore, params, *inputs)
     with torch.no_grad():
-        vp, ap = _port_core(pcfg, params)(*(t(a) for a in inputs))
+        vp, ap = carried(GameRFTAudioCore, pcfg, params)(
+            *(t(a) for a in inputs))
     np.testing.assert_allclose(vp.numpy(), np.asarray(vj), atol=ATOL, rtol=0)
     np.testing.assert_allclose(ap.numpy(), np.asarray(aj), atol=ATOL, rtol=0)
 
@@ -84,7 +69,7 @@ def test_uncond_core_matches_jax():
 def test_params_from_jax_covers_every_key(uncond):
     jcfg, pcfg = configs(uncond=uncond)
     inputs = av_inputs(np.random.RandomState(2), 1, 2, jcfg)
-    _, params = _jax_core(jcfg, inputs)
+    _, params = jax_core(JaxCore, jcfg, *inputs)
     sd = params_from_jax(numpy_params(params), jcfg.n_heads)
     port = GameRFTAudioCore(pcfg, dtype=torch.float32, device="cpu")
     want = port.state_dict()
@@ -108,10 +93,8 @@ def test_dit_with_documents_matches_jax(attn_impl):
     x = rs.randn(2, n * tpf, d).astype(np.float32)
     cond = rs.randn(2, n, d).astype(np.float32)
     doc = np.array([[0, 0, 0, 1, 1, 1], [0, 1, 1, 1, 1, 2]], np.int32)
-    jdit = JaxDiT(jcfg, dtype=jnp.float32)
-    args = (jnp.asarray(x), jnp.asarray(cond), jnp.asarray(doc))
-    params = jax.jit(jdit.init)(jax.random.key(0), *args)
-    ref, _ = jax.jit(jdit.apply)(params, *args)
+    jdit, params = jax_init(JaxDiT(jcfg, dtype=jnp.float32), x, cond, doc)
+    ref, _ = jax_apply(jdit, params, x, cond, doc)
     dit = load_jax_params(DiT(pcfg, dtype=torch.float32), params,
                           jcfg.n_heads)
     with torch.no_grad():

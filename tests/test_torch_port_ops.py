@@ -10,7 +10,6 @@ in both and compared exactly.
 import glob
 import os
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,7 +30,7 @@ from owl_audio_exps_tpu_torch.ops import masks as pmasks
 from owl_audio_exps_tpu_torch.ops import norms as pnorms
 from owl_audio_exps_tpu_torch.ops import rope as prope
 
-from torch_port_util import configs, load_jax_params, t
+from torch_port_util import configs, jax_apply, jax_init, load_jax_params, t
 
 ATOL = 1e-5
 F32 = jnp.float32
@@ -134,15 +133,10 @@ def test_apply_rope(impl):
 
 
 # ------------------------------------------------------------------ layers
-def _flax(module, *args):
-    params = module.init(jax.random.key(0), *args)
-    return params, module.apply(params, *args)
-
-
 def _check_module(jmod, pmod, *np_args, n_heads=1):
-    params, ref = _flax(jmod, *(jnp.asarray(a) for a in np_args))
+    jmod, params = jax_init(jmod, *np_args)
     load_jax_params(pmod, params, n_heads)
-    close(pmod(*(t(a) for a in np_args)), ref)
+    close(pmod(*(t(a) for a in np_args)), jax_apply(jmod, params, *np_args))
 
 
 def test_linear_and_mlps():

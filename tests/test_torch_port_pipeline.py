@@ -38,7 +38,7 @@ from owl_audio_exps_tpu_torch.parallel import pipeline, sharding
 from owl_audio_exps_tpu_torch.utils.weights import params_from_jax
 
 import torch_sp_workers as workers
-from torch_port_util import assert_watch, jax_watch_of, numpy_params
+from torch_port_util import assert_watch, jax_core, jax_watch_of, numpy_params
 
 # tests/test_pipeline_parallel.py's _cfg
 CFG = dict(model_id="audio_rft", n_layers=8, n_heads=2, d_model=32,
@@ -62,20 +62,20 @@ def _port_tree(tree):
 def ref():
     """JAX's scan on the tiny core: params, inputs, output and the
     gradients of mean(out ** 2), the last two in the port's names."""
-    core = JaxCore(jax_config(**CFG), dtype=jnp.float32)
     rs = np.random.RandomState(0)
     x = rs.randn(4, 12, 8).astype(np.float32)
     t = rs.rand(4, 12).astype(np.float32)
-    params = core.init(jax.random.key(0), jnp.asarray(x),
-                       jnp.asarray(t))["params"]
+    core, params = jax_core(JaxCore, jax_config(**CFG), x, t)
+    params = params["params"]
 
     def out(p):
         return core.apply({"params": p}, jnp.asarray(x), jnp.asarray(t))[0]
 
-    grads = jax.grad(lambda p: jnp.mean(out(p).astype(jnp.float32) ** 2))(
-        params)
+    grads = jax.jit(jax.grad(
+        lambda p: jnp.mean(out(p).astype(jnp.float32) ** 2)))(params)
     return dict(params=params, sd=_port_tree(params), x=x, t=t,
-                out=np.asarray(out(params)), grads=_port_tree(grads))
+                out=np.asarray(jax.jit(out)(params)),
+                grads=_port_tree(grads))
 
 
 # (name, mesh, micro-batches, with gradients)
@@ -296,8 +296,9 @@ def test_cached_forward_at_a_pipe_mesh_is_refused_in_both_packages(world2):
                                         cfg_scale=1.0)
     try:
         jax_make_mesh(JaxMeshConfig(pipe=2), devices=jax.devices()[:2])
-        params = core.init(jax.random.key(0), x, jnp.zeros(x.shape[:2]),
-                           mouse[:, :4], btn[:, :4])
+        params = jax.jit(core.init)(jax.random.key(0), x,
+                                    jnp.zeros(x.shape[:2]), mouse[:, :4],
+                                    btn[:, :4])
         assert set(params["params"]["transformer"]) == {"groups"}
         with pytest.raises(ScopeParamNotFoundError, match="blocks_0"):
             sampler(core, params, x, mouse, btn, jax.random.key(1))

@@ -10,6 +10,8 @@ permutation) draw from a ``torch.Generator`` and are checked for shape,
 finiteness and determinism, as tests/test_inference.py does for JAX.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,37 +32,37 @@ from owl_audio_exps_tpu_torch.sampling.av_window import AVWindowSampler
 from owl_audio_exps_tpu_torch.sampling.common import zlerp
 from owl_audio_exps_tpu_torch.utils.controls import batch_permute_to_length
 
-from torch_port_util import av_inputs, configs, load_jax_params, t
+from torch_port_util import av_inputs, carried, configs, jax_core, t
 
 ATOL = 1e-4
+W = 4
+FRAME_KW = dict(n_steps=3, cfg_scale=1.3, window_length=W, num_frames=1)
 
 
-def _cores(jcfg, pcfg, inputs):
-    jcore = JaxCore(jcfg, dtype=jnp.float32)
-    params = jax.jit(jcore.init)(jax.random.key(0),
-                                 *(jnp.asarray(a) for a in inputs))
-    port = GameRFTAudioCore(pcfg, dtype=torch.float32, device="cpu",
-                            seed=None)
-    return jcore, params, load_jax_params(port, params, pcfg.n_heads)
+@functools.cache
+def _frame_ref():
+    """(window, JAX params, the JAX window sampler's denoised frame) of
+    test_denoise_frame_matches_jax, whose attn_impl steers the port
+    only."""
+    jcfg, _ = configs(causal=False, local_window=3)
+    x, a, _, m, b = av_inputs(np.random.RandomState(0), 2, W, jcfg)
+    wt = np.full((2, W), 0.2, np.float32)
+    wt[:, -1] = 1.0
+    jcore, params = jax_core(JaxCore, jcfg, x, a, wt, m, b)
+    dt = jsched.resolve_schedule(3, None)
+    ref = jax.jit(lambda p, *arr: JaxWindowSampler(**FRAME_KW)._denoise_frame(
+        jcore, p, *arr, dt, jax.random.key(1)))(params, x, a, wt, m, b)
+    return (x, a, wt, m, b), params, ref
 
 
 @pytest.mark.parametrize("attn_impl", ["auto", "splash"])
 def test_denoise_frame_matches_jax(attn_impl):
-    jcfg, pcfg = configs(causal=False, local_window=3)
+    _, pcfg = configs(causal=False, local_window=3)
     pcfg.attn_impl = attn_impl
-    W = 4
-    x, a, _, m, b = av_inputs(np.random.RandomState(0), 2, W, jcfg)
-    wt = np.full((2, W), 0.2, np.float32)
-    wt[:, -1] = 1.0
-    jcore, params, port = _cores(jcfg, pcfg, (x, a, wt, m, b))
-    dt = jsched.resolve_schedule(3, None)
-    kw = dict(n_steps=3, cfg_scale=1.3, window_length=W, num_frames=1)
-    ref_x, ref_a = jax.jit(
-        lambda p, *arr: JaxWindowSampler(**kw)._denoise_frame(
-            jcore, p, *arr, dt, jax.random.key(1)))(
-        params, *(jnp.asarray(v) for v in (x, a, wt, m, b)))
-    got_x, got_a = AVWindowSampler(**kw)._denoise_frame(
-        port, t(x), t(a), t(wt), t(m), t(b), dt)
+    window, params, (ref_x, ref_a) = _frame_ref()
+    port = carried(GameRFTAudioCore, pcfg, params)
+    got_x, got_a = AVWindowSampler(**FRAME_KW)._denoise_frame(
+        port, *(t(v) for v in window), jsched.resolve_schedule(3, None))
     np.testing.assert_allclose(got_x.numpy(), np.asarray(ref_x), atol=ATOL,
                                rtol=0)
     np.testing.assert_allclose(got_a.numpy(), np.asarray(ref_a), atol=ATOL,
@@ -73,7 +75,8 @@ def test_denoise_window_matches_jax_euler_loop():
     x, a, _, m, b = av_inputs(np.random.RandomState(1), 1, W, jcfg)
     ts = np.full((1, W), 0.2, np.float32)
     ts[:, -1] = 1.0
-    jcore, params, port = _cores(jcfg, pcfg, (x, a, ts, m, b))
+    jcore, params = jax_core(JaxCore, jcfg, x, a, ts, m, b)
+    port = carried(GameRFTAudioCore, pcfg, params)
 
     # inference/pipeline.py CausvidPipeline._make_tick, the scanned step
     dt = 1.0 / n_steps

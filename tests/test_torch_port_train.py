@@ -42,7 +42,8 @@ from owl_audio_exps_tpu_torch.trainers import get_trainer_cls
 from owl_audio_exps_tpu_torch.trainers.base import clip_grad_norm
 from owl_audio_exps_tpu_torch.utils.weights import params_from_jax
 
-from torch_port_util import load_jax_params, numpy_params
+from torch_port_util import (MODEL_RNGS, carried, jax_apply, jax_core,
+                             numpy_params, t)
 
 TINY_VIDEO = dict(
     model_id="game_rft", n_layers=2, n_heads=2, d_model=32, channels=4,
@@ -63,23 +64,6 @@ def _video_inputs(rs, b, n, cfg):
             (rs.rand(b, n, cfg.n_buttons) > 0.5).astype(np.float32))
 
 
-def _t(a):
-    return torch.from_numpy(np.array(a))
-
-
-def _jax_model(jcfg, inputs):
-    model = JaxGameRFT(jcfg, dtype=jnp.float32)
-    params = jax.jit(model.init)({"params": jax.random.key(0),
-                                  "noise": jax.random.key(1)},
-                                 *(jnp.asarray(a) for a in inputs))
-    return model, params
-
-
-def _port_model(pcfg, params):
-    model = GameRFT(pcfg, dtype=torch.float32, device="cpu", seed=None)
-    return load_jax_params(model, params, pcfg.n_heads)
-
-
 # ------------------------------------------------------------------ model
 
 def test_core_forward_matches_jax():
@@ -88,17 +72,12 @@ def test_core_forward_matches_jax():
     x, mouse, btn = _video_inputs(rs, 2, 4, jcfg)
     ts = rs.rand(2, 4).astype(np.float32)
     has = np.array([True, False])
-    core = JaxCore(jcfg, dtype=jnp.float32)
-    args = [jnp.asarray(a) for a in (x, ts, mouse, btn)]
-    params = jax.jit(core.init)(jax.random.key(0), *args)
-    want, _ = jax.jit(core.apply)(params, *args,
-                                  has_controls=jnp.asarray(has))
-    port = load_jax_params(GameRFTCore(pcfg, dtype=torch.float32,
-                                       device="cpu", seed=None),
-                           params, jcfg.n_heads)
+    core, params = jax_core(JaxCore, jcfg, x, ts, mouse, btn)
+    want, _ = jax_apply(core, params, x, ts, mouse, btn, has_controls=has)
+    port = carried(GameRFTCore, pcfg, params)
     with torch.no_grad():
-        got = port(*(_t(a) for a in (x, ts, mouse, btn)),
-                   has_controls=_t(has))
+        got = port(*(t(a) for a in (x, ts, mouse, btn)),
+                   has_controls=t(has))
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                rtol=0)
@@ -107,7 +86,7 @@ def test_core_forward_matches_jax():
 def test_params_from_jax_covers_every_key_of_the_wrapper():
     jcfg, pcfg = _configs()
     inputs = _video_inputs(np.random.RandomState(1), 1, 2, jcfg)
-    _, params = _jax_model(jcfg, inputs)
+    _, params = jax_core(JaxGameRFT, jcfg, *inputs, rngs=MODEL_RNGS)
     sd = params_from_jax(numpy_params(params), jcfg.n_heads)
     want = GameRFT(pcfg, dtype=torch.float32, device="cpu").state_dict()
     assert set(sd) == set(want) and all(k.startswith("core.") for k in sd)
@@ -119,7 +98,7 @@ def test_loss_and_gradients_match_jax():
     jcfg, pcfg = _configs()
     rs = np.random.RandomState(2)
     inputs = _video_inputs(rs, 4, 4, jcfg)
-    model, params = _jax_model(jcfg, inputs)
+    model, params = jax_core(JaxGameRFT, jcfg, *inputs, rngs=MODEL_RNGS)
     jin = [jnp.asarray(a) for a in inputs]
     rngs = {"noise": jax.random.key(5)}
 
@@ -131,9 +110,9 @@ def test_loss_and_gradients_match_jax():
         loss_and_draw, has_aux=True))(params)
     assert not bool(np.all(np.asarray(draw["cfg_mask"])))  # cfg dropped
 
-    port = _port_model(pcfg, params)
-    loss_p = port(*(_t(a) for a in inputs), ts=_t(draw["ts"]),
-                  z=_t(draw["z_video"]), has_controls=_t(draw["cfg_mask"]))
+    port = carried(GameRFT, pcfg, params)
+    loss_p = port(*(t(a) for a in inputs), ts=t(draw["ts"]),
+                  z=t(draw["z_video"]), has_controls=t(draw["cfg_mask"]))
     loss_p.backward()
     np.testing.assert_allclose(loss_p.item(), float(loss_j), rtol=1e-5)
     want = params_from_jax(numpy_params(grads_j), jcfg.n_heads)
@@ -147,7 +126,7 @@ def test_handle_cfg_keeps_the_exact_uncond_fraction():
     has = rs.rand(64) > 0.05
     u = rs.rand(64).astype(np.float32)
     for cp in (0.1, 0.3, 0.0):
-        got = handle_cfg(None, _t(has), cp, u=_t(u)).numpy()
+        got = handle_cfg(None, t(has), cp, u=t(u)).numpy()
         # the JAX rule on the same uniform draws
         hc = has.astype(np.float32)
         pct_without = 1.0 - hc.mean()
@@ -175,7 +154,7 @@ def test_registry_and_draws_from_the_generator():
         get_model_cls("no_such_model")
     _, pcfg = _configs()
     m = GameRFT(pcfg, dtype=torch.float32, device="cpu")
-    x, mouse, btn = (_t(a) for a in _video_inputs(
+    x, mouse, btn = (t(a) for a in _video_inputs(
         np.random.RandomState(4), 2, 4, pcfg))
     a = m(x, mouse, btn, generator=torch.Generator().manual_seed(7))
     b = m(x, mouse, btn, generator=torch.Generator().manual_seed(7))
@@ -212,7 +191,7 @@ def _ns5_float64(G):
 def test_ns5_matches_jax(shape):
     G = np.random.RandomState(5).randn(*shape).astype(np.float32)
     want = np.asarray(jax_ns5(jnp.asarray(G)).astype(jnp.float32))
-    got = muon.zeropower_via_newtonschulz5(_t(G)).float().numpy()
+    got = muon.zeropower_via_newtonschulz5(t(G)).float().numpy()
     assert got.shape == shape
     # five bf16 iterations: each side lies a few percent (relative
     # Frobenius) from the same iteration in float64, the JAX package's
@@ -231,7 +210,7 @@ def test_ns5_matches_jax(shape):
 def test_muon_adamw_step_matches_jax(momentum_dtype):
     jcfg, pcfg = _configs()
     inputs = _video_inputs(np.random.RandomState(6), 1, 2, jcfg)
-    _, params = _jax_model(jcfg, inputs)
+    _, params = jax_core(JaxGameRFT, jcfg, *inputs, rngs=MODEL_RNGS)
     params = jax.tree.map(lambda a: a, params["params"])
     rs = np.random.RandomState(7)
     grads = jax.tree.map(
@@ -250,7 +229,7 @@ def test_muon_adamw_step_matches_jax(momentum_dtype):
         upd, state = update(grads, state, new)
         new = optax.apply_updates(new, upd)
 
-    model = _port_model(pcfg, {"params": params})
+    model = carried(GameRFT, pcfg, {"params": params})
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     g_port = params_from_jax(numpy_params(grads), jcfg.n_heads)
     opt = muon.init_muon(model.named_parameters(), **kw)
@@ -304,12 +283,12 @@ def test_adamw_step_with_clipping_matches_optax():
         upd, st = tx.update([jnp.asarray(g) * scale for g in gs], st, jp)
         jp = optax.apply_updates(jp, upd)
 
-    tp = [torch.nn.Parameter(_t(p)) for p in ps]
+    tp = [torch.nn.Parameter(t(p)) for p in ps]
     opt = muon.AdamW(tp, 1e-2, betas=(0.9, 0.99), eps=1e-8,
                      weight_decay=0.01)
     for _ in range(2):
         for p, g in zip(tp, gs):
-            p.grad = _t(g)
+            p.grad = t(g)
         norm = clip_grad_norm(tp, 10.0)
         opt.step()
     np.testing.assert_allclose(norm.item(), float(gnorm), rtol=1e-6)
@@ -360,7 +339,7 @@ def _loss_and_grads(model, x, mouse, btn):
 def test_remat_changes_neither_loss_nor_gradients():
     rs = np.random.RandomState(9)
     _, m0 = _remat_model("off")
-    x, mouse, btn = (_t(a) for a in _video_inputs(rs, 1, 4, m0.config))
+    x, mouse, btn = (t(a) for a in _video_inputs(rs, 1, 4, m0.config))
     ref_loss, ref = _loss_and_grads(m0, x, mouse, btn)
     for mode in ("block", "group"):
         _, m = _remat_model(mode)
@@ -386,7 +365,7 @@ def test_attention_forwards_per_step_count_the_remat(mode):
     band.band_attention = counted("band", orig[0])
     splash.splash_attention = counted("splash", orig[1])
     try:
-        x, mouse, btn = (_t(a) for a in _video_inputs(
+        x, mouse, btn = (t(a) for a in _video_inputs(
             np.random.RandomState(10), 1, 4, cfg))
         _loss_and_grads(model, x, mouse, btn)
     finally:
@@ -427,7 +406,7 @@ def test_memory_knobs_keep_the_loss_and_gradients(knob, monkeypatch):
     pcfg.attn_impl = "splash"
     rs = np.random.RandomState(12)
     inputs = _video_inputs(rs, 2, 4, jcfg)
-    model, params = _jax_model(jcfg, inputs)
+    model, params = jax_core(JaxGameRFT, jcfg, *inputs, rngs=MODEL_RNGS)
     jin = [jnp.asarray(a) for a in inputs]
 
     def loss_and_draw(p):
@@ -437,8 +416,8 @@ def test_memory_knobs_keep_the_loss_and_gradients(knob, monkeypatch):
 
     (loss_j, draw), grads_j = jax.jit(jax.value_and_grad(
         loss_and_draw, has_aux=True))(params)
-    draws = dict(ts=_t(draw["ts"]), z=_t(draw["z_video"]),
-                 has_controls=_t(draw["cfg_mask"]))
+    draws = dict(ts=t(draw["ts"]), z=t(draw["z_video"]),
+                 has_controls=t(draw["cfg_mask"]))
 
     calls = {"heads": [], "mlp": 0}
     orig = splash.splash_attention, band.band_attention, \
@@ -457,9 +436,9 @@ def test_memory_knobs_keep_the_loss_and_gradients(knob, monkeypatch):
     monkeypatch.setattr(splash, "splash_attention", kernel(orig[0]))
     monkeypatch.setattr(band, "band_attention", kernel(orig[1]))
     monkeypatch.setattr(layers.MLPCustom, "forward", mlp)
-    port = _port_model(pcfg, params)
+    port = carried(GameRFT, pcfg, params)
     block_mlps = {id(b.mlp) for b in port.core.transformer.blocks}
-    loss_p = port(*(_t(a) for a in inputs), **draws)
+    loss_p = port(*(t(a) for a in inputs), **draws)
     loss_p.backward()
     np.testing.assert_allclose(loss_p.item(), float(loss_j), rtol=1e-5)
     want = params_from_jax(numpy_params(grads_j), jcfg.n_heads)
@@ -478,8 +457,8 @@ def test_memory_knobs_keep_the_loss_and_gradients(knob, monkeypatch):
 
     plain_cfg = port_config(**dict(TINY_VIDEO, n_layers=4, n_heads=4,
                                    d_model=64, attn_impl="splash"))
-    plain = _port_model(plain_cfg, params)
-    loss_0 = plain(*(_t(a) for a in inputs), **draws)
+    plain = carried(GameRFT, plain_cfg, params)
+    loss_0 = plain(*(t(a) for a in inputs), **draws)
     loss_0.backward()
     assert loss_p.item() == pytest.approx(loss_0.item(), rel=1e-6, abs=0)
     grads_0 = dict(plain.named_parameters())
@@ -507,14 +486,13 @@ def test_return_dict_and_cfg_prob_match_jax():
     jcfg, pcfg = _configs()
     rs = np.random.RandomState(13)
     inputs = _video_inputs(rs, 4, 4, jcfg)
-    model, params = _jax_model(jcfg, inputs)
-    out = jax.jit(lambda p: model.apply(
-        p, *(jnp.asarray(a) for a in inputs), return_dict=True,
-        cfg_prob=0.5, rngs={"noise": jax.random.key(8)}))(params)
-    port = _port_model(pcfg, params)
+    model, params = jax_core(JaxGameRFT, jcfg, *inputs, rngs=MODEL_RNGS)
+    out = jax_apply(model, params, *inputs, return_dict=True, cfg_prob=0.5,
+                    rngs={"noise": jax.random.key(8)})
+    port = carried(GameRFT, pcfg, params)
     with torch.no_grad():
-        got = port(*(_t(a) for a in inputs), ts=_t(out["ts"]),
-                   z=_t(out["z_video"]), has_controls=_t(out["cfg_mask"]),
+        got = port(*(t(a) for a in inputs), ts=t(out["ts"]),
+                   z=t(out["z_video"]), has_controls=t(out["cfg_mask"]),
                    return_dict=True)
     assert set(got) == set(out)
     for key, value in out.items():
@@ -522,7 +500,7 @@ def test_return_dict_and_cfg_prob_match_jax():
                                    np.asarray(value, np.float32), rtol=1e-5,
                                    atol=1e-5, err_msg=key)
     # cfg_prob 1.0 drops every row's controls, 0.0 none
-    x, mouse, btn = (_t(a) for a in inputs)
+    x, mouse, btn = (t(a) for a in inputs)
     for cp, kept in ((1.0, 0), (0.0, 4)):
         d = port(x, mouse, btn, generator=torch.Generator().manual_seed(1),
                  return_dict=True, cfg_prob=cp)

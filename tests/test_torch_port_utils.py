@@ -43,7 +43,7 @@ from owl_audio_exps_tpu_torch.utils import media, mfu, profiling
 from owl_audio_exps_tpu_torch.utils.checkpoints import latest_step_dir
 from owl_audio_exps_tpu_torch.utils.weights import params_from_jax
 
-from torch_port_util import numpy_params
+from torch_port_util import jax_apply, jax_init, numpy_params
 
 
 # ------------------------------------------------------------ profiling
@@ -138,18 +138,13 @@ def test_step_profiler_traces_jax_window_and_keeps_the_state(tmp_path):
 
 # ----------------------------------------------------------- embeddings
 
-def _jax_module(mod, *args):
-    params = mod.init(jax.random.key(0), *args)
-    return params, np.asarray(mod.apply(params, *args))
-
-
 @pytest.mark.parametrize("steps", [np.float32(4.0),
                                    np.array([1.0, 2.0, 8.0, 128.0],
                                             np.float32)])
 def test_step_embedding_matches_jax(steps):
-    params, want = _jax_module(jemb.StepEmbedding(16, d_in=32,
-                                                  dtype=jnp.float32),
-                               jnp.asarray(steps))
+    jmod, params = jax_init(jemb.StepEmbedding(16, d_in=32,
+                                               dtype=jnp.float32), steps)
+    want = np.asarray(jax_apply(jmod, params, steps))
     port = emb.StepEmbedding(16, d_in=32, dtype=torch.float32,
                              device="cpu")
     port.load_state_dict(params_from_jax(numpy_params(params), 1),
@@ -161,9 +156,9 @@ def test_step_embedding_matches_jax(steps):
 
 def test_condition_embedding_and_learned_pos_enc_match_jax():
     ids = np.array([[0, 3, 4], [2, 2, 1]], np.int32)
-    params, want = _jax_module(jemb.ConditionEmbedding(5, 16,
-                                                       dtype=jnp.float32),
-                               jnp.asarray(ids))
+    jmod, params = jax_init(jemb.ConditionEmbedding(5, 16,
+                                                    dtype=jnp.float32), ids)
+    want = np.asarray(jax_apply(jmod, params, ids))
     port = emb.ConditionEmbedding(5, 16, dtype=torch.float32, device="cpu")
     port.load_state_dict(params_from_jax(numpy_params(params), 1),
                          strict=True)
@@ -172,13 +167,13 @@ def test_condition_embedding_and_learned_pos_enc_match_jax():
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
     x = np.random.RandomState(0).randn(2, 8, 16).astype(np.float32)
-    jmod = jemb.LearnedPosEnc(8, 16, dtype=jnp.float32)
-    params = jmod.init(jax.random.key(1), jnp.asarray(x))
+    jmod, params = jax_init(jemb.LearnedPosEnc(8, 16, dtype=jnp.float32), x,
+                            rngs=1)
     pos = emb.LearnedPosEnc(8, 16, dtype=torch.float32, device="cpu")
     pos.load_state_dict(params_from_jax(numpy_params(params), 1),
                         strict=True)
     for n in (8, 5):           # a shorter input takes the table's end
-        want = np.asarray(jmod.apply(params, jnp.asarray(x[:, :n])))
+        want = np.asarray(jax_apply(jmod, params, x[:, :n]))
         with torch.no_grad():
             got = pos(torch.from_numpy(x[:, :n])).numpy()
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)

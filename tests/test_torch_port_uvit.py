@@ -19,33 +19,23 @@ import torch
 
 from owl_audio_exps_tpu.models.gamerft_audio import \
     GameRFTAudio as JaxGameRFTAudio
+from owl_audio_exps_tpu.models.gamerft_audio import \
+    GameRFTAudioCore as JaxCore
 from owl_audio_exps_tpu.nn.kv_cache import KVCache as JaxKVCache
-from owl_audio_exps_tpu_torch.models.gamerft_audio import GameRFTAudio
+from owl_audio_exps_tpu_torch.models.gamerft_audio import (GameRFTAudio,
+                                                           GameRFTAudioCore)
 from owl_audio_exps_tpu_torch.nn.attn import (UViT,
                                               attention_forwards_per_step)
 from owl_audio_exps_tpu_torch.nn.kv_cache import KVCache
 from owl_audio_exps_tpu_torch.ops import splash
 from owl_audio_exps_tpu_torch.utils.weights import params_from_jax
 
-from torch_port_util import (assert_same_state, av_inputs, configs,
-                             load_jax_params, numpy_params, t)
+from torch_port_util import (AV_SHAPES, MODEL_RNGS, TINY_AV,
+                             assert_same_state, av_inputs, carried, configs,
+                             cores, jax_apply, jax_core, numpy_params, t)
 
 
-def _cores(**over):
-    from owl_audio_exps_tpu.models.gamerft_audio import GameRFTAudioCore \
-        as JaxCore
-    from owl_audio_exps_tpu_torch.models.gamerft_audio import \
-        GameRFTAudioCore
-    jcfg, pcfg = configs(**dict(dict(backbone="uvit", n_layers=4,
-                                     causal=True, n_buttons=3), **over))
-    jcore = JaxCore(jcfg, dtype=jnp.float32)
-    params = jax.jit(jcore.init)(
-        jax.random.key(0), jnp.zeros((1, 4, 4, 2, 2)), jnp.zeros((1, 4, 4)),
-        jnp.zeros((1, 4)), jnp.zeros((1, 4, 2)), jnp.zeros((1, 4, 3)))
-    port = load_jax_params(GameRFTAudioCore(pcfg, dtype=torch.float32,
-                                            device="cpu", seed=None),
-                           params, pcfg.n_heads)
-    return jcfg, pcfg, jcore, params, port
+UVIT = dict(TINY_AV, backbone="uvit", n_layers=4, causal=True, n_buttons=3)
 
 
 @pytest.mark.parametrize("attn_impl", ["auto", "splash"])
@@ -54,13 +44,13 @@ def test_uvit_core_matches_jax(n_layers, attn_impl):
     """Every block global, the skips joined in reverse order: the core
     against the JAX core, atol 1e-4; on K1's route every block calls K1
     with the global window."""
-    jcfg, pcfg, jcore, params, port = _cores(n_layers=n_layers)
+    jcfg, pcfg, jcore, params, port = cores(
+        JaxCore, GameRFTAudioCore, UVIT, AV_SHAPES, n_layers=n_layers)
     pcfg.attn_impl = attn_impl
     assert isinstance(port.transformer, UViT)
     assert len(port.transformer.skip_projs) == n_layers - n_layers // 2 - 1
     inputs = av_inputs(np.random.RandomState(0), 2, 4, jcfg)
-    (vj, aj), _ = jax.jit(jcore.apply)(params,
-                                       *(jnp.asarray(a) for a in inputs))
+    (vj, aj), _ = jax_apply(jcore, params, *inputs)
     windows = []
     orig = splash.splash_attention
     splash.splash_attention = lambda *a, **kw: (windows.append(a[4]),
@@ -81,7 +71,8 @@ def test_uvit_kv_cache_matches_jax_and_the_uncached_forward(decoding):
     the context written, then the last frame against the ring equals the
     uncached forward's last frame (atol 2e-4); velocities and ring state
     against the JAX package's."""
-    jcfg, pcfg, jcore, params, port = _cores()
+    jcfg, pcfg, jcore, params, port = cores(JaxCore, GameRFTAudioCore,
+                                             UVIT, AV_SHAPES)
     rs = np.random.RandomState(11)
     n = 6
     inputs = av_inputs(rs, 1, n, jcfg)
@@ -89,12 +80,10 @@ def test_uvit_kv_cache_matches_jax_and_the_uncached_forward(decoding):
     with torch.no_grad():
         fv, fa = port(*args)
     jc = JaxKVCache.from_config(jcfg, 1, dtype=jnp.float32)
-    _, jc = jax.jit(lambda p, c, *a: jcore.apply(
-        p, *a, kv_cache=c, write=True))(
-        params, jc, *(jnp.asarray(a[:, :n - 1]) for a in inputs))
-    (jv, ja), _ = jax.jit(lambda p, c, *a: jcore.apply(
-        p, *a, kv_cache=c, decoding=decoding))(
-        params, jc, *(jnp.asarray(a[:, n - 1:]) for a in inputs))
+    _, jc = jax_apply(jcore, params, *(a[:, :n - 1] for a in inputs),
+                      kv_cache=jc, write=True)
+    (jv, ja), _ = jax_apply(jcore, params, *(a[:, n - 1:] for a in inputs),
+                            kv_cache=jc, decoding=decoding)
     pc = KVCache.from_config(pcfg, 1, dtype=torch.float32, device="cpu")
     with torch.no_grad():
         port(*(a[:, :n - 1] for a in args), kv_cache=pc, write=True)
@@ -111,18 +100,16 @@ def test_uvit_kv_cache_matches_jax_and_the_uncached_forward(decoding):
 def test_uvit_fused_write_commits_the_leading_frame():
     """The UViT takes write_len (unlike the MMDiT): a 2-frame forward with
     write_len=1 commits one frame, ring for ring with the JAX package."""
-    jcfg, pcfg, jcore, params, port = _cores()
+    jcfg, pcfg, jcore, params, port = cores(JaxCore, GameRFTAudioCore,
+                                             UVIT, AV_SHAPES)
     inputs = av_inputs(np.random.RandomState(12), 1, 5, jcfg)
     jc = JaxKVCache.from_config(jcfg, 1, dtype=jnp.float32)
     pc = KVCache.from_config(pcfg, 1, dtype=torch.float32, device="cpu")
     head = [a[:, :3] for a in inputs]
     two = [a[:, 3:5] for a in inputs]
-    _, jc = jax.jit(lambda p, c, *a: jcore.apply(p, *a, kv_cache=c,
-                                                 write=True))(
-        params, jc, *(jnp.asarray(a) for a in head))
-    (jv, ja), jc = jax.jit(lambda p, c, *a: jcore.apply(
-        p, *a, kv_cache=c, write=True, write_len=1))(
-        params, jc, *(jnp.asarray(a) for a in two))
+    _, jc = jax_apply(jcore, params, *head, kv_cache=jc, write=True)
+    (jv, ja), jc = jax_apply(jcore, params, *two, kv_cache=jc, write=True,
+                             write_len=1)
     with torch.no_grad():
         port(*(t(a) for a in head), kv_cache=pc, write=True)
         pv, pa = port(*(t(a) for a in two), kv_cache=pc, write=True,
@@ -146,10 +133,8 @@ def test_uvit_backbone_loss_and_gradients_match_jax(remat):
     rs = np.random.RandomState(0)
     x = rs.randn(1, 4, 4, 2, 2).astype(np.float32)
     audio = rs.randn(1, 4, 4).astype(np.float32)
-    model = JaxGameRFTAudio(jcfg, dtype=jnp.float32)
-    params = jax.jit(model.init)({"params": jax.random.key(0),
-                                  "noise": jax.random.key(1)},
-                                 jnp.asarray(x), jnp.asarray(audio))
+    model, params = jax_core(JaxGameRFTAudio, jcfg, x, audio,
+                             rngs=MODEL_RNGS)
 
     def loss_and_draw(p):
         out = model.apply(p, jnp.asarray(x), jnp.asarray(audio),
@@ -159,9 +144,7 @@ def test_uvit_backbone_loss_and_gradients_match_jax(remat):
     (_, out), grads = jax.jit(jax.value_and_grad(
         loss_and_draw, has_aux=True))(params)
     pcfg.attn_impl = "splash"
-    port = load_jax_params(GameRFTAudio(pcfg, dtype=torch.float32,
-                                        device="cpu", seed=None),
-                           params, jcfg.n_heads)
+    port = carried(GameRFTAudio, pcfg, params)
     assert "core.transformer.skip_projs.0.proj.weight" in \
         dict(port.named_parameters())
     calls = []

@@ -32,6 +32,8 @@ from owl_audio_exps_tpu_torch.utils.weights import vae_params_from_jax
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from audio_vae_torch_mirror import AudioVAE as MirrorAudioVAE  # noqa: E402
 from dcae_torch_mirror import Decoder as MirrorDecoder  # noqa: E402
+from torch_port_util import (jax_apply, jax_init,  # noqa: E402
+                             jax_serve_pipelines, numpy_params)
 
 RTOL, ATOL = 1e-4, 1e-5
 BF16_REL_L2 = 2e-2
@@ -41,10 +43,6 @@ SMALL = dict(   # tests/test_dcae.py's widths
     block_types=("ResBlock", "ResBlock", "EfficientViTBlock"),
     layers_per_block=(1, 1, 1), qkv_multiscales=((), (), (5,)),
     attention_head_dim=16)
-
-
-def np_tree(params):
-    return jax.tree.map(np.asarray, params)
 
 
 def rel_l2(a, b) -> float:
@@ -62,11 +60,10 @@ def close(got, want, what=""):
 @pytest.fixture(scope="module")
 def audio_pair():
     """The JAX AudioVAE in float32 at key 0 and the port's on its weights."""
-    jm = JaxAudioVAE(64, dtype=jnp.float32)
     x = (np.random.RandomState(0).randn(2, T, 2) * 0.5).astype(np.float32)
-    params = jax.jit(jm.init)(jax.random.key(0), jnp.asarray(x))
+    jm, params = jax_init(JaxAudioVAE(64, dtype=jnp.float32), x[:1])
     pm = AudioVAE(64, dtype=torch.float32, device="cpu", seed=None)
-    pm.load_state_dict(vae_params_from_jax(np_tree(params)), strict=True)
+    pm.load_state_dict(vae_params_from_jax(numpy_params(params)), strict=True)
     return jm, params, pm.eval(), x
 
 
@@ -76,15 +73,15 @@ def test_audio_vae_matches_jax_on_carried_weights(audio_pair, path):
     z = np.random.RandomState(1).randn(2, 4, 64).astype(np.float32)
     with torch.no_grad():
         if path == "encode":
-            want = jm.apply(params, jnp.asarray(x), method=jm.encode)
+            want = jax_apply(jm, params, x, method="encode")
             got = pm.encode(torch.from_numpy(x))
             assert tuple(got.shape) == (2, 4, 64)
         elif path == "decode":
-            want = jm.apply(params, jnp.asarray(z), method=jm.decode)
+            want = jax_apply(jm, params, z, method="decode")
             got = pm.decode(torch.from_numpy(z))
             assert tuple(got.shape) == (2, T, 2)
         else:
-            want, want_z = jm.apply(params, jnp.asarray(x))
+            want, want_z = jax_apply(jm, params, x)
             got, got_z = pm(torch.from_numpy(x))
             close(got_z, want_z, "latents")
     close(got, want, path)
@@ -146,13 +143,12 @@ def test_dcae_matches_jax_on_carried_weights(branch):
     grid at head_dim 8), the quadratic form elsewhere (2 x 2 at 32)."""
     hd, hw = {"linear": (8, 4), "quadratic": (32, 2)}[branch]
     cfg = dict(SMALL, attention_head_dim=hd)
-    jm = JaxDCAE(**cfg)
     z = np.random.RandomState(4).randn(2, 8, hw, hw).astype(np.float32)
-    zh = jnp.asarray(np.transpose(z, (0, 2, 3, 1)))
-    params = jax.jit(jm.init)(jax.random.key(0), zh)
-    want = np.transpose(np.asarray(jm.apply(params, zh)), (0, 3, 1, 2))
+    zh = np.transpose(z, (0, 2, 3, 1))
+    jm, params = jax_init(JaxDCAE(**cfg), zh)
+    want = np.transpose(np.asarray(jax_apply(jm, params, zh)), (0, 3, 1, 2))
     pm = DCAEDecoder(**cfg, device="cpu", seed=None).eval()
-    pm.load_state_dict(vae_params_from_jax(np_tree(params)), strict=True)
+    pm.load_state_dict(vae_params_from_jax(numpy_params(params)), strict=True)
     with torch.no_grad():
         got = pm(torch.from_numpy(z))
     assert tuple(got.shape) == (2, 3, 4 * hw, 4 * hw)
@@ -195,7 +191,7 @@ def test_video_decoders_match_jax():
     z = np.random.RandomState(5).randn(3, 8, 4, 4).astype(np.float32)
     jdec = jax_bridge.PixelShuffleVideoDecoder(latent_channels=8)
     pdec = bridge.PixelShuffleVideoDecoder(latent_channels=8, device="cpu")
-    pdec.load_state_dict(vae_params_from_jax(np_tree(jdec.params)),
+    pdec.load_state_dict(vae_params_from_jax(numpy_params(jdec.params)),
                          strict=True)
     got, want = pdec(torch.from_numpy(z)), np.asarray(jdec(jnp.asarray(z)))
     assert got.dtype == torch.float32 and tuple(got.shape) == (3, 32, 32, 3)
@@ -241,22 +237,21 @@ def test_batched_audio_functions_match_jax(what):
     """The bridge's batched audio functions (JAX package's and port's)
     around float32 VAEs on the same weights, 3 rows at batch_size 2 across
     the 120-latent (88,200-sample) window: 121 latents."""
-    jm = JaxAudioVAE(64, dtype=jnp.float32)
     x = (np.random.RandomState(8).randn(3, 121 * 735, 2) * 0.5
          ).astype(np.float32)
-    params = jax.jit(jm.init)(jax.random.key(0), jnp.asarray(x[:1, :T]))
+    jm, params = jax_init(JaxAudioVAE(64, dtype=jnp.float32), x[:1, :T])
     pm = AudioVAE(64, dtype=torch.float32, device="cpu", seed=None).eval()
-    pm.load_state_dict(vae_params_from_jax(np_tree(params)), strict=True)
+    pm.load_state_dict(vae_params_from_jax(numpy_params(params)), strict=True)
     if what == "decode":
         inp = np.random.RandomState(9).randn(3, 121, 64).astype(np.float32)
         jfn = jax_bridge.make_batched_audio_decode_fn(
-            jax.jit(lambda z: jm.apply(params, z, method=jm.decode)), 2)
+            lambda z: jax_apply(jm, params, z, method="decode"), 2)
         pfn = bridge.make_batched_audio_decode_fn(pm.decode, 2)
         shape = (3, 121 * 735, 2)
     else:
         inp = x
         jfn = jax_bridge.make_batched_audio_encode_fn(
-            jax.jit(lambda w: jm.apply(params, w, method=jm.encode)), 2)
+            lambda w: jax_apply(jm, params, w, method="encode"), 2)
         pfn = bridge.make_batched_audio_encode_fn(pm.encode, 2)
         shape = (3, 121, 64)
     with torch.no_grad():
@@ -288,17 +283,6 @@ def test_batched_decode_and_the_bridge_defaults():
 
 
 # -------------------------------------------------------- decoded serve
-def jax_pipelines():
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "jax_serve_pipeline_vae", os.path.join(
-            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-            "inference", "pipeline.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def small_dcae(latent_channels=4):
     rest = {k: v for k, v in SMALL.items() if k != "latent_channels"}
     return bridge.DCAEVideoDecoder(latent_channels=latent_channels,
@@ -365,7 +349,7 @@ def test_window_pipeline_decode_fails_in_both_packages():
     from owl_audio_exps_tpu_torch.inference.pipeline import CausvidPipeline
     jcfg, pcfg, jcore, params, core = av_cores(causal=True)
     jdec = jax_bridge.DCAEVideoDecoder.__new__(jax_bridge.DCAEVideoDecoder)
-    jp = jax_pipelines().CausvidPipeline(
+    jp = jax_serve_pipelines().CausvidPipeline(
         jcore, params, jcfg, window_length=3,
         frame_decode_fn=jax_bridge.make_batched_decode_fn(jdec, 1))
     with pytest.raises(ValueError, match="out of bounds"):

@@ -38,12 +38,10 @@ from owl_audio_exps_tpu_torch.trainers.audio_vae_trainer import (
 from owl_audio_exps_tpu_torch.utils import media
 from owl_audio_exps_tpu_torch.utils.weights import vae_params_from_jax
 
+from torch_port_util import batch, jax_init, numpy_params, t
+
 T = 735 * 4
 BF16_REL_L2 = 2e-2
-
-
-def np_tree(params):
-    return jax.tree.map(np.asarray, params)
 
 
 def rel_l2(a, b) -> float:
@@ -174,9 +172,9 @@ def test_audio_vae_trainer_step_matches_jax(tmp_path, monkeypatch):
     wf0 = jnp.asarray(next(iter(jax_waveform.get_loader(2, root, T))),
                       jnp.bfloat16)
     # the trainer's init (key 0 on its first batch), jitted for time
-    init = jax.jit(jtr.vae.init)(jax.random.key(0), wf0)
+    _, init = jax_init(jtr.vae, wf0)
     monkeypatch.setattr(JaxAudioVAE, "init", lambda self, rng, x: init)
-    params0 = np_tree(init)
+    params0 = numpy_params(init)
     jstate = jtr.train(max_steps=1)
 
     ptr = AudioVAETrainer(Config.from_dict(raw), device="cpu",
@@ -203,7 +201,7 @@ def test_audio_vae_trainer_step_matches_jax(tmp_path, monkeypatch):
     for tree, got in ((jstate.params, dict(
             pstate.model.named_parameters())), (jstate.ema_params,
                                                 pstate.ema)):
-        want = vae_params_from_jax(np_tree(tree))
+        want = vae_params_from_jax(numpy_params(tree))
         assert set(want) == set(got)
         for name, w in want.items():
             np.testing.assert_allclose(got[name].detach().numpy(),
@@ -251,11 +249,11 @@ AUDIO_MODEL = {"model_id": "audio_rft", "sample_size": 8, "channels": 64,
 def jax_bridge_params(latent_channels):
     """The JAX bridge's audio encoder and decoder params (key 0 on its
     example inputs, as get_audio_encoder_decoder draws them)."""
-    enc = jax.jit(JaxAudioEncoder(latent_channels=latent_channels).init)(
-        jax.random.key(0), jnp.zeros((1, 735 * 4, 2), jnp.bfloat16))
-    dec = jax.jit(JaxAudioDecoder().init)(
-        jax.random.key(0), jnp.zeros((1, 4, latent_channels), jnp.bfloat16))
-    return np_tree(enc), np_tree(dec)
+    _, enc = jax_init(JaxAudioEncoder(latent_channels=latent_channels),
+                      jnp.zeros((1, 735 * 4, 2), jnp.bfloat16))
+    _, dec = jax_init(JaxAudioDecoder(),
+                      jnp.zeros((1, 4, latent_channels), jnp.bfloat16))
+    return numpy_params(enc), numpy_params(dec)
 
 
 @pytest.fixture
@@ -265,8 +263,7 @@ def jitted_jax_bridge_inits(monkeypatch):
     draws are the same."""
     monkeypatch.setattr(
         jax_bridge, "_init_or_load",
-        lambda module, example, ckpt_path: jax.jit(module.init)(
-            jax.random.key(0), example))
+        lambda module, example, ckpt_path: jax_init(module, example)[1])
 
 
 def test_audio_rft_encodes_through_a_saved_encoder(tmp_path,
@@ -349,7 +346,7 @@ def test_av_export_writes_the_jax_files(tmp_path, jitted_jax_bridge_inits):
     jvdec = jax_bridge.PixelShuffleVideoDecoder(latent_channels=4)
     _, jdec = jax_bridge_params(4)
     vdec, adec = ptr.media_decoders()
-    vdec.load_state_dict(vae_params_from_jax(np_tree(jvdec.params)),
+    vdec.load_state_dict(vae_params_from_jax(numpy_params(jvdec.params)),
                          strict=True)
     adec.module.load_state_dict(vae_params_from_jax(jdec), strict=True)
 

@@ -4,6 +4,10 @@ CPU: inputs are made with numpy from a seed and handed to both."""
 
 from __future__ import annotations
 
+import functools
+import importlib.util
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,16 +15,27 @@ import torch
 
 from owl_audio_exps_tpu.configs import Config as JaxConfig
 from owl_audio_exps_tpu.configs import transformer_config as jax_config
+from owl_audio_exps_tpu.models.audiorft import AudioRFTCore as JaxAudioCore
 from owl_audio_exps_tpu.models.gamerft import GameRFTCore as JaxVideoCore
 from owl_audio_exps_tpu.models.gamerft_audio import (
     GameRFTAudioCore as JaxAVCore)
 from owl_audio_exps_tpu.trainers import get_trainer_cls as jax_trainer_cls
 from owl_audio_exps_tpu_torch.configs import Config
 from owl_audio_exps_tpu_torch.configs import transformer_config as port_config
+from owl_audio_exps_tpu_torch.models.audiorft import AudioRFTCore
 from owl_audio_exps_tpu_torch.models.gamerft import GameRFTCore
 from owl_audio_exps_tpu_torch.models.gamerft_audio import GameRFTAudioCore
 from owl_audio_exps_tpu_torch.trainers import get_trainer_cls
 from owl_audio_exps_tpu_torch.utils.weights import params_from_jax
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# Each pytest-xdist worker runs torch on its share of the cores: torch's
+# default of a thread per core in every worker oversubscribes them, and
+# its threads spin while they wait for one another.
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+if _WORKERS > 1:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // _WORKERS))
 
 TINY_AV = dict(
     model_id="game_rft_audio", n_layers=2, n_heads=2, d_model=32,
@@ -39,6 +54,55 @@ def numpy_params(params):
     return jax.tree.map(np.asarray, params)
 
 
+# ------------------------------------------------------------------------
+# The JAX reference, built once a process: a module's variables once for
+# each module (its repr holds its config), argument shapes and keys, and
+# its jitted ``apply`` once for each module and set of static keywords,
+# in place of flax's eager apply, which compiles every primitive. Tests
+# build their port modules and both configs afresh: they mutate them.
+
+_MODULES, _INITS, _APPLIES = {}, {}, {}
+
+
+def _shared(module):
+    """The process's first module of ``module``'s type and repr."""
+    return _MODULES.setdefault((type(module), repr(module)), module)
+
+
+def _keys(rngs):
+    """An int seed, or {rng name: seed}, as the keys ``init`` takes."""
+    if isinstance(rngs, int):
+        return jax.random.key(rngs)
+    return {name: jax.random.key(seed) for name, seed in rngs.items()}
+
+
+def jax_init(module, *args, rngs=0):
+    """(shared module, ``jax.jit(module.init)(rngs, *args)``); only the
+    arguments' shapes and dtypes reach the variables."""
+    module = _shared(module)
+    key = (id(module), repr(rngs),
+           tuple((np.shape(a), str(a.dtype)) for a in args))
+    if key not in _INITS:
+        _INITS[key] = jax.jit(module.init)(_keys(rngs), *args)
+    return module, _INITS[key]
+
+
+def _static(value) -> bool:
+    return value is None or callable(value) or isinstance(
+        value, (bool, int, float, str, tuple))
+
+
+def jax_apply(module, variables, *args, **kw):
+    """``module.apply(variables, *args, **kw)`` under ``jax.jit``: keywords
+    holding None, a number, a string, a tuple or a callable are static;
+    arrays, KV caches and rng dicts are traced."""
+    static = tuple(sorted(k for k, v in kw.items() if _static(v)))
+    key = (id(_shared(module)), static)
+    if key not in _APPLIES:
+        _APPLIES[key] = jax.jit(module.apply, static_argnames=static)
+    return _APPLIES[key](variables, *args, **kw)
+
+
 def load_jax_params(module: torch.nn.Module, params, n_heads: int):
     """Load JAX params into a port module; every key must match."""
     module.load_state_dict(params_from_jax(numpy_params(params), n_heads),
@@ -46,8 +110,25 @@ def load_jax_params(module: torch.nn.Module, params, n_heads: int):
     return module
 
 
+def carried(port_cls, pcfg, params):
+    """A float32 ``port_cls(pcfg)`` carrying the JAX ``params``."""
+    return load_jax_params(port_cls(pcfg, dtype=torch.float32, device="cpu",
+                                    seed=None), params, pcfg.n_heads)
+
+
 def t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
+
+
+@functools.cache
+def jax_serve_pipelines():
+    """The JAX package's inference/pipeline.py, loaded once from its
+    file."""
+    spec = importlib.util.spec_from_file_location(
+        "jax_serve_pipeline", os.path.join(REPO, "inference", "pipeline.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 # The cached serve's cores (tests/test_torch_port_{av_caching,av_window,
@@ -63,29 +144,58 @@ AV = dict(VIDEO, model_id="game_rft_audio", audio_channels=4,
           tokens_per_frame=5, has_audio=True, n_frames=8)
 
 
-def video_cores(**over):
-    kw = dict(VIDEO, **over)
+# config keys that steer how a core computes and leave its parameters as
+# they are: cores that differ only in them share one init
+ROUTING = ("split_local_cache", "cache_attn_impl", "attn_impl",
+           "decode_impl", "local_attn_impl", "kv_quant", "rope_headroom")
+# a training wrapper's init keys: its params' and its noise draws'
+MODEL_RNGS = dict(params=0, noise=1)
+
+
+def jax_core(jax_cls, jcfg, *args, rngs=0):
+    """(shared JAX module, variables): ``jax_cls(jcfg)`` in float32, its
+    variables from ``rngs`` on the first row of ``args`` (``jax_init``)."""
+    return jax_init(jax_cls(jcfg, dtype=jnp.float32),
+                    *(np.asarray(a)[:1] for a in args), rngs=rngs)
+
+
+def cores(jax_cls, port_cls, base, shapes, **over):
+    """(JAX config, port config, shared JAX core, its params, float32 port
+    core carrying them) of ``base`` with ``over`` (``jax_core``)."""
+    kw = dict(base, **over)
     jcfg, pcfg = jax_config(**kw), port_config(**kw)
-    jcore = JaxVideoCore(jcfg, dtype=jnp.float32)
-    params = jax.jit(jcore.init)(jax.random.key(0), jnp.zeros((1, 4, 4, 2, 2)),
-                                 jnp.zeros((1, 4)), jnp.zeros((1, 4, 2)),
-                                 jnp.zeros((1, 4, 3)))
-    port = GameRFTCore(pcfg, dtype=torch.float32, device="cpu", seed=None)
-    return jcfg, pcfg, jcore, params, load_jax_params(port, params,
-                                                      pcfg.n_heads)
+    plain = jax_config(**{k: v for k, v in kw.items() if k not in ROUTING})
+    _, params = jax_core(jax_cls, plain,
+                         *(np.zeros(s, np.float32) for s in shapes))
+    return (jcfg, pcfg, _shared(jax_cls(jcfg, dtype=jnp.float32)), params,
+            carried(port_cls, pcfg, params))
+
+
+# the video and AV cores' init shapes: (x, [audio,] ts, mouse, btn)
+VIDEO_SHAPES = ((1, 4, 4, 2, 2), (1, 4), (1, 4, 2), (1, 4, 3))
+AV_SHAPES = ((1, 4, 4, 2, 2), (1, 4, 4), (1, 4), (1, 4, 2), (1, 4, 3))
+
+
+def video_cores(**over):
+    return cores(JaxVideoCore, GameRFTCore, VIDEO, VIDEO_SHAPES, **over)
 
 
 def av_cores(**over):
-    kw = dict(AV, **over)
-    jcfg, pcfg = jax_config(**kw), port_config(**kw)
-    jcore = JaxAVCore(jcfg, dtype=jnp.float32)
-    params = jax.jit(jcore.init)(
-        jax.random.key(0), jnp.zeros((1, 4, 4, 2, 2)), jnp.zeros((1, 4, 4)),
-        jnp.zeros((1, 4)), jnp.zeros((1, 4, 2)), jnp.zeros((1, 4, 3)))
-    port = GameRFTAudioCore(pcfg, dtype=torch.float32, device="cpu",
-                            seed=None)
-    return jcfg, pcfg, jcore, params, load_jax_params(port, params,
-                                                      pcfg.n_heads)
+    return cores(JaxAVCore, GameRFTAudioCore, AV, AV_SHAPES, **over)
+
+
+# The audio model's core (tests/test_torch_port_audio.py): 4
+# layers, layers 0 and 2 global, 1 and 3 local.
+AUDIO = dict(model_id="audio_rft", n_layers=4, n_heads=2, d_model=32,
+             channels=8, tokens_per_frame=1, n_frames=64, sample_size=16,
+             causal=True, uncond=True, has_audio=True, rope_impl="audio1d",
+             local_window=4, global_window=None, cfg_prob=0.0,
+             backbone="dit", local_idx=2)
+
+
+def audio_cores(**over):
+    return cores(JaxAudioCore, AudioRFTCore, AUDIO, ((1, 8, 8), (1, 8)),
+                 **over)
 
 
 def video_inputs(seed, b, n_ctx, n_ctrl):
@@ -279,28 +389,42 @@ def jax_example_args(cfg):
             jnp.zeros((1, 4, 2)), jnp.zeros((1, 4, cfg.n_buttons)))
 
 
-def _load(core, params, n_heads=2):
-    core.load_state_dict(params_from_jax(numpy_params(params), n_heads),
-                         strict=True)
+_DISTILL = {}
+
+
+def _jax_trainer(raw):
+    """(JAX trainer, its state) of ``raw``, made once a process for each
+    config apart from its checkpoint directory; each caller gets its own
+    copy of the state, which the trainer's steps donate."""
+    key = repr(dict(raw, train=dict(raw["train"], checkpoint_dir=None)))
+    if key not in _DISTILL:
+        jtr = jax_trainer_cls(raw["train"]["trainer_id"])(
+            JaxConfig.from_dict(raw))
+        jtr.student = jtr.critic = JaxVideoCore(jtr.model_cfg,
+                                                dtype=jnp.float32)
+        jtr.teacher = JaxVideoCore(jtr.teacher_cfg, dtype=jnp.float32)
+        jstate = jtr.init_distill_state(jtr.example_args())
+        _, critic = jax_init(jtr.critic, *jax_example_args(jtr.model_cfg),
+                             rngs=2)
+        _DISTILL[key] = jtr, jstate.replace(critic_params=critic["params"])
+    jtr, jstate = _DISTILL[key]
+    return jtr, jax.tree.map(
+        lambda a: jnp.copy(a) if isinstance(a, jax.Array) else a, jstate)
 
 
 def trainers(tmp_path, trainer_id, model=None, **train):
     """(JAX trainer, its state, port trainer, its state) on the same
     float32 weights; the critic starts from weights of its own."""
     raw = raw_cfg(tmp_path, trainer_id, model, **train)
-    jtr = jax_trainer_cls(trainer_id)(JaxConfig.from_dict(raw))
-    jtr.student = jtr.critic = JaxVideoCore(jtr.model_cfg, dtype=jnp.float32)
-    jtr.teacher = JaxVideoCore(jtr.teacher_cfg, dtype=jnp.float32)
-    jstate = jtr.init_distill_state(jtr.example_args())
-    jstate = jstate.replace(critic_params=jax.jit(jtr.critic.init)(
-        jax.random.key(2), *jax_example_args(jtr.model_cfg))["params"])
+    jtr, jstate = _jax_trainer(raw)
 
     ptr = get_trainer_cls(trainer_id)(Config.from_dict(raw), device="cpu",
                                       dtype=torch.float32)
     pstate = ptr.init_distill_state()
-    _load(pstate.student, jstate.student_params)
-    _load(pstate.critic, jstate.critic_params)
-    _load(ptr.teacher, jtr.teacher_params)
+    for core, params in ((pstate.student, jstate.student_params),
+                         (pstate.critic, jstate.critic_params),
+                         (ptr.teacher, jtr.teacher_params)):
+        load_jax_params(core, params, 2)
     pstate.student_ema = ptr.ema_of(pstate.student)
     return jtr, jstate, ptr, pstate
 

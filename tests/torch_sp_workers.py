@@ -95,11 +95,13 @@ def _seq_mesh(world):
     return make_mesh(MeshConfig(seq=world), device_type="cpu")
 
 
-def ring_halo_worker(rank, world, q, k, v, gw, tpf, window):
+def ring_halo_worker(q, k, v, gw, tpf, window):
     """This rank's slice of sp_attention over full numpy q, k, v [B, H, L,
     Dh]: (out, dq, dk, dv) of its slice under the loss sum(out * gw), and
     the number of ring partials run in the forward and in all."""
+    import torch.distributed as dist
     from owl_audio_exps_tpu_torch.parallel import context
+    rank, world = dist.get_rank(), dist.get_world_size()
     mesh = _seq_mesh(world)
     per = q.shape[2] // world
     sl = slice(rank * per, (rank + 1) * per)
@@ -117,12 +119,13 @@ def ring_halo_worker(rank, world, q, k, v, gw, tpf, window):
                 forbidden=forbidden)
 
 
-def model_worker(rank, world, cfg_kw, state_dict, inputs, draws):
+def model_worker(cfg_kw, state_dict, inputs, draws):
     """The context-parallel GameRFT on this rank: (its share of the loss,
     its slice of the core's prediction) with the draws handed in."""
+    import torch.distributed as dist
     from owl_audio_exps_tpu_torch.configs import transformer_config
     from owl_audio_exps_tpu_torch.models.gamerft import GameRFT
-    mesh = _seq_mesh(world)
+    mesh = _seq_mesh(dist.get_world_size())
     cfg = transformer_config(**cfg_kw)
     model = GameRFT(cfg, dtype=torch.float32, device="cpu", seed=None)
     model.load_state_dict(state_dict, strict=True)
@@ -138,7 +141,7 @@ def model_worker(rank, world, cfg_kw, state_dict, inputs, draws):
     return dict(loss=loss.item(), pred=pred.numpy())
 
 
-def trainer_step_worker(rank, world, cfg_dict, max_steps=1):
+def trainer_step_worker(cfg_dict, max_steps=1):
     """One RFTTrainer run of ``max_steps`` on this rank, with the mesh of
     the config and the model in float32 (the trainer's own init_state
     computes in bf16); returns the logged losses and the gradients the
